@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of the GNN-at-the-edge system, held against the JAX
+package ``repro`` as its reference.
+
+Slice 1: the data graphs, the partition bridge, the ShardPlan host code,
+the GNN models, the batched one-device BSP forward on the hand-written
+Hopper BSR SpMM kernel, and the request-serving engine.  Entry points take
+``device=`` and default to the card.
+"""

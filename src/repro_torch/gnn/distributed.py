@@ -1,0 +1,280 @@
+"""BSP GNN forward over a ShardPlan on one device (paper Sec. III-B).
+
+The paper's execution model: each edge server hosts a vertex partition, and
+one BSP round per GNN layer exchanges the features of vertices whose links
+the layout cuts.  The JAX reference runs one program per TPU device under
+``shard_map``.  An H100 is one device, so here the P partitions run as ONE
+batched program: every per-partition table carries a leading P axis, and a
+layer is a handful of batched gathers, segment sums and matmuls over all
+partitions at once.
+
+Two exchanges (both move exactly the rows the reference moves):
+  * ``ppermute`` — the plan's rotation rounds as index copies: in the round
+    of shift s, partition q receives sender (q - s) % P's ``send_idx`` rows
+    into its halo at ``recv_pos`` (the reference's ``_exchange_ppermute``).
+  * ``allgather`` — every halo row gathered from the flat (P*cap + 1, d)
+    table of all blocks by ``halo_slot``.
+
+Two aggregation paths:
+  * ``segment`` — gather messages by the edge table, deterministic segment
+    sum by destination.  Every model.
+  * ``bsr`` — the plan's block-sparse retiling aggregated by the
+    ``spmm_bsr`` kernel: ONE launch per layer covering all P partitions.
+    GCN/SAGE only; GAT's per-link softmax weights depend on the features,
+    so it stays on the segment path.
+
+Plan tensors stay resident on the device.  When ``plan.version`` moves
+(a :func:`patch_plan` that kept every capacity) they are refreshed in place;
+the forward is rebuilt, re-allocating them, only when the reference's
+signature changes (a capacity grew or a ppermute round appeared).
+``fwd.stats['builds']`` counts those rebuilds.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.gnn.models import GNNConfig, segment_max, segment_sum
+from repro_torch.gnn.plan import (
+    ShardPlan, build_plan_bsr, gather_outputs, scatter_features)
+from repro_torch.kernels.gnn_aggregate import spmm
+
+EXCHANGES = ("ppermute", "allgather")
+
+
+def resolve_aggregate(cfg: GNNConfig, aggregate: str,
+                      device: DeviceLike = "cuda") -> str:
+    """Aggregate-path decision:
+
+      * 'segment' — gather + segment sum.  Every model, every device.
+      * 'bsr'     — block-sparse SpMM over the plan's BSR tiling: the CUDA
+        kernel on the card, its plain torch version on the CPU.  GCN/SAGE
+        only; GAT resolves to 'segment'.
+      * 'auto'    — 'bsr' for GCN/SAGE on CUDA, 'segment' otherwise.
+    """
+    if aggregate == "auto":
+        return ("bsr" if torch.device(device).type == "cuda"
+                and cfg.model in ("gcn", "sage") else "segment")
+    if aggregate not in ("segment", "bsr"):
+        raise ValueError(f"unknown aggregate {aggregate!r}")
+    if aggregate == "bsr" and cfg.model == "gat":
+        return "segment"
+    return aggregate
+
+
+def _check_no_replicas(plan: ShardPlan) -> None:
+    if plan.has_replicas:
+        raise NotImplementedError(
+            "the replica forward (layer-0 rounds0/halo0 schedule) is not "
+            "ported yet; clear the plan's replication to run the BSP forward")
+
+
+class _PlanTensors:
+    """The plan tables the forward reads, as device tensors.
+
+    Allocated at the plan's current shapes; :meth:`refresh` overwrites them
+    in place from the host plan, so the tensors (and their addresses)
+    outlive value-only patches."""
+
+    def __init__(self, plan: ShardPlan, mode: str, exchange: str,
+                 device: torch.device):
+        self.mode, self.exchange = mode, exchange
+        self.num_parts, self.cap, self.halo_cap = (
+            plan.num_parts, plan.cap, plan.halo_cap)
+        self.shifts = ([r["shift"] for r in plan.rounds]
+                       if exchange == "ppermute" else [])
+        if mode == "bsr":
+            b = plan.bsr
+            self.bm, self.bk, self.table_rows = b.bm, b.bk, b.src_rows
+        else:
+            self.table_rows = plan.table_rows
+        self.t = {}
+        for name, arr in self._host(plan).items():
+            dtype = (torch.float32 if arr.dtype.kind == "f"
+                     else torch.int32 if name == "bsr_cols" else torch.int64)
+            self.t[name] = torch.empty(arr.shape, dtype=dtype, device=device)
+        self.refresh(plan)
+
+    def _host(self, plan: ShardPlan) -> dict:
+        arrs = {"edges_src": plan.edges_src, "edges_dst": plan.edges_dst,
+                "deg": plan.deg, "halo_slot": plan.halo_slot}
+        if self.mode == "bsr":
+            arrs["bsr_values"] = plan.bsr.values
+            arrs["bsr_cols"] = plan.bsr.block_cols
+        for k, r in enumerate(plan.rounds if self.exchange == "ppermute"
+                              else ()):
+            arrs[f"send_idx{k}"] = r["send_idx"]
+            arrs[f"recv_pos{k}"] = r["recv_pos"]
+        return arrs
+
+    def refresh(self, plan: ShardPlan) -> None:
+        for name, arr in self._host(plan).items():
+            self.t[name].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+
+
+def _exchange_allgather(h: torch.Tensor, halo_slot: torch.Tensor):
+    """Naive exchange: every block everywhere, halo rows picked by slot."""
+    P, cap, d = h.shape
+    flat = torch.cat([h.reshape(P * cap, d), h.new_zeros((1, d))])
+    return flat[halo_slot.clamp(max=P * cap)]               # (P, halo_cap, d)
+
+
+def _exchange_ppermute(h: torch.Tensor, ops: _PlanTensors):
+    """Move exactly the cut-link rows (the paper's C_T) round by round."""
+    P, cap, d = h.shape
+    rows = torch.arange(P, device=h.device)[:, None]
+    table = torch.cat([h, h.new_zeros((P, 1, d))], dim=1)    # row cap = 0
+    halo = h.new_zeros((P, ops.halo_cap + 1, d))             # row halo_cap: dump
+    for k, shift in enumerate(ops.shifts):
+        send_idx = ops.t[f"send_idx{k}"]
+        send = table[rows, torch.where(send_idx < 0, cap, send_idx)]
+        got = torch.roll(send, shifts=shift, dims=0)         # q <- (q - s) % P
+        halo[rows, ops.t[f"recv_pos{k}"]] = got
+    return halo[:, : ops.halo_cap]
+
+
+def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
+    """One GNN layer on all partitions: (P, cap, d) -> (P, cap, d').
+
+    Mirrors the reference's per-device ``_device_layer``: aggregation over
+    each partition's edge table in table coordinates ([local; halo; zero
+    row]; padded arcs read the zero row and land in the dummy cap-th
+    segment), or over the plan's BSR retiling of the same table."""
+    P, cap, d = h.shape
+    halo_cap, rows = ops.halo_cap, ops.table_rows
+    table = h.new_zeros((P, rows, d))
+    table[:, :cap] = h
+    table[:, cap:cap + halo_cap] = halo
+    nseg = P * (cap + 1)
+
+    def neighbour_sum(x_flat):
+        msgs = x_flat[idx["src_flat"]]
+        return segment_sum(msgs, idx["dst_flat"], nseg).reshape(
+            P, cap + 1, -1)[:, :cap]
+
+    if cfg.model in ("gcn", "sage"):
+        if ops.mode == "bsr":
+            agg = spmm(ops.t["bsr_values"], ops.t["bsr_cols"], table,
+                       ops.bm, ops.bk)[:, :cap]
+        else:
+            agg = neighbour_sum(table.reshape(P * rows, d))
+        deg = ops.t["deg"]
+        if cfg.model == "gcn":
+            out = ((agg + h) / (deg[..., None] + 1.0)) @ p["w"]
+        else:
+            agg = agg / torch.clamp(deg, min=1.0)[..., None]
+            out = torch.cat([agg, h], dim=-1) @ p["w"]
+    elif cfg.model == "gat":
+        es, ed = ops.t["edges_src"], ops.t["edges_dst"]
+        wh = table @ p["w"]                                   # (P, rows, d')
+        a_dst = wh[:, :cap] @ p["att_src"]                    # local dsts only
+        a_src = wh @ p["att_dst"]
+        ed_mod = ed % cap
+        logits = F.leaky_relu(torch.gather(a_dst, 1, ed_mod)
+                              + torch.gather(a_src, 1, es), 0.2)
+        pad = ed >= cap
+        logits = logits.masked_fill(pad, float("-inf"))
+        self_logit = F.leaky_relu(a_dst + wh[:, :cap] @ p["att_dst"], 0.2)
+        seg_max = segment_max(logits.reshape(-1), idx["dst_flat"],
+                              nseg).reshape(P, cap + 1)[:, :cap]
+        seg_max = torch.maximum(
+            torch.where(torch.isfinite(seg_max), seg_max, float("-inf")),
+            self_logit)
+        ex = torch.where(pad, 0.0,
+                         torch.exp(logits - torch.gather(seg_max, 1, ed_mod)))
+        ex_self = torch.exp(self_logit - seg_max)
+        ex_flat = ex.reshape(-1, 1)
+        denom = segment_sum(ex_flat, idx["dst_flat"], nseg).reshape(
+            P, cap + 1)[:, :cap] + ex_self
+        wh_flat = wh.reshape(P * rows, -1)
+        num = segment_sum(ex_flat * wh_flat[idx["src_flat"]], idx["dst_flat"],
+                          nseg).reshape(P, cap + 1, -1)[:, :cap]
+        num = num + ex_self[..., None] * wh[:, :cap]
+        out = num / torch.clamp(denom, min=1e-16)[..., None]
+    else:
+        raise ValueError(cfg.model)
+    return out if last else torch.relu(out)
+
+
+def _bsp_forward(cfg, params, h, ops: _PlanTensors):
+    P, cap = ops.num_parts, ops.cap
+    part = torch.arange(P, device=h.device)[:, None]
+    idx = {"src_flat": (ops.t["edges_src"] + part * ops.table_rows).reshape(-1),
+           "dst_flat": (ops.t["edges_dst"] + part * (cap + 1)).reshape(-1)}
+    for k, p in enumerate(params):
+        if ops.exchange == "ppermute":
+            halo = _exchange_ppermute(h, ops)
+        else:
+            halo = _exchange_allgather(h, ops.t["halo_slot"])
+        h = _device_layer(cfg, p, h, halo, ops, idx, k == len(params) - 1)
+    return h
+
+
+def make_bsp_forward(
+    cfg: GNNConfig,
+    plan: ShardPlan,
+    exchange: str = "ppermute",
+    aggregate: str = "auto",
+    device: DeviceLike = "cuda",
+):
+    """Build the BSP forward: (params, blocks (P, cap, d)) -> (P, cap, d').
+
+    The returned callable reads the plan at CALL time: a :func:`patch_plan`
+    that kept every capacity is picked up by refreshing the resident plan
+    tensors in place, with zero rebuilds; capacity growth or a new ppermute
+    round changes the signature and rebuilds exactly once.  ``fwd.stats``
+    exposes ``{'builds': ...}``.  ``exchange`` and ``aggregate`` pick the
+    halo exchange and the neighbour sum (see :func:`resolve_aggregate`).
+    """
+    if exchange not in EXCHANGES:
+        raise ValueError(f"unknown exchange {exchange!r}")
+    dev = resolve_device(device)
+    mode = resolve_aggregate(cfg, aggregate, dev)
+    _check_no_replicas(plan)
+    if mode == "bsr" and plan.bsr is None:
+        build_plan_bsr(plan)
+    state = {"sig": None, "version": -1, "ops": None, "builds": 0}
+
+    def _signature():
+        sig = (plan.cap, plan.halo_cap, plan.e_cap)
+        if exchange == "ppermute":
+            sig += (tuple(r["shift"] for r in plan.rounds),
+                    tuple(r["width"] for r in plan.rounds))
+        if mode == "bsr":
+            b = plan.bsr
+            sig += (b.bm, b.bk, b.max_blocks, b.src_rows)
+        return sig
+
+    def forward(params, blocks):
+        _check_no_replicas(plan)
+        sig = _signature()
+        if sig != state["sig"]:
+            state["ops"] = _PlanTensors(plan, mode, exchange, dev)
+            state["sig"] = sig
+            state["builds"] += 1
+            state["version"] = plan.version
+        elif state["version"] != plan.version:
+            state["ops"].refresh(plan)
+            state["version"] = plan.version
+        h = torch.as_tensor(blocks, device=dev).to(cfg.dtype)
+        return _bsp_forward(cfg, params, h, state["ops"])
+
+    forward.stats = state
+    forward.plan = plan
+    forward.mode = mode
+    return forward
+
+
+def simulate_bsp_forward(cfg: GNNConfig, params, plan: ShardPlan,
+                         features: np.ndarray, exchange: str = "ppermute",
+                         aggregate: str = "auto",
+                         device: DeviceLike = "cuda") -> np.ndarray:
+    """Whole-graph convenience: scatter ``features`` (n, s_0) over the plan,
+    run the BSP forward once, gather (n, s_K) back as numpy."""
+    fwd = make_bsp_forward(cfg, plan, exchange=exchange, aggregate=aggregate,
+                           device=device)
+    features = np.asarray(features)
+    out = fwd(params, torch.from_numpy(scatter_features(plan, features)))
+    return gather_outputs(plan, out.cpu().numpy(), features.shape[0])

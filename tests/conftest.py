@@ -18,6 +18,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "bench: wall-clock benchmark tests "
         "(deselected unless an -m expression is given)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one; chip_smoke.py "
+        "runs the same checks on the card)")
 
 
 def pytest_collection_modifyitems(config, items):
