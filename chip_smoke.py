@@ -7,7 +7,8 @@ CUDA toolkit (``nvcc``):
     python3 chip_smoke.py
 
 It builds the port's hand-written kernels from ``src/repro_torch/kernels/
-csrc`` and drives the port's main path at the paper's full widths:
+csrc`` and drives the port's two paths: the GNN pipeline at the paper's full
+widths, then LM serving on llama3.2-1b at its published width:
 
   device  the card's name, count and power limit (exit 1 without a card);
   build   nvcc for sm_90a, with the build seconds and ptxas' register use;
@@ -23,14 +24,29 @@ csrc`` and drives the port's main path at the paper's full widths:
   patch   a 2% relayout patched in place (0 rebuilds, output bit-equal to a
           fresh plan's), then a capacity overflow (exactly 1 rebuild);
   serve   256 Zipf requests through the ego-serving engine over the live
-          plan, held against the BSP forward's rows.
+          plan, held against the BSP forward's rows;
+  kernels flash_attention against its plain torch version at the LM path's
+          prefill (L = 512, 1024) and decode (cache strides, ragged kv_len)
+          shapes, the reference's 7 test cases and a fully masked row, with
+          the same error, determinism, time and bound fields as spmm_bsr and
+          scaled_dot_product_attention as the library call;
+  lm_parity  llama3.2-1b at full width cut to 2 layers, fp32: prefill of two
+          bucketed prompts and 8 greedy decode steps on the card (K2) and on
+          the CPU (plain attention) agree, with n_layers launches per call;
+  lm_serve   the full 16-layer bf16 llama3.2-1b behind ServeEngine (8 slots,
+          2048 positions) serves 16 requests of 32 tokens; K2 launches
+          16 x (prefills + ticks); two requests are re-scored by a
+          teacher-forced forward; prefill and decode-tick times;
+  lm_profile  torch.profiler over 4 decode ticks with 8 live slots: the
+          device's busy share and kernel time by name.
 
-Each phase prints one JSON line.  Any failed check exits non-zero.  Before
+Each phase prints JSON lines.  Any failed check exits non-zero.  Before
 the last line it prints the kernels summary and the ``nvidia-smi`` name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -45,8 +61,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import scipy.sparse as sp  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import gnn_paper  # noqa: E402
+from repro_torch import models as lm  # noqa: E402
+from repro_torch.configs import get_config, gnn_paper  # noqa: E402
 from repro_torch.core import partition_from_assign, random_layout  # noqa: E402
 from repro_torch.gnn import (  # noqa: E402
     GNNServeEngine, build_plan_bsr, compile_plan, directed_edges, forward,
@@ -54,16 +72,39 @@ from repro_torch.gnn import (  # noqa: E402
     recompile_like, scatter_features, zipf_requests)
 from repro_torch.graphs import DataGraph, synthetic_siot, synthetic_yelp  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.gnn_aggregate import (  # noqa: E402
     build_bsr, spmm, spmm_plain)
+from repro_torch.serve import Request, ServeEngine  # noqa: E402
 
 PARTS = 8
 SLACK = 0.5
 SEED = 0
 FWD_TOL = 2e-4                 # the reference's own gate (test_distributed_gnn)
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside tensor cores.
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside tensor
+# cores, bf16 dense on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+# K2 against its plain version: the reference's own tolerances
+# (tests/test_kernels.py), rtol = atol.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# lm_parity, card (K2) vs CPU (plain attention), fp32 at d_model 2048 and a
+# 128256-entry vocab: the same arithmetic summed in other orders (cuBLAS vs
+# the CPU's GEMMs, the kernel's online softmax vs the direct one).  1e-5 holds
+# at the CPU tests' width 64; 2048-wide dot products and logits near 4 leave
+# errors near 1e-5 here, so 1e-3 (rtol = atol) leaves room without hiding a
+# wrong mask or a wrong head, which move logits by O(1).
+LM_PARITY_TOL = 1e-3
+# lm_serve: a served token must be the top logit of the teacher-forced row or
+# within this of it.  Logits come out of bf16 GEMMs at |logit| ~ 4, where one
+# bf16 ulp is 2**-5; serving (bucketed prefill, then one token per decode
+# step) and teacher forcing (one pass) round at different places through 16
+# layers.  8 ulps; a wrong token under random weights is ~4 below the top.
+SERVE_GAP_TOL = 0.25
+LLAMA_SLOTS = 8
+LLAMA_MAX_LEN = 2048
 
 
 def emit(obj) -> None:
@@ -368,6 +409,346 @@ def phase_serve(siot, params_of, dev):
           "cache": engine.cache_stats()})
 
 
+# ------------------------------------------------------- flash attention (K2)
+def _flash_work(q, k, kv_len, causal):
+    """(operations, bytes) the attention needs on these inputs: 4 * D flops
+    per (query row, live key); q and the output once, each live K/V row
+    once, kv_len once."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    live = (torch.full((B,), Lk) if kv_len is None
+            else kv_len.cpu().long().clamp(0, Lk))
+    keys = live[:, None].expand(B, Lq)
+    if causal:
+        q_pos = torch.arange(Lq) + (Lk - Lq)
+        keys = torch.minimum(keys, (q_pos + 1).clamp(min=0)[None, :])
+    ops = 4 * D * Hq * int(keys.sum())
+    kv_rows = Hkv * int(keys.max(dim=1).values.sum())
+    esize = q.element_size()
+    nbytes = (2 * q.numel() + 2 * kv_rows * D) * esize
+    nbytes += 0 if kv_len is None else kv_len.numel() * 4
+    return ops, nbytes
+
+
+def _sdpa(q, k, v, kv_len, causal):
+    """One PyTorch call computing the same attention (a causal case or a
+    kv_len case): the library yardstick, never called by the port."""
+    mask = None
+    if kv_len is not None:
+        pos = torch.arange(k.shape[2], device=k.device)
+        mask = (pos[None, :] < kv_len[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
+
+
+def _check_flash(label, q, k, v, kv_len, causal):
+    out = flash_attention(q, k, v, kv_len, causal=causal)
+    again = flash_attention(q, k, v, kv_len, causal=causal)
+    ref = flash_attention_plain(q, k, v, kv_len, causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[q.dtype]
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    excess = float((diff - tol * ref.float().abs()).max())
+    require(out.shape == q.shape and out.dtype == q.dtype,
+            f"flash_attention {label}: output {tuple(out.shape)} {out.dtype}")
+    require(excess <= tol, f"flash_attention {label}: max abs err {err} vs "
+            f"plain beyond rtol = atol = {tol}")
+    require(torch.equal(out, again), f"flash_attention {label}: not bitwise "
+            "deterministic across two launches")
+    return out, err
+
+
+def _bhld_views(gen, dev, B, Hq, Hkv, Lq, Lk, D, dtype):
+    """q, k, v as (B, H, L, D) views of (B, L, H, D) tensors, the layout the
+    model hands the kernel."""
+    q = torch.randn((B, Lq, Hq, D), generator=gen, device=dev, dtype=dtype)
+    k = torch.randn((B, Lk, Hkv, D), generator=gen, device=dev, dtype=dtype)
+    v = torch.randn((B, Lk, Hkv, D), generator=gen, device=dev, dtype=dtype)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def phase_flash_kernels(dev):
+    """flash_attention against flash_attention_plain; times at the LM
+    path's prefill and decode shapes."""
+    cfg = get_config("llama3.2-1b")
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    bf16 = torch.bfloat16
+    main_cases = []
+    for L in (512, 1024):                          # prefill: B = 1, causal
+        main_cases.append((f"prefill_L{L}", *_bhld_views(
+            gen, dev, 1, Hq, Hkv, L, L, D, bf16), None, True))
+    # Decode: one token per slot against a layer slice of the slot cache,
+    # kv_len drawn like the served requests' (prompt 64-1024, + <= 32).
+    cache = torch.randn((2, LLAMA_SLOTS, LLAMA_MAX_LEN, Hkv, D), generator=gen,
+                        device=dev, dtype=bf16)
+    q = torch.randn((LLAMA_SLOTS, 1, Hq, D), generator=gen, device=dev,
+                    dtype=bf16).transpose(1, 2)
+    kv_len = torch.from_numpy(rng.integers(64, 1057, size=LLAMA_SLOTS)).to(
+        dev, torch.int32)
+    main_cases.append(("decode_B8_S2048", q, cache[1].transpose(1, 2),
+                       cache[0].transpose(1, 2), kv_len, False))
+    rows, worst = [], 0.0
+    for label, q, k, v, kl, causal in main_cases:
+        out, err = _check_flash(label, q, k, v, kl, causal)
+        worst = max(worst, err)
+        lib_err = float((_sdpa(q, k, v, kl, causal).float()
+                         - out.float()).abs().max())
+        require(lib_err <= 0.1, f"{label}: the library call disagrees with "
+                f"flash_attention by {lib_err}")
+        ops, nbytes = _flash_work(q, k, kl, causal)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / BF16_OPS_PER_S * 1e3
+        row = {
+            "shape": label, "dtype": "bf16", "max_abs_err": err,
+            "bitwise_equal": True, "library_max_abs_diff": lib_err,
+            "ms": time_ms(lambda: flash_attention(q, k, v, kl, causal=causal)),
+            "plain_ms": time_ms(
+                lambda: flash_attention_plain(q, k, v, kl, causal)),
+            "library_ms": time_ms(lambda: _sdpa(q, k, v, kl, causal)),
+            "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                            "(q, k, v, attn_mask=kv_len mask or is_causal, "
+                            "enable_gqa=True)",
+            "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        rows.append(row)
+        emit({"phase": "kernels", "kernel": "flash_attention", **row})
+    # The reference's cases (tests/test_kernels.py), contiguous (B, H, L, D).
+    for B, hq, hkv, Lq, Lk, d, causal, kl, dtype in [
+            (2, 4, 2, 128, 128, 64, True, None, torch.float32),
+            (1, 8, 8, 192, 192, 64, True, None, torch.float32),
+            (2, 4, 1, 100, 100, 32, True, None, torch.float32),
+            (1, 4, 2, 1, 256, 64, True, [190], torch.float32),
+            (2, 2, 2, 64, 64, 16, False, None, torch.float32),
+            (1, 4, 4, 96, 160, 64, True, None, torch.float32),
+            (2, 4, 2, 64, 64, 64, True, None, bf16)]:
+        q = torch.randn((B, hq, Lq, d), generator=gen, device=dev, dtype=dtype)
+        k = torch.randn((B, hkv, Lk, d), generator=gen, device=dev, dtype=dtype)
+        v = torch.randn((B, hkv, Lk, d), generator=gen, device=dev, dtype=dtype)
+        klt = None if kl is None else torch.tensor(kl, dtype=torch.int32,
+                                                   device=dev)
+        label = (f"B{B}_H{hq}/{hkv}_Lq{Lq}_Lk{Lk}_D{d}"
+                 f"{'_causal' if causal else ''}{'_kvlen' if kl else ''}"
+                 f"_{str(dtype).split('.')[-1]}")
+        _, err = _check_flash(label, q, k, v, klt, causal)
+        worst = max(worst, err)
+        emit({"phase": "kernels", "kernel": "flash_attention", "shape": label,
+              "max_abs_err": err, "tol": FLASH_TOL[dtype],
+              "bitwise_equal": True})
+    # A fully masked row (kv_len = 0) gives exactly 0.
+    q, k, v = _bhld_views(gen, dev, 2, Hq, Hkv, 1, 256, D, bf16)
+    kl = torch.tensor([0, 256], dtype=torch.int32, device=dev)
+    out, err = _check_flash("kv_len0", q, k, v, kl, False)
+    require(torch.equal(out[0], torch.zeros_like(out[0])),
+            "flash_attention: the fully masked row is not 0")
+    emit({"phase": "kernels", "kernel": "flash_attention",
+          "shape": "kv_len0_row", "max_abs_err": err, "masked_row_zero": True})
+    return rows, worst
+
+
+# ------------------------------------------------------------ LM serving path
+def _to_cpu(params):
+    if isinstance(params, dict):
+        return {k: _to_cpu(v) for k, v in params.items()}
+    return params.cpu()
+
+
+def _bucketed(prompt, dev):
+    n = len(prompt)
+    toks = torch.zeros((1, 1 << (n - 1).bit_length()), dtype=torch.long)
+    toks[0, :n] = torch.from_numpy(prompt)
+    return {"tokens": toks.to(dev),
+            "lengths": torch.tensor([n], dtype=torch.int32, device=dev)}
+
+
+def _lm_run(cfg, params, prompts, max_len, steps, dev):
+    """Prefill each prompt in its bucket, splice the caches into one batch,
+    then ``steps`` greedy decode steps.  Returns logits, tokens, the final
+    cache and K2's launches per call."""
+    logits, caches, launches = [], [], []
+    for p in prompts:
+        before = flash_attention.launches
+        lg, c = lm.prefill(cfg, params, _bucketed(p, dev), max_len)
+        launches.append(flash_attention.launches - before)
+        logits.append(lg[:, -1])
+        caches.append(c)
+    cache = {"k": torch.cat([c["k"] for c in caches], dim=1),
+             "v": torch.cat([c["v"] for c in caches], dim=1),
+             "len": torch.cat([c["len"] for c in caches])}
+    toks = [torch.stack([lg.argmax(-1) for lg in logits], dim=1)[0]]
+    step_logits = [torch.cat(logits)]
+    for _ in range(steps):
+        before = flash_attention.launches
+        lg, cache = lm.decode_step(cfg, params, toks[-1][:, None], cache)
+        launches.append(flash_attention.launches - before)
+        step_logits.append(lg[:, 0])
+        toks.append(lg[:, 0].argmax(-1))
+    return step_logits, torch.stack(toks, 1), cache, launches
+
+
+def phase_lm_parity(dev):
+    """Full-width llama3.2-1b cut to 2 layers, fp32: the card (K2) against
+    the CPU (plain attention) on the same weights."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    cpu_params = _to_cpu(params)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int64)
+               for n in (100, 300)]
+    max_len, steps = 512 + 16, 8
+    g_logits, g_toks, g_cache, launches = _lm_run(cfg, params, prompts,
+                                                  max_len, steps, dev)
+    torch.cuda.synchronize()
+    require(launches == [cfg.n_layers] * (len(prompts) + steps),
+            f"lm_parity: flash_attention launches per call {launches}, "
+            f"expected {cfg.n_layers} each")
+    c_logits, c_toks, c_cache, c_launches = _lm_run(
+        cfg, cpu_params, prompts, max_len, steps, torch.device("cpu"))
+    require(c_launches == [0] * len(c_launches), "the CPU run launched K2")
+    errs = [allclose_err(g.cpu(), c, LM_PARITY_TOL)
+            for g, c in zip(g_logits, c_logits)]
+    errs += [allclose_err(g_cache[key].cpu(), c_cache[key], LM_PARITY_TOL)
+             for key in ("k", "v")]
+    max_abs = max(float((g.cpu() - c).abs().max())
+                  for g, c in zip(g_logits, c_logits))
+    require(max(errs) <= LM_PARITY_TOL, f"lm_parity: card vs CPU beyond "
+            f"{LM_PARITY_TOL}: excess {max(errs)}")
+    require(torch.equal(g_toks.cpu(), c_toks),
+            f"lm_parity: greedy tokens differ: {g_toks.tolist()} vs "
+            f"{c_toks.tolist()}")
+    require(torch.equal(g_cache["len"].cpu(), c_cache["len"]),
+            "lm_parity: cache lengths differ")
+    emit({"phase": "lm_parity", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "vocab": cfg.vocab, "dtype": "float32",
+          "prompt_lengths": [len(p) for p in prompts], "decode_steps": steps,
+          "launches_per_call": launches, "logits_max_abs_diff": max_abs,
+          "allclose_excess": max(errs), "tol": LM_PARITY_TOL,
+          "greedy_tokens_equal": True, "tokens": g_toks.tolist()})
+
+
+def phase_lm_serve(dev, flash_rows):
+    """Main path: the full bf16 llama3.2-1b behind ServeEngine."""
+    cfg = get_config("llama3.2-1b")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    engine = ServeEngine(cfg, params, slots=LLAMA_SLOTS,
+                         max_len=LLAMA_MAX_LEN, device=dev)
+    del params                       # the engine keeps its bf16 copies
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, size=int(n)),
+                    max_new_tokens=32, eos_id=-1)
+            for i, n in enumerate(rng.integers(64, 1025, size=16))]
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+
+    spmm.launches = 0                         # the LM path starts here
+    flash_attention.launches = 0
+    decode_s, admit_s = [], []
+    t_run = time.perf_counter()
+    while engine.queue or any(r is not None for r in engine.live):
+        prefills = engine.stats.prefills
+        t = time.perf_counter()
+        engine.tick()
+        torch.cuda.synchronize()
+        (decode_s if engine.stats.prefills == prefills else admit_s).append(
+            time.perf_counter() - t)
+    run_s = time.perf_counter() - t_run
+    launches = flash_attention.launches       # ... and ends here
+    s = engine.stats
+    require(all(r.done and len(r.out_tokens) == 32 for r in reqs),
+            f"lm_serve: token counts {[len(r.out_tokens) for r in reqs]}")
+    require(s.completed == 16 and s.prefills == 16, f"lm_serve: {s}")
+    require(launches == cfg.n_layers * (s.prefills + s.ticks),
+            f"lm_serve: {launches} flash_attention launches, expected "
+            f"{cfg.n_layers} x ({s.prefills} prefills + {s.ticks} ticks)")
+    require(spmm.launches == 0, "lm_serve launched spmm_bsr")
+
+    # Two requests re-scored by one teacher-forced forward each.
+    exact, gaps = 0, []
+    for r in reqs[:2]:
+        n = len(r.prompt)
+        toks = np.concatenate([r.prompt, r.out_tokens[:-1]])
+        logits, _ = lm.forward(cfg, engine.params, {
+            "tokens": torch.from_numpy(toks)[None].to(dev)})
+        rows = logits[0, n - 1:n - 1 + len(r.out_tokens)].float()
+        served = torch.tensor(r.out_tokens, device=dev)
+        require(bool(torch.isfinite(rows).all()), "lm_serve: non-finite logits")
+        gap = rows.max(-1).values - rows[torch.arange(len(served)), served]
+        exact += int((rows.argmax(-1) == served).sum())
+        gaps.append(float(gap.max()))
+    require(max(gaps) <= SERVE_GAP_TOL, f"lm_serve: a served token is "
+            f"{max(gaps)} below the teacher-forced top logit")
+
+    prefill_ms = {}
+    for L in sorted({ServeEngine._bucket(len(r.prompt)) for r in reqs}):
+        batch = _bucketed(reqs[0].prompt[:1].repeat(L), dev)
+        prefill_ms[L] = time_ms(lambda: lm.prefill(
+            cfg, engine.params, batch, LLAMA_MAX_LEN), reps=5, warmup=1)
+    tick_ms = statistics.median(decode_s) * 1e3
+    decode_row = next(r for r in flash_rows if r["shape"].startswith("decode"))
+    tokens = s.generated_tokens + s.prefills
+    emit({"phase": "lm_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "dtype": "bfloat16", "slots": LLAMA_SLOTS,
+          "max_len": LLAMA_MAX_LEN, "requests": len(reqs),
+          "prompt_lengths": [len(r.prompt) for r in reqs],
+          "prefills": s.prefills, "ticks": s.ticks, "completed": s.completed,
+          "tokens": tokens, "flash_attention_launches": launches,
+          "setup_s": setup_s, "run_s": run_s, "tok_per_s": tokens / run_s,
+          "decode_tick_ms_median": tick_ms,
+          "decode_tick_ms_p90": float(np.percentile(decode_s, 90)) * 1e3,
+          "admit_tick_ms_median": statistics.median(admit_s) * 1e3,
+          "prefill_ms_by_bucket": prefill_ms,
+          "k2_share_of_decode_tick": cfg.n_layers * decode_row["ms"] / tick_ms,
+          "teacher_forced_exact": exact, "teacher_forced_checked": 64,
+          "teacher_forced_max_gap": max(gaps), "gap_tol": SERVE_GAP_TOL,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    _profile_decode(engine, cfg)
+    return launches
+
+
+def _profile_decode(engine, cfg, ticks: int = 4):
+    """Where a decode tick's time goes: ``torch.profiler`` over a few ticks
+    with all 8 slots live, after the counted run.  Prints the device's busy
+    share of the window and kernel time by name; "not measured" where the
+    trace holds no device time."""
+    rng = np.random.default_rng(SEED + 3)
+    for i in range(LLAMA_SLOTS):
+        engine.submit(Request(uid=100 + i, prompt=rng.integers(
+            1, cfg.vocab, size=512), max_new_tokens=ticks + 2, eos_id=-1))
+    engine.tick()                             # admit all, one decode
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        for _ in range(ticks):
+            engine.tick()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    emit({"phase": "lm_profile", "ticks": ticks, "window_ms": wall_ms,
+          "device_busy_ms": busy_ms if kernels else "not measured",
+          "device_busy_share": busy_ms / wall_ms if kernels
+          else "not measured",
+          "kernel_launches_per_tick": sum(e.count for e in kernels) / ticks,
+          "top_kernels_ms_per_tick": {
+              e.key[:80]: e.self_device_time_total / 1e3 / ticks
+              for e in top}})
+
+
 def main() -> int:
     t_start = time.perf_counter()
     kind, smi_line = phase_device()
@@ -376,15 +757,24 @@ def main() -> int:
     siot = make_dataset("siot", dev)
     yelp = make_dataset("yelp", dev)
     kernel_rows, worst = phase_kernels(siot, dev)
+    flash_rows, flash_worst = phase_flash_kernels(dev)
 
-    spmm.launches = 0                         # the main path starts here
+    spmm.launches = 0                         # the GNN path starts here
+    flash_attention.launches = 0
     params_of, _ = phase_bsp([siot, yelp], dev)
     phase_patch(siot, params_of, dev)
     phase_serve(siot, params_of, dev)
     launches = spmm.launches                  # ... and ends here
-    require(launches > 0, "the main path never launched spmm_bsr")
+    require(launches > 0, "the GNN path never launched spmm_bsr")
+    del params_of, siot, yelp
+
+    phase_lm_parity(dev)
+    flash_launches = phase_lm_serve(dev, flash_rows)
+    require(flash_launches > 0, "the LM path never launched flash_attention")
 
     head = kernel_rows[0]
+    flash_head = next(r for r in flash_rows
+                      if r["shape"].startswith("decode"))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "spmm_bsr", "route": "cuda",
@@ -393,7 +783,16 @@ def main() -> int:
         "launches": launches, "max_abs_err": worst,
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "shape": head["shape"]}]})
+        "library_ms": head["library_ms"], "shape": head["shape"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:117",
+        "launches": flash_launches, "max_abs_err": flash_worst,
+        "ms": flash_head["ms"], "plain_ms": flash_head["plain_ms"],
+        "bound_ms": flash_head["bound_ms"],
+        "bound_by": flash_head["bound_by"],
+        "library_ms": flash_head["library_ms"],
+        "shape": flash_head["shape"]}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -3,6 +3,8 @@ package ``repro`` as its reference.
 
 Slice 1: the data graphs, the partition bridge, the ShardPlan host code,
 the GNN models, the batched one-device BSP forward on the hand-written
-Hopper BSR SpMM kernel, and the request-serving engine.  Entry points take
-``device=`` and default to the card.
+Hopper BSR SpMM kernel, and the request-serving engine.
+Slice 2: dense LM serving (``models``, ``configs``, ``serve``, ``launch``)
+with attention on the hand-written Hopper flash-attention kernel.
+Entry points take ``device=`` and default to the card.
 """

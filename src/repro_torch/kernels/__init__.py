@@ -1,7 +1,10 @@
 from repro_torch.kernels.gnn_aggregate import (
     build_bsr, bsr_density, spmm, spmm_plain,
 )
-from repro_torch.kernels.ops import BSRAggregate, aggregate_features
+from repro_torch.kernels.ops import BSRAggregate, aggregate_features, attention
 
-__all__ = ["BSRAggregate", "aggregate_features", "build_bsr", "bsr_density",
-           "spmm", "spmm_plain"]
+# ``flash_attention`` and ``flash_attention_plain`` stay in their module
+# (``repro_torch.kernels.flash_attention``): a package attribute of the same
+# name would shadow the submodule.
+__all__ = ["BSRAggregate", "aggregate_features", "attention", "build_bsr",
+           "bsr_density", "spmm", "spmm_plain"]

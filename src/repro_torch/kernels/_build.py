@@ -100,6 +100,10 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.spmm_bsr_f32.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 7 + [ptr]
     lib.spmm_bsr_f32.restype = i32
+    lib.flash_attention_fwd.argtypes = (
+        [ptr] * 5 + [ctypes.POINTER(ctypes.c_int64)] + [i32] * 7
+        + [ctypes.c_float, i32, ptr])
+    lib.flash_attention_fwd.restype = i32
     lib.repro_torch_cuda_error_string.argtypes = [i32]
     lib.repro_torch_cuda_error_string.restype = ctypes.c_char_p
     return lib

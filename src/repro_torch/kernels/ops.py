@@ -1,8 +1,9 @@
 """Public wrappers around the port's kernels.
 
-The counterpart of ``repro/kernels/ops.py`` for the aggregation kernel.  The
-wrappers are the only entry points the rest of the port uses, so swapping
-the execution path never touches model code.
+The counterpart of ``repro/kernels/ops.py`` for both kernels: attention (K2)
+and the block-sparse aggregation (K1).  The wrappers are the only entry
+points the rest of the port uses, so swapping the execution path never
+touches model code.
 """
 from __future__ import annotations
 
@@ -13,11 +14,34 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.gnn_aggregate import build_bsr, spmm, spmm_plain
 
 _IMPLS = ("auto", "kernel", "plain", "ref")
 
 
+# ----------------------------------------------------------------- attention
+def attention(q, k, v, kv_len=None, *, causal: bool = True,
+              scale: Optional[float] = None, impl: str = "auto"):
+    """q (B, Hq, Lq, D), k/v (B, Hkv, Lk, D) -> (B, Hq, Lq, D).
+
+    ``impl``: 'kernel' (K2; CUDA tensors only), 'plain' (its torch version),
+    'ref' (the repeat-then-softmax oracle, NaN on a fully masked row), or
+    'auto' (the kernel for CUDA tensors, plain for CPU tensors)."""
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {_IMPLS}")
+    if impl == "kernel" and q.device.type != "cuda":
+        raise ValueError("impl='kernel' needs a CUDA tensor")
+    if impl in ("auto", "kernel"):
+        return flash_attention(q, k, v, kv_len, causal=causal, scale=scale)
+    if impl == "plain":
+        return flash_attention_plain(q, k, v, kv_len, causal, scale)
+    return _ref.attention_ref(q, k, v, causal=causal, scale=scale,
+                              kv_len=kv_len)
+
+
+# --------------------------------------------------------------- aggregation
 class BSRAggregate:
     """Precompiled block-sparse aggregation bound to a fixed graph.
 

@@ -36,3 +36,34 @@ def segment_sum_ref(messages, dst, n: int):
     """Edge-list aggregation oracle: sum messages per destination."""
     out = messages.new_zeros((n,) + tuple(messages.shape[1:]))
     return out.index_add_(0, dst.long(), messages)
+
+
+# -------------------------------------------------------------- flash attention
+def attention_ref(q, k, v, causal: bool = True, scale: float | None = None,
+                  kv_len: torch.Tensor | None = None):
+    """Reference softmax attention.
+
+    q: (B, Hq, Lq, D); k/v: (B, Hkv, Lk, D).  GQA: Hq % Hkv == 0, each kv head
+    serves Hq/Hkv query heads.  ``kv_len`` optionally masks the KV suffix
+    (decode with a padded cache).  A fully masked row gives NaN, as the
+    reference's does; the kernel and its plain version give 0 there.
+    """
+    B, Hq, Lq, D = q.shape
+    Hkv = k.shape[1]
+    rep = Hq // Hkv
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    Lk = k.shape[2]
+    if causal:
+        qi = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
+        ki = torch.arange(Lk, device=q.device)[None, :]
+        logits = torch.where(ki <= qi, logits, float("-inf"))
+    if kv_len is not None:
+        ki = torch.arange(Lk, device=q.device)
+        mask = ki[None, None, None, :] < kv_len[:, None, None, None]
+        logits = torch.where(mask, logits, float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype), v)

@@ -1,11 +1,14 @@
-"""Checks that need a CUDA card: the spmm_bsr kernel against its plain
-torch version, the wrapper's input checks, and the port's card paths
-against its CPU paths.  Without a card every test here skips.  The file
+"""Checks that need a CUDA card: the spmm_bsr and flash_attention kernels
+against their plain torch versions, the wrappers' input checks, and the
+port's card paths (BSP forward, LM prefill and decode) against its CPU
+paths.  Without a card every test here skips.  The file
 imports neither ``jax`` nor ``repro``, so it runs on a machine with the card
 and the port alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -19,6 +22,10 @@ from repro_torch.gnn import (  # noqa: E402
 from repro_torch.gnn.models import segment_sum  # noqa: E402
 from repro_torch.graphs import synthetic_siot  # noqa: E402
 from repro_torch.kernels import BSRAggregate, build_bsr, spmm, spmm_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
+from repro_torch import models as lm  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +128,107 @@ def test_bsp_forward_on_card_matches_cpu(dev, model):
     ref = forward(cfg, cpu_params, torch.from_numpy(g.features),
                   directed_edges(g.edges)).numpy()
     np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------------------------------ flash attention
+# The reference's cases (tests/test_kernels.py) plus the main path's layouts
+# at reduced size: (B, L, H, D) views, a cache slice with ragged kv_len, and
+# head dims off the fast path.
+FLASH_CASES = [
+    # B, Hq, Hkv, Lq, Lk, D, causal, kv_len, dtype
+    (2, 4, 2, 128, 128, 64, True, None, torch.float32),
+    (1, 8, 8, 192, 192, 64, True, None, torch.float32),
+    (2, 4, 1, 100, 100, 32, True, None, torch.float32),
+    (1, 4, 2, 1, 256, 64, True, [190], torch.float32),
+    (2, 2, 2, 64, 64, 16, False, None, torch.float32),
+    (1, 4, 4, 96, 160, 64, True, None, torch.float32),
+    (2, 4, 2, 64, 64, 64, True, None, torch.bfloat16),
+    (3, 32, 8, 1, 300, 64, False, [1, 150, 300], torch.bfloat16),
+    (1, 6, 2, 40, 40, 100, True, None, torch.float32),
+    (1, 4, 1, 33, 70, 256, True, None, torch.float32),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(dev, B, Hq, Hkv, Lq, Lk, D, dtype, seed=0):
+    """q/k/v as (B, H, L, D) views of (B, L, H, D) tensors, as the model
+    passes them."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, Lq, Hq, D), generator=gen).to(dev, dtype)
+    k = torch.randn((B, Lk, Hkv, D), generator=gen).to(dev, dtype)
+    v = torch.randn((B, Lk, Hkv, D), generator=gen).to(dev, dtype)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Lq,Lk,D,causal,kv_len,dtype", FLASH_CASES)
+def test_flash_kernel_matches_plain_and_is_deterministic(
+        dev, B, Hq, Hkv, Lq, Lk, D, causal, kv_len, dtype):
+    q, k, v = _flash_inputs(dev, B, Hq, Hkv, Lq, Lk, D, dtype)
+    kl = (torch.tensor(kv_len, dtype=torch.int32, device=dev)
+          if kv_len else None)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, kl, causal=causal)
+    again = flash_attention(q, k, v, kl, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(out, again)
+    assert out.dtype == dtype and out.shape == (B, Hq, Lq, D)
+    ref = flash_attention_plain(q, k, v, kl, causal)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+    cont = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), kl,
+                           causal=causal)
+    assert torch.equal(cont, out)
+
+
+def test_flash_kernel_fully_masked_row_is_zero(dev):
+    q, k, v = _flash_inputs(dev, 2, 8, 2, 1, 64, 64, torch.bfloat16)
+    kl = torch.tensor([0, 64], dtype=torch.int32, device=dev)
+    out = flash_attention(q, k, v, kl, causal=False)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(out, flash_attention_plain(q, k, v, kl, False),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q, k, v = _flash_inputs(dev, 1, 4, 2, 8, 8, 16, torch.float32)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        flash_attention(q[:, :3], k, v)                 # 3 % 2 != 0
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, torch.tensor([8], device=dev))   # int64
+    big = torch.zeros((1, 2, 4, 264), device=dev)
+    with pytest.raises(ValueError):
+        flash_attention(big, big, big)
+
+
+def test_lm_prefill_and_decode_on_card_match_cpu(dev):
+    """Smoke llama in fp32: prefill + decode through K2 on the card against
+    the plain attention on the CPU, one launch per layer per call."""
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    cpu = {"embed": params["embed"].cpu(),
+           "final_norm": params["final_norm"].cpu(),
+           "layers": {k: v.cpu() for k, v in params["layers"].items()}}
+    tok = torch.randint(1, 500, (2, 32), generator=torch.Generator().manual_seed(1))
+    lens = torch.tensor([20, 32], dtype=torch.int32)
+    before = flash_attention.launches
+    gl, gc = lm.prefill(cfg, params, {"tokens": tok.to(dev),
+                                      "lengths": lens.to(dev)}, 48)
+    assert flash_attention.launches - before == cfg.n_layers
+    cl, cc = lm.prefill(cfg, cpu, {"tokens": tok, "lengths": lens}, 48)
+    torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    for step in range(3):
+        nxt = torch.tensor([[3 + step], [9 + step]])
+        before = flash_attention.launches
+        gl, gc = lm.decode_step(cfg, params, nxt.to(dev), gc)
+        assert flash_attention.launches - before == cfg.n_layers
+        cl, cc = lm.decode_step(cfg, cpu, nxt, cc)
+        torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gc["k"].cpu(), cc["k"], rtol=1e-4, atol=1e-4)

@@ -31,6 +31,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
                     and (m in ("jax", "repro") or m.startswith(
                         ("jax.", "jaxlib", "repro."))))
     print("IMPORTED", len(names), "LEAKED", leaked)
+    print("NAMES", " ".join(names))
 """)
 
 
@@ -47,12 +48,16 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert r.returncode == 0, r.stdout + r.stderr
     assert "LEAKED []" in r.stdout, r.stdout
     count = int(r.stdout.split("IMPORTED")[1].split()[0])
-    assert count >= 15, r.stdout                 # every module was walked
+    assert count >= 31, r.stdout                 # every module was walked
+    names = r.stdout.split("NAMES")[1].split()
+    for mod in ("models.transformer", "serve.engine", "launch.serve",
+                "kernels.flash_attention", "configs.registry"):
+        assert f"repro_torch.{mod}" in names, mod
 
 
 def test_sources_import_no_jax_and_no_reference():
     files = sorted(PORT.rglob("*.py")) + [SMOKE]
-    assert len(files) >= 15
+    assert len(files) >= 32
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
