@@ -16,19 +16,26 @@ widths, then LM serving on llama3.2-1b at its published width:
           shapes and at small shape cases: max abs error, bitwise
           determinism, median CUDA-event times of the kernel, the plain
           version and one library call, and the bound from bytes and
-          operations;
+          operations.  K1 (spmm_csr on the BSR's packed nonzeros) runs at
+          SIoT d = 52 and 16 and Yelp d = 100, against both its plain
+          version and the dense layout's; its rows add the device time per
+          call (torch.profiler) of the kernel and the library call, which
+          leaves out the host's time to enqueue them;
   bsp     the batched BSP forward (GCN, SAGE, GAT x ppermute, allgather) on
           SIoT (8001 vertices) and Yelp (3912), 8 partitions of a random
           layout, held against the whole-graph forward on the card and on
-          the CPU; counts the kernel's launches per forward;
+          the CPU; counts the kernel's launches per forward, the resident
+          plan tensors and the forward's peak device memory;
   patch   a 2% relayout patched in place (0 rebuilds, output bit-equal to a
-          fresh plan's), then a capacity overflow (exactly 1 rebuild);
+          fresh plan's; the host time of each model's first forward after
+          it: GCN's repacks the plan, SAGE's shares that pack), then a
+          capacity overflow (exactly 1 rebuild);
   serve   256 Zipf requests through the ego-serving engine over the live
           plan, held against the BSP forward's rows;
   kernels flash_attention against its plain torch version at the LM path's
           prefill (L = 512, 1024) and decode (cache strides, ragged kv_len)
           shapes, the reference's 7 test cases and a fully masked row, with
-          the same error, determinism, time and bound fields as spmm_bsr and
+          the same error, determinism, time and bound fields as K1 and
           scaled_dot_product_attention as the library call;
   lm_parity  llama3.2-1b at full width cut to 2 layers, fp32: prefill of two
           bucketed prompts and 8 greedy decode steps on the card (K2) and on
@@ -75,7 +82,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.gnn_aggregate import (  # noqa: E402
-    build_bsr, spmm, spmm_plain)
+    build_bsr, pack_bsr, spmm, spmm_packed, spmm_packed_plain, spmm_plain)
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 
 PARTS = 8
@@ -133,6 +140,28 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 25, warmup: int = 3):
+    """Device time per call of ``fn``: the CUDA time ``torch.profiler``
+    records over ``reps`` calls (kernels, copies and fills), divided by
+    ``reps``.  Unlike :func:`time_ms` it leaves out the host's time to
+    enqueue the call, which a kernel of a few microseconds can be shorter
+    than.  "not measured" where the trace holds no device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return "not measured"
+    return sum(e.self_device_time_total for e in dev) / 1e3 / reps
+
+
 def allclose_err(out, ref, tol: float) -> float:
     """Largest |out - ref| beyond the rtol = atol = tol allowance (<= 0 means
     within tolerance)."""
@@ -179,6 +208,7 @@ def make_dataset(name: str, dev):
           "e_cap": plan.e_cap, "rounds": len(plan.rounds),
           "bsr_nb": b.nb, "bsr_max_blocks": b.max_blocks,
           "bsr_src_rows": b.src_rows, "values_mb": b.values.nbytes / 1e6,
+          "nnz": int((b.values != 0).sum()),
           "nnz_density": float((b.values != 0).mean()),
           "host_compile_s": host_s})
     feats = torch.from_numpy(g.features).to(dev)
@@ -215,58 +245,104 @@ def _library_csr(values: np.ndarray, cols: np.ndarray, src_rows: int, dev):
     return csr, int(a.nnz)
 
 
-def _check_case(label, values, cols, feats, bm, bk):
-    out = spmm(values, cols, feats, bm, bk)
-    again = spmm(values, cols, feats, bm, bk)
-    ref = spmm_plain(values, cols, feats, bm, bk)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    scale = float(ref.abs().max())
+def _require_close(label, out, ref, what):
+    err = float((out - ref).abs().max()) if ref.numel() else 0.0
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
     require(err <= 1e-5 * scale + 1e-5,
-            f"spmm_bsr {label}: max abs err {err} vs plain (scale {scale})")
-    require(torch.equal(out, again), f"spmm_bsr {label}: not bitwise "
+            f"spmm_csr {label}: max abs err {err} vs {what} (scale {scale})")
+    return err
+
+
+def _check_k1(label, run, refs):
+    """Two launches of K1 (``run``) against each plain version in ``refs``
+    (name -> its result on the same inputs): bitwise equal to each other,
+    each within 1e-5 * max|ref| + 1e-5.  Returns the output and the max abs
+    error against each."""
+    out, again = run(), run()
+    torch.cuda.synchronize()
+    require(torch.equal(out, again), f"spmm_csr {label}: not bitwise "
             "deterministic across two launches")
-    return out, err
+    return out, {name: _require_close(label, out, ref, name)
+                 for name, ref in refs.items()}
 
 
-def phase_kernels(siot, dev):
-    """spmm_bsr against spmm_plain; times at the main path's shapes."""
+def phase_kernels(datasets, dev):
+    """K1 (spmm_csr on the packed BSR) against its plain versions; times at
+    the main path's shapes: SIoT's two layer widths, Yelp's first."""
     gen = torch.Generator().manual_seed(SEED)
     results, worst = [], 0.0
-    plan = siot["plan"]
-    b = plan.bsr
-    values = torch.from_numpy(b.values).to(dev)
-    cols = torch.from_numpy(b.block_cols).to(dev)
-    lib_a, nnz = _library_csr(b.values, b.block_cols, b.src_rows, dev)
-    for d in (52, 16):                 # SIoT GCN/SAGE layer widths
+    for ds, d in ((datasets[0], 52), (datasets[0], 16), (datasets[1], 100)):
+        b, plan = ds["plan"].bsr, ds["plan"]
+        t0 = time.perf_counter()
+        host = pack_bsr(b.values, b.block_cols, b.bm, b.bk,
+                        nnz_cap=plan.e_cap)
+        pack_s = time.perf_counter() - t0
+        packed = dataclasses.replace(host.to(dev), src_rows=b.src_rows)
+        values = torch.from_numpy(b.values).to(dev)
+        cols = torch.from_numpy(b.block_cols).to(dev)
+        lib_a, nnz = _library_csr(b.values, b.block_cols, b.src_rows, dev)
+        require(nnz == int(host.row_ptr[:, -1].sum()),
+                f"{ds['name']}: packed nonzeros != the library CSR's {nnz}")
         feats = torch.randn((PARTS, b.src_rows, d), generator=gen).to(dev)
-        label = f"siot_P{PARTS}_d{d}"
-        out, err = _check_case(label, values, cols, feats, b.bm, b.bk)
-        worst = max(worst, err)
+        label = f"{ds['name']}_P{PARTS}_d{d}"
+        out, errs = _check_k1(label, lambda: spmm_packed(packed, feats), {
+            "spmm_packed_plain": spmm_packed_plain(packed, feats),
+            "spmm_plain": spmm_plain(values, cols, feats, b.bm, b.bk)})
+        err, dense_err = errs["spmm_packed_plain"], errs["spmm_plain"]
+        worst = max(worst, err, dense_err)
         flat = feats.reshape(PARTS * b.src_rows, d)
         lib_out = torch.sparse.mm(lib_a, flat).reshape(out.shape)
         lib_err = float((lib_out - out).abs().max())
         require(lib_err <= 1e-4 * float(out.abs().max()) + 1e-4,
-                f"library product disagrees with spmm_bsr: {lib_err}")
-        nbytes = (values.numel() * 4 + cols.numel() * 4 + feats.numel() * 4
+                f"library product disagrees with spmm_csr: {lib_err}")
+        # Bound: the bytes and operations these nonzeros need: each entry's
+        # weight and column, the row pointers, each feature row that an
+        # entry reads (once), the output (once).  The dense values' bytes
+        # stay beside it as the earlier yardstick.
+        live = (torch.arange(packed.nnz_cap, device=dev)[None, :]
+                < packed.row_ptr[:, -1:])
+        part = torch.arange(PARTS, device=dev)[:, None]
+        rows_read = int(torch.unique(
+            (part * b.src_rows + packed.col)[live]).numel())
+        nbytes = (nnz * 8 + packed.row_ptr.numel() * 4 + rows_read * d * 4
                   + out.numel() * 4)
         ops = 2 * nnz * d
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
+        dense_bytes = (values.numel() * 4 + cols.numel() * 4
+                       + feats.numel() * 4 + out.numel() * 4)
+        counts = (packed.row_ptr[:, 1:] - packed.row_ptr[:, :-1])
         row = {
-            "shape": label, "max_abs_err": err,
-            "ms": time_ms(lambda: spmm(values, cols, feats, b.bm, b.bk)),
-            "plain_ms": time_ms(
+            "shape": label, "max_abs_err": err, "dense_max_abs_err": dense_err,
+            "bitwise_equal": True,
+            "ms": time_ms(lambda: spmm_packed(packed, feats)),
+            "device_ms": device_ms(lambda: spmm_packed(packed, feats)),
+            "plain_ms": time_ms(lambda: spmm_packed_plain(packed, feats)),
+            "dense_plain_ms": time_ms(
                 lambda: spmm_plain(values, cols, feats, b.bm, b.bk)),
             "library_ms": time_ms(lambda: torch.sparse.mm(lib_a, flat)),
+            "library_device_ms": device_ms(
+                lambda: torch.sparse.mm(lib_a, flat)),
             "library_call": "torch.sparse.mm(sparse_csr_tensor, feats)",
             "bytes": nbytes, "ops": ops, "nnz": nnz,
-            "dense_block_ops": 2 * values.numel() * d,
+            "feature_rows_read": rows_read,
+            "feature_rows": int(feats.shape[0] * feats.shape[1]),
+            "max_row_nnz": int(counts.max()),
+            "empty_rows": int((counts == 0).sum()),
+            "rows": int(counts.numel()), "pack_s": pack_s,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "dense_values_bound_ms": max(dense_bytes / HBM_BYTES_PER_S * 1e3,
+                                         t_ops),
         }
+        row["faster_than_library"] = row["ms"] < row["library_ms"]
+        row["faster_than_library_on_device"] = (
+            isinstance(row["device_ms"], float)
+            and isinstance(row["library_device_ms"], float)
+            and row["device_ms"] < row["library_device_ms"])
         results.append(row)
-        emit({"phase": "kernels", "kernel": "spmm_bsr", **row})
+        emit({"phase": "kernels", "kernel": "spmm_csr", **row})
+        del values, cols
     # The reference's test shapes, a weighted case and a ragged d.
     rng = np.random.default_rng(SEED)
     for n, extra, bm, bk, d, weighted in [
@@ -281,11 +357,15 @@ def phase_kernels(siot, dev):
         feats = torch.from_numpy(
             rng.normal(size=(n_src, d)).astype(np.float32)).to(dev)
         label = f"n{n}_bm{bm}_bk{bk}_d{d}" + ("_weighted" if weighted else "")
-        _, err = _check_case(label, torch.from_numpy(v).to(dev),
-                             torch.from_numpy(c).to(dev), feats, bm, bk)
+        v, c = torch.from_numpy(v).to(dev), torch.from_numpy(c).to(dev)
+        _, errs = _check_k1(label, lambda: spmm(v, c, feats, bm, bk), {
+            "spmm_packed_plain": spmm_packed_plain(pack_bsr(v, c, bm, bk),
+                                                   feats),
+            "spmm_plain": spmm_plain(v, c, feats, bm, bk)})
+        err = max(errs.values())
         worst = max(worst, err)
-        emit({"phase": "kernels", "kernel": "spmm_bsr", "shape": label,
-              "max_abs_err": err})
+        emit({"phase": "kernels", "kernel": "spmm_csr", "shape": label,
+              "max_abs_err": err, "bitwise_equal": True})
     return results, worst
 
 
@@ -310,13 +390,20 @@ def phase_bsp(datasets, dev):
             for exchange in ("ppermute", "allgather"):
                 fwd = make_bsp_forward(cfg, plan, exchange=exchange,
                                        device=dev)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
                 before = spmm.launches
                 out = fwd(params, blocks)
                 torch.cuda.synchronize()
                 launched = spmm.launches - before
+                peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+                resident = fwd.stats["ops"].t
+                require("bsr_values" not in resident,
+                        f"{ds['name']} {model}: dense BSR values resident")
                 want = cfg.num_layers if model in ("gcn", "sage") else 0
                 require(launched == want, f"{ds['name']} {model} {exchange}: "
-                        f"{launched} spmm_bsr launches, expected {want}")
+                        f"{launched} spmm_csr launches, expected {want}")
                 full = torch.from_numpy(
                     gather_outputs(plan, out.cpu().numpy(), g.n))
                 err = allclose_err(full, ref.cpu(), FWD_TOL)
@@ -327,7 +414,10 @@ def phase_bsp(datasets, dev):
                       "exchange": exchange, "aggregate": fwd.mode,
                       "spmm_launches": launched, "allclose_excess": err,
                       "max_abs_err": float((full - ref.cpu()).abs().max()),
-                      "card_vs_cpu_excess": cpu_err, "forward_ms": ms})
+                      "card_vs_cpu_excess": cpu_err, "forward_ms": ms,
+                      "plan_tensor_mb": sum(t.numel() * t.element_size()
+                                            for t in resident.values()) / 1e6,
+                      "forward_peak_mb": peak_mb})
     return params_of, blocks_ref
 
 
@@ -352,9 +442,13 @@ def phase_patch(siot, params_of, dev):
     fresh = recompile_like(plan, g, new)
     require(plans_equal(plan, fresh) == [], "patched plan != fresh compile")
     blocks = torch.from_numpy(scatter_features(plan, g.features)).to(dev)
+    refresh_s = {}
     for m, fwd in fwds.items():
         cfg, params = gnn_paper.ALL[("siot", m)], params_of[("siot", m)]
-        out = fwd(params, blocks)
+        t0 = time.perf_counter()
+        out = fwd(params, blocks)     # refreshes; the first one repacks
+        torch.cuda.synchronize()
+        refresh_s[m] = time.perf_counter() - t0
         require(fwd.stats["builds"] == 1,
                 f"{m}: value-only patch rebuilt the forward")
         fresh_fwd = make_bsp_forward(cfg, fresh, exchange="ppermute",
@@ -363,6 +457,7 @@ def phase_patch(siot, params_of, dev):
                 f"{m}: patched forward != fresh plan's forward, bit for bit")
     emit({"phase": "patch", "moved": int(len(delta.moved)),
           "dirty_parts": int(len(delta.dirty_parts)), "host_patch_s": patch_s,
+          "refresh_s": refresh_s,
           "builds_after_patch": {m: f.stats["builds"] for m, f in fwds.items()},
           "bit_equal_to_fresh": True})
     grow = new.copy()
@@ -671,7 +766,7 @@ def phase_lm_serve(dev, flash_rows):
     require(launches == cfg.n_layers * (s.prefills + s.ticks),
             f"lm_serve: {launches} flash_attention launches, expected "
             f"{cfg.n_layers} x ({s.prefills} prefills + {s.ticks} ticks)")
-    require(spmm.launches == 0, "lm_serve launched spmm_bsr")
+    require(spmm.launches == 0, "lm_serve launched spmm_csr")
 
     # Two requests re-scored by one teacher-forced forward each.
     exact, gaps = 0, []
@@ -756,7 +851,7 @@ def main() -> int:
     phase_build()
     siot = make_dataset("siot", dev)
     yelp = make_dataset("yelp", dev)
-    kernel_rows, worst = phase_kernels(siot, dev)
+    kernel_rows, worst = phase_kernels([siot, yelp], dev)
     flash_rows, flash_worst = phase_flash_kernels(dev)
 
     spmm.launches = 0                         # the GNN path starts here
@@ -765,7 +860,7 @@ def main() -> int:
     phase_patch(siot, params_of, dev)
     phase_serve(siot, params_of, dev)
     launches = spmm.launches                  # ... and ends here
-    require(launches > 0, "the GNN path never launched spmm_bsr")
+    require(launches > 0, "the GNN path never launched spmm_csr")
     del params_of, siot, yelp
 
     phase_lm_parity(dev)
@@ -778,12 +873,16 @@ def main() -> int:
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "spmm_bsr", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/spmm_bsr.cu",
+        "source": "src/repro_torch/kernels/csrc/spmm_csr.cu",
         "replaces": "src/repro/kernels/gnn_aggregate.py:77",
         "launches": launches, "max_abs_err": worst,
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "ms": head["ms"], "device_ms": head["device_ms"],
+        "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "shape": head["shape"]}, {
+        "library_ms": head["library_ms"],
+        "library_device_ms": head["library_device_ms"],
+        "dense_values_bound_ms": head["dense_values_bound_ms"],
+        "shape": head["shape"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:117",

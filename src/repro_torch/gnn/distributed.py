@@ -18,18 +18,24 @@ Two exchanges (both move exactly the rows the reference moves):
 Two aggregation paths:
   * ``segment`` — gather messages by the edge table, deterministic segment
     sum by destination.  Every model.
-  * ``bsr`` — the plan's block-sparse retiling aggregated by the
-    ``spmm_bsr`` kernel: ONE launch per layer covering all P partitions.
-    GCN/SAGE only; GAT's per-link softmax weights depend on the features,
-    so it stays on the segment path.
+  * ``bsr`` — the plan's block-sparse retiling, packed to its nonzeros
+    (:func:`pack_bsr`) and aggregated by the ``spmm_csr`` kernel: ONE
+    launch per layer covering all P partitions.  GCN/SAGE only; GAT's
+    per-link softmax weights depend on the features, so it stays on the
+    segment path.
 
-Plan tensors stay resident on the device.  When ``plan.version`` moves
+Plan tensors stay resident on the device; the BSR's dense ``values`` stay
+on the host and only its packed nonzeros, at ``plan.e_cap`` entries per
+partition, go to the device; the pack is made once per plan version and
+shared by every forward over the plan.  When ``plan.version`` moves
 (a :func:`patch_plan` that kept every capacity) they are refreshed in place;
 the forward is rebuilt, re-allocating them, only when the reference's
 signature changes (a capacity grew or a ppermute round appeared).
 ``fwd.stats['builds']`` counts those rebuilds.
 """
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -39,7 +45,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.gnn.models import GNNConfig, segment_max, segment_sum
 from repro_torch.gnn.plan import (
     ShardPlan, build_plan_bsr, gather_outputs, scatter_features)
-from repro_torch.kernels.gnn_aggregate import spmm
+from repro_torch.kernels.gnn_aggregate import PackedBSR, pack_bsr, spmm_packed
 
 EXCHANGES = ("ppermute", "allgather")
 
@@ -71,6 +77,26 @@ def _check_no_replicas(plan: ShardPlan) -> None:
             "ported yet; clear the plan's replication to run the BSP forward")
 
 
+# id(plan.bsr) -> (weak reference to it, (plan.version, plan.e_cap), pack).
+_PACKS: dict = {}
+
+
+def _plan_pack(plan: ShardPlan) -> PackedBSR:
+    """The plan's BSR packed on the host at ``e_cap`` entries per partition,
+    once per ``plan.version``: every forward over the plan (a GCN and a SAGE
+    forward, say) shares it, so a patch costs one pack.  Nonzeros per
+    partition <= live arcs <= e_cap, which is in the forward's signature: a
+    value-only patch keeps the pack's shapes."""
+    b, key = plan.bsr, (plan.version, plan.e_cap)
+    hit = _PACKS.get(id(b))
+    if hit is not None and hit[0]() is b and hit[1] == key:
+        return hit[2]
+    packed = pack_bsr(b.values, b.block_cols, b.bm, b.bk, nnz_cap=plan.e_cap)
+    _PACKS[id(b)] = (weakref.ref(b, lambda _, k=id(b): _PACKS.pop(k, None)),
+                     key, packed)
+    return packed
+
+
 class _PlanTensors:
     """The plan tables the forward reads, as device tensors.
 
@@ -85,33 +111,41 @@ class _PlanTensors:
             plan.num_parts, plan.cap, plan.halo_cap)
         self.shifts = ([r["shift"] for r in plan.rounds]
                        if exchange == "ppermute" else [])
-        if mode == "bsr":
-            b = plan.bsr
-            self.bm, self.bk, self.table_rows = b.bm, b.bk, b.src_rows
-        else:
-            self.table_rows = plan.table_rows
+        self.table_rows = (plan.bsr.src_rows if mode == "bsr"
+                           else plan.table_rows)
+        arrs = self._host(plan)
         self.t = {}
-        for name, arr in self._host(plan).items():
+        for name, arr in arrs.items():
             dtype = (torch.float32 if arr.dtype.kind == "f"
-                     else torch.int32 if name == "bsr_cols" else torch.int64)
+                     else torch.int32 if name.startswith("bsr_")
+                     else torch.int64)
             self.t[name] = torch.empty(arr.shape, dtype=dtype, device=device)
-        self.refresh(plan)
+        self._copy(arrs)
+        if mode == "bsr":
+            self.packed = PackedBSR(
+                self.t["bsr_row_ptr"], self.t["bsr_col"], self.t["bsr_w"],
+                src_rows=self.table_rows, n_rows=plan.bsr.nb * plan.bsr.bm)
 
     def _host(self, plan: ShardPlan) -> dict:
         arrs = {"edges_src": plan.edges_src, "edges_dst": plan.edges_dst,
                 "deg": plan.deg, "halo_slot": plan.halo_slot}
         if self.mode == "bsr":
-            arrs["bsr_values"] = plan.bsr.values
-            arrs["bsr_cols"] = plan.bsr.block_cols
+            packed = _plan_pack(plan)
+            arrs["bsr_row_ptr"] = packed.row_ptr
+            arrs["bsr_col"] = packed.col
+            arrs["bsr_w"] = packed.w
         for k, r in enumerate(plan.rounds if self.exchange == "ppermute"
                               else ()):
             arrs[f"send_idx{k}"] = r["send_idx"]
             arrs[f"recv_pos{k}"] = r["recv_pos"]
         return arrs
 
-    def refresh(self, plan: ShardPlan) -> None:
-        for name, arr in self._host(plan).items():
+    def _copy(self, arrs: dict) -> None:
+        for name, arr in arrs.items():
             self.t[name].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+
+    def refresh(self, plan: ShardPlan) -> None:
+        self._copy(self._host(plan))
 
 
 def _exchange_allgather(h: torch.Tensor, halo_slot: torch.Tensor):
@@ -156,8 +190,7 @@ def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
 
     if cfg.model in ("gcn", "sage"):
         if ops.mode == "bsr":
-            agg = spmm(ops.t["bsr_values"], ops.t["bsr_cols"], table,
-                       ops.bm, ops.bk)[:, :cap]
+            agg = spmm_packed(ops.packed, table)[:, :cap]
         else:
             agg = neighbour_sum(table.reshape(P * rows, d))
         deg = ops.t["deg"]

@@ -98,8 +98,8 @@ def load_library() -> ctypes.CDLL:
     """The built kernel library with every entry point's signature set."""
     lib = ctypes.CDLL(str(build().path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.spmm_bsr_f32.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 7 + [ptr]
-    lib.spmm_bsr_f32.restype = i32
+    lib.spmm_csr_f32.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.spmm_csr_f32.restype = i32
     lib.flash_attention_fwd.argtypes = (
         [ptr] * 5 + [ctypes.POINTER(ctypes.c_int64)] + [i32] * 7
         + [ctypes.c_float, i32, ptr])

@@ -1,33 +1,45 @@
-"""Block-sparse SpMM: the GNN neighbour sum on the card.
+"""Sparse neighbour sum: the GNN aggregation (K1) on the card.
 
-The counterpart of ``repro/kernels/gnn_aggregate.py``.  The adjacency is
-chopped into dense (bm, bk) link blocks; only nonempty blocks are stored,
-each one multiplied against the (bk, d) feature tile its ``block_cols`` entry
-names.  GLAD's layout and the plan's hub-first slotting concentrate links in
-few blocks, so block density is a function of layout quality.
+The counterpart of ``repro/kernels/gnn_aggregate.py``.  The reference chops
+the adjacency into dense (bm, bk) link blocks; only nonempty blocks are
+stored, each multiplied against the (bk, d) feature tile its ``block_cols``
+entry names.  GLAD's layout and the plan's hub-first slotting concentrate
+links in few blocks, so block density is a function of layout quality.
 
-Layout (a leading partition axis P is optional everywhere):
+Dense layout (a leading partition axis P is optional everywhere):
   values     (P, n_dst_blocks * max_blocks, bm, bk) f32  dense link blocks
   block_cols (P, n_dst_blocks, max_blocks) int32         source block-row
                                                          (0 pad; pad values 0)
   feats      (P, n_src_blocks * bk, d) f32
   out        (P, n_dst_blocks * bm, d) f32
 
-Kernel.  :func:`spmm` replaces the Pallas TPU kernel ``spmm``
-(``src/repro/kernels/gnn_aggregate.py:54-94``, ``pallas_call`` at line 77)
-with ``csrc/spmm_bsr.cu``, written by hand for Hopper (``sm_90a``): one CTA
-per (destination block-row, 64-column d-tile, partition), the sequential
-block loop inside the CTA with an fp32 register accumulator, fixed block and
-k order (deterministic bit for bit), ragged ``d`` masked in the kernel.  Its
-least time is set by bytes: the stored ``values``, read once; the operations
-the sparse product needs (2 * nnz * d) are far below the fp32 rate.
+Packed layout (:class:`PackedBSR`, made by :func:`pack_bsr`): the same
+matrix with only its nonzeros, row-compressed per partition.  Within a
+destination row the nonzeros keep the order in which the dense product
+visits them (stored block ``j``, then ``k`` ascending); exact zeros and
+padded blocks are dropped.
 
-Dispatch.  A CPU tensor goes to :func:`spmm_plain`, the vectorised torch
-mirror of the reference's ``spmm_jnp``.  A CUDA tensor goes to the kernel or
-the call raises; there is no fallback.  ``spmm.launches`` counts kernel
-launches.
+Kernel.  :func:`spmm_packed` replaces the Pallas TPU kernel ``spmm``
+(``src/repro/kernels/gnn_aggregate.py:54-94``, ``pallas_call`` at line 77)
+with ``csrc/spmm_csr.cu``, written by hand for Hopper (``sm_90a``).  A
+random layout leaves the stored blocks 99.9% zeros, so the kernel multiplies
+the packed nonzeros only: one warp per destination row, a lane per feature
+column, the feature rows of a batch of nonzeros loaded before any is
+consumed.  Each output element is one thread's fmaf chain in the packed
+order: no atomics, the same bits run to run.  Its least time is set by
+bytes: the nonzeros, the row pointers, the feature table and the output,
+each once; the operations (2 * nnz * d) are far below the fp32 rate.
+
+Dispatch.  :func:`spmm_packed` and :func:`spmm` send a CPU tensor to the
+plain version (:func:`spmm_packed_plain`, :func:`spmm_plain`).  A CUDA
+tensor goes to the kernel or the call raises; there is no fallback.  On the
+card :func:`spmm` packs (on the host) and then launches the kernel.
+``spmm.launches`` counts kernel launches.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -36,7 +48,7 @@ from repro_torch.kernels import _build
 
 
 def spmm_plain(values, block_cols, feats, bm: int, bk: int):
-    """Plain torch execution of the BSR layout: one gather of (bk, d)
+    """Plain torch execution of the dense BSR layout: one gather of (bk, d)
     feature tiles by ``block_cols`` and one fp32 einsum (the mirror of the
     reference's ``spmm_jnp``).  It may differ from the kernel only in
     summation order."""
@@ -58,53 +70,206 @@ def spmm_plain(values, block_cols, feats, bm: int, bk: int):
 
 
 def spmm(values, block_cols, feats, bm: int, bk: int):
-    """Block-sparse A @ H.  CPU tensors take :func:`spmm_plain`; CUDA tensors
-    launch the ``spmm_bsr`` kernel (one launch for all partitions) or
-    raise."""
+    """Block-sparse A @ H on the dense layout (the reference's ``spmm``).
+    CPU tensors take :func:`spmm_plain`; CUDA tensors are packed by
+    :func:`pack_bsr` and go through :func:`spmm_packed` (one launch for all
+    partitions), or the call raises."""
     if feats.device.type == "cpu":
         return spmm_plain(values, block_cols, feats, bm, bk)
     if feats.device.type != "cuda":
         raise ValueError(f"spmm: unsupported device {feats.device}")
-    return _spmm_cuda(values, block_cols, feats, bm, bk)
+    for name, t in (("values", values), ("block_cols", block_cols)):
+        if t.device != feats.device:
+            raise ValueError(f"spmm: {name} on {t.device}, feats on "
+                             f"{feats.device}")
+    if block_cols.dim() != feats.dim() or feats.dim() not in (2, 3):
+        raise ValueError("spmm: block_cols and feats must both be batched "
+                         "(3-D) or both unbatched (2-D)")
+    lead = tuple(block_cols.shape[:-2])
+    nb, maxb = block_cols.shape[-2:]
+    if tuple(values.shape) != lead + (nb * maxb, bm, bk):
+        raise ValueError(f"spmm: values {tuple(values.shape)} != "
+                         f"{lead + (nb * maxb, bm, bk)}")
+    if feats.shape[-2] % bk:
+        raise ValueError(f"spmm: feats rows {feats.shape[-2]} not a multiple "
+                         f"of bk={bk}")
+    return spmm_packed(pack_bsr(values, block_cols, bm, bk), feats)
 
 
 spmm.launches = 0
 
 
-def _spmm_cuda(values, block_cols, feats, bm: int, bk: int):
-    batched = block_cols.dim() == 3
+# ------------------------------------------------------------ packed operand
+@dataclasses.dataclass
+class PackedBSR:
+    """A BSR's nonzeros, row-compressed per partition (the kernel's operand).
+
+    Row ``r`` of partition ``p`` owns entries ``row_ptr[p, r]`` up to
+    ``row_ptr[p, r + 1]`` of ``col``/``w``; entries past ``row_ptr[p, -1]``
+    are ``col = 0``, ``w = 0`` and are never read.  Fields are numpy arrays
+    or torch tensors, as :func:`pack_bsr` was given."""
+
+    row_ptr: Any            # (P, n_rows + 1) int32
+    col: Any                # (P, nnz_cap) int32: feature-table row
+    w: Any                  # (P, nnz_cap) f32: link weight
+    src_rows: int           # the feature table needs at least these rows
+    n_rows: int             # destination rows per partition
+
+    @property
+    def nnz_cap(self) -> int:
+        return int(self.col.shape[1])
+
+    def to(self, device) -> "PackedBSR":
+        """The same operand as torch tensors on ``device``."""
+        return dataclasses.replace(
+            self, **{f: torch.as_tensor(getattr(self, f)).to(device)
+                     for f in ("row_ptr", "col", "w")})
+
+
+def pack_bsr(values, block_cols, bm: int, bk: int,
+             nnz_cap: Optional[int] = None) -> PackedBSR:
+    """Pack a dense-layout BSR (numpy arrays or torch tensors, with or
+    without the leading P axis) into a :class:`PackedBSR` of the same kind,
+    always with a P axis.  ``nnz_cap`` (default: the largest partition's
+    nonzero count) sets the entry arrays' width; a partition with more
+    nonzeros raises.  Tensors are packed on the host and the operand goes
+    back to their device: the pack runs once per plan or graph, not per
+    product."""
+    if isinstance(values, torch.Tensor):
+        return _pack_numpy(values.cpu().numpy(),
+                           torch.as_tensor(block_cols).cpu().numpy(), bm, bk,
+                           nnz_cap).to(values.device)
+    return _pack_numpy(np.asarray(values), np.asarray(block_cols), bm, bk,
+                       nnz_cap)
+
+
+def _pack_numpy(values, block_cols, bm, bk, nnz_cap):
+    if block_cols.ndim == 2:
+        values, block_cols = values[None], block_cols[None]
+    P, nb, maxb = block_cols.shape
+    n_rows = nb * bm
+    vals = np.ascontiguousarray(values).reshape(P, nb, maxb, bm, bk)
+    # The scan over every stored entry is the pack's cost.  numpy finds the
+    # set entries of a boolean mask about ten times as fast as the nonzeros
+    # of a float array, and a mask of 1M entries at a time is reused from
+    # the heap, where one of the whole array is faulted in afresh per call.
+    flat, step = vals.reshape(-1), 1 << 20
+    hits = np.concatenate([np.zeros(0, np.intp)] + [
+        np.flatnonzero(flat[s:s + step] != 0) + s
+        for s in range(0, flat.size, step)])
+    p, i, j, r, k = np.unravel_index(hits, vals.shape)
+    row = (p * nb + i) * bm + r
+    order = np.argsort(row, kind="stable")        # keeps (j, k) in a row
+    p, i, j, r, k, row = (a[order] for a in (p, i, j, r, k, row))
+    counts = np.bincount(row, minlength=P * n_rows).reshape(P, n_rows)
+    per_part = counts.sum(axis=1)
+    cap = _nnz_cap(per_part, nnz_cap)
+    row_ptr = np.zeros((P, n_rows + 1), np.int32)
+    np.cumsum(counts, axis=1, out=row_ptr[:, 1:])
+    e = np.arange(len(row)) - np.concatenate([[0], np.cumsum(per_part)])[p]
+    col = np.zeros((P, cap), np.int32)
+    w = np.zeros((P, cap), np.float32)
+    col[p, e] = block_cols[p, i, j].astype(np.int64) * bk + k
+    w[p, e] = vals[p, i, j, r, k]
+    return PackedBSR(row_ptr, col, w, _src_rows(block_cols, bk), n_rows)
+
+
+def _nnz_cap(per_part: np.ndarray, nnz_cap: Optional[int]) -> int:
+    need = int(per_part.max()) if per_part.size else 0
+    if nnz_cap is None:
+        return need
+    if need > nnz_cap:
+        raise ValueError(f"pack_bsr: a partition holds {need} nonzeros, "
+                         f"more than nnz_cap={nnz_cap}")
+    return int(nnz_cap)
+
+
+def _src_rows(block_cols, bk: int) -> int:
+    """Feature-table rows the operand may read: through the last block
+    that ``block_cols`` names."""
+    flat = block_cols.reshape(-1)
+    return (int(flat.max()) + 1) * bk if len(flat) else bk
+
+
+def spmm_packed_plain(packed: PackedBSR, feats):
+    """Plain torch execution of the packed layout: an ``index_select`` of
+    the feature rows by ``col``, times ``w``, then a sum per destination
+    row.  The entries are already sorted by row, so the sum is
+    ``segment_reduce`` over the row lengths, the deterministic segment sum
+    of ``gnn.models.sorted_segment_sum`` without its sort.  Entries past
+    ``row_ptr[p, -1]`` are never read."""
+    batched = feats.dim() == 3
     if not batched:
-        values, block_cols, feats = values[None], block_cols[None], feats[None]
-    for name, t, dtype in (("values", values, torch.float32),
-                           ("block_cols", block_cols, torch.int32),
+        feats = feats[None]
+    P, src_rows, d = feats.shape
+    row_ptr, col, w = (torch.as_tensor(a).to(feats.device)
+                       for a in (packed.row_ptr, packed.col, packed.w))
+    live = (torch.arange(col.shape[1], device=feats.device)[None, :]
+            < row_ptr[:, -1:])
+    part = torch.arange(P, device=feats.device)[:, None]
+    src = (part * src_rows + col.long())[live]
+    msgs = (feats.reshape(P * src_rows, d).to(torch.float32).index_select(
+        0, src) * w[live].to(torch.float32)[:, None])
+    lengths = (row_ptr[:, 1:] - row_ptr[:, :-1]).reshape(-1).long()
+    out = torch.segment_reduce(msgs, "sum", lengths=lengths, axis=0)
+    out = out.reshape(P, packed.n_rows, d).to(feats.dtype)
+    return out if batched else out[0]
+
+
+def spmm_packed(packed: PackedBSR, feats):
+    """out[p, r] = sum over row r's entries e of w[p, e] * feats[p, col[p, e]].
+
+    ``feats`` is (P, rows, d), or (rows, d) for a P = 1 operand, with
+    ``rows >= packed.src_rows``.  CPU tensors take
+    :func:`spmm_packed_plain`; CUDA tensors launch the ``spmm_csr`` kernel
+    (one launch for all partitions) or raise."""
+    if feats.device.type == "cpu":
+        return spmm_packed_plain(packed, feats)
+    if feats.device.type != "cuda":
+        raise ValueError(f"spmm_packed: unsupported device {feats.device}")
+    return _spmm_packed_cuda(packed, feats)
+
+
+def _spmm_packed_cuda(packed: PackedBSR, feats):
+    batched = feats.dim() == 3
+    if not batched:
+        feats = feats[None]
+    if feats.dim() != 3:
+        raise ValueError(f"spmm_packed: feats {tuple(feats.shape)} is not "
+                         "(P, rows, d) or (rows, d)")
+    for name, t, dtype in (("row_ptr", packed.row_ptr, torch.int32),
+                           ("col", packed.col, torch.int32),
+                           ("w", packed.w, torch.float32),
                            ("feats", feats, torch.float32)):
-        if t.device != feats.device:
-            raise ValueError(f"spmm: {name} on {t.device}, feats on "
+        if not isinstance(t, torch.Tensor) or t.device != feats.device:
+            raise ValueError(f"spmm_packed: {name} is not a tensor on "
                              f"{feats.device}")
         if t.dtype != dtype:
-            raise TypeError(f"spmm: {name} is {t.dtype}, kernel takes {dtype}")
+            raise TypeError(f"spmm_packed: {name} is {t.dtype}, the kernel "
+                            f"takes {dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"spmm: {name} is not contiguous")
-    if block_cols.dim() != 3 or feats.dim() != 3:
-        raise ValueError("spmm: block_cols and feats must both be batched "
-                         "(3-D) or both unbatched (2-D)")
-    P, nb, maxb = block_cols.shape
-    src_rows, d = feats.shape[1], feats.shape[2]
-    if values.shape != (P, nb * maxb, bm, bk):
-        raise ValueError(f"spmm: values {tuple(values.shape)} != "
-                         f"{(P, nb * maxb, bm, bk)}")
-    if feats.shape[0] != P or src_rows % bk or not 1 <= bm <= 32:
-        raise ValueError(f"spmm: feats {tuple(feats.shape)}, bm={bm}, bk={bk}")
-    out = torch.empty((P, nb * bm, d), dtype=torch.float32,
+            raise ValueError(f"spmm_packed: {name} is not contiguous")
+    P, src_rows, d = feats.shape
+    n_rows, cap = packed.n_rows, packed.nnz_cap
+    if (packed.row_ptr.shape != (P, n_rows + 1)
+            or packed.col.shape != (P, cap) or packed.w.shape != (P, cap)
+            or src_rows < packed.src_rows):
+        raise ValueError(
+            f"spmm_packed: row_ptr {tuple(packed.row_ptr.shape)}, col "
+            f"{tuple(packed.col.shape)}, w {tuple(packed.w.shape)} and feats "
+            f"{tuple(feats.shape)} do not fit P={P}, n_rows={n_rows}, "
+            f"src_rows>={packed.src_rows}")
+    out = torch.empty((P, n_rows, d), dtype=torch.float32,
                       device=feats.device)
     if out.numel():
         lib = _build.load_library()
         with torch.cuda.device(feats.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.spmm_bsr_f32(values.data_ptr(), block_cols.data_ptr(),
-                                   feats.data_ptr(), out.data_ptr(), P, nb,
-                                   maxb, bm, bk, src_rows, d, stream)
-        _build.check(lib, err, "spmm_bsr launch")
+            err = lib.spmm_csr_f32(
+                packed.row_ptr.data_ptr(), packed.col.data_ptr(),
+                packed.w.data_ptr(), feats.data_ptr(), out.data_ptr(), P,
+                n_rows, cap, src_rows, d, stream)
+        _build.check(lib, err, "spmm_csr launch")
         spmm.launches += 1
     return out if batched else out[0]
 
@@ -117,7 +282,7 @@ def build_bsr(
     bm: int = 8,
     bk: int = 128,
 ):
-    """Pack a directed edge list into the kernel's BSR layout.
+    """Pack a directed edge list into the dense BSR layout.
 
     Returns (values, block_cols, n_pad) where n_pad = rows padded to
     lcm-friendly multiples of bm (dst) and bk (src).  Padded blocks carry

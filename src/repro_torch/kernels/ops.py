@@ -16,7 +16,8 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
-from repro_torch.kernels.gnn_aggregate import build_bsr, spmm, spmm_plain
+from repro_torch.kernels.gnn_aggregate import (
+    build_bsr, pack_bsr, spmm_packed, spmm_plain)
 
 _IMPLS = ("auto", "kernel", "plain", "ref")
 
@@ -46,7 +47,8 @@ class BSRAggregate:
     """Precompiled block-sparse aggregation bound to a fixed graph.
 
     Usage: build once per (graph, ordering), then call on feature matrices
-    (weights=1: plain neighbour sum).  The BSR tables live on ``device``.
+    (weights=1: plain neighbour sum).  The dense BSR tables and their packed
+    nonzeros (:func:`pack_bsr`, packed once here) live on ``device``.
     """
 
     def __init__(self, src_dst: np.ndarray, n: int, bm: int = 8,
@@ -59,17 +61,18 @@ class BSRAggregate:
             np.asarray(src_dst), weights, n, bm, bk)
         self.values = torch.from_numpy(vals).to(self.device)
         self.block_cols = torch.from_numpy(cols).to(self.device)
+        self.packed = pack_bsr(vals, cols, bm, bk).to(self.device)
         self.stored_blocks = int(cols.size)
         self.nnz_density = float((vals != 0).mean())
 
     def __call__(self, feats: torch.Tensor, impl: str = "auto") -> torch.Tensor:
         """feats (n, d) -> (n, d) aggregated by incoming links.
 
-        ``impl``: 'kernel' (the CUDA kernel; CUDA tensors only), 'plain'
-        (the vectorised torch execution of the same BSR layout), 'ref' (the
-        per-block oracle loop), or 'auto' (the kernel for CUDA tensors,
-        plain for CPU tensors).  Ragged ``d`` needs no padding: the kernel
-        masks it."""
+        ``impl``: 'kernel' (the CUDA kernel on the packed nonzeros; CUDA
+        tensors only), 'plain' (the vectorised torch execution of the dense
+        BSR layout), 'ref' (the per-block oracle loop), or 'auto' (the
+        kernel for CUDA tensors, the packed layout's plain version for CPU
+        tensors).  Ragged ``d`` needs no padding: the kernel masks it."""
         if impl not in _IMPLS:
             raise ValueError(f"unknown impl {impl!r}; expected one of {_IMPLS}")
         if impl == "kernel" and feats.device.type != "cuda":
@@ -77,7 +80,7 @@ class BSRAggregate:
         x = feats.new_zeros((self.n_src_pad, feats.shape[1]))
         x[: feats.shape[0]] = feats
         if impl in ("auto", "kernel"):
-            out = spmm(self.values, self.block_cols, x, self.bm, self.bk)
+            out = spmm_packed(self.packed, x)
         elif impl == "plain":
             out = spmm_plain(self.values, self.block_cols, x, self.bm, self.bk)
         else:

@@ -1,5 +1,5 @@
-"""Checks that need a CUDA card: the spmm_bsr and flash_attention kernels
-against their plain torch versions, the wrappers' input checks, and the
+"""Checks that need a CUDA card: the spmm_csr (K1) and flash_attention
+kernels against their plain torch versions, the wrappers' input checks, and the
 port's card paths (BSP forward, LM prefill and decode) against its CPU
 paths.  Without a card every test here skips.  The file
 imports neither ``jax`` nor ``repro``, so it runs on a machine with the card
@@ -21,7 +21,9 @@ from repro_torch.gnn import (  # noqa: E402
     simulate_bsp_forward)
 from repro_torch.gnn.models import segment_sum  # noqa: E402
 from repro_torch.graphs import synthetic_siot  # noqa: E402
-from repro_torch.kernels import BSRAggregate, build_bsr, spmm, spmm_plain  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    BSRAggregate, PackedBSR, build_bsr, pack_bsr, spmm, spmm_packed,
+    spmm_packed_plain, spmm_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch import models as lm  # noqa: E402
@@ -58,11 +60,20 @@ def _bsr_case(seed, P, n, arcs, bm, bk, d):
     return [torch.from_numpy(x) for x in (V, C, F)]
 
 
+def _assert_close(out, ref):
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    assert float((out - ref).abs().max()) <= 1e-5 * scale + 1e-5
+
+
 @pytest.mark.parametrize("P,n,arcs,bm,bk,d", [
     (1, 250, 1000, 8, 256, 128), (4, 3000, 20000, 8, 128, 52),
-    (3, 500, 3000, 16, 128, 100), (2, 300, 2000, 4, 8, 13)])
+    (3, 500, 3000, 16, 128, 100), (2, 300, 2000, 4, 8, 13),
+    (2, 300, 2000, 64, 8, 16)])
 def test_spmm_kernel_matches_plain_and_is_deterministic(dev, P, n, arcs, bm,
                                                         bk, d):
+    """The dense-layout entry point: packed by pack_bsr, then K1; against
+    both plain versions, bit for bit across launches, batched and not.
+    bm = 64 was beyond the dense-block kernel."""
     args = [t.to(dev) for t in _bsr_case(n, P, n, arcs, bm, bk, d)]
     before = spmm.launches
     out = spmm(*args, bm, bk)
@@ -70,25 +81,78 @@ def test_spmm_kernel_matches_plain_and_is_deterministic(dev, P, n, arcs, bm,
     torch.cuda.synchronize()
     assert spmm.launches == before + 2
     assert torch.equal(out, again)
-    ref = spmm_plain(*args, bm, bk)
-    scale = float(ref.abs().max())
-    assert float((out - ref).abs().max()) <= 1e-5 * scale + 1e-5
+    _assert_close(out, spmm_plain(*args, bm, bk))
+    _assert_close(out, spmm_packed_plain(pack_bsr(*args[:2], bm, bk), args[2]))
     unbatched = spmm(args[0][0], args[1][0], args[2][0], bm, bk)
     assert torch.equal(unbatched, out[0])
 
 
+def _csr_case(dev, seed, P, n_rows, src_rows, d, lengths):
+    """A packed operand with the given row lengths (cycled over rows) in
+    every partition, weighted, with spare entries past the last row."""
+    rng = np.random.default_rng(seed)
+    counts = np.resize(np.asarray(lengths), n_rows)
+    nnz = int(counts.sum())
+    row_ptr = np.zeros((P, n_rows + 1), np.int32)
+    row_ptr[:, 1:] = np.cumsum(counts)
+    col = np.zeros((P, nnz + 7), np.int32)
+    w = np.zeros((P, nnz + 7), np.float32)
+    col[:, :nnz] = rng.integers(0, src_rows, size=(P, nnz))
+    w[:, :nnz] = rng.uniform(0.1, 2.0, size=(P, nnz))
+    packed = PackedBSR(row_ptr, col, w, src_rows, n_rows).to(dev)
+    feats = torch.from_numpy(rng.normal(size=(P, src_rows, d)).astype(
+        np.float32)).to(dev)
+    return packed, feats
+
+
+@pytest.mark.parametrize("d", [1, 16, 52, 100, 256, 300])
+def test_spmm_packed_kernel_widths_hub_and_empty_rows(dev, d):
+    """Every column template (d = 300 takes two 256-column tiles), a hub row
+    of 300 nonzeros, empty rows and rows of every length up to 40."""
+    lengths = [300, 0, 5, 0, 0, 1, 33, 64, 2, 0] + list(range(41))
+    packed, feats = _csr_case(dev, d, 3, 200, 700, d, lengths)
+    before = spmm.launches
+    out = spmm_packed(packed, feats)
+    again = spmm_packed(packed, feats)
+    torch.cuda.synchronize()
+    assert spmm.launches == before + 2
+    assert out.shape == (3, 200, d)
+    assert torch.equal(out, again)
+    ref = spmm_packed_plain(packed, feats)
+    _assert_close(out, ref)
+    empty = (packed.row_ptr[:, 1:] == packed.row_ptr[:, :-1])
+    assert bool((out[empty] == 0).all())
+    unbatched = PackedBSR(packed.row_ptr[:1], packed.col[:1], packed.w[:1],
+                          packed.src_rows, packed.n_rows)
+    assert torch.equal(spmm_packed(unbatched, feats[0]), out[0])
+
+
 def test_spmm_wrapper_rejects_what_the_kernel_does_not_take(dev):
-    v, c, f = [t.to(dev) for t in _bsr_case(1, 2, 100, 300, 8, 128, 16)]
+    packed, f = _csr_case(dev, 1, 2, 64, 300, 16, [3, 0, 7])
+    bad = lambda **kw: PackedBSR(**{**vars(packed), **kw})  # noqa: E731
     with pytest.raises(TypeError):
-        spmm(v, c.long(), f, 8, 128)
+        spmm_packed(bad(col=packed.col.long()), f)
     with pytest.raises(TypeError):
-        spmm(v, c, f.double(), 8, 128)
+        spmm_packed(bad(w=packed.w.double()), f)
+    with pytest.raises(TypeError):
+        spmm_packed(packed, f.double())
     with pytest.raises(ValueError):
-        spmm(v, c, f.transpose(1, 2).contiguous().transpose(1, 2), 8, 128)
+        spmm_packed(packed, f.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError):
-        spmm(v.cpu(), c, f, 8, 128)
+        spmm_packed(bad(col=packed.col[:, ::2]), f)
     with pytest.raises(ValueError):
-        spmm(v, c, f, 16, 64)
+        spmm_packed(bad(row_ptr=packed.row_ptr.cpu()), f)
+    with pytest.raises(ValueError):
+        spmm_packed(bad(row_ptr=packed.row_ptr[:, :-1].contiguous()), f)
+    with pytest.raises(ValueError):
+        spmm_packed(packed, f[:, :100])                  # rows < src_rows
+    with pytest.raises(ValueError):
+        spmm_packed(packed, f[:1])                       # P mismatch
+    v, c, fd = [t.to(dev) for t in _bsr_case(1, 2, 100, 300, 8, 128, 16)]
+    with pytest.raises(ValueError):
+        spmm(v.cpu(), c, fd, 8, 128)
+    with pytest.raises(ValueError):
+        spmm(v, c, fd, 16, 64)
 
 
 def test_segment_sum_on_card_is_deterministic(dev):

@@ -22,7 +22,7 @@ from repro_torch.gnn import models as TM  # noqa: E402
 from repro_torch.gnn import plan as TP  # noqa: E402
 from repro_torch.gnn import serving as TS  # noqa: E402
 from repro_torch.graphs import DataGraph, synthetic_siot  # noqa: E402
-from repro_torch.kernels.gnn_aggregate import spmm  # noqa: E402
+from repro_torch.kernels.gnn_aggregate import pack_bsr, spmm  # noqa: E402
 from tests.conftest import random_graph  # noqa: E402
 
 TOL = 2e-4                     # the reference's gate (test_distributed_gnn)
@@ -130,6 +130,106 @@ def test_builds_track_reference_retrace_over_patches(model, exchange):
         np.testing.assert_allclose(
             TP.gather_outputs(plan, out.numpy(), g.n), ref, rtol=TOL, atol=TOL)
     assert saw == {False, True}
+
+
+def _bsr_plan(seed, n=80, P=4):
+    rng = np.random.default_rng(seed)
+    g = port_graph(random_graph(rng, n, n))
+    plan = TP.compile_plan(g, partition_from_assign(
+        g, rng.integers(0, P, size=g.n), P, {}), slack=0.3)
+    TP.build_plan_bsr(plan, 4, 8)
+    return rng, g, plan
+
+
+def test_plan_tensors_hold_packed_operand():
+    """Mode 'bsr' keeps the BSR's nonzeros at (P, e_cap) on the device and
+    not the dense values."""
+    _, g, plan = _bsr_plan(3)
+    ops = TD._PlanTensors(plan, "bsr", "ppermute", torch.device("cpu"))
+    b, P = plan.bsr, plan.num_parts
+    assert "bsr_values" not in ops.t and "bsr_cols" not in ops.t
+    assert ops.t["bsr_row_ptr"].shape == (P, b.nb * b.bm + 1)
+    assert ops.t["bsr_col"].shape == ops.t["bsr_w"].shape == (P, plan.e_cap)
+    assert ops.t["bsr_row_ptr"].dtype == ops.t["bsr_col"].dtype == torch.int32
+    assert ops.t["bsr_w"].dtype == torch.float32
+    assert ops.packed.row_ptr is ops.t["bsr_row_ptr"]
+    assert (ops.packed.src_rows, ops.packed.n_rows) == (b.src_rows,
+                                                       b.nb * b.bm)
+    want = pack_bsr(b.values, b.block_cols, b.bm, b.bk, nnz_cap=plan.e_cap)
+    for f, name in (("row_ptr", "bsr_row_ptr"), ("col", "bsr_col"),
+                    ("w", "bsr_w")):
+        np.testing.assert_array_equal(ops.t[name].numpy(), getattr(want, f))
+
+
+def test_value_only_patch_refreshes_packed_tensors_to_a_fresh_pack():
+    rng, g, plan = _bsr_plan(5)
+    cfg = TM.GNNConfig("gcn", (8, 4))
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    fwd = TD.make_bsp_forward(cfg, plan, aggregate="bsr", device="cpu")
+    fwd(params, TP.scatter_features(plan, g.features))
+    ops = fwd.stats["ops"]
+    addrs = {k: t.data_ptr() for k, t in ops.t.items()}
+    refreshed = 0
+    for _ in range(6):
+        new = plan.assign.copy()
+        movers = rng.choice(g.n, size=3, replace=False)
+        new[movers] = rng.integers(0, plan.num_parts, size=3)
+        if TP.patch_plan(plan, g, new).retrace_expected:
+            break
+        fwd(params, TP.scatter_features(plan, g.features))
+        assert fwd.stats["builds"] == 1 and fwd.stats["ops"] is ops
+        assert {k: t.data_ptr() for k, t in ops.t.items()} == addrs
+        fresh = TP.recompile_like(plan, g, new)
+        fb = fresh.bsr
+        want = pack_bsr(fb.values, fb.block_cols, fb.bm, fb.bk,
+                        nnz_cap=fresh.e_cap)
+        for f, name in (("row_ptr", "bsr_row_ptr"), ("col", "bsr_col"),
+                        ("w", "bsr_w")):
+            np.testing.assert_array_equal(ops.t[name].numpy(),
+                                          getattr(want, f), err_msg=name)
+        refreshed += 1
+    assert refreshed >= 2
+
+
+def test_forwards_over_one_plan_share_one_pack_per_version(monkeypatch):
+    """A GCN and a SAGE forward over one plan pack its BSR once per plan
+    version, not once each; growth (a new BSR) packs anew."""
+    rng, g, plan = _bsr_plan(7)
+    packs = []
+
+    def counting_pack(*args, **kw):
+        packs.append(plan.version)
+        return pack_bsr(*args, **kw)
+
+    monkeypatch.setattr(TD, "pack_bsr", counting_pack)
+    fwds = []
+    for model in ("gcn", "sage"):
+        cfg = TM.GNNConfig(model, (8, 4))
+        params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        fwds.append((TD.make_bsp_forward(cfg, plan, aggregate="bsr",
+                                         device="cpu"), params))
+
+    def run_all():
+        for fwd, params in fwds:
+            fwd(params, TP.scatter_features(plan, g.features))
+
+    run_all()
+    run_all()
+    assert packs == [plan.version]
+    new = plan.assign.copy()
+    movers = rng.choice(g.n, size=2, replace=False)
+    new[movers] = (new[movers] + 1) % plan.num_parts
+    assert not TP.patch_plan(plan, g, new).retrace_expected
+    run_all()
+    assert packs == [plan.version - 1, plan.version]
+    grow = plan.assign.copy()
+    grow[: g.n // 2] = 0
+    assert TP.patch_plan(plan, g, grow).retrace_expected
+    run_all()
+    assert len(packs) == 3 and packs[-1] == plan.version
+    assert all(f.stats["builds"] == 2 for f, _ in fwds)
 
 
 def test_replica_plans_raise_until_ported(small_siot):
