@@ -11,7 +11,8 @@ csrc`` and drives the port's two paths: the GNN pipeline at the paper's full
 widths, then LM serving on llama3.2-1b at its published width:
 
   device  the card's name, count and power limit (exit 1 without a card);
-  build   nvcc for sm_90a, with the build seconds and ptxas' register use;
+  build   nvcc for sm_90a, with the build seconds and each kernel's ptxas
+          registers and spill bytes;
   kernels each kernel against its plain torch version at the main path's
           shapes and at small shape cases: max abs error, bitwise
           determinism, median CUDA-event times of the kernel, the plain
@@ -33,19 +34,29 @@ widths, then LM serving on llama3.2-1b at its published width:
   serve   256 Zipf requests through the ego-serving engine over the live
           plan, held against the BSP forward's rows;
   kernels flash_attention against its plain torch version at the LM path's
-          prefill (L = 512, 1024) and decode (cache strides, ragged kv_len)
-          shapes, the reference's 7 test cases and a fully masked row, with
-          the same error, determinism, time and bound fields as K1 and
-          scaled_dot_product_attention as the library call;
+          prefill (L = 512, 1024: the bf16 tensor-core kernel) and decode
+          (cache strides, ragged kv_len: the split-key kernel) shapes, with
+          the same error, determinism, time, device time and bound fields as
+          K1 and scaled_dot_product_attention as the library call (at decode
+          also over the cache cut to the longest live row); a decoded batch
+          equals each row decoded alone, bit for bit; the split decode at
+          every kv_len edge of its splits, f32 and bf16; the tensor-core
+          prefill at D = 96 and 128; fp32 prefill (lm_parity's) on the
+          general kernel at L = 128 and 512; the reference's 7 test cases
+          and a fully masked row; each case that names a kernel is held
+          to have launched it;
   lm_parity  llama3.2-1b at full width cut to 2 layers, fp32: prefill of two
           bucketed prompts and 8 greedy decode steps on the card (K2) and on
           the CPU (plain attention) agree, with n_layers launches per call;
   lm_serve   the full 16-layer bf16 llama3.2-1b behind ServeEngine (8 slots,
           2048 positions) serves 16 requests of 32 tokens; K2 launches
-          16 x (prefills + ticks); two requests are re-scored by a
-          teacher-forced forward; prefill and decode-tick times;
+          16 x (prefills + ticks), every prefill's on the tensor-core
+          kernel and every tick's on the split decode; two requests are
+          re-scored by a teacher-forced forward; prefill and decode-tick
+          times;
   lm_profile  torch.profiler over 4 decode ticks with 8 live slots: the
-          device's busy share and kernel time by name.
+          device's busy share, kernel time by name and K2's device time
+          per tick.
 
 Each phase prints JSON lines.  Any failed check exits non-zero.  Before
 the last line it prints the kernels summary and the ``nvidia-smi`` name and
@@ -80,7 +91,7 @@ from repro_torch.gnn import (  # noqa: E402
 from repro_torch.graphs import DataGraph, synthetic_siot, synthetic_yelp  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    decode_split, flash_attention, flash_attention_plain, kernel_path)
 from repro_torch.kernels.gnn_aggregate import (  # noqa: E402
     build_bsr, pack_bsr, spmm, spmm_packed, spmm_packed_plain, spmm_plain)
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
@@ -140,26 +151,29 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 25, warmup: int = 3):
+def device_ms(fn, reps: int = 25, warmup: int = 3, tries: int = 3):
     """Device time per call of ``fn``: the CUDA time ``torch.profiler``
     records over ``reps`` calls (kernels, copies and fills), divided by
     ``reps``.  Unlike :func:`time_ms` it leaves out the host's time to
     enqueue the call, which a kernel of a few microseconds can be shorter
-    than.  "not measured" where the trace holds no device time."""
+    than.  A window whose device events are not a whole number per call
+    lost some and is measured again, up to ``tries`` times.  "not
+    measured" where no window holds a whole trace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        return "not measured"
-    return sum(e.self_device_time_total for e in dev) / 1e3 / reps
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev and all(e.count % reps == 0 for e in dev):
+            return sum(e.self_device_time_total for e in dev) / 1e3 / reps
+    return "not measured"
 
 
 def allclose_err(out, ref, tol: float) -> float:
@@ -188,10 +202,9 @@ def phase_device():
 
 def phase_build():
     res = _build.build()
-    ptxas = [ln.strip() for ln in res.log.splitlines()
-             if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": res.seconds,
-          "library": os.path.relpath(res.path), "ptxas": ptxas})
+          "library": os.path.relpath(res.path),
+          "ptxas": res.kernels()})
 
 
 def make_dataset(name: str, dev):
@@ -537,9 +550,15 @@ def _sdpa(q, k, v, kv_len, causal):
         enable_gqa=True)
 
 
-def _check_flash(label, q, k, v, kv_len, causal):
+def _check_flash(label, q, k, v, kv_len, causal, path=None):
+    """Two launches against the plain version; with ``path``, both must
+    have taken that kernel."""
+    before = flash_attention.launches_by_path.get(path, 0)
     out = flash_attention(q, k, v, kv_len, causal=causal)
     again = flash_attention(q, k, v, kv_len, causal=causal)
+    if path is not None:
+        require(flash_attention.launches_by_path[path] == before + 2,
+                f"flash_attention {label}: did not take the {path} kernel")
     ref = flash_attention_plain(q, k, v, kv_len, causal)
     torch.cuda.synchronize()
     tol = FLASH_TOL[q.dtype]
@@ -588,7 +607,8 @@ def phase_flash_kernels(dev):
                        cache[0].transpose(1, 2), kv_len, False))
     rows, worst = [], 0.0
     for label, q, k, v, kl, causal in main_cases:
-        out, err = _check_flash(label, q, k, v, kl, causal)
+        path = kernel_path(q.dtype, Hq, Hkv, q.shape[2], D)
+        out, err = _check_flash(label, q, k, v, kl, causal, path)
         worst = max(worst, err)
         lib_err = float((_sdpa(q, k, v, kl, causal).float()
                          - out.float()).abs().max())
@@ -597,19 +617,42 @@ def phase_flash_kernels(dev):
         ops, nbytes = _flash_work(q, k, kl, causal)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / BF16_OPS_PER_S * 1e3
+        kernel = lambda: flash_attention(q, k, v, kl, causal=causal)  # noqa: E731
+        library = lambda: _sdpa(q, k, v, kl, causal)  # noqa: E731
         row = {
             "shape": label, "dtype": "bf16", "max_abs_err": err,
-            "bitwise_equal": True, "library_max_abs_diff": lib_err,
-            "ms": time_ms(lambda: flash_attention(q, k, v, kl, causal=causal)),
+            "path": path, "bitwise_equal": True, "library_max_abs_diff": lib_err,
+            "ms": time_ms(kernel), "device_ms": device_ms(kernel),
             "plain_ms": time_ms(
                 lambda: flash_attention_plain(q, k, v, kl, causal)),
-            "library_ms": time_ms(lambda: _sdpa(q, k, v, kl, causal)),
+            "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library),
             "library_call": "torch.nn.functional.scaled_dot_product_attention"
                             "(q, k, v, attn_mask=kv_len mask or is_causal, "
                             "enable_gqa=True)",
             "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
+        if kl is not None:
+            # The same function over the cache cut to the longest live
+            # row, the cut taken before timing: the fair library yardstick.
+            cut = int(kl.max())
+            kc, vc = k[:, :, :cut], v[:, :, :cut]
+            cut_call = lambda: _sdpa(q, kc, vc, kl, causal)  # noqa: E731
+            cut_err = float((cut_call().float() - out.float()).abs().max())
+            require(cut_err <= 0.1, f"{label}: the cut library call "
+                    f"disagrees with flash_attention by {cut_err}")
+            row.update(library_cut_keys=cut, library_cut_ms=time_ms(cut_call),
+                       library_cut_device_ms=device_ms(cut_call))
+            # A row's bits never depend on the batch.
+            for b in range(q.shape[0]):
+                alone = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                        kl[b:b + 1], causal=causal)
+                require(torch.equal(alone, out[b:b + 1]), f"{label}: batch "
+                        f"row {b} decoded alone differs from the batch")
+            row["batch_equals_rows_alone"] = True
+        require(torch.equal(kernel(), out), f"{label}: the output after the "
+                "timed launches differs from the first")
         rows.append(row)
         emit({"phase": "kernels", "kernel": "flash_attention", **row})
     # The reference's cases (tests/test_kernels.py), contiguous (B, H, L, D).
@@ -634,6 +677,45 @@ def phase_flash_kernels(dev):
         emit({"phase": "kernels", "kernel": "flash_attention", "shape": label,
               "max_abs_err": err, "tol": FLASH_TOL[dtype],
               "bitwise_equal": True})
+    # The split decode at every edge of its splits (kv_len 0, 1, Ks - 1,
+    # Ks, Ks + 1, Lk) over the serving cache and a 300-key one, f32 and
+    # bf16; the tensor-core prefill at the zoo's other head dims.
+    for dtype in (torch.float32, bf16):
+        ks = decode_split(D, dtype)
+        for Lk in (LLAMA_MAX_LEN, 300):
+            lens = [0, 1, ks - 1, ks, ks + 1, Lk]
+            q, k, v = _bhld_views(gen, dev, len(lens), Hq, Hkv, 1, Lk, D,
+                                  dtype)
+            kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            label = f"decode_edges_Lk{Lk}_{str(dtype).split('.')[-1]}"
+            out, err = _check_flash(label, q, k, v, kl, False, "decode")
+            require(torch.equal(out[0], torch.zeros_like(out[0])),
+                    f"{label}: the kv_len = 0 row is not 0")
+            worst = max(worst, err)
+            emit({"phase": "kernels", "kernel": "flash_attention",
+                  "shape": label, "path": "decode", "kv_len": lens,
+                  "split": ks,
+                  "max_abs_err": err, "tol": FLASH_TOL[dtype],
+                  "bitwise_equal": True, "masked_row_zero": True})
+    for arch in ("phi3-mini-3.8b", "qwen2.5-32b"):
+        c = get_config(arch)
+        q, k, v = _bhld_views(gen, dev, 1, c.n_heads, c.n_kv_heads, 512, 512,
+                              c.hd, bf16)
+        label = f"prefill_L512_{arch}_D{c.hd}"
+        _, err = _check_flash(label, q, k, v, None, True, "prefill_tc")
+        worst = max(worst, err)
+        emit({"phase": "kernels", "kernel": "flash_attention", "shape": label,
+              "path": "prefill_tc", "max_abs_err": err,
+              "tol": FLASH_TOL[bf16], "bitwise_equal": True})
+    # fp32 prefill, lm_parity's path, on the general kernel at its shapes.
+    for L in (128, 512):
+        q, k, v = _bhld_views(gen, dev, 1, Hq, Hkv, L, L, D, torch.float32)
+        label = f"prefill_L{L}_f32"
+        _, err = _check_flash(label, q, k, v, None, True, "general")
+        worst = max(worst, err)
+        emit({"phase": "kernels", "kernel": "flash_attention", "shape": label,
+              "path": "general", "max_abs_err": err,
+              "tol": FLASH_TOL[torch.float32], "bitwise_equal": True})
     # A fully masked row (kv_len = 0) gives exactly 0.
     q, k, v = _bhld_views(gen, dev, 2, Hq, Hkv, 1, 256, D, bf16)
     kl = torch.tensor([0, 256], dtype=torch.int32, device=dev)
@@ -748,6 +830,8 @@ def phase_lm_serve(dev, flash_rows):
 
     spmm.launches = 0                         # the LM path starts here
     flash_attention.launches = 0
+    flash_attention.launches_by_path = dict.fromkeys(
+        flash_attention.launches_by_path, 0)
     decode_s, admit_s = [], []
     t_run = time.perf_counter()
     while engine.queue or any(r is not None for r in engine.live):
@@ -759,6 +843,7 @@ def phase_lm_serve(dev, flash_rows):
             time.perf_counter() - t)
     run_s = time.perf_counter() - t_run
     launches = flash_attention.launches       # ... and ends here
+    by_path = dict(flash_attention.launches_by_path)
     s = engine.stats
     require(all(r.done and len(r.out_tokens) == 32 for r in reqs),
             f"lm_serve: token counts {[len(r.out_tokens) for r in reqs]}")
@@ -767,6 +852,10 @@ def phase_lm_serve(dev, flash_rows):
             f"lm_serve: {launches} flash_attention launches, expected "
             f"{cfg.n_layers} x ({s.prefills} prefills + {s.ticks} ticks)")
     require(spmm.launches == 0, "lm_serve launched spmm_csr")
+    require(by_path == {"prefill_tc": cfg.n_layers * s.prefills,
+                        "decode": cfg.n_layers * s.ticks, "general": 0},
+            f"lm_serve: flash_attention launches by kernel {by_path}, "
+            "expected every prefill on prefill_tc, every tick on decode")
 
     # Two requests re-scored by one teacher-forced forward each.
     exact, gaps = 0, []
@@ -803,12 +892,16 @@ def phase_lm_serve(dev, flash_rows):
           "decode_tick_ms_p90": float(np.percentile(decode_s, 90)) * 1e3,
           "admit_tick_ms_median": statistics.median(admit_s) * 1e3,
           "prefill_ms_by_bucket": prefill_ms,
-          "k2_share_of_decode_tick": cfg.n_layers * decode_row["ms"] / tick_ms,
+          "flash_attention_launches_by_path": by_path,
+          "k2_share_of_decode_tick": (
+              cfg.n_layers * decode_row["device_ms"] / tick_ms
+              if isinstance(decode_row["device_ms"], float)
+              else "not measured"),
           "teacher_forced_exact": exact, "teacher_forced_checked": 64,
           "teacher_forced_max_gap": max(gaps), "gap_tol": SERVE_GAP_TOL,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     _profile_decode(engine, cfg)
-    return launches
+    return launches, by_path
 
 
 def _profile_decode(engine, cfg, ticks: int = 4):
@@ -833,12 +926,16 @@ def _profile_decode(engine, cfg, ticks: int = 4):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k2 = [e for e in kernels if "flash_" in e.key]
+    k2_ms = sum(e.self_device_time_total for e in k2) / 1e3 / ticks
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     emit({"phase": "lm_profile", "ticks": ticks, "window_ms": wall_ms,
           "device_busy_ms": busy_ms if kernels else "not measured",
           "device_busy_share": busy_ms / wall_ms if kernels
           else "not measured",
           "kernel_launches_per_tick": sum(e.count for e in kernels) / ticks,
+          "k2_device_ms_per_tick": k2_ms if k2 else "not measured",
+          "k2_launches_per_tick": sum(e.count for e in k2) / ticks,
           "top_kernels_ms_per_tick": {
               e.key[:80]: e.self_device_time_total / 1e3 / ticks
               for e in top}})
@@ -864,7 +961,7 @@ def main() -> int:
     del params_of, siot, yelp
 
     phase_lm_parity(dev)
-    flash_launches = phase_lm_serve(dev, flash_rows)
+    flash_launches, flash_by_path = phase_lm_serve(dev, flash_rows)
     require(flash_launches > 0, "the LM path never launched flash_attention")
 
     head = kernel_rows[0]
@@ -886,12 +983,19 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:117",
-        "launches": flash_launches, "max_abs_err": flash_worst,
-        "ms": flash_head["ms"], "plain_ms": flash_head["plain_ms"],
+        "launches": flash_launches, "launches_by_path": flash_by_path,
+        "max_abs_err": flash_worst,
+        "ms": flash_head["ms"], "device_ms": flash_head["device_ms"],
+        "plain_ms": flash_head["plain_ms"],
         "bound_ms": flash_head["bound_ms"],
         "bound_by": flash_head["bound_by"],
         "library_ms": flash_head["library_ms"],
-        "shape": flash_head["shape"]}]})
+        "library_device_ms": flash_head["library_device_ms"],
+        "shape": flash_head["shape"],
+        "shapes": {r["shape"]: {key: r.get(key) for key in (
+            "path", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "library_cut_ms",
+            "library_cut_device_ms")} for r in flash_rows}}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -15,6 +15,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,6 +33,27 @@ class BuildResult:
     path: Path
     seconds: float          # 0.0 when an existing build was reused
     log: str                # nvcc/ptxas output (registers, spills)
+
+    def kernels(self) -> list:
+        """Registers and spill bytes per kernel (by its mangled name), from
+        ``-Xptxas -v``."""
+        rows, cur = [], None
+        for ln in self.log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                cur = {"kernel": m.group(1)}
+                rows.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+        return rows
 
 
 def _nvcc() -> str:
@@ -100,10 +122,15 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.spmm_csr_f32.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
     lib.spmm_csr_f32.restype = i32
-    lib.flash_attention_fwd.argtypes = (
-        [ptr] * 5 + [ctypes.POINTER(ctypes.c_int64)] + [i32] * 7
-        + [ctypes.c_float, i32, ptr])
-    lib.flash_attention_fwd.restype = i32
+    # q, k, v, out, kv_len, strides, B, Hq, Hkv, Lq, Lk, D, causal, scale
+    flash = ([ptr] * 5 + [ctypes.POINTER(ctypes.c_int64)] + [i32] * 7
+             + [ctypes.c_float])
+    lib.flash_attention_fwd.argtypes = flash + [i32, ptr]
+    lib.flash_attention_prefill_bf16.argtypes = flash + [ptr]
+    lib.flash_attention_decode.argtypes = flash + [i32, i32, ptr, ptr, ptr]
+    for fn in (lib.flash_attention_fwd, lib.flash_attention_prefill_bf16,
+               lib.flash_attention_decode):
+        fn.restype = i32
     lib.repro_torch_cuda_error_string.argtypes = [i32]
     lib.repro_torch_cuda_error_string.restype = ctypes.c_char_p
     return lib

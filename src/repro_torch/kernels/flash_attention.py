@@ -9,32 +9,47 @@ The counterpart of ``repro/kernels/flash_attention.py``, in the reference's
   out    (B, Hq, Lq, D)   q's dtype
 
 Causal masking is aligned bottom-right (query row r sits at position
-r + Lk - Lq), keys at or past ``kv_len`` are masked, and a fully masked row
-gives 0 (the kernel's denominator is clamped at 1e-30), not NaN.
+r + Lk - Lq), keys at or past ``kv_len`` (clamped to [0, Lk]) are masked,
+and a fully masked row gives 0 (the denominator is clamped at 1e-30), not
+NaN.  Running max and sum are fp32.
 
-Kernel.  :func:`flash_attention` replaces the Pallas TPU kernel
+Kernels.  :func:`flash_attention` replaces the Pallas TPU kernel
 ``flash_attention`` (``src/repro/kernels/flash_attention.py:84-144``,
 ``pallas_call`` at line 117) with ``csrc/flash_attention.cu``, written by
-hand for Hopper (``sm_90a``).  The TPU kernel walks a sequential kv grid
-axis with its running max, sum and accumulator in VMEM scratch; here the kv
-loop runs inside the CTA with those in fp32 registers.  One CTA serves one
-(batch, kv head) and 32 rows of the flattened (query position, group head)
-space, so every K/V tile it stages in shared memory is read once for all
-query heads of the GQA group; in decode (Lq = 1) one CTA serves the whole
-group.  The loop stops at the CTA's causal diagonal and at ``kv_len``, as
-the TPU kernel's ``pl.when`` does.  Products are CUDA-core ``fmaf`` in fp32;
-no atomics and no split-KV, so the same inputs give the same bits.
+hand for Hopper (``sm_90a``).  Three kernels sit behind this one wrapper;
+:func:`kernel_path` picks one by shape, dtype and strides alone, never by
+data.  The two vector kernels read 16-byte chunks, so they take only
+tensors whose last dim is contiguous and whose rows are 16-byte aligned
+(:func:`aligned16`; the model's transposed (B, L, H, D) views and cache
+slices are):
 
-Bound.  At the main path's shapes (prefill Lq = Lk <= 1024, decode Lq = 1
-against a 2048-position cache) both terms are microseconds: the causal
-product's 4 * Hq * D * sum(live keys) operations at the bf16 tensor-core
-rate, and the bytes of q, the live K/V rows and the output at HBM rate.
-The kernel is latency-bound far above that (``PERF.md``); ``wgmma``, TMA and
-warp specialisation are later work.
+* ``"decode"`` when ``Lq * group <= 16`` (group = Hq / Hkv) and a head row
+  is a whole number of 16-byte chunks (D % 8 == 0 in bf16, D % 4 == 0 in
+  f32): the keys are split across CTAs, ``decode_split(D, dtype)`` keys
+  each (128 for rows up to 256 bytes), and the last CTA of each (batch, kv
+  head) combines the partials in split order in the same launch.  Bound by
+  bytes.
+* ``"prefill_tc"`` for the other bf16 calls with D in {32, 64, 96, 128}:
+  ``mma.sync`` bf16 tensor-core products over cp.async-staged 64-key K/V
+  tiles, 64 rows of the flattened (position, group head) space per CTA, P
+  rounded to bf16 before P V.  Bound by operations.
+* ``"general"`` for everything else (fp32 prefill, other head dims,
+  unaligned views): the CUDA-core fp32 kernel, any strides.  TF32 would
+  break the reference's 2e-5 fp32 tolerance.
+
+No path depends on B or on the other batch rows, and none uses float
+atomics: the same inputs give the same bits, and a batch row decodes to
+the same bits alone or in a batch.
 
 Dispatch.  A CPU tensor goes to :func:`flash_attention_plain`.  A CUDA
-tensor goes to the kernel or the call raises; there is no fallback.
-``flash_attention.launches`` counts kernel launches.
+tensor launches one kernel or the call raises; there is no fallback.
+``flash_attention.launches`` counts launches, one per call, and
+``flash_attention.launches_by_path`` the same launches by kernel.
+
+:func:`flash_decode_split_plain` and :func:`flash_prefill_tiles_plain`
+mirror the two vector kernels' order of work (per-split partials combined in
+split order; 64-key tiles with P rounded to v's dtype) in plain torch; only
+the tests use them.
 """
 from __future__ import annotations
 
@@ -42,18 +57,79 @@ import ctypes
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (32, 64, 96, 128)   # the tensor-core prefill's templates
+TC_TILE = 64                       # keys per staged K/V tile
+DECODE_MAX_ROWS = 16               # Lq * group on the split decode path
+LOG2E = 1.4426950408889634
+
+
+def decode_split(D: int, dtype: torch.dtype) -> int:
+    """Keys per CTA on the decode path: 128, fewer for rows past 256 bytes
+    so a split's K and V stay within 64 KB of shared memory."""
+    row = D * torch.empty((), dtype=dtype).element_size()
+    return 128 if row <= 256 else 64 if row <= 512 else 32
+
+
+def kernel_path(dtype: torch.dtype, Hq: int, Hkv: int, Lq: int, D: int,
+                aligned: bool = True) -> str:
+    """Which kernel a CUDA call takes: "decode", "prefill_tc" or
+    "general" (the module docstring gives the rule); ``aligned`` says
+    whether every tensor passes :func:`aligned16`."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    if not aligned:
+        return "general"
+    if Lq * (Hq // Hkv) <= DECODE_MAX_ROWS and (D * esize) % 16 == 0:
+        return "decode"
+    if dtype == torch.bfloat16 and D in TC_HEAD_DIMS:
+        return "prefill_tc"
+    return "general"
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """The vector paths' layout: base and every stride a multiple of 16
+    bytes, last dim contiguous."""
+    es = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(s * es % 16 == 0 for s in t.stride()[:-1]))
+
+
+def _masked_scores(q, k, kv_len, causal, scale):
+    """fp32 scores (B, Hkv, g, Lq, Lk) in the log2 domain, as the vector
+    kernels form them (q . k, then times scale * log2 e), masked to -inf."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale_log2 = float(np.float32(scale) * np.float32(LOG2E))
+    s = (q.float().reshape(B, Hkv, g, Lq, D)
+         @ k.float()[:, :, None].transpose(-1, -2)) * scale_log2
+    k_pos = torch.arange(Lk, device=q.device)
+    mask = torch.ones((1, 1, 1, Lq, Lk), dtype=torch.bool, device=q.device)
+    if causal:
+        q_pos = torch.arange(Lq, device=q.device) + (Lk - Lq)
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if kv_len is not None:
+        live = k_pos[None, :] < kv_len.to(q.device)[:, None]    # (B, Lk)
+        mask = mask & live[:, None, None, None, :]
+    return s.masked_fill(~mask, float("-inf"))
+
+
+def _exp2_shifted(s, m):
+    """exp2(s - m) with a row max of -inf read as 0 (every key masked)."""
+    m_use = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+    return torch.exp2(s - m_use[..., None]), m_use
 
 
 def flash_attention_plain(q, k, v, kv_len: Optional[torch.Tensor] = None,
                           causal: bool = True,
                           scale: Optional[float] = None):
-    """Plain torch version of what the kernel computes: fp32 scores of the
+    """Plain torch version of what the kernels compute: fp32 scores of the
     scaled q, bottom-right causal mask, ``kv_len`` mask, softmax with the
     denominator clamped at 1e-30 (a fully masked row gives 0), output in
     q's dtype."""
@@ -81,11 +157,75 @@ def flash_attention_plain(q, k, v, kv_len: Optional[torch.Tensor] = None,
     return out.reshape(B, Hq, Lq, D).to(q.dtype)
 
 
+def flash_decode_split_plain(q, k, v, kv_len: Optional[torch.Tensor] = None,
+                             split: int = 128, causal: bool = True,
+                             scale: Optional[float] = None):
+    """The decode kernel's order of work in plain torch: the keys cut into
+    splits of ``split``, a partial (row max m, sum l, fp32 sum of p v) per
+    split, then the partials combined in split order with a running max.
+    Used by the tests only."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    s = _masked_scores(q, k, kv_len, causal, scale)      # (B,Hkv,g,Lq,Lk)
+    n = max(1, -(-Lk // split))
+    pad = n * split - Lk
+    s = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    s = s.reshape(*s.shape[:-1], n, split)
+    vf = vf.reshape(B, Hkv, 1, n, split, D)
+    m = s.amax(-1)                                       # (B,Hkv,g,Lq,n)
+    p, _ = _exp2_shifted(s, m)
+    l = p.sum(-1)
+    acc = torch.einsum("bhgqsk,bhxskd->bhgqsd", p, vf)
+    M = torch.full_like(m[..., 0], float("-inf"))
+    L = torch.zeros_like(l[..., 0])
+    out = torch.zeros_like(acc[..., 0, :])
+    for t in range(n):                                   # split order
+        mt = m[..., t]
+        live = mt != float("-inf")          # a split with no live key: skip
+        mn = torch.where(live, torch.maximum(M, mt), M)
+        a = torch.where(live, torch.exp2(M - mn), torch.ones_like(M))
+        w = torch.where(live, torch.exp2(mt - mn), torch.zeros_like(M))
+        L = L * a + l[..., t] * w
+        out = out * a[..., None] + acc[..., t, :] * w[..., None]
+        M = mn
+    out = out / L.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Hq, Lq, D).to(q.dtype)
+
+
+def flash_prefill_tiles_plain(q, k, v, kv_len: Optional[torch.Tensor] = None,
+                              causal: bool = True,
+                              scale: Optional[float] = None):
+    """The tensor-core prefill's order of work in plain torch: an online
+    softmax over ``TC_TILE``-key tiles in the log2 domain, p rounded to v's
+    dtype before P V, as the kernel rounds P to bf16 in registers.  Used by
+    the tests only."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    s = _masked_scores(q, k, kv_len, causal, scale)      # (B,Hkv,g,Lq,Lk)
+    m = torch.full(s.shape[:-1], float("-inf"), device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((*s.shape[:-1], D), device=q.device)
+    for j0 in range(0, Lk, TC_TILE):
+        st = s[..., j0:j0 + TC_TILE]
+        m_new = torch.maximum(m, st.amax(-1))
+        p, m_use = _exp2_shifted(st, m_new)
+        corr = torch.exp2(m - m_use)
+        l = l * corr + p.sum(-1)
+        pv = p.to(v.dtype).float() @ v.float()[:, :, None, j0:j0 + TC_TILE]
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Hq, Lq, D).to(q.dtype)
+
+
 def flash_attention(q, k, v, kv_len: Optional[torch.Tensor] = None, *,
                     causal: bool = True, scale: Optional[float] = None):
     """Blockwise attention, (B, Hq, Lq, D) -> (B, Hq, Lq, D).  CPU tensors
-    take :func:`flash_attention_plain`; CUDA tensors launch the
-    ``flash_attention`` kernel or raise."""
+    take :func:`flash_attention_plain`; CUDA tensors launch the kernel that
+    :func:`kernel_path` names, or raise."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_len, causal, scale)
     if q.device.type != "cuda":
@@ -94,6 +234,22 @@ def flash_attention(q, k, v, kv_len: Optional[torch.Tensor] = None, *,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_path = {"decode": 0, "prefill_tc": 0,
+                                    "general": 0}
+
+# The decode path's (batch, kv head) arrival counters, one buffer per
+# (device, stream), zeroed once on that stream; each launch leaves them at
+# 0.  Launches in one stream run in order, so they never share a counter;
+# launches on two streams get two buffers.
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = buf
+    return buf
 
 
 def _flash_cuda(q, k, v, kv_len, causal: bool, scale):
@@ -131,16 +287,30 @@ def _flash_cuda(q, k, v, kv_len, causal: bool, scale):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    path = kernel_path(q.dtype, Hq, Hkv, Lq, D,
+                       all(aligned16(t) for t in (q, k, v, out)))
     strides = (ctypes.c_int64 * 16)(*q.stride(), *k.stride(), *v.stride(),
                                     *out.stride())
+    kl = None if kv_len is None else kv_len.data_ptr()
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if kv_len is None else kv_len.data_ptr(), strides,
-            B, Hq, Hkv, Lq, Lk, D, int(bool(causal)), float(scale),
-            _DTYPES[q.dtype], stream)
-    _build.check(lib, err, "flash_attention launch")
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kl,
+                strides, B, Hq, Hkv, Lq, Lk, D, int(bool(causal)),
+                float(scale))
+        if path == "decode":
+            split = decode_split(D, q.dtype)
+            slots = B * Hkv * max(1, -(-Lk // split)) * Lq * (Hq // Hkv)
+            part = torch.empty(slots * (D + 2), dtype=torch.float32,
+                               device=q.device)
+            err = lib.flash_attention_decode(
+                *ptrs, _DTYPES[q.dtype], split, part.data_ptr(),
+                _counters(q.device, stream, B * Hkv).data_ptr(), stream)
+        elif path == "prefill_tc":
+            err = lib.flash_attention_prefill_bf16(*ptrs, stream)
+        else:
+            err = lib.flash_attention_fwd(*ptrs, _DTYPES[q.dtype], stream)
+    _build.check(lib, err, f"flash_attention launch ({path})")
     flash_attention.launches += 1
+    flash_attention.launches_by_path[path] += 1
     return out

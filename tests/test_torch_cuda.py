@@ -25,7 +25,7 @@ from repro_torch.kernels import (  # noqa: E402
     BSRAggregate, PackedBSR, build_bsr, pack_bsr, spmm, spmm_packed,
     spmm_packed_plain, spmm_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_plain, kernel_path)
 from repro_torch import models as lm  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 
@@ -269,6 +269,157 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
     big = torch.zeros((1, 2, 4, 264), device=dev)
     with pytest.raises(ValueError):
         flash_attention(big, big, big)
+
+
+def _flash_twice(q, k, v, kl, causal, path, scale=None):
+    """Two launches on the dispatch branch ``path``: bitwise equal, within
+    the reference's tolerance of the plain version."""
+    launches = flash_attention.launches
+    on_path = flash_attention.launches_by_path[path]
+    out = flash_attention(q, k, v, kl, causal=causal, scale=scale)
+    again = flash_attention(q, k, v, kl, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 2
+    assert flash_attention.launches_by_path[path] == on_path + 2
+    assert torch.equal(out, again)
+    tol = FLASH_TOL[q.dtype]
+    torch.testing.assert_close(
+        out, flash_attention_plain(q, k, v, kl, causal, scale),
+        rtol=tol, atol=tol)
+    return out
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Lq,Lk,D,causal,kv_len", [
+    (1, 8, 2, 256, 256, 64, True, None),
+    (1, 8, 2, 256, 256, 96, True, None),
+    (1, 8, 2, 256, 256, 128, True, None),
+    (1, 4, 4, 200, 200, 32, True, None),
+    (1, 8, 2, 100, 100, 64, True, None),          # ragged Lq
+    (1, 8, 2, 96, 160, 64, True, None),           # Lq < Lk, bottom-right
+    (2, 8, 2, 64, 200, 64, False, [37, 200]),     # kv_len, Lq > 1
+    (2, 8, 2, 64, 200, 128, True, [150, 64]),
+    (1, 40, 8, 130, 130, 128, True, None),        # group 5
+    (1, 4, 1, 40, 130, 64, True, [0]),            # fully masked
+])
+def test_flash_prefill_tensor_cores_match_plain(dev, B, Hq, Hkv, Lq, Lk, D,
+                                                causal, kv_len):
+    q, k, v = _flash_inputs(dev, B, Hq, Hkv, Lq, Lk, D, torch.bfloat16)
+    kl = (torch.tensor(kv_len, dtype=torch.int32, device=dev)
+          if kv_len else None)
+    out = _flash_twice(q, k, v, kl, causal, "prefill_tc")
+    if kv_len == [0]:
+        assert torch.equal(out, torch.zeros_like(out))
+
+
+SPLIT_KV_LENS = [0, 1, 127, 128, 129, 300]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,Lq,D,causal", [
+    (32, 8, 1, 64, False), (8, 8, 1, 64, False), (8, 4, 1, 128, False),
+    (8, 2, 4, 64, True), (4, 1, 2, 32, True)])
+def test_flash_split_decode_matches_plain(dev, dtype, Hq, Hkv, Lq, D, causal):
+    """Every kv_len edge of the 128-key splits in one batch over a
+    300-key cache (not a multiple of the split)."""
+    B = len(SPLIT_KV_LENS)
+    q, k, v = _flash_inputs(dev, B, Hq, Hkv, Lq, 300, D, dtype, seed=Lq)
+    kl = torch.tensor(SPLIT_KV_LENS, dtype=torch.int32, device=dev)
+    out = _flash_twice(q, k, v, kl, causal, "decode")
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.3])
+@pytest.mark.parametrize("dtype,Lq,path", [
+    (torch.bfloat16, 100, "prefill_tc"), (torch.bfloat16, 1, "decode"),
+    (torch.float32, 1, "decode"), (torch.float32, 100, "general")])
+def test_flash_any_scale_matches_plain(dev, scale, dtype, Lq, path):
+    """A zero or negative scale on every kernel: the scores are scaled
+    before the running max, so neither gives NaN or overflows."""
+    q, k, v = _flash_inputs(dev, 2, 8, 2, Lq, 160, 64, dtype, seed=5)
+    kl = torch.tensor([0, 130], dtype=torch.int32, device=dev)
+    out = _flash_twice(q, k, v, kl, True, path, scale=scale)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.isfinite(out).all()
+
+
+def test_flash_decode_on_two_streams_at_once(dev):
+    """Decodes queued on two streams in turns, without waiting for each
+    other: each stream keeps its own arrival counters, so every result
+    equals the same decode on the default stream."""
+    q, k, v = _flash_inputs(dev, 8, 32, 8, 1, 2048, 64, torch.bfloat16)
+    kl = torch.tensor([64, 1056, 700, 129, 1, 0, 2048, 511],
+                      dtype=torch.int32, device=dev)
+    ref = _flash_twice(q, k, v, kl, False, "decode")
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(flash_attention(q, k, v, kl, causal=False))
+    torch.cuda.synchronize()
+    for per_stream in outs:
+        for out in per_stream:
+            assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_batch_equals_each_row_alone(dev, dtype):
+    """The serving shape: 8 slots of a 2048-position cache, ragged
+    kv_len.  A row's bits never depend on the batch."""
+    gen = torch.Generator().manual_seed(3)
+    cache = torch.randn((2, 8, 2048, 8, 64), generator=gen).to(dev, dtype)
+    q = torch.randn((8, 1, 32, 64), generator=gen).to(dev, dtype)
+    q = q.transpose(1, 2)
+    k, v = cache[1].transpose(1, 2), cache[0].transpose(1, 2)
+    kl = torch.tensor([64, 1056, 700, 129, 1, 0, 2048, 511],
+                      dtype=torch.int32, device=dev)
+    out = _flash_twice(q, k, v, kl, False, "decode")
+    for b in range(8):
+        alone = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                kl[b:b + 1], causal=False)
+        assert torch.equal(alone, out[b:b + 1]), b
+
+
+@pytest.mark.parametrize("Lq,path", [(64, "prefill_tc"), (1, "decode")])
+def test_flash_unaligned_views_take_the_general_kernel(dev, Lq, path):
+    """The model's transposed views take the vector kernels; the same
+    values in a view with a strided last dim, or rows off a 16-byte
+    boundary, take the general kernel, with no copy, within the tolerance
+    of the plain version."""
+    q, k, v = _flash_inputs(dev, 1, 8, 2, Lq, 64, 64, torch.bfloat16)
+    _flash_twice(q, k, v, None, True, path)
+    wide = torch.zeros((1, Lq, 8, 128), dtype=torch.bfloat16, device=dev)
+    wide[..., ::2] = q.transpose(1, 2)
+    strided = wide[..., ::2].transpose(1, 2)
+    shifted = torch.zeros((1, 64, 2, 72), dtype=torch.bfloat16, device=dev)
+    shifted[..., 1:65] = k.transpose(1, 2)
+    for qq, kk in ((strided, k), (q, shifted[..., 1:65].transpose(1, 2))):
+        assert kernel_path(qq.dtype, 8, 2, Lq, 64) == path
+        _flash_twice(qq, kk, v, None, True, "general")
+
+
+def test_lm_bf16_serving_path_stays_on_the_vector_kernels(dev):
+    """Smoke llama in bf16 through prefill and decode: every attention
+    call reads the model's views in place, on the tensor-core prefill or
+    the split decode, never the general kernel (head dim 64, as the full
+    model's)."""
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), head_dim=64)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    tok = torch.randint(1, 500, (2, 32),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    lens = torch.tensor([20, 32], dtype=torch.int32, device=dev)
+    before = dict(flash_attention.launches_by_path)
+    _, cache = lm.prefill(cfg, params, {"tokens": tok, "lengths": lens}, 48)
+    for step in range(3):
+        _, cache = lm.decode_step(cfg, params,
+                                  torch.tensor([[3], [9]], device=dev), cache)
+    torch.cuda.synchronize()
+    after = flash_attention.launches_by_path
+    assert after["general"] == before["general"]
+    assert after["prefill_tc"] - before["prefill_tc"] == cfg.n_layers
+    assert after["decode"] - before["decode"] == 3 * cfg.n_layers
 
 
 def test_lm_prefill_and_decode_on_card_match_cpu(dev):
