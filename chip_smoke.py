@@ -13,26 +13,54 @@ widths, then LM serving on llama3.2-1b at its published width:
   device  the card's name, count and power limit (exit 1 without a card);
   build   nvcc for sm_90a, with the build seconds and each kernel's ptxas
           registers and spill bytes;
+  layout  the paper's first stage on SIoT (8001 vertices) and Yelp (3912)
+          over two 8-server edge networks: the default fleet (mu_factor
+          0.05, the quickstart's) and the fleet of the repo's serving and
+          layout benchmarks (mu_factor 2.0).  Under each, the DGPE cost
+          model of a GCN and the costs of the Random, Greedy and GLAD-S
+          layouts (GLAD-S below Random), GLAD-S's iterations and host
+          seconds.  Three plans: Random, GLAD-S on the default fleet (which
+          puts SIoT on one server and cuts no link) and GLAD-S on the
+          mu_factor 2.0 fleet (the main plan: it cuts links and has
+          ppermute rounds), each with its cut links, halo rows,
+          capacities, rounds and BSR nonzeros;
   kernels each kernel against its plain torch version at the main path's
           shapes and at small shape cases: max abs error, bitwise
           determinism, median CUDA-event times of the kernel, the plain
           version and one library call, and the bound from bytes and
           operations.  K1 (spmm_csr on the BSR's packed nonzeros) runs at
-          SIoT d = 52 and 16 and Yelp d = 100, against both its plain
-          version and the dense layout's; its rows add the device time per
-          call (torch.profiler) of the kernel and the library call, which
-          leaves out the host's time to enqueue them;
+          SIoT d = 52 and 16 and Yelp d = 100 over the three plans (the
+          main plan's first); the Random plan's rows (the shapes of
+          earlier runs) also against the dense layout's plain version;
+          rows add the device time per call (torch.profiler) of the kernel
+          and the library call, which leaves out the host's time to
+          enqueue them;
   bsp     the batched BSP forward (GCN, SAGE, GAT x ppermute, allgather) on
-          SIoT (8001 vertices) and Yelp (3912), 8 partitions of a random
-          layout, held against the whole-graph forward on the card and on
-          the CPU; counts the kernel's launches per forward, the resident
-          plan tensors and the forward's peak device memory;
-  patch   a 2% relayout patched in place (0 rebuilds, output bit-equal to a
-          fresh plan's; the host time of each model's first forward after
-          it: GCN's repacks the plan, SAGE's shares that pack), then a
-          capacity overflow (exactly 1 rebuild);
-  serve   256 Zipf requests through the ego-serving engine over the live
-          plan, held against the BSP forward's rows;
+          SIoT and Yelp over each of the three plans, held against the
+          whole-graph forward on the card and on the CPU; counts the
+          kernel's launches per forward, the resident plan tensors and the
+          forward's peak device memory;
+  serve   256 Zipf requests through the ego-serving engine over each plan,
+          held against the BSP forward's rows; the Random plan fetches
+          remote rows;
+  replicate  replicate_for_stream on serve's stream over SIoT's Random and
+          main plans, set_replication, and the replicated forward (GCN,
+          SAGE, GAT) bit-equal to the unreplicated one with fewer layer-0
+          halo rows; the stream served over the replicated plan, with
+          replica hits; replicas then switched off again;
+  patch   on the main plan: a 2% relayout off it (rebuilds exactly as the
+          plan's retrace_expected says: it grows halo_cap), then the
+          relayout back to it, patched in place (0 rebuilds, output
+          bit-equal to a fresh plan's; the host time of each model's first
+          forward after it: GCN's repacks the plan, SAGE's shares that
+          pack), then a capacity overflow (exactly 1 rebuild);
+  evolve  the paper's dynamic path on SIoT over the main fleet: three slots
+          of sample_delta / apply_delta, GLAD-E relayouts and patch_plan
+          with the structural dirty set, on the main layout compiled
+          without headroom; every slot patched == fresh compile, the GCN
+          forward bit-equal to a fresh plan's, rebuilds as
+          retrace_expected says, and one slot that inserts vertices and
+          overflows e_cap;
   kernels flash_attention against its plain torch version at the LM path's
           prefill (L = 512, 1024: the bf16 tensor-core kernel) and decode
           (cache strides, ragged kv_len: the split-key kernel) shapes, with
@@ -83,12 +111,16 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import models as lm  # noqa: E402
 from repro_torch.configs import get_config, gnn_paper  # noqa: E402
-from repro_torch.core import partition_from_assign, random_layout  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    CostModel, apply_delta, glad_e, glad_s, greedy_layout,
+    partition_from_assign, random_layout, sample_delta, workload_for)
 from repro_torch.gnn import (  # noqa: E402
     GNNServeEngine, build_plan_bsr, compile_plan, directed_edges, forward,
     gather_outputs, init_params, make_bsp_forward, patch_plan, plans_equal,
-    recompile_like, scatter_features, zipf_requests)
-from repro_torch.graphs import DataGraph, synthetic_siot, synthetic_yelp  # noqa: E402
+    recompile_like, replicate_for_stream, scatter_features,
+    scatter_replica_halo, serving_cost, set_replication, zipf_requests)
+from repro_torch.graphs import (  # noqa: E402
+    DataGraph, build_edge_network, synthetic_siot, synthetic_yelp)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     decode_split, flash_attention, flash_attention_plain, kernel_path)
@@ -99,6 +131,20 @@ from repro_torch.serve import Request, ServeEngine  # noqa: E402
 PARTS = 8
 SLACK = 0.5
 SEED = 0
+# The two fleets' upload-cost factor: build_edge_network's default (the
+# quickstart's), and the one the repo's serving and layout benchmarks use
+# (benchmarks/serving.py, examples/serve_gnn_requests.py,
+# benchmarks/layout_engine.py), under which GLAD-S spreads over servers.
+FLEETS = {"default": 0.05, "mu2": 2.0}
+# The plans, the main one first: GLAD-S on the mu2 fleet, GLAD-S on the
+# default fleet, Random.  CUTTING: the plans that must cut links.
+LAYOUTS = ("glad_s_mu2", "glad_s", "random")
+CUTTING = ("glad_s_mu2", "random")
+# evolve: the trace's seed base; its first slot inserts 3 vertices and
+# overflows the headroom-free main plan's e_cap (and not its cap or
+# halo_cap).
+EVOLVE_SEED = 4
+EVOLVE_SLOTS = 3
 FWD_TOL = 2e-4                 # the reference's own gate (test_distributed_gnn)
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside tensor
 # cores, bf16 dense on the tensor cores.
@@ -207,26 +253,71 @@ def phase_build():
           "ptxas": res.kernels()})
 
 
-def make_dataset(name: str, dev):
-    g = synthetic_siot() if name == "siot" else synthetic_yelp()
-    assign = random_layout(g.n, PARTS, seed=SEED)
+def _compile(g, cm, assign):
+    """The layout's plan with its BSR, and the row that describes it."""
+    part = partition_from_assign(g, assign, PARTS, cm.factors(assign))
     t0 = time.perf_counter()
-    plan = compile_plan(g, partition_from_assign(g, assign, PARTS, {}),
-                        slack=SLACK)
+    plan = compile_plan(g, part, slack=SLACK)
     build_plan_bsr(plan)
     host_s = time.perf_counter() - t0
     b = plan.bsr
-    emit({"phase": "plan", "dataset": name, "n": g.n, "links": g.num_edges,
-          "parts": PARTS, "cap": plan.cap, "halo_cap": plan.halo_cap,
-          "e_cap": plan.e_cap, "rounds": len(plan.rounds),
-          "bsr_nb": b.nb, "bsr_max_blocks": b.max_blocks,
-          "bsr_src_rows": b.src_rows, "values_mb": b.values.nbytes / 1e6,
-          "nnz": int((b.values != 0).sum()),
-          "nnz_density": float((b.values != 0).mean()),
-          "host_compile_s": host_s})
+    nnz = int(np.count_nonzero(b.values))
+    return plan, {
+        "cost": cm.total(assign), "cut_links": part.cut_links,
+        "halo_bytes_ppermute": plan.halo_bytes_ppermute,
+        "halo_rows_allgather": plan.halo_rows_allgather,
+        "part_sizes": np.bincount(assign, minlength=PARTS).tolist(),
+        "cap": plan.cap, "halo_cap": plan.halo_cap, "e_cap": plan.e_cap,
+        "rounds": len(plan.rounds), "bsr_nb": b.nb,
+        "bsr_max_blocks": b.max_blocks, "bsr_src_rows": b.src_rows,
+        "values_mb": b.values.nbytes / 1e6, "nnz": nnz,
+        "nnz_density": nnz / b.values.size, "host_compile_s": host_s}
+
+
+def phase_layout(name: str, dev):
+    """The paper's first stage on each fleet: edge network, cost model,
+    GLAD-S against the Random and Greedy baselines; then the plans of
+    Random and of GLAD-S on each fleet."""
+    g = synthetic_siot() if name == "siot" else synthetic_yelp()
+    d = gnn_paper.ALL[(name, "gcn")].layer_dims[0]
+    fleets, layouts = {}, {}
+    for fleet, mu in FLEETS.items():
+        net = build_edge_network(g, PARTS, seed=SEED, mu_factor=mu)
+        cm = CostModel(net, g, workload_for("gcn", d))
+        rand = random_layout(cm, seed=SEED)
+        t0 = time.perf_counter()
+        res = glad_s(cm, seed=SEED)
+        glad_s_s = time.perf_counter() - t0
+        costs = {"random": cm.total(rand),
+                 "greedy": cm.total(greedy_layout(cm)), "glad_s": res.cost}
+        require(np.isfinite(list(costs.values())).all(),
+                f"{name} {fleet}: non-finite layout cost {costs}")
+        require(res.cost < costs["random"], f"{name} {fleet}: GLAD-S cost "
+                f"{res.cost} not below the Random layout's {costs['random']}")
+        fleets[fleet] = {"mu_factor": mu, "costs": costs,
+                         "glad_s_iterations": res.iterations,
+                         "glad_s_host_s": glad_s_s,
+                         "glad_s_factors": res.factors}
+        key = "glad_s" if fleet == "default" else f"glad_s_{fleet}"
+        layouts[key] = {"cm": cm, "assign": res.assign.copy()}
+        if fleet == "default":
+            layouts["random"] = {"cm": cm, "assign": rand}
+    rows = {}
+    for key in LAYOUTS:
+        lay = layouts[key]
+        lay["plan"], rows[key] = _compile(g, lay["cm"],
+                                          lay["assign"].copy())
+    for key in CUTTING:
+        require(rows[key]["cut_links"] > 0 and rows[key]["rounds"] > 0,
+                f"{name} {key}: the plan cuts no link or has no ppermute "
+                f"round ({rows[key]['cut_links']}, {rows[key]['rounds']})")
+    emit({"phase": "layout", "dataset": name, "n": g.n,
+          "links": g.num_edges, "parts": PARTS, "fleets": fleets,
+          "plans": rows})
     feats = torch.from_numpy(g.features).to(dev)
     sd = torch.from_numpy(directed_edges(g.edges)).to(dev)
-    return {"name": name, "graph": g, "plan": plan, "feats": feats, "sd": sd}
+    return {"name": name, "graph": g, "layouts": layouts, "feats": feats,
+            "sd": sd}
 
 
 def _random_graph(rng, n, extra):
@@ -279,83 +370,99 @@ def _check_k1(label, run, refs):
                  for name, ref in refs.items()}
 
 
-def phase_kernels(datasets, dev):
-    """K1 (spmm_csr on the packed BSR) against its plain versions; times at
-    the main path's shapes: SIoT's two layer widths, Yelp's first."""
-    gen = torch.Generator().manual_seed(SEED)
-    results, worst = [], 0.0
-    for ds, d in ((datasets[0], 52), (datasets[0], 16), (datasets[1], 100)):
-        b, plan = ds["plan"].bsr, ds["plan"]
-        t0 = time.perf_counter()
-        host = pack_bsr(b.values, b.block_cols, b.bm, b.bk,
-                        nnz_cap=plan.e_cap)
-        pack_s = time.perf_counter() - t0
-        packed = dataclasses.replace(host.to(dev), src_rows=b.src_rows)
+def _k1_row(ds, layout, d, gen, dev):
+    """K1 over ``layout``'s plan of ``ds`` at width ``d`` against its plain
+    versions and the library product: errors, times and the bound."""
+    plan = ds["layouts"][layout]["plan"]
+    b, dense = plan.bsr, layout == "random"
+    t0 = time.perf_counter()
+    host = pack_bsr(b.values, b.block_cols, b.bm, b.bk, nnz_cap=plan.e_cap)
+    pack_s = time.perf_counter() - t0
+    packed = dataclasses.replace(host.to(dev), src_rows=b.src_rows)
+    lib_a, nnz = _library_csr(b.values, b.block_cols, b.src_rows, dev)
+    require(nnz == int(host.row_ptr[:, -1].sum()),
+            f"{ds['name']}: packed nonzeros != the library CSR's {nnz}")
+    feats = torch.randn((PARTS, b.src_rows, d), generator=gen).to(dev)
+    label = f"{ds['name']}_{layout}_P{PARTS}_d{d}"
+    refs = {"spmm_packed_plain": spmm_packed_plain(packed, feats)}
+    if dense:
         values = torch.from_numpy(b.values).to(dev)
         cols = torch.from_numpy(b.block_cols).to(dev)
-        lib_a, nnz = _library_csr(b.values, b.block_cols, b.src_rows, dev)
-        require(nnz == int(host.row_ptr[:, -1].sum()),
-                f"{ds['name']}: packed nonzeros != the library CSR's {nnz}")
-        feats = torch.randn((PARTS, b.src_rows, d), generator=gen).to(dev)
-        label = f"{ds['name']}_P{PARTS}_d{d}"
-        out, errs = _check_k1(label, lambda: spmm_packed(packed, feats), {
-            "spmm_packed_plain": spmm_packed_plain(packed, feats),
-            "spmm_plain": spmm_plain(values, cols, feats, b.bm, b.bk)})
-        err, dense_err = errs["spmm_packed_plain"], errs["spmm_plain"]
-        worst = max(worst, err, dense_err)
-        flat = feats.reshape(PARTS * b.src_rows, d)
-        lib_out = torch.sparse.mm(lib_a, flat).reshape(out.shape)
-        lib_err = float((lib_out - out).abs().max())
-        require(lib_err <= 1e-4 * float(out.abs().max()) + 1e-4,
-                f"library product disagrees with spmm_csr: {lib_err}")
-        # Bound: the bytes and operations these nonzeros need: each entry's
-        # weight and column, the row pointers, each feature row that an
-        # entry reads (once), the output (once).  The dense values' bytes
-        # stay beside it as the earlier yardstick.
-        live = (torch.arange(packed.nnz_cap, device=dev)[None, :]
-                < packed.row_ptr[:, -1:])
-        part = torch.arange(PARTS, device=dev)[:, None]
-        rows_read = int(torch.unique(
-            (part * b.src_rows + packed.col)[live]).numel())
-        nbytes = (nnz * 8 + packed.row_ptr.numel() * 4 + rows_read * d * 4
-                  + out.numel() * 4)
-        ops = 2 * nnz * d
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_OPS_PER_S * 1e3
-        dense_bytes = (values.numel() * 4 + cols.numel() * 4
-                       + feats.numel() * 4 + out.numel() * 4)
-        counts = (packed.row_ptr[:, 1:] - packed.row_ptr[:, :-1])
-        row = {
-            "shape": label, "max_abs_err": err, "dense_max_abs_err": dense_err,
-            "bitwise_equal": True,
-            "ms": time_ms(lambda: spmm_packed(packed, feats)),
-            "device_ms": device_ms(lambda: spmm_packed(packed, feats)),
-            "plain_ms": time_ms(lambda: spmm_packed_plain(packed, feats)),
-            "dense_plain_ms": time_ms(
-                lambda: spmm_plain(values, cols, feats, b.bm, b.bk)),
-            "library_ms": time_ms(lambda: torch.sparse.mm(lib_a, flat)),
-            "library_device_ms": device_ms(
-                lambda: torch.sparse.mm(lib_a, flat)),
-            "library_call": "torch.sparse.mm(sparse_csr_tensor, feats)",
-            "bytes": nbytes, "ops": ops, "nnz": nnz,
-            "feature_rows_read": rows_read,
-            "feature_rows": int(feats.shape[0] * feats.shape[1]),
-            "max_row_nnz": int(counts.max()),
-            "empty_rows": int((counts == 0).sum()),
-            "rows": int(counts.numel()), "pack_s": pack_s,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "dense_values_bound_ms": max(dense_bytes / HBM_BYTES_PER_S * 1e3,
-                                         t_ops),
-        }
-        row["faster_than_library"] = row["ms"] < row["library_ms"]
-        row["faster_than_library_on_device"] = (
-            isinstance(row["device_ms"], float)
-            and isinstance(row["library_device_ms"], float)
-            and row["device_ms"] < row["library_device_ms"])
-        results.append(row)
-        emit({"phase": "kernels", "kernel": "spmm_csr", **row})
-        del values, cols
+        refs["spmm_plain"] = spmm_plain(values, cols, feats, b.bm, b.bk)
+    out, errs = _check_k1(label, lambda: spmm_packed(packed, feats), refs)
+    err = errs["spmm_packed_plain"]
+    dense_err = errs.get("spmm_plain", "not measured")
+    flat = feats.reshape(PARTS * b.src_rows, d)
+    lib_out = torch.sparse.mm(lib_a, flat).reshape(out.shape)
+    lib_err = float((lib_out - out).abs().max())
+    require(lib_err <= 1e-4 * float(out.abs().max()) + 1e-4,
+            f"library product disagrees with spmm_csr: {lib_err}")
+    # Bound: the bytes and operations these nonzeros need: each entry's
+    # weight and column, the row pointers, each feature row that an
+    # entry reads (once), the output (once).  The dense values' bytes
+    # stay beside it as the earlier yardstick.
+    live = (torch.arange(packed.nnz_cap, device=dev)[None, :]
+            < packed.row_ptr[:, -1:])
+    part = torch.arange(PARTS, device=dev)[:, None]
+    rows_read = int(torch.unique(
+        (part * b.src_rows + packed.col)[live]).numel())
+    nbytes = (nnz * 8 + packed.row_ptr.numel() * 4 + rows_read * d * 4
+              + out.numel() * 4)
+    ops = 2 * nnz * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    dense_bytes = (b.values.size * 4 + b.block_cols.size * 4
+                   + feats.numel() * 4 + out.numel() * 4)
+    counts = (packed.row_ptr[:, 1:] - packed.row_ptr[:, :-1])
+    row = {
+        "shape": label, "max_abs_err": err, "dense_max_abs_err": dense_err,
+        "bitwise_equal": True,
+        "ms": time_ms(lambda: spmm_packed(packed, feats)),
+        "device_ms": device_ms(lambda: spmm_packed(packed, feats)),
+        "plain_ms": time_ms(lambda: spmm_packed_plain(packed, feats)),
+        "dense_plain_ms": (time_ms(
+            lambda: spmm_plain(values, cols, feats, b.bm, b.bk))
+            if dense else "not measured"),
+        "library_ms": time_ms(lambda: torch.sparse.mm(lib_a, flat)),
+        "library_device_ms": device_ms(
+            lambda: torch.sparse.mm(lib_a, flat)),
+        "library_call": "torch.sparse.mm(sparse_csr_tensor, feats)",
+        "bytes": nbytes, "ops": ops, "nnz": nnz,
+        "feature_rows_read": rows_read,
+        "feature_rows": int(feats.shape[0] * feats.shape[1]),
+        "max_row_nnz": int(counts.max()),
+        "empty_rows": int((counts == 0).sum()),
+        "rows": int(counts.numel()), "pack_s": pack_s,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "dense_values_bound_ms": max(dense_bytes / HBM_BYTES_PER_S * 1e3,
+                                     t_ops),
+    }
+    row["faster_than_library"] = row["ms"] < row["library_ms"]
+    row["faster_than_library_on_device"] = (
+        isinstance(row["device_ms"], float)
+        and isinstance(row["library_device_ms"], float)
+        and row["device_ms"] < row["library_device_ms"])
+    row["worst"] = max([err] + ([dense_err] if dense else []))
+    return row
+
+
+def phase_kernels(datasets, dev):
+    """K1 (spmm_csr on the packed BSR) against its plain versions; times at
+    the main path's shapes (SIoT's two layer widths, Yelp's first) over
+    each plan: the main plan's rows first, the Random plan's (the shapes
+    of earlier runs) last.  The dense layout's plain version runs on the
+    Random plans only: over a GLAD-S plan its gathered operand (every
+    stored block's feature tile) would take tens of GB."""
+    gen = torch.Generator().manual_seed(SEED)
+    results, worst = [], 0.0
+    siot, yelp = datasets
+    for layout in LAYOUTS:
+        for ds, d in ((siot, 52), (siot, 16), (yelp, 100)):
+            row = _k1_row(ds, layout, d, gen, dev)
+            worst = max(worst, row.pop("worst"))
+            results.append(row)
+            emit({"phase": "kernels", "kernel": "spmm_csr", **row})
     # The reference's test shapes, a weighted case and a ragged d.
     rng = np.random.default_rng(SEED)
     for n, extra, bm, bk, d, weighted in [
@@ -383,59 +490,105 @@ def phase_kernels(datasets, dev):
 
 
 def phase_bsp(datasets, dev):
-    """Main path: the BSP forward at paper width, both exchanges."""
-    params_of, blocks_ref = {}, {}
+    """Main path: the BSP forward at paper width over each plan, both
+    exchanges, against the whole-graph forward on the card and the CPU."""
+    params_of = {}
     for ds in datasets:
-        g, plan = ds["graph"], ds["plan"]
-        blocks = torch.from_numpy(scatter_features(plan, g.features)).to(dev)
+        g = ds["graph"]
         for model in ("gcn", "sage", "gat"):
             cfg = gnn_paper.ALL[(ds["name"], model)]
             params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
             params_of[(ds["name"], model)] = params
-            ref = forward(cfg, params, ds["feats"], ds["sd"])
+            ref = forward(cfg, params, ds["feats"], ds["sd"]).cpu()
             cpu_params = [{k: v.cpu() for k, v in p.items()} for p in params]
             ref_cpu = forward(cfg, cpu_params, ds["feats"].cpu(),
                               ds["sd"].cpu())
-            cpu_err = allclose_err(ref.cpu(), ref_cpu, FWD_TOL)
+            cpu_err = allclose_err(ref, ref_cpu, FWD_TOL)
             require(cpu_err <= FWD_TOL, f"{ds['name']} {model}: whole-graph "
                     f"forward on the card vs the CPU: {cpu_err}")
-            blocks_ref[(ds["name"], model)] = ref
-            for exchange in ("ppermute", "allgather"):
-                fwd = make_bsp_forward(cfg, plan, exchange=exchange,
-                                       device=dev)
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                before = spmm.launches
-                out = fwd(params, blocks)
-                torch.cuda.synchronize()
-                launched = spmm.launches - before
-                peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
-                resident = fwd.stats["ops"].t
-                require("bsr_values" not in resident,
-                        f"{ds['name']} {model}: dense BSR values resident")
-                want = cfg.num_layers if model in ("gcn", "sage") else 0
-                require(launched == want, f"{ds['name']} {model} {exchange}: "
-                        f"{launched} spmm_csr launches, expected {want}")
-                full = torch.from_numpy(
-                    gather_outputs(plan, out.cpu().numpy(), g.n))
-                err = allclose_err(full, ref.cpu(), FWD_TOL)
-                require(err <= FWD_TOL, f"{ds['name']} {model} {exchange}: "
-                        f"BSP forward vs whole-graph forward: {err}")
-                ms = time_ms(lambda: fwd(params, blocks), reps=20)
-                emit({"phase": "bsp", "dataset": ds["name"], "model": model,
-                      "exchange": exchange, "aggregate": fwd.mode,
-                      "spmm_launches": launched, "allclose_excess": err,
-                      "max_abs_err": float((full - ref.cpu()).abs().max()),
-                      "card_vs_cpu_excess": cpu_err, "forward_ms": ms,
-                      "plan_tensor_mb": sum(t.numel() * t.element_size()
-                                            for t in resident.values()) / 1e6,
-                      "forward_peak_mb": peak_mb})
-    return params_of, blocks_ref
+            for layout in LAYOUTS:
+                plan = ds["layouts"][layout]["plan"]
+                blocks = torch.from_numpy(
+                    scatter_features(plan, g.features)).to(dev)
+                for exchange in ("ppermute", "allgather"):
+                    label = f"{ds['name']} {layout} {model} {exchange}"
+                    fwd = make_bsp_forward(cfg, plan, exchange=exchange,
+                                           device=dev)
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    before = spmm.launches
+                    out = fwd(params, blocks)
+                    torch.cuda.synchronize()
+                    launched = spmm.launches - before
+                    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+                    resident = fwd.stats["ops"].t
+                    require("bsr_values" not in resident,
+                            f"{label}: dense BSR values resident")
+                    want = cfg.num_layers if model in ("gcn", "sage") else 0
+                    require(launched == want, f"{label}: {launched} spmm_csr "
+                            f"launches, expected {want}")
+                    full = torch.from_numpy(
+                        gather_outputs(plan, out.cpu().numpy(), g.n))
+                    err = allclose_err(full, ref, FWD_TOL)
+                    require(err <= FWD_TOL, f"{label}: BSP forward vs "
+                            f"whole-graph forward: {err}")
+                    ms = time_ms(lambda: fwd(params, blocks), reps=20)
+                    emit({"phase": "bsp", "dataset": ds["name"],
+                          "layout": layout, "model": model,
+                          "exchange": exchange, "aggregate": fwd.mode,
+                          "rounds": len(plan.rounds),
+                          "halo_rows": (plan.halo_bytes_ppermute
+                                        if exchange == "ppermute"
+                                        else plan.halo_rows_allgather),
+                          "spmm_launches": launched, "allclose_excess": err,
+                          "max_abs_err": float((full - ref).abs().max()),
+                          "card_vs_cpu_excess": cpu_err, "forward_ms": ms,
+                          "plan_tensor_mb": sum(
+                              t.numel() * t.element_size()
+                              for t in resident.values()) / 1e6,
+                          "forward_peak_mb": peak_mb})
+    return params_of
+
+
+def _relayout(plan, g, new, fwds, params_of, dev, label):
+    """Patch ``plan`` to ``new`` in place and run each forward over it:
+    patched == fresh compile, rebuilds exactly as ``retrace_expected``
+    says, and each output bit-equal to a fresh plan's forward.  Returns the
+    delta, the host patch seconds and each model's first-forward seconds."""
+    builds = {m: f.stats["builds"] for m, f in fwds.items()}
+    t0 = time.perf_counter()
+    delta = patch_plan(plan, g, new)
+    patch_s = time.perf_counter() - t0
+    fresh = recompile_like(plan, g, new)
+    require(plans_equal(plan, fresh) == [],
+            f"{label}: patched plan != fresh compile")
+    blocks = torch.from_numpy(scatter_features(plan, g.features)).to(dev)
+    refresh_s = {}
+    for m, fwd in fwds.items():
+        cfg, params = gnn_paper.ALL[("siot", m)], params_of[("siot", m)]
+        t0 = time.perf_counter()
+        out = fwd(params, blocks)     # refreshes; the first one repacks
+        torch.cuda.synchronize()
+        refresh_s[m] = time.perf_counter() - t0
+        rebuilt = fwd.stats["builds"] - builds[m]
+        require(rebuilt == int(delta.retrace_expected),
+                f"{label} {m}: {rebuilt} rebuilds, retrace_expected "
+                f"{delta.retrace_expected} ({delta.grew})")
+        fresh_fwd = make_bsp_forward(cfg, fresh, exchange="ppermute",
+                                     device=dev)
+        require(torch.equal(out, fresh_fwd(params, blocks)),
+                f"{label} {m}: patched forward != fresh plan's forward, "
+                "bit for bit")
+    return delta, patch_s, refresh_s
 
 
 def phase_patch(siot, params_of, dev):
-    g, plan = siot["graph"], siot["plan"]
+    """On the main plan: a 2% relayout off it, the relayout back to it
+    (value-only: no rebuild), then a capacity overflow (one rebuild).  The
+    first step grows the plan: GLAD-S leaves few halo rows, and a random 2%
+    moves many more across servers than its halo_cap holds."""
+    g, plan = siot["graph"], siot["layouts"]["glad_s_mu2"]["plan"]
     fwds = {m: make_bsp_forward(gnn_paper.ALL[("siot", m)], plan,
                                 exchange="ppermute", device=dev)
             for m in ("gcn", "sage")}
@@ -445,35 +598,28 @@ def phase_patch(siot, params_of, dev):
     rng = np.random.default_rng(SEED + 1)
     k = g.n // 50
     movers = rng.choice(g.n, size=k, replace=False)
-    new = plan.assign.copy()
-    new[movers] = (new[movers] + rng.integers(1, PARTS, size=k)) % PARTS
-    t0 = time.perf_counter()
-    delta = patch_plan(plan, g, new)
-    patch_s = time.perf_counter() - t0
+    home = plan.assign.copy()
+    off = home.copy()
+    off[movers] = (off[movers] + rng.integers(1, PARTS, size=k)) % PARTS
+    delta, off_s, off_refresh = _relayout(plan, g, off, fwds, params_of, dev,
+                                          "relayout off the main plan")
+    emit({"phase": "patch_off", "moved": int(len(delta.moved)),
+          "grew": list(delta.grew), "rounds_added": delta.rounds_added,
+          "retrace_expected": delta.retrace_expected,
+          "cap": plan.cap, "halo_cap": plan.halo_cap, "e_cap": plan.e_cap,
+          "rounds": len(plan.rounds), "host_patch_s": off_s,
+          "refresh_s": off_refresh, "bit_equal_to_fresh": True})
+    delta, patch_s, refresh_s = _relayout(plan, g, home, fwds, params_of, dev,
+                                          "relayout back to the main plan")
     require(not delta.retrace_expected,
-            f"a {k}-vertex relayout overflowed the plan's slack: {delta.grew}")
-    fresh = recompile_like(plan, g, new)
-    require(plans_equal(plan, fresh) == [], "patched plan != fresh compile")
-    blocks = torch.from_numpy(scatter_features(plan, g.features)).to(dev)
-    refresh_s = {}
-    for m, fwd in fwds.items():
-        cfg, params = gnn_paper.ALL[("siot", m)], params_of[("siot", m)]
-        t0 = time.perf_counter()
-        out = fwd(params, blocks)     # refreshes; the first one repacks
-        torch.cuda.synchronize()
-        refresh_s[m] = time.perf_counter() - t0
-        require(fwd.stats["builds"] == 1,
-                f"{m}: value-only patch rebuilt the forward")
-        fresh_fwd = make_bsp_forward(cfg, fresh, exchange="ppermute",
-                                     device=dev)
-        require(torch.equal(out, fresh_fwd(params, blocks)),
-                f"{m}: patched forward != fresh plan's forward, bit for bit")
+            f"the {k}-vertex relayout back overflowed the plan: {delta.grew}")
     emit({"phase": "patch", "moved": int(len(delta.moved)),
           "dirty_parts": int(len(delta.dirty_parts)), "host_patch_s": patch_s,
           "refresh_s": refresh_s,
           "builds_after_patch": {m: f.stats["builds"] for m, f in fwds.items()},
           "bit_equal_to_fresh": True})
-    grow = new.copy()
+    builds = {m: f.stats["builds"] for m, f in fwds.items()}
+    grow = home.copy()
     grow[: g.n // 2] = 0                      # stampede into partition 0
     delta = patch_plan(plan, g, grow)
     require(delta.retrace_expected, "stampede did not grow the plan")
@@ -481,8 +627,9 @@ def phase_patch(siot, params_of, dev):
     for m, fwd in fwds.items():
         cfg, params = gnn_paper.ALL[("siot", m)], params_of[("siot", m)]
         out = fwd(params, blocks)
-        require(fwd.stats["builds"] == 2,
-                f"{m}: growth gave {fwd.stats['builds'] - 1} rebuilds, not 1")
+        require(fwd.stats["builds"] == builds[m] + 1,
+                f"{m}: growth gave {fwd.stats['builds'] - builds[m]} "
+                "rebuilds, not 1")
         ref = forward(cfg, params, siot["feats"], siot["sd"]).cpu()
         full = torch.from_numpy(gather_outputs(plan, out.cpu().numpy(), g.n))
         err = allclose_err(full, ref, FWD_TOL)
@@ -492,29 +639,209 @@ def phase_patch(siot, params_of, dev):
 
 
 def phase_serve(siot, params_of, dev):
-    g, plan = siot["graph"], siot["plan"]
+    """256 Zipf requests through the ego-serving engine over each of SIoT's
+    plans, against the BSP forward's rows."""
+    g = siot["graph"]
     cfg, params = gnn_paper.SIOT_GCN, params_of[("siot", "gcn")]
-    fwd = make_bsp_forward(cfg, plan, device=dev)
-    bsp = gather_outputs(plan, fwd(params, torch.from_numpy(
-        scatter_features(plan, g.features)).to(dev)).cpu().numpy(), g.n)
-    engine = GNNServeEngine(cfg, params, g, plan, hops=2, batch=16,
-                            device=dev)
     targets = zipf_requests(g.n, 256, s=1.1, seed=SEED)
-    out = engine.serve(targets)
-    err = allclose_err(torch.from_numpy(out), torch.from_numpy(bsp[targets]),
-                       FWD_TOL)
-    require(out.shape == (256, cfg.layer_dims[-1]) and np.isfinite(out).all(),
-            f"served output shape {out.shape} or non-finite values")
-    require(err <= FWD_TOL, f"served answers vs BSP forward rows: {err}")
-    s = engine.stats
-    lat = engine.latency_percentiles()
-    emit({"phase": "serve", "requests": s.requests, "batches": s.batches,
-          "local_rows": s.local_rows, "cache_hit_rows": s.cache_hit_rows,
-          "fetched_rows": s.fetched_rows,
-          "replica_hit_rows": s.replica_hit_rows,
-          "req_per_s": s.throughput_rps, "p50_ms": lat["p50"] * 1e3,
-          "p99_ms": lat["p99"] * 1e3, "allclose_excess": err,
-          "cache": engine.cache_stats()})
+    for layout in LAYOUTS:
+        plan = siot["layouts"][layout]["plan"]
+        fwd = make_bsp_forward(cfg, plan, device=dev)
+        bsp = gather_outputs(plan, fwd(params, torch.from_numpy(
+            scatter_features(plan, g.features)).to(dev)).cpu().numpy(), g.n)
+        engine = GNNServeEngine(cfg, params, g, plan, hops=2, batch=16,
+                                device=dev)
+        out = engine.serve(targets)
+        err = allclose_err(torch.from_numpy(out),
+                           torch.from_numpy(bsp[targets]), FWD_TOL)
+        require(out.shape == (256, cfg.layer_dims[-1])
+                and np.isfinite(out).all(), f"served output shape "
+                f"{out.shape} or non-finite values over {layout}")
+        require(err <= FWD_TOL, f"served answers vs BSP forward rows over "
+                f"{layout}: {err}")
+        s = engine.stats
+        if layout == "random":
+            require(s.fetched_rows > 0, "serving over the Random plan "
+                    "fetched no remote row")
+        lat = engine.latency_percentiles()
+        emit({"phase": "serve", "layout": layout, "requests": s.requests,
+              "batches": s.batches, "local_rows": s.local_rows,
+              "cache_hit_rows": s.cache_hit_rows,
+              "fetched_rows": s.fetched_rows,
+              "replica_hit_rows": s.replica_hit_rows,
+              "req_per_s": s.throughput_rps, "p50_ms": lat["p50"] * 1e3,
+              "p99_ms": lat["p99"] * 1e3, "allclose_excess": err,
+              "cache": engine.cache_stats()})
+
+
+def phase_evolve(siot, params_of, dev):
+    """The paper's dynamic path (Sec. V): graph evolution, GLAD-E relayout
+    on the main fleet and an in-place plan patch per slot, on the main
+    layout compiled without headroom, so that vertex insertions overflow
+    its edge table."""
+    g = siot["graph"]
+    assign = siot["layouts"]["glad_s_mu2"]["assign"].copy()
+    cfg, params = gnn_paper.SIOT_GCN, params_of[("siot", "gcn")]
+    gnn = workload_for("gcn", cfg.layer_dims[0])
+    plan = compile_plan(g, partition_from_assign(g, assign, PARTS, {}))
+    build_plan_bsr(plan)
+    fwd = make_bsp_forward(cfg, plan, exchange="ppermute", device=dev)
+    fwd(params, torch.from_numpy(scatter_features(plan, g.features)).to(dev))
+    e_cap_path = False
+    for t in range(EVOLVE_SLOTS):
+        delta = sample_delta(g, pct_links=0.01, pct_vertices=0.0005,
+                             seed=EVOLVE_SEED + 17 * t)
+        g_new = apply_delta(g, delta)
+        cm = CostModel(build_edge_network(g_new, PARTS, seed=SEED,
+                                          mu_factor=FLEETS["mu2"]), g_new, gnn)
+        t0 = time.perf_counter()
+        res = glad_e(cm, g, assign, seed=SEED)
+        glad_e_s = time.perf_counter() - t0
+        structural = [delta.add_edges.ravel(), delta.del_edges.ravel(),
+                      delta.del_vertices]
+        structural += [g.neighbors(int(v)) for v in delta.del_vertices]
+        structural = np.unique(np.concatenate(structural))
+        caps = (plan.cap, plan.halo_cap, plan.e_cap)
+        t0 = time.perf_counter()
+        pd = patch_plan(plan, g_new, res.assign, dirty_vertices=structural)
+        patch_s = time.perf_counter() - t0
+        fresh = recompile_like(plan, g_new, res.assign)
+        require(plans_equal(plan, fresh) == [],
+                f"evolve slot {t}: patched plan != fresh compile")
+        require(pd.new_vertices == g_new.n - g.n,
+                f"evolve slot {t}: {pd.new_vertices} new vertices reported")
+        blocks = torch.from_numpy(scatter_features(plan, g_new.features)
+                                  ).to(dev)
+        builds = fwd.stats["builds"]
+        before = spmm.launches
+        out = fwd(params, blocks)
+        torch.cuda.synchronize()
+        require(spmm.launches - before == cfg.num_layers,
+                f"evolve slot {t}: {spmm.launches - before} spmm_csr launches")
+        rebuilt = fwd.stats["builds"] - builds
+        require(rebuilt == int(pd.retrace_expected),
+                f"evolve slot {t}: {rebuilt} rebuilds, retrace_expected "
+                f"{pd.retrace_expected} ({pd.grew})")
+        fresh_out = make_bsp_forward(cfg, fresh, exchange="ppermute",
+                                     device=dev)(params, blocks)
+        require(torch.equal(out, fresh_out), f"evolve slot {t}: forward "
+                "over the patched plan != fresh plan's, bit for bit")
+        sd = torch.from_numpy(directed_edges(g_new.edges)).to(dev)
+        ref = forward(cfg, params, torch.from_numpy(g_new.features).to(dev),
+                      sd).cpu()
+        full = torch.from_numpy(
+            gather_outputs(plan, out.cpu().numpy(), g_new.n))
+        err = allclose_err(full, ref, FWD_TOL)
+        require(err <= FWD_TOL, f"evolve slot {t}: forward vs whole-graph "
+                f"forward: {err}")
+        hit = (pd.new_vertices > 0 and "e_cap" in pd.grew
+               and caps[:2] == (plan.cap, plan.halo_cap))
+        e_cap_path = e_cap_path or hit
+        emit({"phase": "evolve", "slot": t, "n": g_new.n,
+              "links": g_new.num_edges, "add_vertices": delta.add_vertices,
+              "del_vertices": int(len(delta.del_vertices)),
+              "add_links": int(len(delta.add_edges)),
+              "del_links": int(len(delta.del_edges)),
+              "glad_e_moved": int(len(res.moved)), "glad_e_cost": res.cost,
+              "glad_e_host_s": glad_e_s, "host_patch_s": patch_s,
+              "grew": list(pd.grew), "retrace_expected": pd.retrace_expected,
+              "builds": fwd.stats["builds"], "e_cap": plan.e_cap,
+              "e_cap_growth_after_insertion": hit, "allclose_excess": err,
+              "bit_equal_to_fresh": True})
+        g, assign = g_new, res.assign
+    require(e_cap_path, "no evolve slot inserted vertices and overflowed "
+            "e_cap alone")
+
+
+def phase_replicate(siot, params_of, dev):
+    """Serving-side move-vs-replicate on SIoT's Random and main plans, for
+    serve's stream: the replicated forward equals the unreplicated one bit
+    for bit, and the engine serves replica-resident rows.  Replicas are
+    switched off again at the end (one more rebuild, the same output)."""
+    g = siot["graph"]
+    targets = zipf_requests(g.n, 256, s=1.1, seed=SEED)
+    for layout in ("random", "glad_s_mu2"):
+        lay = siot["layouts"][layout]
+        cm, plan, assign = lay["cm"], lay["plan"], lay["assign"]
+        t0 = time.perf_counter()
+        repl = replicate_for_stream(cm, assign, targets, hops=2)
+        repl_s = time.perf_counter() - t0
+        require(repl.count > 0, f"{layout}: replicate_for_stream chose no "
+                "replica")
+        base_cost = serving_cost(cm, assign, targets, hops=2)
+        repl_cost = serving_cost(cm, assign, targets, hops=2,
+                                 replication=repl)
+        require(abs(repl_cost - (base_cost - repl.gain)) <= 1e-9 * base_cost,
+                f"{layout}: serving_cost with replicas {repl_cost} != base "
+                f"{base_cost} - gain {repl.gain}")
+        blocks = torch.from_numpy(scatter_features(plan, g.features)).to(dev)
+        fwds, plain = {}, {}
+        for m in ("gcn", "sage", "gat"):
+            cfg = gnn_paper.ALL[("siot", m)]
+            fwds[m] = make_bsp_forward(cfg, plan, exchange="ppermute",
+                                       device=dev)
+            plain[m] = fwds[m](params_of[("siot", m)], blocks)
+        set_replication(plan, repl)
+        require(plan.halo_bytes_ppermute0 < plan.halo_bytes_ppermute,
+                f"{layout}: replicas pruned no layer-0 row: "
+                f"{plan.halo_bytes_ppermute0} of {plan.halo_bytes_ppermute}")
+        replica0 = torch.from_numpy(scatter_replica_halo(plan, g.features)
+                                    ).to(dev)
+        launches = {}
+        for m, fwd in fwds.items():
+            cfg, params = gnn_paper.ALL[("siot", m)], params_of[("siot", m)]
+            try:
+                fwd(params, blocks)
+            except ValueError:
+                pass
+            else:
+                require(False, f"{layout} {m}: replicated forward ran "
+                        "without replica0")
+            before = spmm.launches
+            out = fwd(params, blocks, replica0=replica0)
+            torch.cuda.synchronize()
+            launches[m] = spmm.launches - before
+            want = cfg.num_layers if m in ("gcn", "sage") else 0
+            require(launches[m] == want, f"{layout} {m}: {launches[m]} "
+                    f"spmm_csr launches, expected {want}")
+            require(fwd.stats["builds"] == 2, f"{layout} {m}: replicas gave "
+                    f"{fwd.stats['builds'] - 1} rebuilds, not 1")
+            require(torch.equal(out, plain[m]), f"{layout} {m}: replicated "
+                    "forward != unreplicated, bit for bit")
+        cfg, params = gnn_paper.SIOT_GCN, params_of[("siot", "gcn")]
+        bsp = gather_outputs(plan, plain["gcn"].cpu().numpy(), g.n)
+        engine = GNNServeEngine(cfg, params, g, plan, hops=2, batch=16,
+                                device=dev)
+        out = engine.serve(targets)
+        err = allclose_err(torch.from_numpy(out),
+                           torch.from_numpy(bsp[targets]), FWD_TOL)
+        require(np.isfinite(out).all() and err <= FWD_TOL, f"{layout}: "
+                f"served answers over the replicated plan vs BSP rows: {err}")
+        s = engine.stats
+        require(s.replica_hit_rows > 0, f"{layout}: no served row came from "
+                "a replica")
+        lat = engine.latency_percentiles()
+        emit({"phase": "replicate", "layout": layout, "replicas": repl.count,
+              "host_replicate_s": repl_s, "r_cap": plan.r_cap,
+              "halo_rows_layer0": plan.halo_bytes_ppermute0,
+              "halo_rows_later_layers": plan.halo_bytes_ppermute,
+              "layer0_rows_saved": (plan.halo_bytes_ppermute
+                                    - plan.halo_bytes_ppermute0),
+              "serving_cost": base_cost, "serving_cost_replicated": repl_cost,
+              "gain": repl.gain, "spmm_launches": launches,
+              "bit_equal_to_unreplicated": True,
+              "requests": s.requests, "local_rows": s.local_rows,
+              "replica_hit_rows": s.replica_hit_rows,
+              "cache_hit_rows": s.cache_hit_rows,
+              "fetched_rows": s.fetched_rows,
+              "req_per_s": s.throughput_rps, "p50_ms": lat["p50"] * 1e3,
+              "p99_ms": lat["p99"] * 1e3, "allclose_excess": err})
+        set_replication(plan, None)
+        for m, fwd in fwds.items():
+            out = fwd(params_of[("siot", m)], blocks)
+            require(fwd.stats["builds"] == 3 and torch.equal(out, plain[m]),
+                    f"{layout} {m}: with replicas off again, "
+                    f"{fwd.stats['builds']} builds (not 3) or another output")
 
 
 # ------------------------------------------------------- flash attention (K2)
@@ -946,16 +1273,18 @@ def main() -> int:
     kind, smi_line = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    siot = make_dataset("siot", dev)
-    yelp = make_dataset("yelp", dev)
+    siot = phase_layout("siot", dev)
+    yelp = phase_layout("yelp", dev)
     kernel_rows, worst = phase_kernels([siot, yelp], dev)
     flash_rows, flash_worst = phase_flash_kernels(dev)
 
     spmm.launches = 0                         # the GNN path starts here
     flash_attention.launches = 0
-    params_of, _ = phase_bsp([siot, yelp], dev)
-    phase_patch(siot, params_of, dev)
+    params_of = phase_bsp([siot, yelp], dev)
     phase_serve(siot, params_of, dev)
+    phase_replicate(siot, params_of, dev)
+    phase_patch(siot, params_of, dev)
+    phase_evolve(siot, params_of, dev)
     launches = spmm.launches                  # ... and ends here
     require(launches > 0, "the GNN path never launched spmm_csr")
     del params_of, siot, yelp
@@ -979,7 +1308,11 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "library_device_ms": head["library_device_ms"],
         "dense_values_bound_ms": head["dense_values_bound_ms"],
-        "shape": head["shape"]}, {
+        "shape": head["shape"],
+        "shapes": {r["shape"]: {key: r.get(key) for key in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "nnz")}
+            for r in kernel_rows}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:117",

@@ -1,16 +1,30 @@
-"""Placement baselines the paper compares against (Sec. VI-A).
+"""De-facto placement baselines the paper compares against (Sec. VI-A):
 
-Only ``Random`` is ported in this slice; it is the layout the chip smoke
-run uses until GLAD itself is ported.  It draws the same numbers as
-``repro.core.baselines.random_layout`` for the same seed, without needing a
-``CostModel`` (which only supplied ``n`` and ``m`` there).
+  Random — each client to an arbitrary server.
+  Greedy — each client to the server minimizing its *individual* cost
+           (data collection + GNN computation + data-dependent maintenance,
+           i.e. the unary term; ignores cross-edge traffic).
+
+The port's copy of ``repro.core.baselines``, with ``repro`` renamed ``repro_torch``.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core.cost import CostModel
 
-def random_layout(n: int, m: int, seed: int = 0) -> np.ndarray:
-    """Each of ``n`` clients to an arbitrary one of ``m`` servers."""
+
+def random_layout(cm: CostModel, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
-    return rng.integers(0, m, size=n).astype(np.int64)
+    return rng.integers(0, cm.net.m, size=cm.graph.n).astype(np.int64)
+
+
+def greedy_layout(cm: CostModel) -> np.ndarray:
+    """argmin_i [ mu_vi + C_P(v,i) + rho_i ] per vertex."""
+    return cm.unary.argmin(axis=1).astype(np.int64)
+
+
+def uploading_first_layout(cm: CostModel) -> np.ndarray:
+    """The initialization tactic discussed in Sec. IV-B: greedily minimize C_U
+    only — useful when data collection dominates."""
+    return cm.net.mu.argmin(axis=1).astype(np.int64)

@@ -13,7 +13,7 @@ from repro_torch.gnn.distributed import (
 from repro_torch.gnn.serving import (
     EgoBatch, FeatureCache, GNNServeEngine, ServeStats, ego_tables,
     extract_ego, extract_ego_batch, link_traffic, make_ego_forward,
-    request_traffic, zipf_requests,
+    replicate_for_stream, request_traffic, serving_cost, zipf_requests,
 )
 
 __all__ = [
@@ -26,5 +26,6 @@ __all__ = [
     "set_replication", "simulate_bsp_forward",
     "EgoBatch", "FeatureCache", "GNNServeEngine", "ServeStats", "ego_tables",
     "extract_ego", "extract_ego_batch", "link_traffic", "make_ego_forward",
-    "request_traffic", "zipf_requests",
+    "replicate_for_stream", "request_traffic", "serving_cost",
+    "zipf_requests",
 ]

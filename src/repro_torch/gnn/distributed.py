@@ -12,6 +12,11 @@ Two exchanges (both move exactly the rows the reference moves):
   * ``ppermute`` — the plan's rotation rounds as index copies: in the round
     of shift s, partition q receives sender (q - s) % P's ``send_idx`` rows
     into its halo at ``recv_pos`` (the reference's ``_exchange_ppermute``).
+    On a plan with replicas, layer 0 starts each halo from ``replica0``
+    (:func:`scatter_replica_halo`: the replica-resident rows' raw features)
+    and runs the pruned ``rounds0``, whose pruned receives land on the dump
+    row ``halo_cap``; later layers move activations, start from zeros and
+    run the full ``rounds``.
   * ``allgather`` — every halo row gathered from the flat (P*cap + 1, d)
     table of all blocks by ``halo_slot``.
 
@@ -30,7 +35,8 @@ partition, go to the device; the pack is made once per plan version and
 shared by every forward over the plan.  When ``plan.version`` moves
 (a :func:`patch_plan` that kept every capacity) they are refreshed in place;
 the forward is rebuilt, re-allocating them, only when the reference's
-signature changes (a capacity grew or a ppermute round appeared).
+signature changes (a capacity grew, a ppermute round appeared, or the
+ppermute forward's replicas were switched on or off).
 ``fwd.stats['builds']`` counts those rebuilds.
 """
 from __future__ import annotations
@@ -44,7 +50,8 @@ import torch.nn.functional as F
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.gnn.models import GNNConfig, segment_max, segment_sum
 from repro_torch.gnn.plan import (
-    ShardPlan, build_plan_bsr, gather_outputs, scatter_features)
+    ShardPlan, build_plan_bsr, gather_outputs, scatter_features,
+    scatter_replica_halo)
 from repro_torch.kernels.gnn_aggregate import PackedBSR, pack_bsr, spmm_packed
 
 EXCHANGES = ("ppermute", "allgather")
@@ -68,13 +75,6 @@ def resolve_aggregate(cfg: GNNConfig, aggregate: str,
     if aggregate == "bsr" and cfg.model == "gat":
         return "segment"
     return aggregate
-
-
-def _check_no_replicas(plan: ShardPlan) -> None:
-    if plan.has_replicas:
-        raise NotImplementedError(
-            "the replica forward (layer-0 rounds0/halo0 schedule) is not "
-            "ported yet; clear the plan's replication to run the BSP forward")
 
 
 # id(plan.bsr) -> (weak reference to it, (plan.version, plan.e_cap), pack).
@@ -107,6 +107,7 @@ class _PlanTensors:
     def __init__(self, plan: ShardPlan, mode: str, exchange: str,
                  device: torch.device):
         self.mode, self.exchange = mode, exchange
+        self.replicas = exchange == "ppermute" and plan.has_replicas
         self.num_parts, self.cap, self.halo_cap = (
             plan.num_parts, plan.cap, plan.halo_cap)
         self.shifts = ([r["shift"] for r in plan.rounds]
@@ -138,6 +139,9 @@ class _PlanTensors:
                               else ()):
             arrs[f"send_idx{k}"] = r["send_idx"]
             arrs[f"recv_pos{k}"] = r["recv_pos"]
+        for k, r in enumerate(plan.rounds0 if self.replicas else ()):
+            arrs[f"send_idx0_{k}"] = r["send_idx"]
+            arrs[f"recv_pos0_{k}"] = r["recv_pos"]
         return arrs
 
     def _copy(self, arrs: dict) -> None:
@@ -155,17 +159,26 @@ def _exchange_allgather(h: torch.Tensor, halo_slot: torch.Tensor):
     return flat[halo_slot.clamp(max=P * cap)]               # (P, halo_cap, d)
 
 
-def _exchange_ppermute(h: torch.Tensor, ops: _PlanTensors):
-    """Move exactly the cut-link rows (the paper's C_T) round by round."""
+def _exchange_ppermute(h: torch.Tensor, ops: _PlanTensors, init=None):
+    """Move exactly the cut-link rows (the paper's C_T) round by round.
+
+    ``init``: the layer-0 replica halo, (P, halo_cap + 1, d) with the dump
+    row last, written in place; with it the exchange runs the pruned
+    ``rounds0`` tables."""
     P, cap, d = h.shape
     rows = torch.arange(P, device=h.device)[:, None]
     table = torch.cat([h, h.new_zeros((P, 1, d))], dim=1)    # row cap = 0
-    halo = h.new_zeros((P, ops.halo_cap + 1, d))             # row halo_cap: dump
+    if init is None:
+        halo = h.new_zeros((P, ops.halo_cap + 1, d))     # row halo_cap: dump
+        send_k, recv_k = "send_idx{}", "recv_pos{}"
+    else:
+        halo = init
+        send_k, recv_k = "send_idx0_{}", "recv_pos0_{}"
     for k, shift in enumerate(ops.shifts):
-        send_idx = ops.t[f"send_idx{k}"]
+        send_idx = ops.t[send_k.format(k)]
         send = table[rows, torch.where(send_idx < 0, cap, send_idx)]
         got = torch.roll(send, shifts=shift, dims=0)         # q <- (q - s) % P
-        halo[rows, ops.t[f"recv_pos{k}"]] = got
+        halo[rows, ops.t[recv_k.format(k)]] = got
     return halo[:, : ops.halo_cap]
 
 
@@ -231,14 +244,14 @@ def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
     return out if last else torch.relu(out)
 
 
-def _bsp_forward(cfg, params, h, ops: _PlanTensors):
+def _bsp_forward(cfg, params, h, ops: _PlanTensors, halo0=None):
     P, cap = ops.num_parts, ops.cap
     part = torch.arange(P, device=h.device)[:, None]
     idx = {"src_flat": (ops.t["edges_src"] + part * ops.table_rows).reshape(-1),
            "dst_flat": (ops.t["edges_dst"] + part * (cap + 1)).reshape(-1)}
     for k, p in enumerate(params):
         if ops.exchange == "ppermute":
-            halo = _exchange_ppermute(h, ops)
+            halo = _exchange_ppermute(h, ops, init=halo0 if k == 0 else None)
         else:
             halo = _exchange_allgather(h, ops.t["halo_slot"])
         h = _device_layer(cfg, p, h, halo, ops, idx, k == len(params) - 1)
@@ -257,31 +270,42 @@ def make_bsp_forward(
     The returned callable reads the plan at CALL time: a :func:`patch_plan`
     that kept every capacity is picked up by refreshing the resident plan
     tensors in place, with zero rebuilds; capacity growth or a new ppermute
-    round changes the signature and rebuilds exactly once.  ``fwd.stats``
-    exposes ``{'builds': ...}``.  ``exchange`` and ``aggregate`` pick the
-    halo exchange and the neighbour sum (see :func:`resolve_aggregate`).
+    round changes the signature and rebuilds exactly once, as does turning
+    the ppermute forward's replicas on or off (growth of ``r_cap`` alone is
+    value-only).  ``fwd.stats`` exposes ``{'builds': ...}``.  ``exchange``
+    and ``aggregate`` pick the halo exchange and the neighbour sum (see
+    :func:`resolve_aggregate`).
+
+    On a plan with replicas the ppermute forward takes
+    ``replica0=scatter_replica_halo(plan, features)``, (P, halo_cap, d): the
+    replica-resident halo rows of layer 0, which it does not move.  The
+    allgather forward ignores replicas.
     """
     if exchange not in EXCHANGES:
         raise ValueError(f"unknown exchange {exchange!r}")
     dev = resolve_device(device)
     mode = resolve_aggregate(cfg, aggregate, dev)
-    _check_no_replicas(plan)
     if mode == "bsr" and plan.bsr is None:
         build_plan_bsr(plan)
     state = {"sig": None, "version": -1, "ops": None, "builds": 0}
+
+    def _use_replicas():
+        return exchange == "ppermute" and plan.has_replicas
 
     def _signature():
         sig = (plan.cap, plan.halo_cap, plan.e_cap)
         if exchange == "ppermute":
             sig += (tuple(r["shift"] for r in plan.rounds),
                     tuple(r["width"] for r in plan.rounds))
+        if _use_replicas():
+            # rounds0 mirrors rounds' shifts and widths: one flag suffices.
+            sig += ("repl",)
         if mode == "bsr":
             b = plan.bsr
             sig += (b.bm, b.bk, b.max_blocks, b.src_rows)
         return sig
 
-    def forward(params, blocks):
-        _check_no_replicas(plan)
+    def forward(params, blocks, replica0=None):
         sig = _signature()
         if sig != state["sig"]:
             state["ops"] = _PlanTensors(plan, mode, exchange, dev)
@@ -292,7 +316,17 @@ def make_bsp_forward(
             state["ops"].refresh(plan)
             state["version"] = plan.version
         h = torch.as_tensor(blocks, device=dev).to(cfg.dtype)
-        return _bsp_forward(cfg, params, h, state["ops"])
+        halo0 = None
+        if _use_replicas():
+            if replica0 is None:
+                raise ValueError(
+                    "plan has replicas: pass replica0="
+                    "scatter_replica_halo(plan, features) so layer 0 can "
+                    "serve replica-resident halo slots locally")
+            r0 = torch.as_tensor(replica0, device=dev).to(h.dtype)
+            halo0 = torch.cat([r0, r0.new_zeros((r0.shape[0], 1,
+                                                 r0.shape[-1]))], dim=1)
+        return _bsp_forward(cfg, params, h, state["ops"], halo0)
 
     forward.stats = state
     forward.plan = plan
@@ -305,9 +339,13 @@ def simulate_bsp_forward(cfg: GNNConfig, params, plan: ShardPlan,
                          aggregate: str = "auto",
                          device: DeviceLike = "cuda") -> np.ndarray:
     """Whole-graph convenience: scatter ``features`` (n, s_0) over the plan,
-    run the BSP forward once, gather (n, s_K) back as numpy."""
+    run the BSP forward once (with the replica halo, on a plan that has
+    replicas), gather (n, s_K) back as numpy."""
     fwd = make_bsp_forward(cfg, plan, exchange=exchange, aggregate=aggregate,
                            device=device)
     features = np.asarray(features)
-    out = fwd(params, torch.from_numpy(scatter_features(plan, features)))
+    replica0 = (torch.from_numpy(scatter_replica_halo(plan, features))
+                if plan.has_replicas else None)
+    out = fwd(params, torch.from_numpy(scatter_features(plan, features)),
+              replica0=replica0)
     return gather_outputs(plan, out.cpu().numpy(), features.shape[0])

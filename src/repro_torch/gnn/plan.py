@@ -4,7 +4,10 @@ A numpy copy of the host half of ``repro/gnn/distributed.py`` (everything
 above its device kernels).  The reference module imports JAX at its top, so
 this code is copied rather than imported; ``tests/test_torch_plan.py`` holds
 the two copies equal array for array over compiles, patch sequences, growth
-and replica tables.
+and replica tables.  One difference is deliberate: :func:`_rebuild` takes
+the old universe size from ``plan.assign``, where the reference reads
+``plan.n`` after :func:`patch_plan` has already grown ``slot_of``, and fails
+when a slot that inserts vertices overflows ``e_cap``.
 
 Plan lifecycle (compile -> patch -> rebuild):
 
@@ -893,8 +896,12 @@ def patch_plan(
 def _rebuild(plan: ShardPlan, graph: DataGraph,
              new_assign: np.ndarray, grew: tuple) -> PlanDelta:
     """Full recompile at grown (doubled-as-needed) capacities, written into
-    ``plan`` in place so callers holding the plan object see the update."""
-    n_old = plan.n
+    ``plan`` in place so callers holding the plan object see the update.
+
+    The old universe size is ``len(plan.assign)``: :func:`patch_plan` may
+    already have grown ``plan.slot_of`` (and with it ``plan.n``) to the new
+    graph before an ``e_cap`` or ``r_cap`` overflow sends it here."""
+    n_old = len(plan.assign)
     moved = (np.flatnonzero(new_assign[:n_old] != plan.assign)
              if graph.n >= n_old else np.arange(graph.n, dtype=np.int64))
     # Existing capacities become minimums (grow-by-doubling past them) and

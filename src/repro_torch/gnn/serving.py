@@ -17,9 +17,10 @@ touching only the small k-hop ego subgraph of its target vertex:
     over the LIVE plan (homes from ``plan.assign`` at tick time, caches
     re-seeded when ``plan.version`` moves), with the same locality ledger as
     the reference and p50/p99 latency.
-
-``serving_cost`` and ``replicate_for_stream`` need the cost model and come
-with the layout slice.
+  * :func:`serving_cost` / :func:`replicate_for_stream` — the analytic
+    per-request serving cost of a layout under distributed ego execution,
+    and the stream-weighted move-vs-replicate greedy that feeds
+    ``set_replication``; host code copied from the reference.
 """
 from __future__ import annotations
 
@@ -560,3 +561,126 @@ class GNNServeEngine:
         return {"p50": float(np.percentile(arr, 50)),
                 "p99": float(np.percentile(arr, 99))}
 
+
+# ---------------------------------------------------------------- evaluation
+def _replication_masks(replication, assign: np.ndarray, num_parts: int,
+                       n: int):
+    """(num_parts, n) bool of MATERIALIZED replicas (request minus homed)
+    from a Replication / plain dict / replicated ShardPlan's request."""
+    by_part = getattr(replication, "by_part", None)
+    if by_part is None:
+        by_part = getattr(replication, "replication", replication)
+    mask = np.zeros((num_parts, n), dtype=bool)
+    for p, ids in (by_part or {}).items():
+        ids = np.asarray(ids, dtype=np.int64)
+        ids = ids[(ids >= 0) & (ids < n)]
+        mask[int(p), ids[assign[ids] != int(p)]] = True
+    return mask
+
+
+def serving_cost(cm, assign: np.ndarray, targets: np.ndarray, hops: int,
+                 fanout: Optional[int] = None, replication=None,
+                 sync_weight: float = 0.5, storage: float = 0.0) -> float:
+    """Analytic serving cost of a layout under a request stream, under the
+    paper's DISTRIBUTED execution model: each ego vertex aggregates at its
+    own host (the BSP forward restricted to the ego — C_P of node ``u`` at
+    ``assign[u]``), and every remotely-owned row ships its result to the
+    target's home once, at ``tau[home, owner]``.  Summed over the stream,
+    the compute term is exactly the ego-propagated
+    :func:`request_traffic`-weighted unary compute row — the quantity a
+    traffic-aware ``CostModel`` hands GLAD.
+
+    ``replication`` (a ``core.Replication``, a ``{part: ids}`` dict, or a
+    replicated ShardPlan) prices replica-resident rows at ZERO fetch —
+    the copy already lives at the home, so only the one-time sync
+    (``sync_weight * tau[owner, p]`` per materialized replica, the same
+    rule as ``CostModel.replicate_greedy``) plus ``storage`` is charged,
+    once per replica, independent of how many requests read it.  Compute
+    stays at the owner — replication moves bytes, not FLOPs.
+
+    Pass a traffic-BLIND CostModel: the stream itself carries the request
+    weighting here, so a traffic-scaled ``cp_matrix`` would double count.
+    This is the metric the serving bench uses to compare traffic-aware vs
+    traffic-blind (and replicated vs move-only) layouts in the same
+    window."""
+    if cm.traffic is not None:
+        raise ValueError("pass a traffic-blind CostModel (traffic=None)")
+    assign = np.asarray(assign, dtype=np.int64)
+    uniq, cnt = np.unique(np.asarray(targets, dtype=np.int64),
+                          return_counts=True)
+    cp, tau = cm.cp_matrix, cm.net.tau
+    rmask = None
+    total = 0.0
+    if replication is not None:
+        rmask = _replication_masks(replication, assign, cm.net.m,
+                                   cm.graph.n)
+        ps, vs = np.nonzero(rmask)
+        total += float((sync_weight * tau[assign[vs], ps]).sum())
+        total += storage * len(vs)
+    for v, c in zip(uniq, cnt):
+        nodes, _, _ = extract_ego(cm.graph, int(v), hops, fanout)
+        h = int(assign[v])
+        owners = assign[nodes]
+        cost = float(cp[nodes, owners].sum())
+        rn = nodes[owners != h]
+        if rmask is not None and len(rn):
+            rn = rn[~rmask[h, rn]]
+        if len(rn):
+            cost += float(tau[h, assign[rn]].sum())
+        total += float(c) * cost
+    return total
+
+
+def replicate_for_stream(cm, assign: np.ndarray, targets: np.ndarray,
+                         hops: int, fanout: Optional[int] = None,
+                         sync_weight: float = 0.5, storage: float = 0.0,
+                         budget: Optional[int] = None):
+    """Serving-side move-vs-replicate greedy: pick the replica set that
+    minimizes :func:`serving_cost` for THIS stream.
+
+    ``CostModel.replicate_greedy`` weighs replicas against the layout's
+    recurring halo traffic; under request serving the right weight is the
+    stream itself — ``w(v, h)`` = requests homed at ``h`` whose ego
+    contains remote row ``v``, each saving one ``tau[h, owner]`` fetch.
+    Replicating v into h is again a unary decision given the layout:
+    ``gain = w(v, h) * tau[h, owner] - (sync_weight * tau[owner, h] +
+    storage)``; all positive-gain pairs are accepted (they are independent,
+    so the greedy is exact for this overlay), ``budget`` caps replicas per
+    part (highest gain first, id tie-break).  Returns a
+    ``core.Replication`` ready for ``serving_cost(replication=...)`` /
+    ``set_replication``."""
+    from repro_torch.core.cost import Replication
+
+    if cm.traffic is not None:
+        raise ValueError("pass a traffic-blind CostModel (traffic=None)")
+    assign = np.asarray(assign, dtype=np.int64)
+    m, n = cm.net.m, cm.graph.n
+    tau = cm.net.tau
+    w = np.zeros((m, n), dtype=np.float64)      # fetch multiplicity (h, v)
+    uniq, cnt = np.unique(np.asarray(targets, dtype=np.int64),
+                          return_counts=True)
+    for v, c in zip(uniq, cnt):
+        nodes, _, _ = extract_ego(cm.graph, int(v), hops, fanout)
+        h = int(assign[v])
+        rn = nodes[assign[nodes] != h]
+        w[h, rn] += float(c)
+    owner = np.broadcast_to(assign, (m, n))
+    hcol = np.arange(m)[:, None]
+    gain = w * tau[hcol, owner] - (sync_weight * tau[owner, hcol] + storage)
+    gain = np.where(w > 0, gain, -np.inf)
+    by_part, saved_t, sync_t = {}, 0.0, 0.0
+    for p in range(m):
+        ids = np.flatnonzero(gain[p] > 1e-12)
+        if budget is not None and len(ids) > budget:
+            ids = ids[np.lexsort((ids, -gain[p, ids]))[:budget]]
+            ids = np.sort(ids)
+        if len(ids):
+            by_part[p] = ids.astype(np.int64)
+            saved_t += float((w[p, ids] * tau[p, assign[ids]]).sum())
+            sync_t += float((sync_weight * tau[assign[ids], p]).sum())
+    count = sum(len(v) for v in by_part.values())
+    stor_t = storage * count
+    return Replication(by_part=by_part,
+                       gain=saved_t - sync_t - stor_t, saved=saved_t,
+                       sync=sync_t, storage=stor_t,
+                       sync_weight=sync_weight, storage_cost=storage)

@@ -1,14 +1,12 @@
-"""Data graph substrate (the port's own copy of ``repro.graphs.datagraph``).
+"""Data graph substrate.
 
 The *data graph* G = (V, E) is the GNN's input: clients are vertices, their
 relationships are links (paper Sec. III-A).  Stored as a canonical undirected
-edge list plus a CSR view for fast neighbor iteration.  Host-side code is
-numpy; the torch models consume the exported arrays.
+edge list plus a CSR view for fast neighbor iteration.  All host-side
+scheduling (GLAD) operates on numpy; the JAX models consume the exported
+arrays.
 
-``DataGraph``, ``csr_multirange`` and the two generators are copied line for
-line from the JAX package, with the same numpy RNG streams, so both packages
-build identical graphs from the same seed (pinned by
-``tests/test_torch_plan.py``).  Coarsening comes with the layout slice.
+The port's copy of ``repro.graphs.datagraph``, with ``repro`` renamed ``repro_torch``.
 """
 from __future__ import annotations
 
@@ -217,6 +215,65 @@ class DataGraph:
         if labels is not None and add_vertices:
             labels = np.concatenate([labels, np.zeros(add_vertices, labels.dtype)])
         return DataGraph(n=n, edges=edges, features=feats, labels=labels, coords=coords)
+
+
+# --------------------------------------------------------------- coarsening
+#: Largest cluster count whose packed edge key ``lo * nc + hi`` still fits
+#: int64 (isqrt(2^63 - 1)).  Past it the key arithmetic would WRAP
+#: silently (numpy int64 overflow raises nothing) and alias distinct
+#: coarse edges onto each other.
+_MAX_CLUSTER_KEY_N = 3_037_000_499
+
+
+def _check_cluster_key_domain(num_clusters: int) -> None:
+    """Refuse, loudly, cluster counts whose packed keys overflow int64."""
+    if num_clusters > _MAX_CLUSTER_KEY_N:
+        raise ValueError(
+            f"num_clusters={num_clusters} overflows the int64 packed edge "
+            f"key domain (lo * num_clusters + hi); max supported is "
+            f"{_MAX_CLUSTER_KEY_N}")
+
+
+def contract_graph(graph: DataGraph, cluster_of: np.ndarray,
+                   num_clusters: int) -> DataGraph:
+    """Cluster-quotient graph (multilevel coarsening): vertices are the
+    clusters, intra-cluster links vanish, parallel inter-cluster links merge
+    with SUMMED weights — so tau * weight over the coarse links equals the
+    fine C_T of any projected layout exactly.
+
+    The merged edge list is built already canonical (unique lo < hi keys in
+    sorted order), so ``edge_weights`` aligns with the post-init
+    canonical ``edges`` order by construction.  Deterministic: the per-key
+    weight sums are sequential ``np.add.reduceat`` segments over the sorted
+    key order.
+    """
+    _check_cluster_key_domain(num_clusters)
+    cluster_of = np.asarray(cluster_of, dtype=np.int64)
+    e = graph.edges
+    if len(e) == 0:
+        return DataGraph(n=num_clusters, edges=np.zeros((0, 2), np.int64))
+    w = graph.weights_or_ones().astype(np.float64)
+    cu = cluster_of[e[:, 0]]
+    cv = cluster_of[e[:, 1]]
+    keep = cu != cv
+    lo = np.minimum(cu[keep], cv[keep])
+    hi = np.maximum(cu[keep], cv[keep])
+    key = lo * num_clusters + hi
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    if len(ks) == 0:
+        return DataGraph(n=num_clusters, edges=np.zeros((0, 2), np.int64))
+    ws = w[keep][order]
+    uniq, start = np.unique(ks, return_index=True)
+    wsum = np.add.reduceat(ws, start)
+    if not np.isfinite(wsum).all():
+        raise ValueError(
+            "contracted edge weight sum overflowed to non-finite; "
+            "parallel-edge weights saturated the float64 domain")
+    edges = np.stack([uniq // num_clusters, uniq % num_clusters], axis=1)
+    g = DataGraph(n=num_clusters, edges=edges)
+    g.edge_weights = wsum
+    return g
 
 
 # ---------------------------------------------------------------- synthetic

@@ -15,12 +15,14 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch.core import partition_from_assign, random_layout  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    CostModel, partition_from_assign, random_layout, workload_for)
 from repro_torch.gnn import (  # noqa: E402
     GNNConfig, compile_plan, directed_edges, forward, init_params,
     simulate_bsp_forward)
 from repro_torch.gnn.models import segment_sum  # noqa: E402
-from repro_torch.graphs import synthetic_siot  # noqa: E402
+from repro_torch.graphs import (  # noqa: E402
+    build_edge_network, synthetic_siot)
 from repro_torch.kernels import (  # noqa: E402
     BSRAggregate, PackedBSR, build_bsr, pack_bsr, spmm, spmm_packed,
     spmm_packed_plain, spmm_plain)
@@ -30,6 +32,13 @@ from repro_torch import models as lm  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+
+def _cost_model(g, m):
+    """A cost model over an ``m``-server fleet for ``random_layout``, which
+    reads the graph's and the fleet's sizes from it."""
+    return CostModel(build_edge_network(g, m, seed=0), g,
+                     workload_for("gcn", g.features.shape[1]))
 
 
 @pytest.fixture()
@@ -182,7 +191,7 @@ def test_bsr_aggregate_kernel_matches_plain(dev):
 def test_bsp_forward_on_card_matches_cpu(dev, model):
     g = synthetic_siot(n=600, target_links=2500)
     plan = compile_plan(g, partition_from_assign(
-        g, random_layout(g.n, 4, seed=0), 4, {}), slack=0.5)
+        g, random_layout(_cost_model(g, 4), seed=0), 4, {}), slack=0.5)
     cfg = GNNConfig(model, (52, 16, 2))
     params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
     cpu_params = [{k: v.cpu() for k, v in p.items()} for p in params]

@@ -17,9 +17,11 @@ from repro.core.partition import partition_from_assign as j_partition  # noqa: E
 from repro.gnn import distributed as JD  # noqa: E402
 from repro.graphs import datagraph as JG  # noqa: E402
 from repro.graphs.edgenet import build_edge_network  # noqa: E402
+from repro_torch import core as TC  # noqa: E402
 from repro_torch.core import partition_from_assign, random_layout  # noqa: E402
 from repro_torch.gnn import plan as TP  # noqa: E402
 from repro_torch.graphs import datagraph as TG  # noqa: E402
+from repro_torch.graphs import edgenet as TE  # noqa: E402
 from tests.conftest import random_graph  # noqa: E402
 
 
@@ -92,11 +94,15 @@ def test_generators_identical(kind, kwargs):
 
 def test_partition_bridge_and_random_layout(small_siot):
     g = small_siot
+    tg = TG.DataGraph(n=g.n, edges=g.edges.copy(), features=g.features,
+                      coords=g.coords)
+    jcm = CostModel(build_edge_network(g, 4, seed=0), g,
+                    workload_for("gcn", 52))
+    tcm = TC.CostModel(TE.build_edge_network(tg, 4, seed=0), tg,
+                       TC.workload_for("gcn", 52))
     for seed in (0, 5):
-        assign = random_layout(g.n, 4, seed=seed)
-        ref = JB.random_layout(
-            type("CM", (), {"net": type("N", (), {"m": 4})(), "graph": g})(),
-            seed=seed)
+        assign = random_layout(tcm, seed=seed)
+        ref = JB.random_layout(jcm, seed=seed)
         np.testing.assert_array_equal(assign, ref)
         a = j_partition(g, assign, 4, {"k": 1})
         b = partition_from_assign(port_graph(g), assign, 4, {"k": 1})
@@ -213,3 +219,50 @@ def test_replication_tables_equal_reference(small_siot):
     JD.patch_plan(jplan, g, new)
     TP.patch_plan(tplan, tg, new)
     assert_same_plan(jplan, tplan)
+
+
+@pytest.mark.parametrize("seed", [5778, 0, 1, 2, 3])
+def test_patch_tracks_graph_evolution(seed):
+    """The reference's GLAD-E evolution sequence (``tests/test_plan_patch.py``)
+    on the port alone: evolve the graph (links and vertices in and out),
+    relayout with GLAD-E, patch with the move delta plus the structural
+    endpoints; the patched plan equals a fresh compile every slot.  Seed
+    5778 inserts vertices in the slot whose edge table overflows ``e_cap``:
+    the rebuild must take the old universe size from the plan's assignment,
+    not from ``slot_of``, which the patch has already grown."""
+    rng = np.random.default_rng(seed)
+    g0 = random_graph(rng, int(rng.integers(30, 60)),
+                      int(rng.integers(20, 50)))
+    g = TG.DataGraph(n=g0.n, edges=g0.edges.copy(), features=g0.features,
+                     labels=g0.labels, coords=g0.coords)
+    P = 4
+    net = TE.build_edge_network(g, P, seed=seed)
+    gnn = TC.workload_for("gcn", 10)
+    assign = TC.glad_s(TC.CostModel(net, g, gnn), R=2, seed=seed).assign
+    plan = TP.compile_plan(g, partition_from_assign(g, assign, P, {}),
+                           slack=0.4)
+    TP.build_plan_bsr(plan, bm=4, bk=8)
+    grown_after_insertion = False
+    for t in range(3):
+        delta = TC.sample_delta(g, pct_links=0.08, pct_vertices=0.05,
+                                seed=seed + 17 * t)
+        g_new = TC.apply_delta(g, delta)
+        net_new = TE.build_edge_network(g_new, P, seed=seed)
+        res = TC.glad_e(TC.CostModel(net_new, g_new, gnn), g, assign,
+                        seed=seed)
+        structural = [delta.add_edges.ravel(), delta.del_edges.ravel(),
+                      delta.del_vertices]
+        structural += [g.neighbors(int(v)) for v in delta.del_vertices]
+        structural = (np.unique(np.concatenate(structural))
+                      if any(len(x) for x in structural) else None)
+        pd = TP.patch_plan(plan, g_new, res.assign,
+                           dirty_vertices=structural)
+        assert TP.plans_equal(plan, TP.recompile_like(plan, g_new,
+                                                      res.assign)) == []
+        assert set(np.flatnonzero(
+            res.assign[:g.n] != assign)) <= set(res.moved.tolist())
+        assert pd.new_vertices == g_new.n - g.n
+        grown_after_insertion |= pd.new_vertices > 0 and "e_cap" in pd.grew
+        g, assign = g_new, res.assign
+    if seed == 5778:
+        assert grown_after_insertion

@@ -14,12 +14,22 @@ from hypothesis import given, settings, strategies as st  # noqa: E402
 
 from repro.gnn.models import directed_edges  # noqa: E402
 from repro.kernels import gnn_aggregate as J  # noqa: E402
-from repro_torch.core import partition_from_assign, random_layout  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    CostModel, partition_from_assign, random_layout, workload_for)
 from repro_torch.gnn import build_plan_bsr, compile_plan  # noqa: E402
-from repro_torch.graphs import synthetic_siot  # noqa: E402
+from repro_torch.graphs import (  # noqa: E402
+    build_edge_network, synthetic_siot)
 from repro_torch.kernels import gnn_aggregate as T  # noqa: E402
 from repro_torch.kernels.ops import BSRAggregate  # noqa: E402
 from tests.conftest import random_graph  # noqa: E402
+
+
+def _cost_model(g, m):
+    """A cost model over an ``m``-server fleet for ``random_layout``, which
+    reads the graph's and the fleet's sizes from it."""
+    return CostModel(build_edge_network(g, m, seed=0), g,
+                     workload_for("gcn", g.features.shape[1]))
+
 
 SHAPES = [
     (40, 60, 8, 128, 128),
@@ -246,7 +256,7 @@ def test_plan_pack_matches_dense_product():
     partition, against the dense layout's plain product on all P at once."""
     g = synthetic_siot(n=400, target_links=1600)
     plan = compile_plan(g, partition_from_assign(
-        g, random_layout(g.n, 4, seed=0), 4, {}), slack=0.5)
+        g, random_layout(_cost_model(g, 4), seed=0), 4, {}), slack=0.5)
     b = build_plan_bsr(plan)
     pk = T.pack_bsr(b.values, b.block_cols, b.bm, b.bk, nnz_cap=plan.e_cap)
     assert pk.col.shape == (4, plan.e_cap)

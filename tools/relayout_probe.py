@@ -38,7 +38,7 @@ def main() -> int:
     import torch
 
     from repro_torch.configs import gnn_paper
-    from repro_torch.core import partition_from_assign, random_layout
+    from repro_torch.core import partition_from_assign
     from repro_torch.gnn import (
         build_plan_bsr, compile_plan, init_params, make_bsp_forward,
         patch_plan, scatter_features)
@@ -49,8 +49,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     parts, seed = 8, 0
     g = synthetic_siot()
-    plan = compile_plan(g, partition_from_assign(
-        g, random_layout(g.n, parts, seed=seed), parts, {}), slack=0.5)
+    # The draws of random_layout (the same in every tree this probe times).
+    assign = np.random.default_rng(seed).integers(0, parts, size=g.n)
+    plan = compile_plan(g, partition_from_assign(g, assign, parts, {}),
+                        slack=0.5)
     build_plan_bsr(plan)
     models = ("gcn", "sage")
     fwds, params = {}, {}
