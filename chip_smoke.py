@@ -34,7 +34,20 @@ widths, then LM serving on llama3.2-1b at its published width:
           earlier runs) also against the dense layout's plain version;
           rows add the device time per call (torch.profiler) of the kernel
           and the library call, which leaves out the host's time to
-          enqueue them;
+          enqueue them.  K1's backward (Aᵀ·g: the kernel over the
+          transposed operand) at the main plans' three shapes, against the
+          plain product over that operand and autograd of the plain
+          forward, with torch.sparse.mm on the transposed CSR as the
+          library call;
+  train   the distributed train step over the main plans of SIoT and
+          Yelp (GCN, SAGE, GAT x ppermute, allgather; GCN and SAGE on K1
+          both ways and also on the segment path): gradients against the
+          CPU whole-graph gradients, bitwise run to run, K1's forward and
+          backward launches per step, 20 steps lowering the loss, the
+          trained parameters through a checkpoint bit for bit, a value-only
+          patch (the step bit-equal to a fresh plan's, 0 rebuilds), and K2
+          refusing inputs that require grad; the path's launches are
+          counted apart from the forward path's;
   bsp     the batched BSP forward (GCN, SAGE, GAT x ppermute, allgather) on
           SIoT and Yelp over each of the three plans, held against the
           whole-graph forward on the card and on the CPU; counts the
@@ -88,7 +101,9 @@ widths, then LM serving on llama3.2-1b at its published width:
 
 Each phase prints JSON lines.  Any failed check exits non-zero.  Before
 the last line it prints the kernels summary and the ``nvidia-smi`` name and
-power limit; the last line is ``{"ok": true, "device": {...}}``.
+power limit; the last line is ``{"ok": true, "device": {...}}``.  The
+kernel summary's ``launches`` are the main paths' (train, then the GNN
+forward path from bsp to evolve, then the LM path), each counted from 0.
 """
 from __future__ import annotations
 
@@ -98,6 +113,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -116,8 +132,9 @@ from repro_torch.core import (  # noqa: E402
     partition_from_assign, random_layout, sample_delta, workload_for)
 from repro_torch.gnn import (  # noqa: E402
     GNNServeEngine, build_plan_bsr, compile_plan, directed_edges, forward,
-    gather_outputs, init_params, make_bsp_forward, patch_plan, plans_equal,
-    recompile_like, replicate_for_stream, scatter_features,
+    gather_outputs, init_params, loss_and_grads, make_bsp_forward,
+    make_distributed_train_step, patch_plan, plans_equal, recompile_like,
+    replicate_for_stream, scatter_features, scatter_ints,
     scatter_replica_halo, serving_cost, set_replication, zipf_requests)
 from repro_torch.graphs import (  # noqa: E402
     DataGraph, build_edge_network, synthetic_siot, synthetic_yelp)
@@ -125,8 +142,10 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     decode_split, flash_attention, flash_attention_plain, kernel_path)
 from repro_torch.kernels.gnn_aggregate import (  # noqa: E402
-    build_bsr, pack_bsr, spmm, spmm_packed, spmm_packed_plain, spmm_plain)
+    build_bsr, pack_bsr, spmm, spmm_packed, spmm_packed_plain, spmm_plain,
+    transpose_packed)
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.train import CheckpointManager  # noqa: E402
 
 PARTS = 8
 SLACK = 0.5
@@ -146,6 +165,10 @@ CUTTING = ("glad_s_mu2", "random")
 EVOLVE_SEED = 4
 EVOLVE_SLOTS = 3
 FWD_TOL = 2e-4                 # the reference's own gate (test_distributed_gnn)
+# train: steps and learning rate of the check that training lowers the loss
+# (the reference's test_training_improves trains at lr 0.1).
+TRAIN_STEPS = 20
+TRAIN_LR = 0.1
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside tensor
 # cores, bf16 dense on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -197,28 +220,61 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 25, warmup: int = 3, tries: int = 3):
-    """Device time per call of ``fn``: the CUDA time ``torch.profiler``
-    records over ``reps`` calls (kernels, copies and fills), divided by
-    ``reps``.  Unlike :func:`time_ms` it leaves out the host's time to
-    enqueue the call, which a kernel of a few microseconds can be shorter
-    than.  A window whose device events are not a whole number per call
-    lost some and is measured again, up to ``tries`` times.  "not
-    measured" where no window holds a whole trace."""
+# Windows whose kernels' counts were not whole multiples of the calls, with
+# what they held (printed after the kernels phases).
+LOST_WINDOWS: list = []
+
+
+def device_ms(fn, reps: int = 25, warmup: int = 3, tries: int = 3,
+              label: str = ""):
+    """Device time per call of ``fn`` from ``torch.profiler``: over ``reps``
+    calls, each kernel's mean device time times its launches per call,
+    summed (kernels, copies and fills).  Unlike :func:`time_ms` it leaves
+    out the host's time to enqueue the call, which a kernel of a few
+    microseconds can be shorter than.
+
+    A profiler started right before the calls loses the events of the
+    first call (on an H100 under torch 2.11, most windows of 25 calls held
+    24 events of every kernel of the first call), so the calls are traced
+    as the active step of a schedule after one traced warm-up step, which
+    is discarded.  A window
+    where a kernel's count is more than one event off a whole number per
+    call is recorded in ``LOST_WINDOWS`` and measured again, up to
+    ``tries`` times; one event off (also recorded) still gives the mean.
+    "not measured" where no window does."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(tries):
-        with torch.profiler.profile(activities=acts) as prof:
+    for attempt in range(tries):
+        traced = []
+        with torch.profiler.profile(
+                activities=acts,
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                on_trace_ready=lambda p: traced.append(p.key_averages())
+        ) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()                        # the warm-up step ends
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        if dev and all(e.count % reps == 0 for e in dev):
-            return sum(e.self_device_time_total for e in dev) / 1e3 / reps
+            prof.step()                        # the active step ends
+        dev = [e for e in (traced[0] if traced else [])
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]   # the step's span
+        per_call = [max(1, round(e.count / reps)) for e in dev]
+        off = [abs(e.count - k * reps) for e, k in zip(dev, per_call)]
+        if not dev or any(off):
+            LOST_WINDOWS.append({"label": label, "try": attempt,
+                                 "reps": reps, "device_events": {
+                                     e.key[:60]: [e.count,
+                                                  e.self_device_time_total]
+                                     for e in dev}})
+        if dev and max(off) <= 1:
+            return sum(e.self_device_time_total / e.count * k
+                       for e, k in zip(dev, per_call)) / 1e3
     return "not measured"
 
 
@@ -329,8 +385,11 @@ def _random_graph(rng, n, extra):
     return DataGraph(n=n, edges=np.array(edges))
 
 
-def _library_csr(values: np.ndarray, cols: np.ndarray, src_rows: int, dev):
-    """The batched block-diagonal adjacency of a BSR as one CSR tensor."""
+def _library_csr(values: np.ndarray, cols: np.ndarray, src_rows: int, dev,
+                 transpose: bool = False):
+    """The batched block-diagonal adjacency of a BSR (or its transpose) as
+    one CSR tensor on ``dev``, its nonzero count, and the scipy matrix it
+    was made from (read off the dense ``values``)."""
     P, nbm, bm, bk = values.shape
     nb, maxb = cols.shape[1], cols.shape[2]
     p, blk, r, k = np.nonzero(values)
@@ -339,6 +398,8 @@ def _library_csr(values: np.ndarray, cols: np.ndarray, src_rows: int, dev):
     cidx = p * src_rows + cols[p, i, j].astype(np.int64) * bk + k
     a = sp.csr_matrix((values[p, blk, r, k], (rows, cidx)),
                       shape=(P * nb * bm, P * src_rows))
+    if transpose:
+        a = a.T.tocsr()
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", "Sparse CSR tensor support is in beta")
         csr = torch.sparse_csr_tensor(
@@ -346,7 +407,7 @@ def _library_csr(values: np.ndarray, cols: np.ndarray, src_rows: int, dev):
             torch.from_numpy(a.indices.astype(np.int64)),
             torch.from_numpy(a.data.astype(np.float32)),
             size=a.shape, device=dev, check_invariants=True)
-    return csr, int(a.nnz)
+    return csr, int(a.nnz), a
 
 
 def _require_close(label, out, ref, what):
@@ -370,6 +431,56 @@ def _check_k1(label, run, refs):
                  for name, ref in refs.items()}
 
 
+def _k1_stats(label, packed, feats, out, lib_a, nnz, dev):
+    """K1 on ``packed`` x ``feats`` (its result ``out``) beside its plain
+    version and the library product ``lib_a`` @ feats: times, device
+    times, and the bound from the bytes and operations these nonzeros
+    need: each entry's weight and column, the row pointers, each feature
+    row that an entry reads (once), the output (once)."""
+    P, rows, d = feats.shape
+    flat = feats.reshape(P * rows, d)
+    lib_out = torch.sparse.mm(lib_a, flat).reshape(out.shape)
+    lib_err = float((lib_out - out).abs().max())
+    require(lib_err <= 1e-4 * float(out.abs().max()) + 1e-4,
+            f"{label}: library product disagrees with spmm_csr: {lib_err}")
+    live = (torch.arange(packed.nnz_cap, device=dev)[None, :]
+            < packed.row_ptr[:, -1:])
+    part = torch.arange(P, device=dev)[:, None]
+    rows_read = int(torch.unique((part * rows + packed.col)[live]).numel())
+    nbytes = (nnz * 8 + packed.row_ptr.numel() * 4 + rows_read * d * 4
+              + out.numel() * 4)
+    ops = 2 * nnz * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    counts = (packed.row_ptr[:, 1:] - packed.row_ptr[:, :-1])
+    return {
+        "ms": time_ms(lambda: spmm_packed(packed, feats)),
+        "device_ms": device_ms(lambda: spmm_packed(packed, feats),
+                               label=label),
+        "plain_ms": time_ms(lambda: spmm_packed_plain(packed, feats)),
+        "library_ms": time_ms(lambda: torch.sparse.mm(lib_a, flat)),
+        "library_device_ms": device_ms(
+            lambda: torch.sparse.mm(lib_a, flat), label=label + " library"),
+        "library_call": "torch.sparse.mm(sparse_csr_tensor, feats)",
+        "bytes": nbytes, "ops": ops, "nnz": nnz,
+        "feature_rows_read": rows_read, "feature_rows": P * rows,
+        "max_row_nnz": int(counts.max()),
+        "empty_rows": int((counts == 0).sum()),
+        "rows": int(counts.numel()),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def _faster(row):
+    row["faster_than_library"] = row["ms"] < row["library_ms"]
+    row["faster_than_library_on_device"] = (
+        isinstance(row["device_ms"], float)
+        and isinstance(row["library_device_ms"], float)
+        and row["device_ms"] < row["library_device_ms"])
+    return row
+
+
 def _k1_row(ds, layout, d, gen, dev):
     """K1 over ``layout``'s plan of ``ds`` at width ``d`` against its plain
     versions and the library product: errors, times and the bound."""
@@ -379,7 +490,7 @@ def _k1_row(ds, layout, d, gen, dev):
     host = pack_bsr(b.values, b.block_cols, b.bm, b.bk, nnz_cap=plan.e_cap)
     pack_s = time.perf_counter() - t0
     packed = dataclasses.replace(host.to(dev), src_rows=b.src_rows)
-    lib_a, nnz = _library_csr(b.values, b.block_cols, b.src_rows, dev)
+    lib_a, nnz, _ = _library_csr(b.values, b.block_cols, b.src_rows, dev)
     require(nnz == int(host.row_ptr[:, -1].sum()),
             f"{ds['name']}: packed nonzeros != the library CSR's {nnz}")
     feats = torch.randn((PARTS, b.src_rows, d), generator=gen).to(dev)
@@ -392,59 +503,70 @@ def _k1_row(ds, layout, d, gen, dev):
     out, errs = _check_k1(label, lambda: spmm_packed(packed, feats), refs)
     err = errs["spmm_packed_plain"]
     dense_err = errs.get("spmm_plain", "not measured")
-    flat = feats.reshape(PARTS * b.src_rows, d)
-    lib_out = torch.sparse.mm(lib_a, flat).reshape(out.shape)
-    lib_err = float((lib_out - out).abs().max())
-    require(lib_err <= 1e-4 * float(out.abs().max()) + 1e-4,
-            f"library product disagrees with spmm_csr: {lib_err}")
-    # Bound: the bytes and operations these nonzeros need: each entry's
-    # weight and column, the row pointers, each feature row that an
-    # entry reads (once), the output (once).  The dense values' bytes
-    # stay beside it as the earlier yardstick.
-    live = (torch.arange(packed.nnz_cap, device=dev)[None, :]
-            < packed.row_ptr[:, -1:])
-    part = torch.arange(PARTS, device=dev)[:, None]
-    rows_read = int(torch.unique(
-        (part * b.src_rows + packed.col)[live]).numel())
-    nbytes = (nnz * 8 + packed.row_ptr.numel() * 4 + rows_read * d * 4
-              + out.numel() * 4)
-    ops = 2 * nnz * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    # The dense values' bytes stay beside the bound as the earlier
+    # yardstick.
     dense_bytes = (b.values.size * 4 + b.block_cols.size * 4
                    + feats.numel() * 4 + out.numel() * 4)
-    counts = (packed.row_ptr[:, 1:] - packed.row_ptr[:, :-1])
-    row = {
-        "shape": label, "max_abs_err": err, "dense_max_abs_err": dense_err,
-        "bitwise_equal": True,
-        "ms": time_ms(lambda: spmm_packed(packed, feats)),
-        "device_ms": device_ms(lambda: spmm_packed(packed, feats)),
-        "plain_ms": time_ms(lambda: spmm_packed_plain(packed, feats)),
-        "dense_plain_ms": (time_ms(
-            lambda: spmm_plain(values, cols, feats, b.bm, b.bk))
-            if dense else "not measured"),
-        "library_ms": time_ms(lambda: torch.sparse.mm(lib_a, flat)),
-        "library_device_ms": device_ms(
-            lambda: torch.sparse.mm(lib_a, flat)),
-        "library_call": "torch.sparse.mm(sparse_csr_tensor, feats)",
-        "bytes": nbytes, "ops": ops, "nnz": nnz,
-        "feature_rows_read": rows_read,
-        "feature_rows": int(feats.shape[0] * feats.shape[1]),
-        "max_row_nnz": int(counts.max()),
-        "empty_rows": int((counts == 0).sum()),
-        "rows": int(counts.numel()), "pack_s": pack_s,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "dense_values_bound_ms": max(dense_bytes / HBM_BYTES_PER_S * 1e3,
-                                     t_ops),
-    }
-    row["faster_than_library"] = row["ms"] < row["library_ms"]
-    row["faster_than_library_on_device"] = (
-        isinstance(row["device_ms"], float)
-        and isinstance(row["library_device_ms"], float)
-        and row["device_ms"] < row["library_device_ms"])
+    row = {"shape": label, "max_abs_err": err, "dense_max_abs_err": dense_err,
+           "bitwise_equal": True,
+           **_k1_stats(label, packed, feats, out, lib_a, nnz, dev),
+           "dense_plain_ms": (time_ms(
+               lambda: spmm_plain(values, cols, feats, b.bm, b.bk))
+               if dense else "not measured"),
+           "pack_s": pack_s}
+    row["dense_values_bound_ms"] = max(
+        dense_bytes / HBM_BYTES_PER_S * 1e3, row["ops"] / FP32_OPS_PER_S * 1e3)
     row["worst"] = max([err] + ([dense_err] if dense else []))
-    return row
+    return _faster(row)
+
+
+def _k1_bwd_row(ds, d, gen, dev):
+    """K1's backward over the main plan of ``ds`` at width ``d``: Aᵀ·g, the
+    kernel over the transposed operand, against the plain product over it,
+    autograd of the plain forward (an index_add over A's own entries,
+    which does not read the transpose) and Aᵀ·g in fp64 on the host with
+    Aᵀ read off the dense BSR values by scipy; bit for bit across two
+    launches and equal to what autograd's backward through K1 launches;
+    times, bound, and torch.sparse.mm on the transposed CSR."""
+    plan = ds["layouts"]["glad_s_mu2"]["plan"]
+    b = plan.bsr
+    host = pack_bsr(b.values, b.block_cols, b.bm, b.bk, nnz_cap=plan.e_cap)
+    t0 = time.perf_counter()
+    host_t = transpose_packed(host, b.src_rows)
+    transpose_s = time.perf_counter() - t0
+    packed = dataclasses.replace(host.to(dev), src_rows=b.src_rows)
+    packed_t = host_t.to(dev)
+    lib_at, nnz, dense_t = _library_csr(b.values, b.block_cols, b.src_rows,
+                                        dev, transpose=True)
+    require(nnz == int(host_t.row_ptr[:, -1].sum()),
+            f"{ds['name']}: transposed nonzeros != the library CSR's {nnz}")
+    label = f"{ds['name']}_glad_s_mu2_P{PARTS}_d{d}_bwd"
+    g = torch.randn((PARTS, host.n_rows, d), generator=gen).to(dev)
+    x = torch.randn((PARTS, b.src_rows, d), generator=gen).to(dev)
+    xg = x.clone().requires_grad_(True)
+    through_autograd, = torch.autograd.grad(
+        spmm_packed(packed, xg, packed_t), xg, g)
+    xp = x.clone().requires_grad_(True)
+    plain_autograd, = torch.autograd.grad(spmm_packed_plain(packed, xp),
+                                          xp, g)
+    dense = dense_t @ g.reshape(-1, d).cpu().double().numpy()
+    out, errs = _check_k1(label, lambda: spmm_packed(packed_t, g), {
+        "spmm_packed_plain": spmm_packed_plain(packed_t, g),
+        "autograd_plain": plain_autograd,
+        "dense_values": torch.from_numpy(dense).float().reshape(
+            PARTS, b.src_rows, d).to(dev)})
+    require(torch.equal(through_autograd, out),
+            f"{label}: autograd's backward through spmm_packed != the "
+            "kernel over the transposed operand")
+    row = {"shape": label, "max_abs_err": errs["spmm_packed_plain"],
+           "autograd_plain_max_abs_err": errs["autograd_plain"],
+           "dense_max_abs_err": errs["dense_values"],
+           "bitwise_equal": True,
+           **_k1_stats(label, packed_t, g, out, lib_at, nnz, dev),
+           "transpose_s": transpose_s}
+    row["library_call"] = "torch.sparse.mm(transposed sparse_csr_tensor, g)"
+    row["worst"] = max(errs.values())
+    return _faster(row)
 
 
 def phase_kernels(datasets, dev):
@@ -453,9 +575,10 @@ def phase_kernels(datasets, dev):
     each plan: the main plan's rows first, the Random plan's (the shapes
     of earlier runs) last.  The dense layout's plain version runs on the
     Random plans only: over a GLAD-S plan its gathered operand (every
-    stored block's feature tile) would take tens of GB."""
+    stored block's feature tile) would take tens of GB.  K1's backward
+    (the kernel over the transposed operand) at the main plans' shapes."""
     gen = torch.Generator().manual_seed(SEED)
-    results, worst = [], 0.0
+    results, bwd_rows, worst = [], [], 0.0
     siot, yelp = datasets
     for layout in LAYOUTS:
         for ds, d in ((siot, 52), (siot, 16), (yelp, 100)):
@@ -463,6 +586,11 @@ def phase_kernels(datasets, dev):
             worst = max(worst, row.pop("worst"))
             results.append(row)
             emit({"phase": "kernels", "kernel": "spmm_csr", **row})
+    for ds, d in ((siot, 52), (siot, 16), (yelp, 100)):
+        row = _k1_bwd_row(ds, d, gen, dev)
+        worst = max(worst, row.pop("worst"))
+        bwd_rows.append(row)
+        emit({"phase": "kernels", "kernel": "spmm_csr_backward", **row})
     # The reference's test shapes, a weighted case and a ragged d.
     rng = np.random.default_rng(SEED)
     for n, extra, bm, bk, d, weighted in [
@@ -486,7 +614,7 @@ def phase_kernels(datasets, dev):
         worst = max(worst, err)
         emit({"phase": "kernels", "kernel": "spmm_csr", "shape": label,
               "max_abs_err": err, "bitwise_equal": True})
-    return results, worst
+    return results, bwd_rows, worst
 
 
 def phase_bsp(datasets, dev):
@@ -549,6 +677,215 @@ def phase_bsp(datasets, dev):
                               for t in resident.values()) / 1e6,
                           "forward_peak_mb": peak_mb})
     return params_of
+
+
+def _grad_excess(grads, ref):
+    """Largest |g - ref| over each leaf's 2e-4 * max|ref| allowance (<= 0:
+    within), with the largest |g - ref|."""
+    excess, err = -np.inf, 0.0
+    for layer, ref_layer in zip(grads, ref):
+        for k, g in layer.items():
+            diff = float((g.cpu() - ref_layer[k]).abs().max())
+            scale = float(ref_layer[k].abs().max())
+            excess = max(excess, diff - FWD_TOL * scale)
+            err = max(err, diff)
+    return excess, err
+
+
+def _equal_trees(a, b) -> bool:
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+
+def _train_setup(plan, g, dev):
+    blocks = torch.from_numpy(scatter_features(plan, g.features)).to(dev)
+    return (blocks, scatter_ints(plan, g.labels),
+            scatter_ints(plan, np.ones(g.n, np.float32)))
+
+
+def phase_train(datasets, dev):
+    """The distributed train step over the main plans (GLAD-S, mu_factor
+    2.0) of SIoT and Yelp: GCN, SAGE and GAT under both exchanges with
+    aggregate 'auto' (K1 both ways for GCN/SAGE), and GCN/SAGE also on the
+    segment path.  Gradients within 2e-4 * max|ref| of the CPU whole-graph
+    loss_fn's (mask: every vertex), bit-equal run to run, K1's launches per
+    step exact, 20 steps lowering the loss, a checkpoint of the trained
+    parameters restored bit for bit; then a value-only patch of a copy of
+    SIoT's main plan (train step bit-equal to a fresh plan's, 0 rebuilds)
+    and K2 refusing gradients."""
+    rows = {}
+    for ds in datasets:
+        g = ds["graph"]
+        plan = ds["layouts"]["glad_s_mu2"]["plan"]
+        blocks, labels_b, mask_b = _train_setup(plan, g, dev)
+        sd = directed_edges(g.edges)
+        for model in ("gcn", "sage", "gat"):
+            cfg = gnn_paper.ALL[(ds["name"], model)]
+            params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+            cpu_params = [{k: v.cpu() for k, v in p.items()} for p in params]
+            t0 = time.perf_counter()
+            ref_loss, ref = loss_and_grads(cfg, cpu_params, g.features, sd,
+                                           g.labels, device="cpu")
+            cpu_s = time.perf_counter() - t0
+            aggs = ("auto",) if model == "gat" else ("auto", "segment")
+            for exchange in ("ppermute", "allgather"):
+                for agg in aggs:
+                    label = f"train {ds['name']} {model} {exchange} {agg}"
+                    fwd = make_bsp_forward(cfg, plan, exchange=exchange,
+                                           aggregate=agg, device=dev)
+                    step = make_distributed_train_step(
+                        cfg, fwd, labels_b, mask_b, lr=TRAIN_LR)
+                    before = dict(spmm.launches_by_dir)
+                    loss, grads = step.loss_and_grads(params, blocks)
+                    loss2, grads2 = step.loss_and_grads(params, blocks)
+                    new, _ = step(params, blocks)
+                    new2, _ = step(params, blocks)
+                    torch.cuda.synchronize()
+                    got = {k: spmm.launches_by_dir[k] - before[k]
+                           for k in before}
+                    L = cfg.num_layers
+                    want = ({"fwd": 4 * L, "bwd": 4 * (L - 1)}
+                            if fwd.mode == "bsr" else {"fwd": 0, "bwd": 0})
+                    require(fwd.mode == ("bsr" if agg == "auto"
+                                         and model != "gat" else "segment"),
+                            f"{label}: aggregate resolved to {fwd.mode}")
+                    require(got == want, f"{label}: spmm_csr launches "
+                            f"{got} over 4 steps, expected {want}")
+                    require(torch.equal(loss, loss2)
+                            and _equal_trees(grads, grads2)
+                            and _equal_trees(new, new2),
+                            f"{label}: not bitwise equal run to run")
+                    excess, err = _grad_excess(grads, ref)
+                    loss_err = abs(float(loss) - float(ref_loss))
+                    require(excess <= 0 and loss_err
+                            <= FWD_TOL * abs(float(ref_loss)),
+                            f"{label}: gradients vs the CPU whole-graph "
+                            f"gradients: excess {excess}, loss {loss_err}")
+                    row = {"phase": "train", "dataset": ds["name"],
+                           "model": model, "exchange": exchange,
+                           "aggregate": fwd.mode, "loss": float(loss),
+                           "loss_err": loss_err, "grad_max_abs_err": err,
+                           "grad_excess": excess, "bitwise_equal": True,
+                           "spmm_launches_4_steps": got,
+                           "step_ms": time_ms(lambda: step(params, blocks),
+                                              reps=10, warmup=2),
+                           "step_device_ms": device_ms(
+                               lambda: step(params, blocks), reps=5,
+                               warmup=1, label=label),
+                           "forward_ms": time_ms(
+                               lambda: fwd(params, blocks), reps=10,
+                               warmup=2),
+                           "cpu_whole_graph_grad_s": cpu_s}
+                    row["device_busy_share"] = (
+                        row["step_device_ms"] / row["step_ms"]
+                        if isinstance(row["step_device_ms"], float)
+                        else "not measured")
+                    if agg == "auto":
+                        row.update(_train_and_checkpoint(step, params,
+                                                         blocks, label))
+                    rows[(ds["name"], model, exchange, fwd.mode)] = row
+                    emit(row)
+    _train_patch(datasets[0], dev)
+    _k2_refuses_gradients(dev)
+    return rows
+
+
+def _train_and_checkpoint(step, params, blocks, label):
+    """TRAIN_STEPS steps at TRAIN_LR lower the loss; the trained
+    parameters survive a checkpoint (async write) bit for bit, on the
+    card."""
+    losses, p = [], params
+    for _ in range(TRAIN_STEPS):
+        p, loss = step(p, blocks)
+        losses.append(float(loss))
+    require(np.isfinite(losses).all() and losses[-1] < losses[0],
+            f"{label}: {TRAIN_STEPS} steps at lr {TRAIN_LR} did not lower "
+            f"the loss: {losses[0]} -> {losses[-1]}")
+    with tempfile.TemporaryDirectory() as d:
+        ck = CheckpointManager(d, keep=1)
+        ck.save(TRAIN_STEPS, {"params": p})
+        ck.wait()
+        restored, manifest = ck.restore(TRAIN_STEPS, {"params": params})
+    back = restored["params"]
+    require(manifest["step"] == TRAIN_STEPS and _equal_trees(back, p)
+            and all(v.device == blocks.device for x in back
+                    for v in x.values()),
+            f"{label}: checkpoint round trip not bit-equal on the card")
+    return {"train_losses": [losses[0], losses[-1]],
+            "checkpoint_bit_equal": True}
+
+
+def _train_patch(siot, dev):
+    """A value-only patch of a copy of SIoT's main plan: the train step
+    (GCN and SAGE on K1 both ways, GAT on the segment path) refreshes the
+    resident plan tensors and the transposed operand in place, with 0
+    rebuilds, and its loss, gradients and updated parameters equal a fresh
+    plan's bit for bit.  As in ``patch``: 2% of the vertices moved off the
+    plan (which grows it), then back (value-only)."""
+    g, main = siot["graph"], siot["layouts"]["glad_s_mu2"]["plan"]
+    plan = recompile_like(main, g, main.assign)
+    rng = np.random.default_rng(SEED + 1)
+    k = g.n // 50
+    movers = rng.choice(g.n, size=k, replace=False)
+    home = plan.assign.copy()
+    off = home.copy()
+    off[movers] = (off[movers] + rng.integers(1, PARTS, size=k)) % PARTS
+    patch_plan(plan, g, off)
+    models = {}
+    for model in ("gcn", "sage", "gat"):
+        cfg = gnn_paper.ALL[("siot", model)]
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+        fwd = make_bsp_forward(cfg, plan, device=dev)
+        blocks, labels_b, mask_b = _train_setup(plan, g, dev)
+        make_distributed_train_step(cfg, fwd, labels_b, mask_b,
+                                    lr=TRAIN_LR)(params, blocks)
+        models[model] = (cfg, params, fwd)
+    t0 = time.perf_counter()
+    delta = patch_plan(plan, g, home)
+    patch_s = time.perf_counter() - t0
+    require(not delta.retrace_expected,
+            f"train: the relayout back overflowed the plan: {delta.grew}")
+    fresh = recompile_like(plan, g, home)
+    out = {}
+    for model, (cfg, params, fwd) in models.items():
+        ops = fwd.stats["ops"]
+        steps = []
+        for p, f in ((plan, fwd), (fresh, make_bsp_forward(cfg, fresh,
+                                                           device=dev))):
+            blocks, labels_b, mask_b = _train_setup(p, g, dev)
+            step = make_distributed_train_step(cfg, f, labels_b, mask_b,
+                                               lr=TRAIN_LR)
+            loss, grads = step.loss_and_grads(params, blocks)
+            steps.append((loss, grads, step(params, blocks)[0]))
+        (la, ga, pa), (lb, gb, pb) = steps
+        require(fwd.stats["builds"] == 1 and fwd.stats["ops"] is ops,
+                f"train patch {model}: {fwd.stats['builds']} builds")
+        require(torch.equal(la, lb) and _equal_trees(ga, gb)
+                and _equal_trees(pa, pb),
+                f"train patch {model}: the patched plan's step != a fresh "
+                "plan's, bit for bit")
+        out[model] = {"aggregate": fwd.mode, "builds": fwd.stats["builds"]}
+    emit({"phase": "train_patch", "moved": int(len(delta.moved)),
+          "host_patch_s": patch_s, "models": out, "bit_equal_to_fresh": True})
+
+
+def _k2_refuses_gradients(dev):
+    gen = torch.Generator(dev).manual_seed(SEED)
+    q, k, v = (torch.randn((1, 4, 8, 64), generator=gen, device=dev)
+               for _ in range(3))
+    before = flash_attention.launches
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = args[i].clone().requires_grad_(True)
+        try:
+            flash_attention(*args)
+        except RuntimeError as e:
+            require("no backward" in str(e), f"K2 raised {e}")
+        else:
+            raise SystemExit("chip_smoke FAILED: flash_attention returned "
+                             "an output without a grad_fn under grad")
+    require(flash_attention.launches == before,
+            "K2 launched on inputs that require grad")
+    emit({"phase": "train_k2_guard", "raised": 3})
 
 
 def _relayout(plan, g, new, fwds, params_of, dev, label):
@@ -949,11 +1286,12 @@ def phase_flash_kernels(dev):
         row = {
             "shape": label, "dtype": "bf16", "max_abs_err": err,
             "path": path, "bitwise_equal": True, "library_max_abs_diff": lib_err,
-            "ms": time_ms(kernel), "device_ms": device_ms(kernel),
+            "ms": time_ms(kernel), "device_ms": device_ms(kernel, label=label),
             "plain_ms": time_ms(
                 lambda: flash_attention_plain(q, k, v, kl, causal)),
             "library_ms": time_ms(library),
-            "library_device_ms": device_ms(library),
+            "library_device_ms": device_ms(library,
+                                           label=label + " library"),
             "library_call": "torch.nn.functional.scaled_dot_product_attention"
                             "(q, k, v, attn_mask=kv_len mask or is_causal, "
                             "enable_gqa=True)",
@@ -970,7 +1308,8 @@ def phase_flash_kernels(dev):
             require(cut_err <= 0.1, f"{label}: the cut library call "
                     f"disagrees with flash_attention by {cut_err}")
             row.update(library_cut_keys=cut, library_cut_ms=time_ms(cut_call),
-                       library_cut_device_ms=device_ms(cut_call))
+                       library_cut_device_ms=device_ms(
+                           cut_call, label=label + " library cut"))
             # A row's bits never depend on the batch.
             for b in range(q.shape[0]):
                 alone = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
@@ -1268,6 +1607,14 @@ def _profile_decode(engine, cfg, ticks: int = 4):
               for e in top}})
 
 
+def _zero_counts() -> None:
+    spmm.launches = 0
+    spmm.launches_by_dir = {"fwd": 0, "bwd": 0}
+    flash_attention.launches = 0
+    flash_attention.launches_by_path = dict.fromkeys(
+        flash_attention.launches_by_path, 0)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     kind, smi_line = phase_device()
@@ -1275,11 +1622,19 @@ def main() -> int:
     phase_build()
     siot = phase_layout("siot", dev)
     yelp = phase_layout("yelp", dev)
-    kernel_rows, worst = phase_kernels([siot, yelp], dev)
+    kernel_rows, bwd_rows, worst = phase_kernels([siot, yelp], dev)
     flash_rows, flash_worst = phase_flash_kernels(dev)
+    emit({"phase": "profiler_windows", "off_windows": len(LOST_WINDOWS),
+          "windows": LOST_WINDOWS[:12]})
 
-    spmm.launches = 0                         # the GNN path starts here
-    flash_attention.launches = 0
+    _zero_counts()                            # the train path starts here
+    phase_train([siot, yelp], dev)
+    train_launches = dict(spmm.launches_by_dir)       # ... and ends here
+    require(train_launches["bwd"] > 0,
+            "the train path never launched spmm_csr's backward")
+    require(flash_attention.launches == 0, "the train path launched K2")
+
+    _zero_counts()                            # the GNN path starts here
     params_of = phase_bsp([siot, yelp], dev)
     phase_serve(siot, params_of, dev)
     phase_replicate(siot, params_of, dev)
@@ -1287,6 +1642,8 @@ def main() -> int:
     phase_evolve(siot, params_of, dev)
     launches = spmm.launches                  # ... and ends here
     require(launches > 0, "the GNN path never launched spmm_csr")
+    require(spmm.launches_by_dir["bwd"] == 0,
+            "the forward path launched spmm_csr's backward")
     del params_of, siot, yelp
 
     phase_lm_parity(dev)
@@ -1301,7 +1658,12 @@ def main() -> int:
         "name": "spmm_bsr", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spmm_csr.cu",
         "replaces": "src/repro/kernels/gnn_aggregate.py:77",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches + sum(train_launches.values()),
+        "launches_by_path": {"gnn": launches,
+                             "train_fwd": train_launches["fwd"],
+                             "train_bwd": train_launches["bwd"]},
+        "backward_launches": train_launches["bwd"],
+        "max_abs_err": worst,
         "ms": head["ms"], "device_ms": head["device_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1312,7 +1674,11 @@ def main() -> int:
         "shapes": {r["shape"]: {key: r.get(key) for key in (
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms", "nnz")}
-            for r in kernel_rows}}, {
+            for r in kernel_rows},
+        "backward_shapes": {r["shape"]: {key: r.get(key) for key in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms", "nnz")}
+            for r in bwd_rows}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:117",

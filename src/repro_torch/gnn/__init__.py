@@ -10,6 +10,10 @@ from repro_torch.gnn.plan import (
 from repro_torch.gnn.distributed import (
     make_bsp_forward, resolve_aggregate, simulate_bsp_forward,
 )
+from repro_torch.gnn.training import (
+    accuracy, fit, loss_and_grads, make_distributed_train_step, sgd_step,
+    train_step,
+)
 from repro_torch.gnn.serving import (
     EgoBatch, FeatureCache, GNNServeEngine, ServeStats, ego_tables,
     extract_ego, extract_ego_batch, link_traffic, make_ego_forward,
@@ -28,4 +32,6 @@ __all__ = [
     "extract_ego", "extract_ego_batch", "link_traffic", "make_ego_forward",
     "replicate_for_stream", "request_traffic", "serving_cost",
     "zipf_requests",
+    "accuracy", "fit", "loss_and_grads", "make_distributed_train_step",
+    "sgd_step", "train_step",
 ]

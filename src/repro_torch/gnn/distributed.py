@@ -31,13 +31,22 @@ Two aggregation paths:
 
 Plan tensors stay resident on the device; the BSR's dense ``values`` stay
 on the host and only its packed nonzeros, at ``plan.e_cap`` entries per
-partition, go to the device; the pack is made once per plan version and
-shared by every forward over the plan.  When ``plan.version`` moves
+partition, go to the device, beside their transpose (the operand of K1's
+backward, :func:`transpose_packed`); both are made once per plan version
+and shared by every forward over the plan.  When ``plan.version`` moves
 (a :func:`patch_plan` that kept every capacity) they are refreshed in place;
 the forward is rebuilt, re-allocating them, only when the reference's
 signature changes (a capacity grew, a ppermute round appeared, or the
 ppermute forward's replicas were switched on or off).
 ``fwd.stats['builds']`` counts those rebuilds.
+
+Gradients.  The forward is differentiable in the parameters and the
+blocks, and deterministic on the card: every gather whose indices can
+repeat goes through :func:`gather_rows` (a sorted segment sum backward),
+the exchange's roll transposes to the opposite roll, and K1's backward is
+the kernel over the transposed operand.  The halo writes have gather-shaped
+backwards; the dump row that takes a round's padded receives is sliced off,
+so its duplicates get no gradient.
 """
 from __future__ import annotations
 
@@ -48,11 +57,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.gnn.models import GNNConfig, segment_max, segment_sum
+from repro_torch.gnn.models import (
+    GNNConfig, gather_rows, segment_max, segment_sum)
 from repro_torch.gnn.plan import (
     ShardPlan, build_plan_bsr, gather_outputs, scatter_features,
     scatter_replica_halo)
-from repro_torch.kernels.gnn_aggregate import PackedBSR, pack_bsr, spmm_packed
+from repro_torch.kernels.gnn_aggregate import (
+    PackedBSR, pack_bsr, spmm_packed, transpose_packed)
 
 EXCHANGES = ("ppermute", "allgather")
 
@@ -77,24 +88,27 @@ def resolve_aggregate(cfg: GNNConfig, aggregate: str,
     return aggregate
 
 
-# id(plan.bsr) -> (weak reference to it, (plan.version, plan.e_cap), pack).
+# id(plan.bsr) -> (weak reference to it, (plan.version, plan.e_cap),
+# (pack, its transpose)).
 _PACKS: dict = {}
 
 
-def _plan_pack(plan: ShardPlan) -> PackedBSR:
+def _plan_pack(plan: ShardPlan):
     """The plan's BSR packed on the host at ``e_cap`` entries per partition,
-    once per ``plan.version``: every forward over the plan (a GCN and a SAGE
-    forward, say) shares it, so a patch costs one pack.  Nonzeros per
+    and its transpose over the ``bsr.src_rows``-row table, once per
+    ``plan.version``: every forward over the plan (a GCN and a SAGE
+    forward, say) shares them, so a patch costs one pack.  Nonzeros per
     partition <= live arcs <= e_cap, which is in the forward's signature: a
-    value-only patch keeps the pack's shapes."""
+    value-only patch keeps both operands' shapes."""
     b, key = plan.bsr, (plan.version, plan.e_cap)
     hit = _PACKS.get(id(b))
     if hit is not None and hit[0]() is b and hit[1] == key:
         return hit[2]
     packed = pack_bsr(b.values, b.block_cols, b.bm, b.bk, nnz_cap=plan.e_cap)
+    both = (packed, transpose_packed(packed, b.src_rows))
     _PACKS[id(b)] = (weakref.ref(b, lambda _, k=id(b): _PACKS.pop(k, None)),
-                     key, packed)
-    return packed
+                     key, both)
+    return both
 
 
 class _PlanTensors:
@@ -123,26 +137,37 @@ class _PlanTensors:
             self.t[name] = torch.empty(arr.shape, dtype=dtype, device=device)
         self._copy(arrs)
         if mode == "bsr":
+            n_rows = plan.bsr.nb * plan.bsr.bm
             self.packed = PackedBSR(
                 self.t["bsr_row_ptr"], self.t["bsr_col"], self.t["bsr_w"],
-                src_rows=self.table_rows, n_rows=plan.bsr.nb * plan.bsr.bm)
+                src_rows=self.table_rows, n_rows=n_rows)
+            self.packed_t = PackedBSR(
+                self.t["bsr_t_row_ptr"], self.t["bsr_t_col"],
+                self.t["bsr_t_w"], src_rows=n_rows, n_rows=self.table_rows)
 
     def _host(self, plan: ShardPlan) -> dict:
         arrs = {"edges_src": plan.edges_src, "edges_dst": plan.edges_dst,
                 "deg": plan.deg, "halo_slot": plan.halo_slot}
         if self.mode == "bsr":
-            packed = _plan_pack(plan)
-            arrs["bsr_row_ptr"] = packed.row_ptr
-            arrs["bsr_col"] = packed.col
-            arrs["bsr_w"] = packed.w
+            for pre, packed in zip(("bsr_", "bsr_t_"), _plan_pack(plan)):
+                arrs[pre + "row_ptr"] = packed.row_ptr
+                arrs[pre + "col"] = packed.col
+                arrs[pre + "w"] = packed.w
         for k, r in enumerate(plan.rounds if self.exchange == "ppermute"
                               else ()):
-            arrs[f"send_idx{k}"] = r["send_idx"]
+            arrs[f"send_flat{k}"] = self._send_flat(r["send_idx"])
             arrs[f"recv_pos{k}"] = r["recv_pos"]
         for k, r in enumerate(plan.rounds0 if self.replicas else ()):
-            arrs[f"send_idx0_{k}"] = r["send_idx"]
+            arrs[f"send_flat0_{k}"] = self._send_flat(r["send_idx"])
             arrs[f"recv_pos0_{k}"] = r["recv_pos"]
         return arrs
+
+    def _send_flat(self, send_idx: np.ndarray) -> np.ndarray:
+        """A round's ``send_idx`` as rows of the flat (P * (cap + 1), d)
+        send table; padding (-1) reads each partition's zero row ``cap``."""
+        cap = self.cap
+        part = np.arange(self.num_parts)[:, None] * (cap + 1)
+        return np.where(send_idx < 0, cap, send_idx) + part
 
     def _copy(self, arrs: dict) -> None:
         for name, arr in arrs.items():
@@ -153,10 +178,13 @@ class _PlanTensors:
 
 
 def _exchange_allgather(h: torch.Tensor, halo_slot: torch.Tensor):
-    """Naive exchange: every block everywhere, halo rows picked by slot."""
+    """Naive exchange: every block everywhere, halo rows picked by slot.
+    Its adjoint sums each vertex's halo copies into its owner's row."""
     P, cap, d = h.shape
     flat = torch.cat([h.reshape(P * cap, d), h.new_zeros((1, d))])
-    return flat[halo_slot.clamp(max=P * cap)]               # (P, halo_cap, d)
+    slot = halo_slot.clamp(max=P * cap)
+    return gather_rows(flat, slot.reshape(-1)).reshape(
+        *slot.shape, d)                                     # (P, halo_cap, d)
 
 
 def _exchange_ppermute(h: torch.Tensor, ops: _PlanTensors, init=None):
@@ -168,15 +196,17 @@ def _exchange_ppermute(h: torch.Tensor, ops: _PlanTensors, init=None):
     P, cap, d = h.shape
     rows = torch.arange(P, device=h.device)[:, None]
     table = torch.cat([h, h.new_zeros((P, 1, d))], dim=1)    # row cap = 0
+    table = table.reshape(P * (cap + 1), d)
     if init is None:
         halo = h.new_zeros((P, ops.halo_cap + 1, d))     # row halo_cap: dump
-        send_k, recv_k = "send_idx{}", "recv_pos{}"
+        send_k, recv_k = "send_flat{}", "recv_pos{}"
     else:
         halo = init
-        send_k, recv_k = "send_idx0_{}", "recv_pos0_{}"
+        send_k, recv_k = "send_flat0_{}", "recv_pos0_{}"
     for k, shift in enumerate(ops.shifts):
-        send_idx = ops.t[send_k.format(k)]
-        send = table[rows, torch.where(send_idx < 0, cap, send_idx)]
+        send_flat = ops.t[send_k.format(k)]
+        send = gather_rows(table, send_flat.reshape(-1)).reshape(
+            *send_flat.shape, d)
         got = torch.roll(send, shifts=shift, dims=0)         # q <- (q - s) % P
         halo[rows, ops.t[recv_k.format(k)]] = got
     return halo[:, : ops.halo_cap]
@@ -197,13 +227,13 @@ def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
     nseg = P * (cap + 1)
 
     def neighbour_sum(x_flat):
-        msgs = x_flat[idx["src_flat"]]
+        msgs = gather_rows(x_flat, idx["src_flat"])
         return segment_sum(msgs, idx["dst_flat"], nseg).reshape(
             P, cap + 1, -1)[:, :cap]
 
     if cfg.model in ("gcn", "sage"):
         if ops.mode == "bsr":
-            agg = spmm_packed(ops.packed, table)[:, :cap]
+            agg = spmm_packed(ops.packed, table, ops.packed_t)[:, :cap]
         else:
             agg = neighbour_sum(table.reshape(P * rows, d))
         deg = ops.t["deg"]
@@ -213,13 +243,16 @@ def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
             agg = agg / torch.clamp(deg, min=1.0)[..., None]
             out = torch.cat([agg, h], dim=-1) @ p["w"]
     elif cfg.model == "gat":
-        es, ed = ops.t["edges_src"], ops.t["edges_dst"]
+        ed = ops.t["edges_dst"]
         wh = table @ p["w"]                                   # (P, rows, d')
         a_dst = wh[:, :cap] @ p["att_src"]                    # local dsts only
         a_src = wh @ p["att_dst"]
-        ed_mod = ed % cap
-        logits = F.leaky_relu(torch.gather(a_dst, 1, ed_mod)
-                              + torch.gather(a_src, 1, es), 0.2)
+
+        def per_arc(x, flat):                  # (P, rows) by a flat index
+            return gather_rows(x.reshape(-1), idx[flat]).reshape(ed.shape)
+
+        logits = F.leaky_relu(per_arc(a_dst, "dst_mod_flat")
+                              + per_arc(a_src, "src_flat"), 0.2)
         pad = ed >= cap
         logits = logits.masked_fill(pad, float("-inf"))
         self_logit = F.leaky_relu(a_dst + wh[:, :cap] @ p["att_dst"], 0.2)
@@ -229,14 +262,15 @@ def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
             torch.where(torch.isfinite(seg_max), seg_max, float("-inf")),
             self_logit)
         ex = torch.where(pad, 0.0,
-                         torch.exp(logits - torch.gather(seg_max, 1, ed_mod)))
+                         torch.exp(logits - per_arc(seg_max, "dst_mod_flat")))
         ex_self = torch.exp(self_logit - seg_max)
         ex_flat = ex.reshape(-1, 1)
         denom = segment_sum(ex_flat, idx["dst_flat"], nseg).reshape(
             P, cap + 1)[:, :cap] + ex_self
         wh_flat = wh.reshape(P * rows, -1)
-        num = segment_sum(ex_flat * wh_flat[idx["src_flat"]], idx["dst_flat"],
-                          nseg).reshape(P, cap + 1, -1)[:, :cap]
+        msgs = ex_flat * gather_rows(wh_flat, idx["src_flat"])
+        num = segment_sum(msgs, idx["dst_flat"], nseg).reshape(
+            P, cap + 1, -1)[:, :cap]
         num = num + ex_self[..., None] * wh[:, :cap]
         out = num / torch.clamp(denom, min=1e-16)[..., None]
     else:
@@ -247,8 +281,11 @@ def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
 def _bsp_forward(cfg, params, h, ops: _PlanTensors, halo0=None):
     P, cap = ops.num_parts, ops.cap
     part = torch.arange(P, device=h.device)[:, None]
+    ed = ops.t["edges_dst"]
     idx = {"src_flat": (ops.t["edges_src"] + part * ops.table_rows).reshape(-1),
-           "dst_flat": (ops.t["edges_dst"] + part * (cap + 1)).reshape(-1)}
+           "dst_flat": (ed + part * (cap + 1)).reshape(-1)}
+    if cfg.model == "gat":         # padded arcs (ed = cap) read local row 0
+        idx["dst_mod_flat"] = (ed % cap + part * cap).reshape(-1)
     for k, p in enumerate(params):
         if ops.exchange == "ppermute":
             halo = _exchange_ppermute(h, ops, init=halo0 if k == 0 else None)
@@ -331,6 +368,7 @@ def make_bsp_forward(
     forward.stats = state
     forward.plan = plan
     forward.mode = mode
+    forward.device = dev
     return forward
 
 

@@ -57,11 +57,40 @@ def sorted_segment_sum(messages: torch.Tensor, dst: torch.Tensor,
 def segment_max(values: torch.Tensor, dst: torch.Tensor,
                 n: int) -> torch.Tensor:
     """Per-destination max of a 1-D tensor; empty segments give -inf (the
-    identity ``jax.ops.segment_max`` uses).  Max is exact in any order."""
+    identity ``jax.ops.segment_max`` uses).  Max is exact in any order, and
+    its backward counts ties with a scatter-add of 0/1 values, exact in any
+    order too."""
     out = torch.full((n,), float("-inf"), dtype=values.dtype,
                      device=values.device)
     return out.scatter_reduce_(0, dst.long(), values, reduce="amax",
                                include_self=True)
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along dim 0, with a deterministic backward.
+
+    Autograd's own backward of a row gather is a scatter-add, which on the
+    card uses float atomics wherever an index repeats.  This one sums each
+    row's gradient with :func:`segment_sum`: ``index_add_`` on the CPU,
+    :func:`sorted_segment_sum` on the card.  Both add a row's
+    contributions in index order, so card gradients are bit-equal run to
+    run and differ from the CPU's only in rounding."""
+    return _GatherRows.apply(x, idx)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = x.shape[0]
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        idx, = ctx.saved_tensors
+        return segment_sum(g, idx, ctx.rows), None
 
 
 def directed_edges(edges: np.ndarray) -> np.ndarray:
@@ -144,7 +173,7 @@ def _activation(x: torch.Tensor, last: bool) -> torch.Tensor:
 
 
 def gcn_layer(p, h, src_dst, deg, n, last, aggregate: Aggregate):
-    msgs = h[src_dst[:, 0]]
+    msgs = gather_rows(h, src_dst[:, 0])
     agg = aggregate(msgs, src_dst[:, 1], n)                       # sum_{N_v} h_u
     out = (agg + h) / (deg[:, None] + 1.0)                        # / (|N_v|+1)
     return _activation(out @ p["w"], last)
@@ -159,19 +188,20 @@ def gat_layer(p, h, src_dst, deg, n, last, aggregate: Aggregate):
     self_ids = torch.arange(n, dtype=src_dst.dtype, device=src_dst.device)
     src = torch.cat([src_dst[:, 0], self_ids])
     dst = torch.cat([src_dst[:, 1], self_ids])
-    logits = F.leaky_relu(alpha_dst[dst] + alpha_src[src], 0.2)
+    logits = F.leaky_relu(gather_rows(alpha_dst, dst)
+                          + gather_rows(alpha_src, src), 0.2)
     # Softmax over each dst's incoming links (numerically stable via segment max).
     seg_max = segment_max(logits, dst, n)
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
-    ex = torch.exp(logits - seg_max[dst])
+    ex = torch.exp(logits - gather_rows(seg_max, dst))
     denom = aggregate(ex[:, None], dst, n)[:, 0]                  # sum exp per dst
-    eta = ex / torch.clamp(denom[dst], min=1e-16)                 # eta_vu
-    agg = aggregate(eta[:, None] * wh[src], dst, n)               # sum eta W h_u
+    eta = ex / torch.clamp(gather_rows(denom, dst), min=1e-16)    # eta_vu
+    agg = aggregate(eta[:, None] * gather_rows(wh, src), dst, n)  # sum eta W h_u
     return _activation(agg, last)
 
 
 def sage_layer(p, h, src_dst, deg, n, last, aggregate: Aggregate):
-    msgs = h[src_dst[:, 0]]
+    msgs = gather_rows(h, src_dst[:, 0])
     agg = aggregate(msgs, src_dst[:, 1], n) / torch.clamp(deg, min=1.0)[:, None]
     cat = torch.cat([agg, h], dim=-1)                             # (a_v, h_v)
     return _activation(cat @ p["w"], last)

@@ -1,6 +1,6 @@
 from repro_torch.kernels.gnn_aggregate import (
     PackedBSR, build_bsr, bsr_density, pack_bsr, spmm, spmm_packed,
-    spmm_packed_plain, spmm_plain,
+    spmm_packed_plain, spmm_plain, transpose_packed,
 )
 from repro_torch.kernels.ops import BSRAggregate, aggregate_features, attention
 
@@ -9,4 +9,4 @@ from repro_torch.kernels.ops import BSRAggregate, aggregate_features, attention
 # name would shadow the submodule.
 __all__ = ["BSRAggregate", "PackedBSR", "aggregate_features", "attention",
            "build_bsr", "bsr_density", "pack_bsr", "spmm", "spmm_packed",
-           "spmm_packed_plain", "spmm_plain"]
+           "spmm_packed_plain", "spmm_plain", "transpose_packed"]

@@ -41,8 +41,10 @@ No path depends on B or on the other batch rows, and none uses float
 atomics: the same inputs give the same bits, and a batch row decodes to
 the same bits alone or in a batch.
 
-Dispatch.  A CPU tensor goes to :func:`flash_attention_plain`.  A CUDA
-tensor launches one kernel or the call raises; there is no fallback.
+Dispatch.  A CPU tensor goes to :func:`flash_attention_plain`, which
+autograd differentiates.  A CUDA tensor launches one kernel or the call
+raises; there is no fallback.  The kernels have no backward: in grad mode a
+CUDA call where q, k or v requires grad raises.
 ``flash_attention.launches`` counts launches, one per call, and
 ``flash_attention.launches_by_path`` the same launches by kernel.
 
@@ -225,11 +227,18 @@ def flash_attention(q, k, v, kv_len: Optional[torch.Tensor] = None, *,
                     causal: bool = True, scale: Optional[float] = None):
     """Blockwise attention, (B, Hq, Lq, D) -> (B, Hq, Lq, D).  CPU tensors
     take :func:`flash_attention_plain`; CUDA tensors launch the kernel that
-    :func:`kernel_path` names, or raise."""
+    :func:`kernel_path` names, or raise.  The kernel has no backward: on
+    CUDA tensors, a call in grad mode where q, k or v requires grad
+    raises."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_len, causal, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel (K2) has no backward yet (it "
+            "comes with LM training); call it under torch.no_grad() or on "
+            "tensors that do not require grad")
     return _flash_cuda(q, k, v, kv_len, causal, scale)
 
 

@@ -30,11 +30,21 @@ order: no atomics, the same bits run to run.  Its least time is set by
 bytes: the nonzeros, the row pointers, the feature table and the output,
 each once; the operations (2 * nnz * d) are far below the fp32 rate.
 
+Backward.  :func:`spmm_packed` is a ``torch.autograd.Function``.  Its
+gradient with respect to the features is Aᵀ·g: the same product over the
+transposed operand (:func:`transpose_packed`, made on the host once per
+operand; the caller may pass it in), so on the card it is the same kernel
+and, like the forward, a fixed fmaf chain per output element with no
+atomics.  The link weights are constants of the plan: a ``w`` that requires
+grad raises.
+
 Dispatch.  :func:`spmm_packed` and :func:`spmm` send a CPU tensor to the
-plain version (:func:`spmm_packed_plain`, :func:`spmm_plain`).  A CUDA
-tensor goes to the kernel or the call raises; there is no fallback.  On the
-card :func:`spmm` packs (on the host) and then launches the kernel.
-``spmm.launches`` counts kernel launches.
+plain version (:func:`spmm_packed_plain`, :func:`spmm_plain`), in both
+directions.  A CUDA tensor goes to the kernel or the call raises; there is
+no fallback.  On the card :func:`spmm` packs (on the host) and then launches
+the kernel.  ``spmm.launches`` counts kernel launches, and
+``spmm.launches_by_dir`` splits them into forward (``"fwd"``) and backward
+(``"bwd"``) products.
 """
 from __future__ import annotations
 
@@ -97,6 +107,7 @@ def spmm(values, block_cols, feats, bm: int, bk: int):
 
 
 spmm.launches = 0
+spmm.launches_by_dir = {"fwd": 0, "bwd": 0}
 
 
 # ------------------------------------------------------------ packed operand
@@ -197,7 +208,8 @@ def spmm_packed_plain(packed: PackedBSR, feats):
     row.  The entries are already sorted by row, so the sum is
     ``segment_reduce`` over the row lengths, the deterministic segment sum
     of ``gnn.models.sorted_segment_sum`` without its sort.  Entries past
-    ``row_ptr[p, -1]`` are never read."""
+    ``row_ptr[p, -1]`` are never read.  It sums in fp32, or in fp64 for
+    fp64 features."""
     batched = feats.dim() == 3
     if not batched:
         feats = feats[None]
@@ -208,29 +220,107 @@ def spmm_packed_plain(packed: PackedBSR, feats):
             < row_ptr[:, -1:])
     part = torch.arange(P, device=feats.device)[:, None]
     src = (part * src_rows + col.long())[live]
-    msgs = (feats.reshape(P * src_rows, d).to(torch.float32).index_select(
-        0, src) * w[live].to(torch.float32)[:, None])
+    acc = torch.promote_types(feats.dtype, torch.float32)
+    msgs = (feats.reshape(P * src_rows, d).to(acc).index_select(0, src)
+            * w[live].to(acc)[:, None])
     lengths = (row_ptr[:, 1:] - row_ptr[:, :-1]).reshape(-1).long()
     out = torch.segment_reduce(msgs, "sum", lengths=lengths, axis=0)
     out = out.reshape(P, packed.n_rows, d).to(feats.dtype)
     return out if batched else out[0]
 
 
-def spmm_packed(packed: PackedBSR, feats):
+def spmm_packed(packed: PackedBSR, feats,
+                transposed: Optional[PackedBSR] = None):
     """out[p, r] = sum over row r's entries e of w[p, e] * feats[p, col[p, e]].
 
     ``feats`` is (P, rows, d), or (rows, d) for a P = 1 operand, with
     ``rows >= packed.src_rows``.  CPU tensors take
     :func:`spmm_packed_plain`; CUDA tensors launch the ``spmm_csr`` kernel
-    (one launch for all partitions) or raise."""
+    (one launch for all partitions) or raise.  Differentiable in ``feats``:
+    the backward is the same product over ``transposed``
+    (:func:`transpose_packed` of ``packed`` at ``rows`` rows), made from
+    ``packed`` when the backward first needs it if not given."""
+    if feats.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"spmm_packed: unsupported device {feats.device}")
+    if (torch.is_grad_enabled() and isinstance(packed.w, torch.Tensor)
+            and packed.w.requires_grad):
+        raise RuntimeError("spmm_packed: no gradient with respect to the "
+                           "link weights w (they are constants of the plan)")
+    if transposed is not None and transposed.n_rows != feats.shape[-2]:
+        raise ValueError(f"spmm_packed: the transposed operand has "
+                         f"{transposed.n_rows} rows, feats {feats.shape[-2]}")
+    return _SpmmPacked.apply(feats, packed, transposed)
+
+
+class _SpmmPacked(torch.autograd.Function):
+    """A·feats forward, Aᵀ·g backward, both through :func:`_product`."""
+
+    @staticmethod
+    def forward(ctx, feats, packed, transposed):
+        ctx.packed, ctx.transposed = packed, transposed
+        ctx.rows = feats.shape[-2]
+        return _product(packed, feats, "fwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        if ctx.transposed is None:
+            ctx.transposed = transpose_packed(ctx.packed, ctx.rows)
+        return _product(ctx.transposed, g.contiguous(), "bwd"), None, None
+
+
+def _product(packed: PackedBSR, feats, direction: str):
     if feats.device.type == "cpu":
         return spmm_packed_plain(packed, feats)
-    if feats.device.type != "cuda":
-        raise ValueError(f"spmm_packed: unsupported device {feats.device}")
-    return _spmm_packed_cuda(packed, feats)
+    return _spmm_packed_cuda(packed, feats, direction)
 
 
-def _spmm_packed_cuda(packed: PackedBSR, feats):
+def transpose_packed(packed: PackedBSR, n_rows: int) -> PackedBSR:
+    """Aᵀ of a packed operand, of the same kind (numpy arrays, or tensors on
+    the operand's device; made on the host).
+
+    Its rows are the forward's feature-table rows: ``n_rows`` of them, the
+    height of the table the forward is given (at least
+    ``packed.src_rows``).  Its columns are the forward's destination rows,
+    so it reads a (P, packed.n_rows, d) gradient.  Within each row the
+    entries are sorted by destination row, which fixes the order of every
+    sum; ``nnz_cap`` is unchanged, so an operand refreshed by a value-only
+    patch keeps its shapes."""
+    if n_rows < packed.src_rows:
+        raise ValueError(f"transpose_packed: {n_rows} rows < the operand's "
+                         f"src_rows {packed.src_rows}")
+    if isinstance(packed.col, torch.Tensor):
+        host = PackedBSR(*(getattr(packed, f).cpu().numpy()
+                           for f in ("row_ptr", "col", "w")),
+                         packed.src_rows, packed.n_rows)
+        return transpose_packed(host, n_rows).to(packed.col.device)
+    row_ptr, col, w = (np.asarray(a) for a in (packed.row_ptr, packed.col,
+                                                packed.w))
+    P, cap = col.shape
+    p, e = np.nonzero(np.arange(cap)[None, :] < row_ptr[:, -1:])
+    dst = np.repeat(np.tile(np.arange(packed.n_rows), P),
+                    np.diff(row_ptr, axis=1).reshape(-1))   # entry's row
+    c = col[p, e].astype(np.int64)
+    if c.size and int(c.max()) >= n_rows:
+        raise ValueError(f"transpose_packed: a column {int(c.max())} >= "
+                         f"n_rows {n_rows}")
+    order = np.argsort(p * n_rows + c, kind="stable")  # keeps dst order
+    p, c, dst, wv = p[order], c[order], dst[order], w[p, e][order]
+    counts = np.bincount(p * n_rows + c, minlength=P * n_rows).reshape(
+        P, n_rows)
+    row_ptr_t = np.zeros((P, n_rows + 1), np.int32)
+    np.cumsum(counts, axis=1, out=row_ptr_t[:, 1:])
+    per_part = row_ptr_t[:, -1].astype(np.int64)
+    slot = np.arange(len(p)) - np.concatenate([[0], np.cumsum(per_part)])[p]
+    col_t = np.zeros((P, cap), np.int32)
+    w_t = np.zeros((P, cap), np.float32)
+    col_t[p, slot] = dst
+    w_t[p, slot] = wv
+    return PackedBSR(row_ptr_t, col_t, w_t, packed.n_rows, n_rows)
+
+
+def _spmm_packed_cuda(packed: PackedBSR, feats, direction: str):
     batched = feats.dim() == 3
     if not batched:
         feats = feats[None]
@@ -271,6 +361,7 @@ def _spmm_packed_cuda(packed: PackedBSR, feats):
                 n_rows, cap, src_rows, d, stream)
         _build.check(lib, err, "spmm_csr launch")
         spmm.launches += 1
+        spmm.launches_by_dir[direction] += 1
     return out if batched else out[0]
 
 

@@ -17,7 +17,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.gnn_aggregate import (
-    build_bsr, pack_bsr, spmm_packed, spmm_plain)
+    build_bsr, pack_bsr, spmm_packed, spmm_plain, transpose_packed)
 
 _IMPLS = ("auto", "kernel", "plain", "ref")
 
@@ -47,8 +47,10 @@ class BSRAggregate:
     """Precompiled block-sparse aggregation bound to a fixed graph.
 
     Usage: build once per (graph, ordering), then call on feature matrices
-    (weights=1: plain neighbour sum).  The dense BSR tables and their packed
-    nonzeros (:func:`pack_bsr`, packed once here) live on ``device``.
+    (weights=1: plain neighbour sum).  The dense BSR tables, their packed
+    nonzeros (:func:`pack_bsr`) and the transpose of those over the
+    ``n_src_pad``-row feature table (the backward's operand,
+    :func:`transpose_packed`), made once here, live on ``device``.
     """
 
     def __init__(self, src_dst: np.ndarray, n: int, bm: int = 8,
@@ -61,7 +63,10 @@ class BSRAggregate:
             np.asarray(src_dst), weights, n, bm, bk)
         self.values = torch.from_numpy(vals).to(self.device)
         self.block_cols = torch.from_numpy(cols).to(self.device)
-        self.packed = pack_bsr(vals, cols, bm, bk).to(self.device)
+        packed = pack_bsr(vals, cols, bm, bk)
+        self.packed = packed.to(self.device)
+        self.packed_t = transpose_packed(packed, self.n_src_pad).to(
+            self.device)
         self.stored_blocks = int(cols.size)
         self.nnz_density = float((vals != 0).mean())
 
@@ -80,7 +85,7 @@ class BSRAggregate:
         x = feats.new_zeros((self.n_src_pad, feats.shape[1]))
         x[: feats.shape[0]] = feats
         if impl in ("auto", "kernel"):
-            out = spmm_packed(self.packed, x)
+            out = spmm_packed(self.packed, x, self.packed_t)
         elif impl == "plain":
             out = spmm_plain(self.values, self.block_cols, x, self.bm, self.bk)
         else:

@@ -1,7 +1,7 @@
 """Checks that need a CUDA card: the spmm_csr (K1) and flash_attention
 kernels against their plain torch versions, the wrappers' input checks, and the
-port's card paths (BSP forward, LM prefill and decode) against its CPU
-paths.  Without a card every test here skips.  The file
+port's card paths (BSP forward and train step, K1's backward, LM prefill and
+decode) against its CPU paths.  Without a card every test here skips.  The file
 imports neither ``jax`` nor ``repro``, so it runs on a machine with the card
 and the port alone:
 
@@ -20,15 +20,21 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.gnn import (  # noqa: E402
     GNNConfig, compile_plan, directed_edges, forward, init_params,
     simulate_bsp_forward)
+from repro_torch.gnn import plan as TP  # noqa: E402
+from repro_torch.gnn.distributed import make_bsp_forward  # noqa: E402
 from repro_torch.gnn.models import segment_sum  # noqa: E402
+from repro_torch.gnn.training import (  # noqa: E402
+    loss_and_grads, make_distributed_train_step)
 from repro_torch.graphs import (  # noqa: E402
     build_edge_network, synthetic_siot)
 from repro_torch.kernels import (  # noqa: E402
     BSRAggregate, PackedBSR, build_bsr, pack_bsr, spmm, spmm_packed,
     spmm_packed_plain, spmm_plain)
+from repro_torch.kernels.gnn_aggregate import transpose_packed  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain, kernel_path)
 from repro_torch import models as lm  # noqa: E402
+from repro_torch.models.common import attention_any  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -201,6 +207,116 @@ def test_bsp_forward_on_card_matches_cpu(dev, model):
     ref = forward(cfg, cpu_params, torch.from_numpy(g.features),
                   directed_edges(g.edges)).numpy()
     np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("d", [16, 52, 100])
+def test_spmm_backward_kernel_matches_plain_and_is_deterministic(dev, d):
+    """K1's backward: the kernel over the transposed operand, against the
+    plain product over it and the CPU autograd of the plain forward; bit
+    for bit across two runs, counted as backward launches."""
+    lengths = [300, 0, 5, 0, 0, 1, 33, 64, 2, 0] + list(range(41))
+    packed, feats = _csr_case(dev, d + 1, 3, 200, 700, d, lengths)
+    g = torch.randn((3, 200, d), generator=torch.Generator().manual_seed(d))
+    t = transpose_packed(packed, 700)
+    assert t.col.device == feats.device
+
+    def grad():
+        x = feats.clone().requires_grad_(True)
+        out, = torch.autograd.grad(spmm_packed(packed, x, t), x, g.to(dev))
+        return out
+
+    fwd, bwd = (spmm.launches_by_dir[k] for k in ("fwd", "bwd"))
+    a, b = grad(), grad()
+    torch.cuda.synchronize()
+    assert spmm.launches_by_dir["fwd"] == fwd + 2
+    assert spmm.launches_by_dir["bwd"] == bwd + 2
+    assert torch.equal(a, b)
+    _assert_close(a, spmm_packed_plain(t, g.to(dev)))
+    x = feats.cpu().requires_grad_(True)
+    cpu, = torch.autograd.grad(
+        spmm_packed_plain(packed.to("cpu"), x), x, g)
+    _assert_close(a.cpu(), cpu)
+    lazy = feats.clone().requires_grad_(True)        # transpose made in bwd
+    assert torch.equal(torch.autograd.grad(
+        spmm_packed(packed, lazy), lazy, g.to(dev))[0], a)
+
+
+def test_spmm_forward_of_a_table_that_needs_no_grad_skips_the_backward(dev):
+    packed, feats = _csr_case(dev, 3, 2, 64, 300, 16, [3, 0, 7])
+    w = torch.randn((2, 16, 8), device=dev, requires_grad=True)
+    bwd = spmm.launches_by_dir["bwd"]
+    loss = (spmm_packed(packed, feats) @ w).sum()
+    grad, = torch.autograd.grad(loss, w)
+    assert spmm.launches_by_dir["bwd"] == bwd
+    weights = PackedBSR(**{**vars(packed), "w": packed.w.clone()
+                           .requires_grad_(True)})
+    with pytest.raises(RuntimeError, match="link weights"):
+        spmm_packed(weights, feats)
+
+
+def _train_case(dev, model, exchange, aggregate="auto"):
+    g = synthetic_siot(n=600, target_links=2500)
+    plan = compile_plan(g, partition_from_assign(
+        g, random_layout(_cost_model(g, 4), seed=0), 4, {}), slack=0.5)
+    cfg = GNNConfig(model, (52, 16, 2))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    fwd = make_bsp_forward(cfg, plan, exchange=exchange, aggregate=aggregate,
+                           device=dev)
+    step = make_distributed_train_step(
+        cfg, fwd, TP.scatter_ints(plan, g.labels),
+        TP.scatter_ints(plan, np.ones(g.n, np.float32)), lr=0.1)
+    blocks = torch.from_numpy(TP.scatter_features(plan, g.features)).to(dev)
+    return g, cfg, params, fwd, step, blocks
+
+
+@pytest.mark.parametrize("exchange", ["ppermute", "allgather"])
+@pytest.mark.parametrize("model", ["gcn", "sage", "gat"])
+def test_bsp_train_step_on_card_matches_cpu_and_repeats(dev, model, exchange):
+    """The distributed step's gradients on the card (K1 both ways for
+    GCN/SAGE) within 2e-4 of the CPU whole-graph gradients with every
+    vertex in the mask, and bit-equal from one run to the next."""
+    g, cfg, params, fwd, step, blocks = _train_case(dev, model, exchange)
+    assert fwd.mode == ("bsr" if model != "gat" else "segment")
+    bwd = spmm.launches_by_dir["bwd"]
+    loss, grads = step.loss_and_grads(params, blocks)
+    loss2, grads2 = step.loss_and_grads(params, blocks)
+    torch.cuda.synchronize()
+    # Layer 0's table is the input features: one backward launch a step.
+    assert spmm.launches_by_dir["bwd"] - bwd == (2 if model != "gat" else 0)
+    assert torch.equal(loss, loss2)
+    cpu_params = [{k: v.cpu() for k, v in p.items()} for p in params]
+    ref_loss, ref = loss_and_grads(cfg, cpu_params, g.features,
+                                   directed_edges(g.edges), g.labels,
+                                   device="cpu")
+    assert abs(float(loss) - float(ref_loss)) <= 2e-4 * abs(float(ref_loss))
+    for a, b, r in zip(grads, grads2, ref):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+            scale = float(r[k].abs().max())
+            assert float((a[k].cpu() - r[k]).abs().max()) <= 2e-4 * scale, k
+    new, _ = step(params, blocks)
+    again, _ = step(params, blocks)
+    for a, b in zip(new, again):
+        for k in a:
+            assert torch.equal(a[k], b[k])
+
+
+def test_flash_kernel_refuses_gradients(dev):
+    q, k, v = _flash_inputs(dev, 1, 4, 2, 8, 8, 16, torch.float32)
+    launches = flash_attention.launches
+    for grad_of in ("q", "k", "v"):
+        args = {"q": q, "k": k, "v": v}
+        args[grad_of] = args[grad_of].detach().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention(args["q"], args["k"], args["v"])
+        with torch.no_grad():
+            out = flash_attention(args["q"], args["k"], args["v"])
+        assert out.grad_fn is None
+    assert flash_attention.launches == launches + 3
+    qg = q.detach().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention_any(qg.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), causal=True, chunk=64)
 
 
 # ------------------------------------------------------------ flash attention
