@@ -7,8 +7,9 @@ CUDA toolkit (``nvcc``):
     python3 chip_smoke.py
 
 It builds the port's hand-written kernels from ``src/repro_torch/kernels/
-csrc`` and drives the port's two paths: the GNN pipeline at the paper's full
-widths, then LM serving on llama3.2-1b at its published width:
+csrc`` and drives the port's paths: the GNN pipeline at the paper's full
+widths, then LM serving and LM training on llama3.2-1b at its published
+width:
 
   device  the card's name, count and power limit (exit 1 without a card);
   build   nvcc for sm_90a, with the build seconds and each kernel's ptxas
@@ -45,9 +46,10 @@ widths, then LM serving on llama3.2-1b at its published width:
           CPU whole-graph gradients, bitwise run to run, K1's forward and
           backward launches per step, 20 steps lowering the loss, the
           trained parameters through a checkpoint bit for bit, a value-only
-          patch (the step bit-equal to a fresh plan's, 0 rebuilds), and K2
-          refusing inputs that require grad; the path's launches are
-          counted apart from the forward path's;
+          patch (the step bit-equal to a fresh plan's, 0 rebuilds); the
+          path's launches are counted apart from the forward path's; then
+          K2 differentiating through q, k or v alone (each gradient
+          against the plain backward's);
   bsp     the batched BSP forward (GCN, SAGE, GAT x ppermute, allgather) on
           SIoT and Yelp over each of the three plans, held against the
           whole-graph forward on the card and on the CPU; counts the
@@ -85,7 +87,14 @@ widths, then LM serving on llama3.2-1b at its published width:
           prefill at D = 96 and 128; fp32 prefill (lm_parity's) on the
           general kernel at L = 128 and 512; the reference's 7 test cases
           and a fully masked row; each case that names a kernel is held
-          to have launched it;
+          to have launched it.  K2's backward (the dq kernel, then the
+          dkdv kernel) at the LM train step's shape (B = 4, L = 1024, bf16,
+          causal) and at L = 512 against flash_attention_bwd_plain, with
+          the same fields, the device time of each kernel, and the
+          backward of scaled_dot_product_attention as the library call;
+          then small cases through autograd on every forward kernel, fp32
+          and bf16 (causal and not, Lq != Lk, groups 1, 4 and 8, D = 32,
+          64 and 128, ragged kv_len with a 0 row);
   lm_parity  llama3.2-1b at full width cut to 2 layers, fp32: prefill of two
           bucketed prompts and 8 greedy decode steps on the card (K2) and on
           the CPU (plain attention) agree, with n_layers launches per call;
@@ -97,17 +106,31 @@ widths, then LM serving on llama3.2-1b at its published width:
           times;
   lm_profile  torch.profiler over 4 decode ticks with 8 live slots: the
           device's busy share, kernel time by name and K2's device time
-          per tick.
+          per tick;
+  lm_train_parity  llama3.2-1b at full width cut to 2 layers, fp32, 2 x
+          128 tokens from the data pipeline: loss_fn and every gradient
+          leaf on the card (K2 both ways) against the CPU's;
+  lm_train  the full 16-layer llama3.2-1b (bf16 compute, fp32 weights,
+          AdamW at lr 1e-3) on 4 x 1024 tokens through make_train_step:
+          step 0's loss equals a no-grad forward's, 2 microbatches equal 1,
+          10 steps on one batch lower the loss, a compressed (int8 + error
+          feedback) step is finite, the trained weights and optimizer state
+          go through a checkpoint bit for bit, K2 launches n_layers
+          forwards and n_layers of each backward kernel per microbatch;
+          step ms, tokens/s, peak memory, one profiled step (busy share,
+          K2's device time), and whether the same step repeats bit for bit.
 
 Each phase prints JSON lines.  Any failed check exits non-zero.  Before
 the last line it prints the kernels summary and the ``nvidia-smi`` name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The
 kernel summary's ``launches`` are the main paths' (train, then the GNN
-forward path from bsp to evolve, then the LM path), each counted from 0.
+forward path from bsp to evolve, then LM serving, then LM training), each
+counted from 0.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -140,12 +163,16 @@ from repro_torch.graphs import (  # noqa: E402
     DataGraph, build_edge_network, synthetic_siot, synthetic_yelp)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    decode_split, flash_attention, flash_attention_plain, kernel_path)
+    decode_split, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_plain, flash_attention_plain, kernel_path)
 from repro_torch.kernels.gnn_aggregate import (  # noqa: E402
     build_bsr, pack_bsr, spmm, spmm_packed, spmm_packed_plain, spmm_plain,
     transpose_packed)
+from repro_torch.models.common import ShapeCfg  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
-from repro_torch.train import CheckpointManager  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    CheckpointManager, OptConfig, batch_at_step, init_error_feedback,
+    init_opt_state, make_train_step, optim)
 
 PARTS = 8
 SLACK = 0.5
@@ -192,6 +219,17 @@ LM_PARITY_TOL = 1e-3
 SERVE_GAP_TOL = 0.25
 LLAMA_SLOTS = 8
 LLAMA_MAX_LEN = 2048
+# lm_train: steps on one fixed batch (the loss must fall), and the gate on
+# the first moments of 2 microbatches against 1, elementwise as the
+# reference's (tests/test_train.py:45: rtol 2e-3, atol 2e-5, for fp32
+# compute).  In bf16 each microbatch's gradient rounds to 2**-8 relative,
+# and the tied embedding's sums two such terms (the unembedding GEMM's and
+# the gather's), so an element may be off by more than one ulp of the sum;
+# at the smoke width (tests/test_torch_lm_train.py runs this phase on the
+# CPU) the reference's rtol fails there.  rtol is 2 bf16 ulps, atol the
+# reference's; the excess over the reference's own rtol is reported.
+TRAIN_LM_STEPS = 10
+MB_M_RTOL, MB_M_ATOL, MB_M_REF_RTOL = 2 ** -7, 2e-5, 2e-3
 
 
 def emit(obj) -> None:
@@ -226,7 +264,7 @@ LOST_WINDOWS: list = []
 
 
 def device_ms(fn, reps: int = 25, warmup: int = 3, tries: int = 3,
-              label: str = ""):
+              label: str = "", parts: dict = None):
     """Device time per call of ``fn`` from ``torch.profiler``: over ``reps``
     calls, each kernel's mean device time times its launches per call,
     summed (kernels, copies and fills).  Unlike :func:`time_ms` it leaves
@@ -241,7 +279,8 @@ def device_ms(fn, reps: int = 25, warmup: int = 3, tries: int = 3,
     where a kernel's count is more than one event off a whole number per
     call is recorded in ``LOST_WINDOWS`` and measured again, up to
     ``tries`` times; one event off (also recorded) still gives the mean.
-    "not measured" where no window does."""
+    "not measured" where no window does.  ``parts``, if given, receives
+    each device entry's time per call by its name."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -273,8 +312,11 @@ def device_ms(fn, reps: int = 25, warmup: int = 3, tries: int = 3,
                                                   e.self_device_time_total]
                                      for e in dev}})
         if dev and max(off) <= 1:
-            return sum(e.self_device_time_total / e.count * k
-                       for e, k in zip(dev, per_call)) / 1e3
+            each = {e.key: e.self_device_time_total / e.count * k / 1e3
+                    for e, k in zip(dev, per_call)}
+            if parts is not None:
+                parts.update(each)
+            return sum(each.values())
     return "not measured"
 
 
@@ -710,8 +752,8 @@ def phase_train(datasets, dev):
     loss_fn's (mask: every vertex), bit-equal run to run, K1's launches per
     step exact, 20 steps lowering the loss, a checkpoint of the trained
     parameters restored bit for bit; then a value-only patch of a copy of
-    SIoT's main plan (train step bit-equal to a fresh plan's, 0 rebuilds)
-    and K2 refusing gradients."""
+    SIoT's main plan (train step bit-equal to a fresh plan's, 0
+    rebuilds)."""
     rows = {}
     for ds in datasets:
         g = ds["graph"]
@@ -785,7 +827,6 @@ def phase_train(datasets, dev):
                     rows[(ds["name"], model, exchange, fwd.mode)] = row
                     emit(row)
     _train_patch(datasets[0], dev)
-    _k2_refuses_gradients(dev)
     return rows
 
 
@@ -868,24 +909,33 @@ def _train_patch(siot, dev):
           "host_patch_s": patch_s, "models": out, "bit_equal_to_fresh": True})
 
 
-def _k2_refuses_gradients(dev):
+def _k2_differentiates(dev):
+    """K2 under grad, through q, k or v alone: its gradient matches the
+    plain backward's, and the call launched the forward kernel once and each
+    backward kernel once."""
     gen = torch.Generator(dev).manual_seed(SEED)
     q, k, v = (torch.randn((1, 4, 8, 64), generator=gen, device=dev)
                for _ in range(3))
-    before = flash_attention.launches
+    dout = torch.randn((1, 4, 8, 64), generator=gen, device=dev)
+    ref = flash_attention_bwd_plain(q, k, v, flash_attention_plain(q, k, v),
+                                    dout)
+    errs = []
     for i in range(3):
         args = [q, k, v]
         args[i] = args[i].clone().requires_grad_(True)
-        try:
-            flash_attention(*args)
-        except RuntimeError as e:
-            require("no backward" in str(e), f"K2 raised {e}")
-        else:
-            raise SystemExit("chip_smoke FAILED: flash_attention returned "
-                             "an output without a grad_fn under grad")
-    require(flash_attention.launches == before,
-            "K2 launched on inputs that require grad")
-    emit({"phase": "train_k2_guard", "raised": 3})
+        fwd = flash_attention.launches
+        bwd = dict(flash_attention.backward_launches)
+        g, = torch.autograd.grad(flash_attention(*args), args[i], dout)
+        torch.cuda.synchronize()
+        require(flash_attention.launches == fwd + 1
+                and flash_attention.backward_launches == {
+                    key: n + 1 for key, n in bwd.items()},
+                "K2 under grad: launches off by kernel")
+        err = float((g - ref[i]).abs().max())
+        require(err <= 1e-4 * float(ref[i].abs().max()) + 1e-5,
+                f"K2's gradient of {'qkv'[i]} vs the plain backward: {err}")
+        errs.append(err)
+    emit({"phase": "train_k2_grad", "max_abs_err": errs})
 
 
 def _relayout(plan, g, new, fwds, params_of, dev, label):
@@ -1393,6 +1443,149 @@ def phase_flash_kernels(dev):
     return rows, worst
 
 
+# K2's backward: tolerances against flash_attention_bwd_plain (relative to
+# max|ref|, plus an absolute floor): bf16 outputs round to 8 bits, fp32
+# sums run in another order.
+FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 0.0)}
+
+
+def _check_flash_bwd(label, q, k, v, out, dout, kv_len, causal):
+    """Two launches of the backward against its plain version: each
+    kernel launched once per call, bitwise equal, within FLASH_BWD_TOL.
+    Returns the gradients and the largest abs error."""
+    before = dict(flash_attention.backward_launches)
+    got = flash_attention_bwd(q, k, v, out, dout, kv_len, causal)
+    again = flash_attention_bwd(q, k, v, out, dout, kv_len, causal)
+    ref = flash_attention_bwd_plain(q, k, v, out, dout, kv_len, causal)
+    torch.cuda.synchronize()
+    require(flash_attention.backward_launches == {
+        key: n + 2 for key, n in before.items()},
+        f"flash_attention backward {label}: launches off by kernel")
+    rel, floor = FLASH_BWD_TOL[q.dtype]
+    worst = 0.0
+    for name, g, g2, r in zip(("dq", "dk", "dv"), got, again, ref):
+        require(g.shape == r.shape and g.dtype == r.dtype,
+                f"flash_attention backward {label}: {name} {g.shape} "
+                f"{g.dtype}")
+        require(torch.equal(g, g2), f"flash_attention backward {label}: "
+                f"{name} not bitwise equal across two launches")
+        err = float((g.float() - r.float()).abs().max())
+        require(err <= rel * float(r.float().abs().max()) + floor,
+                f"flash_attention backward {label}: {name} max abs err "
+                f"{err} vs plain (max|ref| {float(r.abs().max())})")
+        worst = max(worst, err)
+    return got, worst
+
+
+def phase_flash_backward(dev):
+    """K2's backward kernels against flash_attention_bwd_plain: at the LM
+    train step's shape (B = 4, 32/8 heads, L = 1024, D = 64, bf16, causal)
+    and at L = 512, with times, device times (both kernels and each alone),
+    the plain version's time, the backward of scaled_dot_product_attention
+    as the library call, and the bound; then small cases through autograd
+    on every forward path, fp32 and bf16."""
+    cfg = get_config("llama3.2-1b")
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    bf16 = torch.bfloat16
+    rows, worst = [], 0.0
+    for L in (1024, 512):
+        label = f"train_B4_L{L}_bwd"
+        q, k, v = _bhld_views(gen, dev, 4, Hq, Hkv, L, L, D, bf16)
+        out = flash_attention(q, k, v)
+        dout = torch.randn((4, L, Hq, D), generator=gen, device=dev,
+                           dtype=bf16).transpose(1, 2)
+        (dq, dk, dv), err = _check_flash_bwd(label, q, k, v, out, dout, None,
+                                             True)
+        worst = max(worst, err)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                 enable_gqa=True)
+        lib_grads = torch.autograd.grad(lib_out, leaves, dout,
+                                        retain_graph=True)
+        lib_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(lib_grads, (dq, dk, dv)))
+        require(lib_err <= 0.1 * max(float(g.abs().max())
+                                     for g in (dq, dk, dv)),
+                f"{label}: the library backward disagrees by {lib_err}")
+        fwd_ops, _ = _flash_work(q, k, None, True)
+        ops = fwd_ops // 4 * 10               # 10 D per (row, live key)
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / BF16_OPS_PER_S * 1e3
+        kernel = lambda: flash_attention_bwd(  # noqa: E731
+            q, k, v, out, dout, None, True)
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, leaves, dout, retain_graph=True)
+        by_kernel = {}
+        row = {
+            "shape": label, "dtype": "bf16", "max_abs_err": err,
+            "bitwise_equal": True, "library_max_abs_diff": lib_err,
+            "ms": time_ms(kernel, reps=10),
+            "device_ms": device_ms(kernel, reps=10, label=label,
+                                   parts=by_kernel),
+            "plain_ms": time_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, out, dout, None, True), reps=5),
+            "library_ms": time_ms(library, reps=10),
+            "library_device_ms": device_ms(library, reps=10,
+                                           label=label + " library"),
+            "library_call": "torch.autograd.grad of torch.nn.functional."
+                            "scaled_dot_product_attention(q, k, v, "
+                            "is_causal=True, enable_gqa=True)",
+            "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        row["device_ms_by_kernel"] = {
+            ("dq" if "bwd_dq" in key else "dkdv" if "bwd_dkdv" in key
+             else key[:60]): ms for key, ms in by_kernel.items()}
+        rows.append(row)
+        emit({"phase": "kernels", "kernel": "flash_attention_backward",
+              **row})
+        del leaves, lib_out, lib_grads
+    # Small cases through autograd: every forward kernel under grad, causal
+    # and not, Lq != Lk both ways, groups 1, 4 and 8, D = 32, 64 and 128,
+    # L off the 64-row tiles, ragged kv_len with a 0 row.
+    for dtype in (torch.float32, bf16):
+        for B, hq, hkv, Lq, Lk, d, causal, kl in [
+                (2, 8, 2, 200, 200, 64, True, None),
+                (2, 8, 8, 130, 130, 32, False, None),
+                (1, 16, 2, 96, 160, 128, True, None),
+                (2, 8, 2, 150, 90, 64, True, None),
+                (2, 32, 8, 77, 77, 64, True, None),
+                (3, 8, 2, 100, 100, 64, False, [0, 50, 100]),
+                (3, 32, 8, 1, 300, 64, False, [0, 1, 299])]:
+            q, k, v = _bhld_views(gen, dev, B, hq, hkv, Lq, Lk, d, dtype)
+            klt = (None if kl is None
+                   else torch.tensor(kl, dtype=torch.int32, device=dev))
+            path = kernel_path(dtype, hq, hkv, Lq, d)
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            on_path = flash_attention.launches_by_path[path]
+            out = flash_attention(*leaves, klt, causal=causal)
+            require(flash_attention.launches_by_path[path] == on_path + 1,
+                    f"backward case: the forward did not take {path}")
+            dout = torch.randn(out.shape, generator=gen, device=dev,
+                               dtype=dtype)
+            label = (f"B{B}_H{hq}/{hkv}_Lq{Lq}_Lk{Lk}_D{d}"
+                     f"{'_causal' if causal else ''}"
+                     f"{'_kvlen' if kl else ''}_{str(dtype).split('.')[-1]}")
+            got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+            (dq, dk, dv), err = _check_flash_bwd(
+                label, q, k, v, out.detach(), dout, klt, causal)
+            require(all(torch.equal(a, b) for a, b in zip(got, (dq, dk, dv))),
+                    f"backward case {label}: autograd's gradients != the "
+                    "backward kernels'")
+            if kl is not None and kl[0] == 0:
+                require(all(torch.equal(g[0], torch.zeros_like(g[0]))
+                            for g in got),
+                        f"backward case {label}: the kv_len = 0 row's "
+                        "gradient is not 0")
+            worst = max(worst, err)
+            emit({"phase": "kernels", "kernel": "flash_attention_backward",
+                  "shape": label, "forward_path": path, "max_abs_err": err,
+                  "tol": FLASH_BWD_TOL[dtype], "bitwise_equal": True})
+    return rows, worst
+
+
 # ------------------------------------------------------------ LM serving path
 def _to_cpu(params):
     if isinstance(params, dict):
@@ -1607,12 +1800,272 @@ def _profile_decode(engine, cfg, ticks: int = 4):
               for e in top}})
 
 
+def _k2_counts():
+    return (dict(flash_attention.launches_by_path),
+            dict(flash_attention.backward_launches))
+
+
+def _k2_delta(before):
+    fwd, bwd = _k2_counts()
+    return ({k: n - before[0][k] for k, n in fwd.items() if n - before[0][k]},
+            {k: n - before[1][k] for k, n in bwd.items()})
+
+
+def _lm_train_parity(dev):
+    """llama3.2-1b at full width cut to 2 layers, fp32, B = 2 x L = 128
+    from the data pipeline: loss_fn and every gradient leaf on the card
+    (K2 both ways, its forward on the general kernel) against the CPU
+    (the reference's plain attention, autograd)."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2,
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    batch = batch_at_step(cfg, ShapeCfg("lm_train_parity", 128, 2, "train"),
+                          0)
+    grads_of = make_train_step(cfg).grads_of
+    before = _k2_counts()
+    loss, grads = grads_of(params, {k: torch.from_numpy(x).to(dev)
+                                    for k, x in batch.items()})
+    torch.cuda.synchronize()
+    launched = _k2_delta(before)
+    require(launched == ({"general": cfg.n_layers},
+                         {"dq": cfg.n_layers, "dkdv": cfg.n_layers}),
+            f"lm_train parity: K2 launches {launched}, expected "
+            f"{cfg.n_layers} general forwards and {cfg.n_layers} of each "
+            "backward kernel")
+    t0 = time.perf_counter()
+    ref_loss, ref = grads_of(_to_cpu(params), {k: torch.from_numpy(x)
+                                               for k, x in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    require(loss_rel <= 1e-4, f"lm_train parity: loss {float(loss)} vs the "
+            f"CPU's {float(ref_loss)}")
+    excess, errs = -np.inf, {}
+    for (key, r), g in zip(optim.named_leaves(ref), optim.leaves(grads)):
+        err = float((g.cpu() - r).abs().max())
+        errs[key] = err
+        excess = max(excess, err - 1e-3 * float(r.abs().max()) - 1e-5)
+    require(excess <= 0, f"lm_train parity: a gradient leaf beyond "
+            f"1e-3 * max|ref| + 1e-5 (excess {excess}): {errs}")
+    emit({"phase": "lm_train_parity", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": "float32",
+          "batch": [2, 128], "loss": float(loss), "cpu_loss": float(ref_loss),
+          "loss_rel_err": loss_rel, "grad_max_abs_err": errs,
+          "grad_excess": excess, "k2_launches": launched,
+          "cpu_grad_s": cpu_s})
+
+
+def _profile_step(step, state, batch):
+    """One train step under torch.profiler, after a traced warm-up step
+    (the first call of a window loses events): the device's busy share of
+    the step's wall time and K2's device time by kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    traced, wall = [], []
+    with torch.profiler.profile(
+            activities=acts,
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state = step(*state, batch)[:3]
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+            prof.step()
+    dev = [e for e in (traced[0] if traced else [])
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    k2 = {name: sum(e.self_device_time_total for e in dev if tag in e.key)
+          / 1e3 for name, tag in (("forward", "flash_prefill_bf16"),
+                                  ("bwd_dq", "flash_bwd_dq"),
+                                  ("bwd_dkdv", "flash_bwd_dkdv"))}
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    return state, {
+        "profiled_step_ms": wall[1],
+        "device_busy_ms": busy if dev else "not measured",
+        "device_busy_share": busy / wall[1] if dev else "not measured",
+        "k2_device_ms_per_step": k2 if dev else "not measured",
+        "kernel_launches_per_step": sum(e.count for e in dev),
+        "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                           for e in top}}
+
+
+def _lm_train_full(dev):
+    """The full 16-layer llama3.2-1b at its published width: bf16 compute,
+    fp32 parameters, AdamW from optim.for_model at lr 1e-3 (the CLI's
+    default), 4 x 1024 tokens from the data pipeline through
+    make_train_step."""
+    cfg = get_config("llama3.2-1b")
+    L, n = cfg.n_layers, 4 * 1024
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    opt_cfg = dataclasses.replace(optim.for_model(cfg), lr=1e-3)
+    batch = {k: torch.from_numpy(x).to(dev) for k, x in batch_at_step(
+        cfg, ShapeCfg("lm_train", 1024, 4, "train"), 0).items()}
+    per_mb = lambda m: ({"prefill_tc": m * L},  # noqa: E731
+                        {"dq": m * L, "dkdv": m * L})
+    with torch.no_grad():
+        before = _k2_counts()
+        fwd_loss = float(lm.loss_fn(cfg, params, batch))
+        require(_k2_delta(before) == ({"prefill_tc": L},
+                                      {"dq": 0, "dkdv": 0}),
+                "lm_train: the no-grad loss did not take prefill_tc once a "
+                "layer")
+
+    # Two runs of the same step from the same state (a report).
+    grads_of = make_train_step(cfg, opt_cfg).grads_of
+    before = _k2_counts()
+    loss_a, grads_a = grads_of(params, batch)
+    torch.cuda.synchronize()
+    require(_k2_delta(before) == per_mb(1), f"lm_train: K2 launches "
+            f"{_k2_delta(before)} for one microbatch")
+    loss_b, grads_b = grads_of(params, batch)
+    differ = [name for (name, a), b in zip(optim.named_leaves(grads_a),
+                                           optim.leaves(grads_b))
+              if not torch.equal(a, b)]
+    repeat = {"loss_bit_equal": bool(torch.equal(loss_a, loss_b)),
+              "grad_leaves_differing": differ,
+              "grads_bit_equal": not differ}
+    del grads_a, grads_b
+
+    # microbatches = 2 against 1 on the same batch, lr 0 (the reference's
+    # test): the loss, and the first moments.
+    zero = OptConfig(lr=0.0, weight_decay=0.0)
+    moments, mb_loss = {}, {}
+    for mb in (1, 2):
+        state = init_opt_state(zero, params)
+        before = _k2_counts()
+        _, state, _, m = make_train_step(cfg, zero, microbatches=mb)(
+            params, state, None, batch)
+        torch.cuda.synchronize()
+        require(_k2_delta(before) == per_mb(mb), f"lm_train: K2 launches "
+                f"{_k2_delta(before)} for {mb} microbatches")
+        moments[mb], mb_loss[mb] = state.m, float(m["loss"])
+        del state
+    mb_rel = abs(mb_loss[2] - mb_loss[1]) / abs(mb_loss[1])
+    require(mb_rel <= 1e-3, f"lm_train: 2 microbatches' loss {mb_loss[2]} "
+            f"vs 1's {mb_loss[1]}")
+    m_excess = {rtol: max(float(((a - b).abs() - MB_M_ATOL - rtol * b.abs())
+                                 .max()) for a, b in zip(
+        optim.leaves(moments[2]), optim.leaves(moments[1])))
+        for rtol in (MB_M_RTOL, MB_M_REF_RTOL)}
+    require(m_excess[MB_M_RTOL] <= 0, f"lm_train: 2 microbatches' first "
+            f"moments vs 1's beyond rtol {MB_M_RTOL}, atol {MB_M_ATOL} "
+            f"(excess {m_excess[MB_M_RTOL]})")
+    del moments
+
+    # Ten steps on the fixed batch: step 0's loss is the forward's, the
+    # loss falls; step times by CUDA events, peak memory.
+    step = make_train_step(cfg, opt_cfg)
+    state = (params, init_opt_state(opt_cfg, params), None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_LM_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, ef, m = step(*state, batch)
+        end.record()
+        end.synchronize()
+        state = (params, opt_state, ef)
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(np.isfinite(losses).all() and losses[-1] < losses[0],
+            f"lm_train: {TRAIN_LM_STEPS} steps did not lower the loss: "
+            f"{losses}")
+    step0_rel = abs(losses[0] - fwd_loss) / abs(fwd_loss)
+    require(step0_rel <= 1e-3, f"lm_train: step 0's loss {losses[0]} vs the "
+            f"no-grad forward's {fwd_loss}")
+    state, prof = _profile_step(step, state, batch)
+
+    # One int8 error-feedback step from here.
+    params, opt_state, _ = state
+    comp = make_train_step(cfg, opt_cfg, compress_grads=True)
+    params, opt_state, ef, m = comp(params, opt_state,
+                                    init_error_feedback(params), batch)
+    finite = (bool(np.isfinite(float(m["loss"])))
+              and all(bool(torch.isfinite(t).all())
+                      for t in optim.leaves(params) + optim.leaves(ef)))
+    require(finite, "lm_train: the compressed step is not finite")
+    del ef
+
+    # The trained parameters and optimizer state through a checkpoint.
+    tree = {"p": params, "o": opt_state}
+    with tempfile.TemporaryDirectory() as d:
+        ck = CheckpointManager(d, keep=1, async_write=False)
+        t0 = time.perf_counter()
+        ck.save(int(opt_state.step), tree)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, manifest = ck.restore(int(opt_state.step), tree)
+        restore_s = time.perf_counter() - t0
+    equal = all(torch.equal(a, b) and a.device == b.device for a, b in zip(
+        optim.leaves(back["p"]) + optim.leaves(back["o"].m)
+        + optim.leaves(back["o"].v) + [back["o"].step],
+        optim.leaves(params) + optim.leaves(opt_state.m)
+        + optim.leaves(opt_state.v) + [opt_state.step]))
+    require(equal, "lm_train: the checkpoint round trip is not bit-equal")
+    del back
+
+    med = statistics.median(step_ms[1:])
+    emit({"phase": "lm_train", "arch": cfg.name, "n_layers": L,
+          "d_model": cfg.d_model, "vocab": cfg.vocab,
+          "params": sum(t.numel() for t in optim.leaves(params)),
+          "dtype": "bfloat16", "param_dtype": "float32",
+          "optimizer": opt_cfg.name, "lr": opt_cfg.lr, "batch": [4, 1024],
+          "no_grad_loss": fwd_loss, "step0_loss": losses[0],
+          "step0_rel_err": step0_rel, "losses": losses,
+          "microbatch_loss": mb_loss, "microbatch_loss_rel": mb_rel,
+          "microbatch_m_excess": m_excess[MB_M_RTOL],
+          "microbatch_m_rtol_atol": [MB_M_RTOL, MB_M_ATOL],
+          "microbatch_m_excess_reference_rtol": m_excess[MB_M_REF_RTOL],
+          "k2_launches_per_microbatch": per_mb(1),
+          "step_ms": step_ms, "step_ms_median": med,
+          "tokens_per_s": n / (med / 1e3), "peak_mem_gb": peak_gb,
+          **prof, "compressed_step_loss": float(m["loss"]),
+          "compressed_step_finite": True,
+          "checkpoint_bit_equal": True, "checkpoint_save_s": save_s,
+          "checkpoint_restore_s": restore_s,
+          "checkpoint_leaves": len(manifest["leaves"]),
+          "same_step_twice": repeat})
+
+
+def phase_lm_train(dev):
+    """LM training on the card: the 2-layer parity check, then the main
+    path, whose counts start from 0 just before it.  The main path takes
+    gradients of 18 microbatches (two repeat runs, 1 + 2 microbatches, the
+    steps, two profiled steps, the compressed step) and one no-grad
+    forward, all on prefill_tc."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    _lm_train_parity(dev)
+    _zero_counts()                            # the main path starts here
+    _lm_train_full(dev)
+    fwd = dict(flash_attention.launches_by_path)      # ... and ends here
+    bwd = dict(flash_attention.backward_launches)
+    n_layers = get_config("llama3.2-1b").n_layers
+    grad_mbs = 2 + 3 + TRAIN_LM_STEPS + 2 + 1
+    require(fwd == {**dict.fromkeys(fwd, 0),
+                    "prefill_tc": (grad_mbs + 1) * n_layers}
+            and bwd == {"dq": grad_mbs * n_layers,
+                        "dkdv": grad_mbs * n_layers},
+            f"the LM train path launched K2 {fwd} forward and {bwd} "
+            f"backward, expected {(grad_mbs + 1) * n_layers} prefill_tc and "
+            f"{grad_mbs * n_layers} of each backward kernel")
+    require(spmm.launches == 0, "lm_train launched spmm_csr")
+    return flash_attention.launches, fwd, bwd
+
+
 def _zero_counts() -> None:
     spmm.launches = 0
     spmm.launches_by_dir = {"fwd": 0, "bwd": 0}
     flash_attention.launches = 0
     flash_attention.launches_by_path = dict.fromkeys(
         flash_attention.launches_by_path, 0)
+    flash_attention.backward_launches = dict.fromkeys(
+        flash_attention.backward_launches, 0)
 
 
 def main() -> int:
@@ -1624,6 +2077,7 @@ def main() -> int:
     yelp = phase_layout("yelp", dev)
     kernel_rows, bwd_rows, worst = phase_kernels([siot, yelp], dev)
     flash_rows, flash_worst = phase_flash_kernels(dev)
+    flash_bwd_rows, flash_bwd_worst = phase_flash_backward(dev)
     emit({"phase": "profiler_windows", "off_windows": len(LOST_WINDOWS),
           "windows": LOST_WINDOWS[:12]})
 
@@ -1633,6 +2087,7 @@ def main() -> int:
     require(train_launches["bwd"] > 0,
             "the train path never launched spmm_csr's backward")
     require(flash_attention.launches == 0, "the train path launched K2")
+    _k2_differentiates(dev)
 
     _zero_counts()                            # the GNN path starts here
     params_of = phase_bsp([siot, yelp], dev)
@@ -1649,6 +2104,7 @@ def main() -> int:
     phase_lm_parity(dev)
     flash_launches, flash_by_path = phase_lm_serve(dev, flash_rows)
     require(flash_launches > 0, "the LM path never launched flash_attention")
+    train_launches_k2, train_by_path, train_bwd = phase_lm_train(dev)
 
     head = kernel_rows[0]
     flash_head = next(r for r in flash_rows
@@ -1682,8 +2138,14 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:117",
-        "launches": flash_launches, "launches_by_path": flash_by_path,
+        "launches": flash_launches + train_launches_k2,
+        "launches_by_path": {key: flash_by_path[key] + train_by_path[key]
+                             for key in flash_by_path},
+        "launches_by_phase": {"lm_serve": flash_by_path,
+                              "lm_train": train_by_path},
+        "backward_launches": train_bwd,
         "max_abs_err": flash_worst,
+        "backward_max_abs_err": flash_bwd_worst,
         "ms": flash_head["ms"], "device_ms": flash_head["device_ms"],
         "plain_ms": flash_head["plain_ms"],
         "bound_ms": flash_head["bound_ms"],
@@ -1694,7 +2156,11 @@ def main() -> int:
         "shapes": {r["shape"]: {key: r.get(key) for key in (
             "path", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms", "library_cut_ms",
-            "library_cut_device_ms")} for r in flash_rows}}]})
+            "library_cut_device_ms")} for r in flash_rows},
+        "backward_shapes": {r["shape"]: {key: r.get(key) for key in (
+            "max_abs_err", "ms", "device_ms", "device_ms_by_kernel",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")} for r in flash_bwd_rows}}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -128,8 +128,16 @@ def load_library() -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = flash + [i32, ptr]
     lib.flash_attention_prefill_bf16.argtypes = flash + [ptr]
     lib.flash_attention_decode.argtypes = flash + [i32, i32, ptr, ptr, ptr]
+    # dq: q, k, v, out, dout, dq, lse, delta, kv_len; dkdv: q, k, v, dout,
+    # dk, dv, lse, delta, kv_len; then both: strides (32), B, Hq, Hkv, Lq,
+    # Lk, D, causal, scale, dtype, stream
+    bwd = ([ptr] * 9 + [ctypes.POINTER(ctypes.c_int64)] + [i32] * 7
+           + [ctypes.c_float, i32, ptr])
+    lib.flash_attention_bwd_dq.argtypes = bwd
+    lib.flash_attention_bwd_dkdv.argtypes = bwd
     for fn in (lib.flash_attention_fwd, lib.flash_attention_prefill_bf16,
-               lib.flash_attention_decode):
+               lib.flash_attention_decode, lib.flash_attention_bwd_dq,
+               lib.flash_attention_bwd_dkdv):
         fn.restype = i32
     lib.repro_torch_cuda_error_string.argtypes = [i32]
     lib.repro_torch_cuda_error_string.restype = ctypes.c_char_p

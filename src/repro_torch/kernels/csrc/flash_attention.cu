@@ -65,6 +65,11 @@
 //   warps x 4 rows per CTA, 32-key tiles with one key per lane, any
 //   strides.  TF32 would break the reference's 2e-5 fp32 tolerance.
 //
+// Two more kernels are the backward (flash_bwd_dq_kernel, then
+// flash_bwd_dkdv_kernel; see their section below): the reference has no
+// backward kernel, so they write out the flash-attention backward on the
+// CUDA cores, with the forward's masks and log2-domain scores.
+//
 // Every entry point launches on the given stream and returns the launch's
 // cudaError_t (cudaGetLastError right after the launch).
 
@@ -948,6 +953,462 @@ int launch_decode_d(const void* q, const void* k, const void* v, void* out,
                                D, causal, scale, Ks, part, counters, stream);
 }
 
+// ============================================= backward on the CUDA cores
+// The reference has no backward kernel (it trains attention in plain jnp),
+// so these two follow the flash-attention backward's formulas, in fp32 on
+// the CUDA cores, with the forward's semantics: scores in the log2 domain
+// (times scale log2 e), bottom-right causal alignment, the kv_len mask, and
+// P = 0 on masked keys (a fully masked row has no live key, LSE = +inf, and
+// a zero gradient).  Each output element is written once by one CTA from
+// sums in a fixed order: no atomics, so a launch repeats bit for bit.
+//
+// * flash_bwd_dq_kernel, grid (row blocks, Hkv, B): 64 rows of the
+//   flattened (position, group head) space per CTA, 8 per warp.  Pass 1
+//   recomputes each row's max and sum over the live keys (32-key tiles, a
+//   key per lane) and writes LSE = m + log2 l and Delta = sum dO o (fp32,
+//   (B, Hq, Lq)); pass 2 walks the key tiles again in ascending order:
+//   P = exp2(S - LSE), dP = dO V^T, dS = P (dP - Delta), dQ += dS K, and
+//   writes scale dQ.
+// * flash_bwd_dkdv_kernel, grid (key blocks, Hkv, B), launched after the dq
+//   kernel on the same stream: 64 keys per CTA, 8 per warp.  For each query
+//   head of the group in order, then each 32-row query tile in ascending
+//   order (tiles that causality masks whole are skipped), a query per lane:
+//   dV += P^T dO and dK += dS^T Q, summed over the group inside the CTA
+//   (what makes GQA deterministic); writes scale dK and dV.
+//
+// Both are bound by operations (10 D flops per query row and live key, in
+// fp32 here); the tensor cores, the LSE emitted by the forward and TMA
+// staging are later work.
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = kBwdWarps * 32;
+constexpr int kBwdPerWarp = 8;                     // rows (dq) or keys (dkdv)
+constexpr int kBwdBlock = kBwdWarps * kBwdPerWarp;  // 64 per CTA
+constexpr int kBwdTile = 32;                        // keys or queries per tile
+
+struct BwdStrides {
+  int64_t q[4], k[4], v[4], o[4], dout[4], dq[4], dk[4], dv[4];
+};
+
+BwdStrides unpack_bwd_strides(const int64_t* s) {
+  BwdStrides st;
+  for (int i = 0; i < 4; ++i) {
+    st.q[i] = s[i];
+    st.k[i] = s[4 + i];
+    st.v[i] = s[8 + i];
+    st.o[i] = s[12 + i];
+    st.dout[i] = s[16 + i];
+    st.dq[i] = s[20 + i];
+    st.dk[i] = s[24 + i];
+    st.dv[i] = s[28 + i];
+  }
+  return st;
+}
+
+template <int DC>
+size_t bwd_smem_bytes() {
+  constexpr int DP = 32 * DC;
+  return (size_t)(2 * kBwdBlock * DP + 2 * kBwdTile * (DP + 1) +
+                  2 * kBwdTile) * sizeof(float);
+}
+
+template <typename T, int DC>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ out,
+                    const T* __restrict__ dout, T* __restrict__ dq,
+                    float* __restrict__ lse, float* __restrict__ delta,
+                    const int32_t* __restrict__ kv_len, BwdStrides st, int Hq,
+                    int Hkv, int Lq, int Lk, int D, int causal,
+                    float scale_log2, float scale) {
+  constexpr int DP = 32 * DC;
+  constexpr int R = kBwdPerWarp;
+  extern __shared__ float smem[];
+  float* q_s = smem;                       // [kBwdBlock][DP]
+  float* do_s = q_s + kBwdBlock * DP;      // [kBwdBlock][DP]
+  float* k_s = do_s + kBwdBlock * DP;      // [kBwdTile][DP + 1]
+  float* v_s = k_s + kBwdTile * (DP + 1);  // [kBwdTile][DP + 1]
+
+  const int group = Hq / Hkv;
+  const int nrows = Lq * group;
+  const int row0 = blockIdx.x * kBwdBlock;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int q_off = Lk - Lq;
+
+  int live = Lk;
+  if (kv_len != nullptr) live = min(max(kv_len[b], 0), Lk);
+  int key_end = live;  // keys [0, key_end) can be live for some row here
+  if (causal) {
+    const int last_row = min(row0 + kBwdBlock, nrows) - 1;
+    key_end = min(key_end, last_row / group + q_off + 1);
+  }
+  key_end = max(key_end, 0);
+
+  const T* k_b = k + b * st.k[0] + hk * st.k[1];
+  const T* v_b = v + b * st.v[0] + hk * st.v[1];
+  for (int e = tid; e < kBwdBlock * DP; e += kBwdThreads) {
+    const int r = e / DP, d = e % DP, f = row0 + r;
+    float qx = 0.f, gx = 0.f;
+    if (f < nrows && d < D) {
+      const int i = f / group, h = hk * group + f % group;
+      qx = load_f(q + b * st.q[0] + h * st.q[1] + i * st.q[2] + d * st.q[3]);
+      gx = load_f(dout + b * st.dout[0] + h * st.dout[1] + i * st.dout[2] +
+                  d * st.dout[3]);
+    }
+    q_s[e] = qx;
+    do_s[e] = gx;
+  }
+  __syncthreads();
+
+  const int rbase = warp * R;
+  bool valid[R];
+  int qpos[R];
+  float m[R], l[R], dl[R];
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    const int f = row0 + rbase + t;
+    valid[t] = f < nrows;
+    qpos[t] = f / group + q_off;
+    m[t] = -INFINITY;
+    l[t] = 0.f;
+    // Delta = sum_d dO o: a lane per 32 columns, then the butterfly.
+    float x = 0.f;
+    if (valid[t]) {
+      const T* orow = out + b * st.o[0] + (hk * group + f % group) * st.o[1] +
+                      (f / group) * st.o[2];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const int d = lane + 32 * c;
+        if (d < D)
+          x = fmaf(do_s[(rbase + t) * DP + d], load_f(orow + d * st.o[3]), x);
+      }
+    }
+    dl[t] = warp_sum(x);
+  }
+
+  auto scores = [&](float (&s)[R]) {
+#pragma unroll
+    for (int t = 0; t < R; ++t) s[t] = 0.f;
+    const float* kr = k_s + lane * (DP + 1);
+    const float* qr = q_s + rbase * DP;
+#pragma unroll 8
+    for (int d = 0; d < DP; ++d) {
+      const float kd = kr[d];
+#pragma unroll
+      for (int t = 0; t < R; ++t) s[t] = fmaf(qr[t * DP + d], kd, s[t]);
+    }
+  };
+
+  // Pass 1: each row's max and sum over its live keys, log2 domain.
+  for (int j0 = 0; j0 < key_end; j0 += kBwdTile) {
+    __syncthreads();  // the previous tile fully consumed
+    for (int e = tid; e < kBwdTile * DP; e += kBwdThreads) {
+      const int kk = e / DP, d = e % DP, pos = j0 + kk;
+      k_s[kk * (DP + 1) + d] =
+          (pos < key_end && d < D) ? load_f(k_b + pos * st.k[2] + d * st.k[3])
+                                   : 0.f;
+    }
+    __syncthreads();
+    float s[R];
+    scores(s);
+    const int pos = j0 + lane;
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const bool ok = valid[t] && pos < key_end && (!causal || pos <= qpos[t]);
+      const float sc = ok ? s[t] * scale_log2 : -INFINITY;
+      const float m_new = fmaxf(m[t], warp_max(sc));
+      const float p = ok ? exp2f(sc - m_new) : 0.f;
+      const float corr = (m[t] == -INFINITY) ? 0.f : exp2f(m[t] - m_new);
+      l[t] = l[t] * corr + warp_sum(p);
+      m[t] = m_new;
+    }
+  }
+  float ls[R];
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    ls[t] = l[t] > 0.f ? m[t] + log2f(l[t]) : INFINITY;
+    if (valid[t] && lane == 0) {
+      const int f = row0 + rbase + t;
+      const int64_t idx =
+          ((int64_t)b * Hq + hk * group + f % group) * Lq + f / group;
+      lse[idx] = ls[t];
+      delta[idx] = dl[t];
+    }
+  }
+
+  // Pass 2: dQ over the key tiles in ascending order.
+  float acc[R][DC];
+#pragma unroll
+  for (int t = 0; t < R; ++t)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[t][c] = 0.f;
+  for (int j0 = 0; j0 < key_end; j0 += kBwdTile) {
+    __syncthreads();
+    for (int e = tid; e < kBwdTile * DP; e += kBwdThreads) {
+      const int kk = e / DP, d = e % DP, pos = j0 + kk;
+      float kx = 0.f, vx = 0.f;
+      if (pos < key_end && d < D) {
+        kx = load_f(k_b + pos * st.k[2] + d * st.k[3]);
+        vx = load_f(v_b + pos * st.v[2] + d * st.v[3]);
+      }
+      k_s[kk * (DP + 1) + d] = kx;
+      v_s[kk * (DP + 1) + d] = vx;
+    }
+    __syncthreads();
+    float s[R], dp[R];
+    scores(s);
+#pragma unroll
+    for (int t = 0; t < R; ++t) dp[t] = 0.f;
+    {
+      const float* vr = v_s + lane * (DP + 1);
+      const float* gr = do_s + rbase * DP;
+#pragma unroll 8
+      for (int d = 0; d < DP; ++d) {
+        const float vd = vr[d];
+#pragma unroll
+        for (int t = 0; t < R; ++t) dp[t] = fmaf(gr[t * DP + d], vd, dp[t]);
+      }
+    }
+    const int pos = j0 + lane;
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const bool ok = valid[t] && pos < key_end && (!causal || pos <= qpos[t]);
+      const float p = ok ? exp2f(s[t] * scale_log2 - ls[t]) : 0.f;
+      s[t] = p * (dp[t] - dl[t]);  // dS
+    }
+#pragma unroll 4
+    for (int jj = 0; jj < kBwdTile; ++jj) {
+      float dsj[R];
+#pragma unroll
+      for (int t = 0; t < R; ++t) dsj[t] = __shfl_sync(kFull, s[t], jj);
+      const float* kr = k_s + jj * (DP + 1) + lane;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float kx = kr[32 * c];
+#pragma unroll
+        for (int t = 0; t < R; ++t) acc[t][c] = fmaf(dsj[t], kx, acc[t][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    if (!valid[t]) continue;
+    const int f = row0 + rbase + t;
+    T* o = dq + b * st.dq[0] + (hk * group + f % group) * st.dq[1] +
+           (f / group) * st.dq[2];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) store_f(o + d * st.dq[3], acc[t][c] * scale);
+    }
+  }
+}
+
+template <typename T, int DC>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      T* __restrict__ dk, T* __restrict__ dv,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const int32_t* __restrict__ kv_len, BwdStrides st,
+                      int Hq, int Hkv, int Lq, int Lk, int D, int causal,
+                      float scale_log2, float scale) {
+  constexpr int DP = 32 * DC;
+  constexpr int R = kBwdPerWarp;
+  extern __shared__ float smem[];
+  float* k_s = smem;                        // [kBwdBlock][DP]
+  float* v_s = k_s + kBwdBlock * DP;        // [kBwdBlock][DP]
+  float* q_s = v_s + kBwdBlock * DP;        // [kBwdTile][DP + 1]
+  float* do_s = q_s + kBwdTile * (DP + 1);  // [kBwdTile][DP + 1]
+  float* lse_s = do_s + kBwdTile * (DP + 1);
+  float* dl_s = lse_s + kBwdTile;
+
+  const int group = Hq / Hkv;
+  const int key0 = blockIdx.x * kBwdBlock;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int q_off = Lk - Lq;
+
+  int live = Lk;
+  if (kv_len != nullptr) live = min(max(kv_len[b], 0), Lk);
+
+  const T* k_b = k + b * st.k[0] + hk * st.k[1];
+  const T* v_b = v + b * st.v[0] + hk * st.v[1];
+  for (int e = tid; e < kBwdBlock * DP; e += kBwdThreads) {
+    const int kk = e / DP, d = e % DP, pos = key0 + kk;
+    float kx = 0.f, vx = 0.f;
+    if (pos < live && d < D) {
+      kx = load_f(k_b + pos * st.k[2] + d * st.k[3]);
+      vx = load_f(v_b + pos * st.v[2] + d * st.v[3]);
+    }
+    k_s[e] = kx;
+    v_s[e] = vx;
+  }
+
+  const int kbase = warp * R;
+  int kpos[R];
+  bool kvalid[R];
+  float dka[R][DC], dva[R][DC];
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    kpos[t] = key0 + kbase + t;
+    kvalid[t] = kpos[t] < live;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dka[t][c] = dva[t][c] = 0.f;
+  }
+
+  // The first query that sees a key of this CTA, bottom-right aligned; the
+  // tiles before it are masked whole.
+  const int i_first = causal ? max(0, key0 - q_off) : 0;
+  const int i_start = key0 < live ? (i_first / kBwdTile) * kBwdTile : Lq;
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = hk * group + hh;
+    const T* q_h = q + b * st.q[0] + h * st.q[1];
+    const T* g_h = dout + b * st.dout[0] + h * st.dout[1];
+    const int64_t row_base = ((int64_t)b * Hq + h) * Lq;
+    for (int i0 = i_start; i0 < Lq; i0 += kBwdTile) {
+      __syncthreads();  // K/V staged; the previous tile fully consumed
+      for (int e = tid; e < kBwdTile * DP; e += kBwdThreads) {
+        const int qq = e / DP, d = e % DP, i = i0 + qq;
+        float qx = 0.f, gx = 0.f;
+        if (i < Lq && d < D) {
+          qx = load_f(q_h + i * st.q[2] + d * st.q[3]);
+          gx = load_f(g_h + i * st.dout[2] + d * st.dout[3]);
+        }
+        q_s[qq * (DP + 1) + d] = qx;
+        do_s[qq * (DP + 1) + d] = gx;
+      }
+      if (tid < kBwdTile) {
+        const int i = i0 + tid;
+        lse_s[tid] = i < Lq ? lse[row_base + i] : INFINITY;
+        dl_s[tid] = i < Lq ? delta[row_base + i] : 0.f;
+      }
+      __syncthreads();
+
+      // A query per lane against this warp's 8 keys.
+      float s[R], dp[R];
+#pragma unroll
+      for (int t = 0; t < R; ++t) s[t] = dp[t] = 0.f;
+      const float* qr = q_s + lane * (DP + 1);
+      const float* gr = do_s + lane * (DP + 1);
+      const float* kr = k_s + kbase * DP;
+      const float* vr = v_s + kbase * DP;
+#pragma unroll 8
+      for (int d = 0; d < DP; ++d) {
+        const float qd = qr[d], gd = gr[d];
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+          s[t] = fmaf(qd, kr[t * DP + d], s[t]);
+          dp[t] = fmaf(gd, vr[t * DP + d], dp[t]);
+        }
+      }
+      const int i = i0 + lane;
+      const float lse_i = lse_s[lane], dl_i = dl_s[lane];
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        const bool ok = kvalid[t] && i < Lq && (!causal || kpos[t] <= i + q_off);
+        const float p = ok ? exp2f(s[t] * scale_log2 - lse_i) : 0.f;
+        s[t] = p;
+        dp[t] = p * (dp[t] - dl_i);  // dS
+      }
+#pragma unroll 4
+      for (int jj = 0; jj < kBwdTile; ++jj) {
+        float pj[R], dsj[R];
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+          pj[t] = __shfl_sync(kFull, s[t], jj);
+          dsj[t] = __shfl_sync(kFull, dp[t], jj);
+        }
+        const float* qx = q_s + jj * (DP + 1) + lane;
+        const float* gx = do_s + jj * (DP + 1) + lane;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const float qv = qx[32 * c], gv = gx[32 * c];
+#pragma unroll
+          for (int t = 0; t < R; ++t) {
+            dva[t][c] = fmaf(pj[t], gv, dva[t][c]);
+            dka[t][c] = fmaf(dsj[t], qv, dka[t][c]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    if (kpos[t] >= Lk) continue;
+    T* kr = dk + b * st.dk[0] + hk * st.dk[1] + kpos[t] * st.dk[2];
+    T* vr = dv + b * st.dv[0] + hk * st.dv[1] + kpos[t] * st.dv[2];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D) {
+        store_f(kr + d * st.dk[3], dka[t][c] * scale);
+        store_f(vr + d * st.dv[3], dva[t][c]);
+      }
+    }
+  }
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *out, *dout;
+  void *dq, *dk, *dv, *lse, *delta;
+  const void* kv_len;
+  BwdStrides st;
+  int B, Hq, Hkv, Lq, Lk, D, causal;
+  float scale;
+};
+
+template <typename T, int DC>
+int launch_bwd(const BwdArgs& a, bool dkdv, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes<DC>();
+  const float scale_log2 = a.scale * kLog2e;
+  const int64_t n = dkdv ? (int64_t)a.Lk : (int64_t)a.Lq * (a.Hq / a.Hkv);
+  if (n > 0x7fffffff - kBwdBlock) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n + kBwdBlock - 1) / kBwdBlock), (unsigned)a.Hkv,
+                  (unsigned)a.B);
+  if (dkdv) {
+    auto kern = flash_bwd_dkdv_kernel<T, DC>;
+    const int e = allow_smem(kern, smem);
+    if (e != 0) return e;
+    kern<<<grid, kBwdThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<const int32_t*>(a.kv_len), a.st, a.Hq, a.Hkv, a.Lq, a.Lk,
+        a.D, a.causal, scale_log2, a.scale);
+  } else {
+    auto kern = flash_bwd_dq_kernel<T, DC>;
+    const int e = allow_smem(kern, smem);
+    if (e != 0) return e;
+    kern<<<grid, kBwdThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.out),
+        static_cast<const T*>(a.dout), static_cast<T*>(a.dq),
+        static_cast<float*>(a.lse), static_cast<float*>(a.delta),
+        static_cast<const int32_t*>(a.kv_len), a.st, a.Hq, a.Hkv, a.Lq, a.Lk,
+        a.D, a.causal, scale_log2, a.scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_dc(const BwdArgs& a, bool dkdv, cudaStream_t stream) {
+  if (a.D <= 32) return launch_bwd<T, 1>(a, dkdv, stream);
+  if (a.D <= 64) return launch_bwd<T, 2>(a, dkdv, stream);
+  if (a.D <= 128) return launch_bwd<T, 4>(a, dkdv, stream);
+  return launch_bwd<T, 8>(a, dkdv, stream);
+}
+
 bool valid_dims(int B, int Hq, int Hkv, int Lq, int Lk, int D) {
   return B >= 1 && B <= 65535 && Hkv >= 1 && Hkv <= 65535 && Hq >= 1 &&
          Hq % Hkv == 0 && Lq >= 1 && Lk >= 0 && D >= 1 && D <= 256;
@@ -1045,4 +1506,51 @@ extern "C" int flash_attention_decode(
   return launch_decode_d<__nv_bfloat16>(q, k, v, out, kv_len, st, B, Hq, Hkv,
                                         Lq, Lk, D, causal, scale, split, part,
                                         counters, s);
+}
+
+// The backward: `strides` a host array of 32 (q, k, v, out, dout, dq, dk,
+// dv, each (b, h, l, d)), any strides; `lse` and `delta` fp32 (B, Hq, Lq)
+// scratch that the dq kernel writes and the dkdv kernel, launched after it
+// on the same stream, reads.  dtype 0 = f32, 1 = bf16.
+namespace {
+int bwd_entry(const void* q, const void* k, const void* v, const void* out,
+              const void* dout, void* dq, void* dk, void* dv, void* lse,
+              void* delta, const void* kv_len, const int64_t* strides, int B,
+              int Hq, int Hkv, int Lq, int Lk, int D, int causal, float scale,
+              int dtype, bool dkdv, void* stream) {
+  if (!valid_dims(B, Hq, Hkv, Lq, Lk, D) || strides == nullptr ||
+      lse == nullptr || delta == nullptr || (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dkdv && Lk == 0) return 0;  // no key: nothing to write
+  const BwdArgs a{q,   k,     v,      out,
+                  dout, dq,   dk,     dv,
+                  lse,  delta, kv_len, unpack_bwd_strides(strides),
+                  B,    Hq,   Hkv,    Lq,
+                  Lk,   D,    causal, scale};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return launch_bwd_dc<float>(a, dkdv, s);
+  return launch_bwd_dc<__nv_bfloat16>(a, dkdv, s);
+}
+}  // namespace
+
+extern "C" int flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, void* dq, void* lse, void* delta, const void* kv_len,
+    const int64_t* strides, int B, int Hq, int Hkv, int Lq, int Lk, int D,
+    int causal, float scale, int dtype, void* stream) {
+  return bwd_entry(q, k, v, out, dout, dq, nullptr, nullptr, lse, delta,
+                   kv_len, strides, B, Hq, Hkv, Lq, Lk, D, causal, scale,
+                   dtype, false, stream);
+}
+
+extern "C" int flash_attention_bwd_dkdv(
+    const void* q, const void* k, const void* v, const void* dout, void* dk,
+    void* dv, const void* lse, const void* delta, const void* kv_len,
+    const int64_t* strides, int B, int Hq, int Hkv, int Lq, int Lk, int D,
+    int causal, float scale, int dtype, void* stream) {
+  return bwd_entry(q, k, v, nullptr, dout, nullptr, dk, dv,
+                   const_cast<void*>(lse), const_cast<void*>(delta), kv_len,
+                   strides, B, Hq, Hkv, Lq, Lk, D, causal, scale, dtype, true,
+                   stream);
 }

@@ -41,12 +41,28 @@ No path depends on B or on the other batch rows, and none uses float
 atomics: the same inputs give the same bits, and a batch row decodes to
 the same bits alone or in a batch.
 
-Dispatch.  A CPU tensor goes to :func:`flash_attention_plain`, which
-autograd differentiates.  A CUDA tensor launches one kernel or the call
-raises; there is no fallback.  The kernels have no backward: in grad mode a
-CUDA call where q, k or v requires grad raises.
-``flash_attention.launches`` counts launches, one per call, and
-``flash_attention.launches_by_path`` the same launches by kernel.
+Backward.  In grad mode, when q, k or v requires grad, the call goes
+through ``_FlashAttention`` (a ``torch.autograd.Function``): its forward
+launches the kernel :func:`kernel_path` names, as above, and saves q, k, v,
+the output and ``kv_len``; its backward is :func:`flash_attention_bwd`,
+which launches two more kernels of ``csrc/flash_attention.cu`` on CUDA
+tensors: ``flash_attention_bwd_dq`` (it recomputes each row's log-sum-exp
+and Delta = rowsum(dO o), then dQ over the key tiles) and, after it on the
+same stream, ``flash_attention_bwd_dkdv`` (a CTA per 64 keys sums dK and dV
+over the group's query heads and the query tiles in order).  The reference
+puts no ``custom_vjp`` on its Pallas call, so they follow the flash-attention
+backward's formulas (:func:`flash_attention_bwd_plain` writes them out in
+plain fp32 torch), on the CUDA cores, without atomics: a launch repeats bit
+for bit.  They read every input, ``dout`` included, through its strides:
+no copy is made.  ``kv_len`` gets no gradient.
+
+Dispatch.  A CPU tensor goes to :func:`flash_attention_plain` (and, in the
+backward, to :func:`flash_attention_bwd_plain`).  A CUDA tensor launches a
+kernel or the call raises; there is no fallback.
+``flash_attention.launches`` counts forward launches, one per call, and
+``flash_attention.launches_by_path`` the same launches by kernel;
+``flash_attention.backward_launches`` counts the backward's launches by
+kernel (``"dq"``, ``"dkdv"``), one each per backward.
 
 :func:`flash_decode_split_plain` and :func:`flash_prefill_tiles_plain`
 mirror the two vector kernels' order of work (per-split partials combined in
@@ -102,6 +118,20 @@ def aligned16(t: torch.Tensor) -> bool:
             and all(s * es % 16 == 0 for s in t.stride()[:-1]))
 
 
+def _live_mask(Lq, Lk, kv_len, causal, device):
+    """The keys each query row sees, (1 or B, 1, 1, Lq, Lk) bool: bottom-right
+    causal alignment and the ``kv_len`` mask."""
+    k_pos = torch.arange(Lk, device=device)
+    mask = torch.ones((1, 1, 1, Lq, Lk), dtype=torch.bool, device=device)
+    if causal:
+        q_pos = torch.arange(Lq, device=device) + (Lk - Lq)
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if kv_len is not None:
+        live = k_pos[None, :] < kv_len.to(device)[:, None]      # (B, Lk)
+        mask = mask & live[:, None, None, None, :]
+    return mask
+
+
 def _masked_scores(q, k, kv_len, causal, scale):
     """fp32 scores (B, Hkv, g, Lq, Lk) in the log2 domain, as the vector
     kernels form them (q . k, then times scale * log2 e), masked to -inf."""
@@ -111,14 +141,7 @@ def _masked_scores(q, k, kv_len, causal, scale):
     scale_log2 = float(np.float32(scale) * np.float32(LOG2E))
     s = (q.float().reshape(B, Hkv, g, Lq, D)
          @ k.float()[:, :, None].transpose(-1, -2)) * scale_log2
-    k_pos = torch.arange(Lk, device=q.device)
-    mask = torch.ones((1, 1, 1, Lq, Lk), dtype=torch.bool, device=q.device)
-    if causal:
-        q_pos = torch.arange(Lq, device=q.device) + (Lk - Lq)
-        mask = mask & (k_pos[None, :] <= q_pos[:, None])
-    if kv_len is not None:
-        live = k_pos[None, :] < kv_len.to(q.device)[:, None]    # (B, Lk)
-        mask = mask & live[:, None, None, None, :]
+    mask = _live_mask(Lq, Lk, kv_len, causal, q.device)
     return s.masked_fill(~mask, float("-inf"))
 
 
@@ -143,20 +166,47 @@ def flash_attention_plain(q, k, v, kv_len: Optional[torch.Tensor] = None,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qf = q.float().reshape(B, Hkv, g, Lq, D) * scale
     s = qf @ k.float()[:, :, None].transpose(-1, -2)      # (B,Hkv,g,Lq,Lk)
-    k_pos = torch.arange(Lk, device=q.device)
-    mask = torch.ones((1, 1, 1, Lq, Lk), dtype=torch.bool, device=q.device)
-    if causal:
-        q_pos = torch.arange(Lq, device=q.device) + (Lk - Lq)
-        mask = mask & (k_pos[None, :] <= q_pos[:, None])
-    if kv_len is not None:
-        live = k_pos[None, :] < kv_len.to(q.device)[:, None]    # (B, Lk)
-        mask = mask & live[:, None, None, None, :]
-    s = s.masked_fill(~mask, float("-inf"))
+    s = s.masked_fill(~_live_mask(Lq, Lk, kv_len, causal, q.device),
+                      float("-inf"))
     m = s.amax(-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, 0.0)
     p = torch.exp(s - m)
     out = (p @ v.float()[:, :, None]) / p.sum(-1, keepdim=True).clamp_min(1e-30)
     return out.reshape(B, Hq, Lq, D).to(q.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout,
+                              kv_len: Optional[torch.Tensor] = None,
+                              causal: bool = True,
+                              scale: Optional[float] = None):
+    """Plain torch version of the backward kernels: (dq, dk, dv) of
+    :func:`flash_attention_plain` at ``(q, k, v)`` for the output gradient
+    ``dout``, from the saved output ``out``, written out in fp32:
+    P = softmax of the masked scores (0 on a fully masked row),
+    dV = Pᵀ dO and dK = scale dSᵀ Q summed over the group's query heads,
+    dP = dO Vᵀ, Delta = rowsum(dO o), dS = P (dP - Delta),
+    dQ = scale dS K.  Each gradient in its input's dtype."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, Hkv, g, Lq, D)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    s = (qf @ kf.transpose(-1, -2)) * scale                # (B,Hkv,g,Lq,Lk)
+    s = s.masked_fill(~_live_mask(Lq, Lk, kv_len, causal, q.device),
+                      float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    p = e / e.sum(-1, keepdim=True).clamp_min(1e-30)
+    do = dout.float().reshape(B, Hkv, g, Lq, D)
+    delta = (do * out.float().reshape(B, Hkv, g, Lq, D)).sum(-1,
+                                                             keepdim=True)
+    ds = p * (do @ vf.transpose(-1, -2) - delta)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf).sum(2) * scale
+    dv = (p.transpose(-1, -2) @ do).sum(2)
+    return (dq.reshape(B, Hq, Lq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_decode_split_plain(q, k, v, kv_len: Optional[torch.Tensor] = None,
@@ -227,24 +277,62 @@ def flash_attention(q, k, v, kv_len: Optional[torch.Tensor] = None, *,
                     causal: bool = True, scale: Optional[float] = None):
     """Blockwise attention, (B, Hq, Lq, D) -> (B, Hq, Lq, D).  CPU tensors
     take :func:`flash_attention_plain`; CUDA tensors launch the kernel that
-    :func:`kernel_path` names, or raise.  The kernel has no backward: on
-    CUDA tensors, a call in grad mode where q, k or v requires grad
-    raises."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_len, causal, scale)
-    if q.device.type != "cuda":
+    :func:`kernel_path` names, or raise.  In grad mode, when q, k or v
+    requires grad, the call is differentiable in all three: its backward is
+    :func:`flash_attention_bwd` (the two backward kernels on CUDA
+    tensors)."""
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention: the CUDA kernel (K2) has no backward yet (it "
-            "comes with LM training); call it under torch.no_grad() or on "
-            "tensors that do not require grad")
-    return _flash_cuda(q, k, v, kv_len, causal, scale)
+        return _FlashAttention.apply(q, k, v, kv_len, causal, scale)
+    return _forward(q, k, v, kv_len, causal, scale)
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_path = {"decode": 0, "prefill_tc": 0,
                                     "general": 0}
+flash_attention.backward_launches = {"dq": 0, "dkdv": 0}
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward through :func:`_forward`, the backward through
+    :func:`flash_attention_bwd`; no gradient for ``kv_len``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal, scale):
+        out = _forward(q, k, v, kv_len, causal, scale)
+        ctx.save_for_backward(q, k, v, out, kv_len)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, kv_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, kv_len,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def _forward(q, k, v, kv_len, causal: bool, scale):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_len, causal, scale)
+    return _flash_cuda(q, k, v, kv_len, causal, scale)
+
+
+def flash_attention_bwd(q, k, v, out, dout,
+                        kv_len: Optional[torch.Tensor] = None,
+                        causal: bool = True, scale: Optional[float] = None):
+    """(dq, dk, dv) of :func:`flash_attention` at ``(q, k, v)``, given its
+    output ``out`` and the output gradient ``dout``.  CPU tensors take
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch the two backward
+    kernels, or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, kv_len, causal,
+                                         scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    return _flash_bwd_cuda(q, k, v, out, dout, kv_len, causal, scale)
 
 # The decode path's (batch, kv head) arrival counters, one buffer per
 # (device, stream), zeroed once on that stream; each launch leaves them at
@@ -261,7 +349,9 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
-def _flash_cuda(q, k, v, kv_len, causal: bool, scale):
+def _check_inputs(q, k, v, kv_len):
+    """Raise on what the kernels do not take; returns (B, Hq, Hkv, Lq, Lk,
+    D)."""
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on "
@@ -292,6 +382,11 @@ def _flash_cuda(q, k, v, kv_len, causal: bool, scale):
                 or kv_len.shape != (B,) or not kv_len.is_contiguous()):
             raise ValueError("flash_attention: kv_len must be a contiguous "
                              f"int32 ({B},) tensor on {q.device}")
+    return B, Hq, Hkv, Lq, Lk, D
+
+
+def _flash_cuda(q, k, v, kv_len, causal: bool, scale):
+    B, Hq, Hkv, Lq, Lk, D = _check_inputs(q, k, v, kv_len)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -323,3 +418,40 @@ def _flash_cuda(q, k, v, kv_len, causal: bool, scale):
     flash_attention.launches += 1
     flash_attention.launches_by_path[path] += 1
     return out
+
+
+def _flash_bwd_cuda(q, k, v, out, dout, kv_len, causal: bool, scale):
+    B, Hq, Hkv, Lq, Lk, D = _check_inputs(q, k, v, kv_len)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}, q "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # The row statistics the dq kernel writes and the dkdv kernel reads.
+    lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_int64 * 32)(*(s for t in (q, k, v, out, dout, dq, dk,
+                                                  dv) for s in t.stride()))
+    kl = None if kv_len is None else kv_len.data_ptr()
+    dims = (strides, B, Hq, Hkv, Lq, Lk, D, int(bool(causal)), float(scale),
+            _DTYPES[q.dtype])
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            kl, *dims, stream)
+        _build.check(lib, err, "flash_attention backward launch (dq)")
+        flash_attention.backward_launches["dq"] += 1
+        err = lib.flash_attention_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            kl, *dims, stream)
+        _build.check(lib, err, "flash_attention backward launch (dkdv)")
+        flash_attention.backward_launches["dkdv"] += 1
+    return dq, dk, dv

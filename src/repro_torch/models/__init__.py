@@ -21,6 +21,10 @@ def forward(cfg, params, batch):
     return family_module(cfg).forward(cfg, params, batch)
 
 
+def loss_fn(cfg, params, batch):
+    return family_module(cfg).loss_fn(cfg, params, batch)
+
+
 def prefill(cfg, params, batch, max_len):
     return family_module(cfg).prefill(cfg, params, batch, max_len)
 
@@ -35,6 +39,6 @@ def init_cache(cfg, batch, max_len, device="cuda"):
 
 __all__ = [
     "LMConfig", "QUEUED_FAMILIES", "SHAPES", "ShapeCfg", "family_module",
-    "init_params", "forward", "prefill", "decode_step", "init_cache",
-    "transformer",
+    "init_params", "forward", "loss_fn", "prefill", "decode_step",
+    "init_cache", "transformer",
 ]

@@ -7,7 +7,8 @@ it with the multi-device slice.
 
 Attention keeps the reference's ``(B, L, H, D)`` layout.  On a CUDA tensor
 :func:`attention_any` calls ``kernels.ops.attention``, the hand-written
-Hopper flash-attention kernel (K2), for prefill and decode alike.  On a CPU
+Hopper flash-attention kernel (K2), for prefill and decode alike, and in
+training its hand-written backward.  On a CPU
 tensor it takes the plain path the reference would take:
 :func:`chunked_attention` (a Python loop over KV chunks in place of
 ``lax.scan``) when the KV extent exceeds two chunks, else
@@ -275,6 +276,25 @@ def attention_any(q, k, v, *, causal: bool, chunk: int, kv_len=None):
         return chunked_attention(q, k, v, causal=causal, chunk=chunk,
                                  kv_len=kv_len)
     return full_attention(q, k, v, causal=causal, kv_len=kv_len)
+
+
+# --------------------------------------------------------------------- loss
+def sharded_ce_loss(logits, labels, aux=0.0, aux_weight: float = 0.0):
+    """Next-token cross entropy in the reference's formulation (labels
+    -100 = ignore): fp32 logits, a detached max, the log-sum-exp as local
+    max plus local sum, and the gold logit as a masked sum over the vocab,
+    not a gather.  On one device nothing is sharded; the formulation is
+    kept because its numerics are the reference's."""
+    mask = (labels >= 0).float()
+    labels = labels.clamp_min(0)
+    l32 = logits.float()
+    m = l32.amax(-1).detach()
+    lse = m + torch.log(torch.exp(l32 - m[..., None]).sum(-1))
+    iota = torch.arange(l32.shape[-1], device=l32.device)
+    gold = torch.where(iota == labels[..., None], l32, 0.0).sum(-1)
+    nll = (lse - gold) * mask
+    loss = nll.sum() / mask.sum().clamp_min(1.0)
+    return loss + aux_weight * aux
 
 
 # --------------------------------------------------------------- param utils

@@ -3,7 +3,8 @@
 The torch counterpart of the dense path of ``repro.models.transformer`` on
 one device:
 
-  forward      — teacher-forced logits (evaluation)
+  forward      — teacher-forced logits (evaluation and training)
+  loss_fn      — next-token cross entropy over ``forward`` (training)
   prefill      — forward + KV-cache construction (inference prefill)
   decode_step  — one token against a padded KV cache (inference decode)
 
@@ -13,7 +14,11 @@ is a Python loop over that axis in place of ``lax.scan``.  Weights are kept
 in ``cfg.param_dtype`` and cast to ``cfg.dtype`` where used, as the
 reference does; :func:`cast_params` makes those casts once (same values),
 which is what the serving engine runs on.  Attention goes through
-``common.attention_any``: the flash-attention kernel (K2) on the card.
+``common.attention_any``: the flash-attention kernel (K2) on the card, with
+its hand-written backward when training.  With ``cfg.remat`` set and grad
+on, ``forward`` checkpoints each layer (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` per scanned layer), so a layer's forward,
+K2 included, runs again in the backward.
 
 The MoE and VLM members of the reference's family dispatch raise
 ``NotImplementedError``: they come with their own slices.
@@ -25,11 +30,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models.common import (LMConfig, apply_rope, attention_any,
                                        check_family, dense_init, rms_norm,
-                                       rope_tables)
+                                       rope_tables, sharded_ce_loss)
 
 
 def vocab_padded(cfg: LMConfig, mult: int = 256) -> int:
@@ -194,17 +200,40 @@ def _rope(cfg: LMConfig, positions):
     return rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.dtype)
 
 
+def _layer_out(cfg: LMConfig, p, x, cos, sin):
+    return _one_layer(cfg, p, x, cos, sin)[0]
+
+
 def forward(cfg: LMConfig, params, batch: Dict):
     """batch: {'tokens': (B, L) int}.  Returns (logits (B, L, vocab_padded),
-    aux_loss = 0.0)."""
+    aux_loss = 0.0).  The stacked layer weights are unbound once, so their
+    gradient is one stack of the per-layer gradients; with ``cfg.remat``
+    and grad on, each layer is checkpointed."""
     check_family(cfg.name, cfg.family)
     x = _embed(cfg, params, batch["tokens"])
     L = x.shape[1]
     cos, sin = _rope(cfg, torch.arange(L, device=x.device)[None, :])
+    stack = {name: t.unbind(0) for name, t in params["layers"].items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x, _ = _one_layer(cfg, _layer(params, i), x, cos, sin)
+        p = {name: t[i] for name, t in stack.items()}
+        if remat:
+            x = checkpoint(_layer_out, cfg, p, x, cos, sin,
+                           use_reentrant=False)
+        else:
+            x = _layer_out(cfg, p, x, cos, sin)
     x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
     return _unembed(cfg, params, x), 0.0
+
+
+def loss_fn(cfg: LMConfig, params, batch: Dict, aux_weight: float = 0.01):
+    """Next-token cross entropy of ``forward``: batch {'tokens', 'labels'}
+    (B, L), labels -100 = ignore.  Returns a 0-d fp32 tensor."""
+    logits, aux = forward(cfg, params, batch)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    return sharded_ce_loss(logits, labels.long(), aux, aux_weight)
 
 
 # ------------------------------------------------------------------ serving

@@ -2,9 +2,11 @@
 
 The counterpart of ``repro.train.checkpoint``, with its on-disk layout:
 ``<dir>/step_<N:08d>/MANIFEST.json`` plus one ``.npy`` file per leaf.  A
-leaf's key joins the dict keys and list indices on its path with ``/``
-(dict keys in sorted order, as JAX flattens them); its file name is the key
-with ``/`` replaced by ``__``.  Writes go to ``step_<N>.tmp`` and are renamed
+leaf's key joins the dict keys, NamedTuple field names and list or tuple
+indices on its path with ``/`` (dict keys in sorted order, a NamedTuple's
+fields in their order, as JAX flattens them: an ``OptState``'s first
+moments are ``o/m/...``); its file name is the key with ``/`` replaced by
+``__``.  Writes go to ``step_<N>.tmp`` and are renamed
 atomically, so a killed writer never leaves a half checkpoint;
 ``latest_step`` trusts only renamed directories.  Restore reads only the
 leaf files named by ``like``'s keys, so a checkpoint written by either
@@ -25,11 +27,17 @@ import torch
 from repro_torch._device import DeviceLike
 
 
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
 def _items(node):
     """A container's (key, child) pairs in flattening order, or None for a
     leaf."""
     if isinstance(node, dict):
         return [(k, node[k]) for k in sorted(node)]
+    if _is_namedtuple(node):
+        return [(f, getattr(node, f)) for f in node._fields]
     if isinstance(node, (list, tuple)):
         return list(enumerate(node))
     return None
@@ -52,6 +60,9 @@ def _structure(tree) -> str:
     if isinstance(tree, dict):
         return "{" + ", ".join(f"{k!r}: {_structure(tree[k])}"
                                for k in sorted(tree)) + "}"
+    if _is_namedtuple(tree):
+        return type(tree).__name__ + "(" + ", ".join(
+            f"{f}={_structure(getattr(tree, f))}" for f in tree._fields) + ")"
     if isinstance(tree, (list, tuple)):
         inner = ", ".join(_structure(c) for c in tree)
         return f"[{inner}]" if isinstance(tree, list) else f"({inner})"
@@ -155,6 +166,8 @@ class CheckpointManager:
                    for k, c in items}
             if isinstance(node, dict):
                 return {k: out[k] for k in node}
+            if _is_namedtuple(node):
+                return type(node)(**out)
             return type(node)(out[i] for i in range(len(node)))
 
         return load(like, ""), manifest

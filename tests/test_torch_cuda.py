@@ -1,7 +1,8 @@
 """Checks that need a CUDA card: the spmm_csr (K1) and flash_attention
-kernels against their plain torch versions, the wrappers' input checks, and the
-port's card paths (BSP forward and train step, K1's backward, LM prefill and
-decode) against its CPU paths.  Without a card every test here skips.  The file
+kernels (K2 both ways) against their plain torch versions, the wrappers'
+input checks, and the port's card paths (BSP forward and train step, K1's
+backward, LM prefill, decode and train step, the LM training CLI) against
+its CPU paths.  Without a card every test here skips.  The file
 imports neither ``jax`` nor ``repro``, so it runs on a machine with the card
 and the port alone:
 
@@ -32,10 +33,14 @@ from repro_torch.kernels import (  # noqa: E402
     spmm_packed_plain, spmm_plain)
 from repro_torch.kernels.gnn_aggregate import transpose_packed  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain, kernel_path)
+    flash_attention, flash_attention_bwd_plain, flash_attention_plain,
+    kernel_path)
 from repro_torch import models as lm  # noqa: E402
 from repro_torch.models.common import attention_any  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.models.common import ShapeCfg  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    OptConfig, batch_at_step, init_opt_state, make_train_step, optim)
 
 pytestmark = pytest.mark.cuda
 
@@ -301,22 +306,108 @@ def test_bsp_train_step_on_card_matches_cpu_and_repeats(dev, model, exchange):
             assert torch.equal(a[k], b[k])
 
 
-def test_flash_kernel_refuses_gradients(dev):
-    q, k, v = _flash_inputs(dev, 1, 4, 2, 8, 8, 16, torch.float32)
-    launches = flash_attention.launches
-    for grad_of in ("q", "k", "v"):
-        args = {"q": q, "k": k, "v": v}
-        args[grad_of] = args[grad_of].detach().requires_grad_(True)
-        with pytest.raises(RuntimeError, match="no backward"):
-            flash_attention(args["q"], args["k"], args["v"])
-        with torch.no_grad():
-            out = flash_attention(args["q"], args["k"], args["v"])
-        assert out.grad_fn is None
-    assert flash_attention.launches == launches + 3
-    qg = q.detach().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        attention_any(qg.transpose(1, 2), k.transpose(1, 2),
-                      v.transpose(1, 2), causal=True, chunk=64)
+# K2's backward: every forward kernel under grad (prefill_tc, general, and
+# decode shapes), causal and not, Lq != Lk, GQA groups 1, 4 and 8, head dims
+# 32, 64 and 128, L off the 64-row tiles, ragged kv_len with a 0 row.
+FLASH_BWD_CASES = [
+    # B, Hq, Hkv, Lq, Lk, D, causal, kv_len, dtype, forward path
+    (2, 8, 2, 128, 128, 64, True, None, torch.bfloat16, "prefill_tc"),
+    (1, 32, 8, 200, 200, 64, True, None, torch.bfloat16, "prefill_tc"),
+    (2, 8, 8, 70, 150, 32, True, None, torch.bfloat16, "prefill_tc"),
+    (2, 8, 1, 100, 60, 128, True, None, torch.bfloat16, "prefill_tc"),
+    (3, 8, 2, 65, 65, 64, False, [0, 33, 65], torch.bfloat16, "prefill_tc"),
+    (2, 4, 2, 128, 128, 64, True, None, torch.float32, "general"),
+    (2, 4, 1, 100, 100, 32, True, None, torch.float32, "general"),
+    (1, 8, 8, 96, 160, 128, True, [150], torch.float32, "general"),
+    (2, 16, 2, 77, 40, 64, True, None, torch.float32, "general"),
+    (2, 6, 2, 40, 40, 100, False, [0, 17], torch.float32, "general"),
+    (3, 32, 8, 1, 300, 64, False, [0, 150, 300], torch.bfloat16, "decode"),
+    (2, 8, 2, 4, 200, 64, True, [77, 200], torch.float32, "decode"),
+]
+FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 0.0)}
+
+
+def _assert_grad_close(got, ref, dtype):
+    rel, abs_ = FLASH_BWD_TOL[dtype]
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert torch.isfinite(g).all()
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= rel * float(r.float().abs().max()) + abs_, err
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Lq,Lk,D,causal,kv_len,dtype,path",
+                         FLASH_BWD_CASES)
+def test_flash_backward_matches_plain_and_is_deterministic(
+        dev, B, Hq, Hkv, Lq, Lk, D, causal, kv_len, dtype, path):
+    """Under grad the call takes its forward kernel once and returns an
+    output with a backward; the backward launches the two backward kernels
+    once each, repeats bit for bit, and is within tolerance of the plain
+    backward on the same (q, k, v, out, dout): the model's (B, L, H, D)
+    views, and a dout with the strides autograd gives."""
+    q, k, v = (t.detach().requires_grad_(True) for t in _flash_inputs(
+        dev, B, Hq, Hkv, Lq, Lk, D, dtype, seed=Lq))
+    kl = (torch.tensor(kv_len, dtype=torch.int32, device=dev)
+          if kv_len else None)
+    assert kernel_path(dtype, Hq, Hkv, Lq, D) == path
+    fwd = dict(flash_attention.launches_by_path)
+    bwd = dict(flash_attention.backward_launches)
+    out = flash_attention(q, k, v, kl, causal=causal)
+    assert out.grad_fn is not None
+    dout = torch.randn((B, Lq, Hq, D), generator=torch.Generator(
+    ).manual_seed(7)).to(dev, dtype).transpose(1, 2)
+    got = torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+    again = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_path[path] == fwd[path] + 1
+    assert flash_attention.backward_launches == {
+        "dq": bwd["dq"] + 2, "dkdv": bwd["dkdv"] + 2}
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    ref = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                    out.detach(), dout, kl, causal)
+    _assert_grad_close(got, ref, dtype)
+    if kv_len and kv_len[0] == 0:               # a fully masked batch row
+        for g in got:
+            assert torch.equal(g[0], torch.zeros_like(g[0]))
+    with torch.no_grad():
+        plain_out = flash_attention(q, k, v, kl, causal=causal)
+    assert plain_out.grad_fn is None and torch.equal(plain_out, out)
+    assert flash_attention.launches_by_path[path] == fwd[path] + 2
+    assert flash_attention.backward_launches == {
+        "dq": bwd["dq"] + 2, "dkdv": bwd["dkdv"] + 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_of_each_input_alone(dev, dtype):
+    """Grad through q, k or v alone: the same gradient as through all
+    three, and none for the others."""
+    q, k, v = _flash_inputs(dev, 2, 8, 2, 80, 80, 64, dtype, seed=3)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)
+                       ).to(dev, dtype)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    full = torch.autograd.grad(flash_attention(*leaves), leaves, dout)
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = args[i].detach().requires_grad_(True)
+        out = flash_attention(*args)
+        g, = torch.autograd.grad(out, args[i], dout)
+        assert torch.equal(g, full[i])
+
+
+def test_flash_attention_any_differentiates_on_the_card(dev):
+    """The model's attention entry under grad: the gradient of the card
+    path within tolerance of the CPU's plain attention, in fp32."""
+    q, k, v = _flash_inputs(dev, 2, 8, 2, 50, 50, 32, torch.float32)
+    args = [t.transpose(1, 2).detach().requires_grad_(True)
+            for t in (q, k, v)]
+    out = attention_any(*args, causal=True, chunk=64)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(2))
+    got = torch.autograd.grad(out, args, g.to(dev))
+    cpu = [a.detach().cpu().requires_grad_(True) for a in args]
+    ref = torch.autograd.grad(attention_any(*cpu, causal=True, chunk=64),
+                              cpu, g)
+    _assert_grad_close([x.cpu() for x in got], ref, torch.float32)
 
 
 # ------------------------------------------------------------ flash attention
@@ -572,3 +663,57 @@ def test_lm_prefill_and_decode_on_card_match_cpu(dev):
         cl, cc = lm.decode_step(cfg, cpu, nxt, cc)
         torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(gc["k"].cpu(), cc["k"], rtol=1e-4, atol=1e-4)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def test_lm_train_step_on_card_matches_cpu(dev):
+    """Smoke llama (2 layers) in fp32: the loss and every gradient leaf of
+    a train step on the card (K2 both ways, one forward and one of each
+    backward launch per layer) against the CPU's; after one AdamW step on
+    each, the next loss still agrees."""
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    cpu = _to_cpu(params)
+    batch = batch_at_step(cfg, ShapeCfg("t", 64, 4, "train"), 0)
+    gb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    cb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    opt = OptConfig(lr=1e-3)
+    step = make_train_step(cfg, opt)
+    fwd = flash_attention.launches_by_path["general"]
+    bwd = dict(flash_attention.backward_launches)
+    loss, grads = step.grads_of(params, gb)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_path["general"] == fwd + cfg.n_layers
+    assert flash_attention.backward_launches == {
+        k: n + cfg.n_layers for k, n in bwd.items()}
+    ref_loss, ref = step.grads_of(cpu, cb)
+    assert float(loss) == pytest.approx(float(ref_loss), rel=1e-5)
+    for g, r in zip(optim.leaves(grads), optim.leaves(ref)):
+        assert float((g.cpu() - r).abs().max()) <= (
+            1e-4 * float(r.abs().max()) + 1e-6)
+    params, _, _, _ = step(params, init_opt_state(opt, params), None, gb)
+    cpu, _, _, _ = step(cpu, init_opt_state(opt, cpu), None, cb)
+    assert float(step.grads_of(params, gb)[0]) == pytest.approx(
+        float(step.grads_of(cpu, cb)[0]), rel=1e-4)
+
+
+def test_launch_train_smoke_on_card(capsys):
+    """``python -m repro_torch.launch.train --smoke`` on the card: the loss
+    falls and every step's attention ran K2 both ways."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.launch import train as launch_train
+    bwd = dict(flash_attention.backward_launches)
+    losses = launch_train.main(["--arch", "llama3.2-1b", "--smoke",
+                                "--steps", "20"])
+    assert len(losses) == 20 and losses[-1] < losses[0]
+    assert "on cuda" in capsys.readouterr().out
+    cfg = get_smoke_config("llama3.2-1b")
+    assert flash_attention.backward_launches == {
+        k: n + 20 * cfg.n_layers for k, n in bwd.items()}
