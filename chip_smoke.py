@@ -88,13 +88,16 @@ width:
           general kernel at L = 128 and 512; the reference's 7 test cases
           and a fully masked row; each case that names a kernel is held
           to have launched it.  K2's backward (the dq kernel, then the
-          dkdv kernel) at the LM train step's shape (B = 4, L = 1024, bf16,
-          causal) and at L = 512 against flash_attention_bwd_plain, with
-          the same fields, the device time of each kernel, and the
-          backward of scaled_dot_product_attention as the library call;
-          then small cases through autograd on every forward kernel, fp32
-          and bf16 (causal and not, Lq != Lk, groups 1, 4 and 8, D = 32,
-          64 and 128, ragged kv_len with a 0 row);
+          dkdv kernel, on the path backward_path names: the tensor-core
+          pair for bf16 with the prefill's head dims, the CUDA-core pair
+          otherwise) at the LM train step's shape (B = 4, L = 1024, bf16,
+          causal) and at L = 512 against flash_attention_bwd_plain, both
+          on the tensor-core pair, with the same fields, the device time
+          of each kernel, and the backward of scaled_dot_product_attention
+          as the library call; then small cases through autograd on every
+          forward kernel and both backward paths, fp32 and bf16 (causal
+          and not, Lq != Lk, groups 1, 4 and 8, D = 32, 64 and 128, ragged
+          kv_len with a 0 row, Lq = 1);
   lm_parity  llama3.2-1b at full width cut to 2 layers, fp32: prefill of two
           bucketed prompts and 8 greedy decode steps on the card (K2) and on
           the CPU (plain attention) agree, with n_layers launches per call;
@@ -116,7 +119,9 @@ width:
           10 steps on one batch lower the loss, a compressed (int8 + error
           feedback) step is finite, the trained weights and optimizer state
           go through a checkpoint bit for bit, K2 launches n_layers
-          forwards and n_layers of each backward kernel per microbatch;
+          forwards and n_layers of each backward kernel per microbatch,
+          every backward on the tensor-core pair (the fp32 parity pass's
+          on the CUDA-core pair);
           step ms, tokens/s, peak memory, one profiled step (busy share,
           K2's device time), and whether the same step repeats bit for bit.
 
@@ -125,7 +130,8 @@ the last line it prints the kernels summary and the ``nvidia-smi`` name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The
 kernel summary's ``launches`` are the main paths' (train, then the GNN
 forward path from bsp to evolve, then LM serving, then LM training), each
-counted from 0.
+counted from 0; its ``flash_attention_bwd_tc`` entry is K2's tensor-core
+backward (both kernels' launches on the LM training path).
 """
 from __future__ import annotations
 
@@ -163,8 +169,9 @@ from repro_torch.graphs import (  # noqa: E402
     DataGraph, build_edge_network, synthetic_siot, synthetic_yelp)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    decode_split, flash_attention, flash_attention_bwd,
-    flash_attention_bwd_plain, flash_attention_plain, kernel_path)
+    aligned16, backward_path, decode_split, flash_attention,
+    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain,
+    kernel_path)
 from repro_torch.kernels.gnn_aggregate import (  # noqa: E402
     build_bsr, pack_bsr, spmm, spmm_packed, spmm_packed_plain, spmm_plain,
     transpose_packed)
@@ -1334,7 +1341,7 @@ def phase_flash_kernels(dev):
         kernel = lambda: flash_attention(q, k, v, kl, causal=causal)  # noqa: E731
         library = lambda: _sdpa(q, k, v, kl, causal)  # noqa: E731
         row = {
-            "shape": label, "dtype": "bf16", "max_abs_err": err,
+            "shape": label, "dtype": "bf16", "path": path, "max_abs_err": err,
             "path": path, "bitwise_equal": True, "library_max_abs_diff": lib_err,
             "ms": time_ms(kernel), "device_ms": device_ms(kernel, label=label),
             "plain_ms": time_ms(
@@ -1449,18 +1456,32 @@ def phase_flash_kernels(dev):
 FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 0.0)}
 
 
+def _bwd_path(q, k, v, out, dout):
+    """The backward path of a CUDA call on these tensors (its gradients
+    come from ``empty_like``, with the inputs' strides)."""
+    B, Hq, Lq, D = q.shape
+    return backward_path(q.dtype, Hq, k.shape[1], Lq, D, all(
+        aligned16(t) for t in (q, k, v, out, dout)))
+
+
 def _check_flash_bwd(label, q, k, v, out, dout, kv_len, causal):
     """Two launches of the backward against its plain version: each
-    kernel launched once per call, bitwise equal, within FLASH_BWD_TOL.
-    Returns the gradients and the largest abs error."""
+    kernel of its path launched once per call, bitwise equal, within
+    FLASH_BWD_TOL.  Returns the gradients, the largest abs error and the
+    path."""
+    path = _bwd_path(q, k, v, out, dout)
     before = dict(flash_attention.backward_launches)
+    by_path = dict(flash_attention.backward_launches_by_path)
     got = flash_attention_bwd(q, k, v, out, dout, kv_len, causal)
     again = flash_attention_bwd(q, k, v, out, dout, kv_len, causal)
     ref = flash_attention_bwd_plain(q, k, v, out, dout, kv_len, causal)
     torch.cuda.synchronize()
     require(flash_attention.backward_launches == {
-        key: n + 2 for key, n in before.items()},
-        f"flash_attention backward {label}: launches off by kernel")
+        key: n + 2 for key, n in before.items()}
+        and flash_attention.backward_launches_by_path == {
+            **by_path, path: by_path[path] + 2},
+        f"flash_attention backward {label}: launches off by kernel or "
+        f"path (expected 2 on {path})")
     rel, floor = FLASH_BWD_TOL[q.dtype]
     worst = 0.0
     for name, g, g2, r in zip(("dq", "dk", "dv"), got, again, ref):
@@ -1474,16 +1495,17 @@ def _check_flash_bwd(label, q, k, v, out, dout, kv_len, causal):
                 f"flash_attention backward {label}: {name} max abs err "
                 f"{err} vs plain (max|ref| {float(r.abs().max())})")
         worst = max(worst, err)
-    return got, worst
+    return got, worst, path
 
 
 def phase_flash_backward(dev):
     """K2's backward kernels against flash_attention_bwd_plain: at the LM
     train step's shape (B = 4, 32/8 heads, L = 1024, D = 64, bf16, causal)
-    and at L = 512, with times, device times (both kernels and each alone),
-    the plain version's time, the backward of scaled_dot_product_attention
-    as the library call, and the bound; then small cases through autograd
-    on every forward path, fp32 and bf16."""
+    and at L = 512, both on the tensor-core pair, with times, device times
+    (both kernels and each alone), the plain version's time, the backward
+    of scaled_dot_product_attention as the library call, and the bound;
+    then small cases through autograd on every forward path and both
+    backward paths, fp32 and bf16."""
     cfg = get_config("llama3.2-1b")
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     gen = torch.Generator(dev).manual_seed(SEED + 5)
@@ -1495,8 +1517,9 @@ def phase_flash_backward(dev):
         out = flash_attention(q, k, v)
         dout = torch.randn((4, L, Hq, D), generator=gen, device=dev,
                            dtype=bf16).transpose(1, 2)
-        (dq, dk, dv), err = _check_flash_bwd(label, q, k, v, out, dout, None,
-                                             True)
+        (dq, dk, dv), err, path = _check_flash_bwd(label, q, k, v, out, dout,
+                                                   None, True)
+        require(path == "tc", f"{label}: the backward took {path}, not tc")
         worst = max(worst, err)
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
@@ -1519,7 +1542,7 @@ def phase_flash_backward(dev):
             lib_out, leaves, dout, retain_graph=True)
         by_kernel = {}
         row = {
-            "shape": label, "dtype": "bf16", "max_abs_err": err,
+            "shape": label, "dtype": "bf16", "path": path, "max_abs_err": err,
             "bitwise_equal": True, "library_max_abs_diff": lib_err,
             "ms": time_ms(kernel, reps=10),
             "device_ms": device_ms(kernel, reps=10, label=label,
@@ -1542,9 +1565,11 @@ def phase_flash_backward(dev):
         emit({"phase": "kernels", "kernel": "flash_attention_backward",
               **row})
         del leaves, lib_out, lib_grads
-    # Small cases through autograd: every forward kernel under grad, causal
-    # and not, Lq != Lk both ways, groups 1, 4 and 8, D = 32, 64 and 128,
-    # L off the 64-row tiles, ragged kv_len with a 0 row.
+    # Small cases through autograd: every forward kernel under grad and both
+    # backward paths (bf16 takes "tc", fp32 "general"), causal and not,
+    # Lq != Lk both ways, groups 1, 4 and 8, D = 32, 64 and 128, L off the
+    # 64-row tiles, ragged kv_len with a 0 row, Lq = 1.
+    paths = {"tc": 0, "general": 0}
     for dtype in (torch.float32, bf16):
         for B, hq, hkv, Lq, Lk, d, causal, kl in [
                 (2, 8, 2, 200, 200, 64, True, None),
@@ -1569,8 +1594,9 @@ def phase_flash_backward(dev):
                      f"{'_causal' if causal else ''}"
                      f"{'_kvlen' if kl else ''}_{str(dtype).split('.')[-1]}")
             got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
-            (dq, dk, dv), err = _check_flash_bwd(
+            (dq, dk, dv), err, bpath = _check_flash_bwd(
                 label, q, k, v, out.detach(), dout, klt, causal)
+            paths[bpath] += 1
             require(all(torch.equal(a, b) for a, b in zip(got, (dq, dk, dv))),
                     f"backward case {label}: autograd's gradients != the "
                     "backward kernels'")
@@ -1581,8 +1607,11 @@ def phase_flash_backward(dev):
                         "gradient is not 0")
             worst = max(worst, err)
             emit({"phase": "kernels", "kernel": "flash_attention_backward",
-                  "shape": label, "forward_path": path, "max_abs_err": err,
-                  "tol": FLASH_BWD_TOL[dtype], "bitwise_equal": True})
+                  "shape": label, "forward_path": path, "path": bpath,
+                  "max_abs_err": err, "tol": FLASH_BWD_TOL[dtype],
+                  "bitwise_equal": True})
+    require(paths["tc"] > 0 and paths["general"] > 0,
+            f"the backward cases did not cover both paths: {paths}")
     return rows, worst
 
 
@@ -1823,15 +1852,18 @@ def _lm_train_parity(dev):
                           0)
     grads_of = make_train_step(cfg).grads_of
     before = _k2_counts()
+    by_path = dict(flash_attention.backward_launches_by_path)
     loss, grads = grads_of(params, {k: torch.from_numpy(x).to(dev)
                                     for k, x in batch.items()})
     torch.cuda.synchronize()
     launched = _k2_delta(before)
     require(launched == ({"general": cfg.n_layers},
-                         {"dq": cfg.n_layers, "dkdv": cfg.n_layers}),
+                         {"dq": cfg.n_layers, "dkdv": cfg.n_layers})
+            and flash_attention.backward_launches_by_path == {
+                **by_path, "general": by_path["general"] + cfg.n_layers},
             f"lm_train parity: K2 launches {launched}, expected "
             f"{cfg.n_layers} general forwards and {cfg.n_layers} of each "
-            "backward kernel")
+            "backward kernel, every backward on the general pair")
     t0 = time.perf_counter()
     ref_loss, ref = grads_of(_to_cpu(params), {k: torch.from_numpy(x)
                                                for k, x in batch.items()})
@@ -2037,7 +2069,8 @@ def phase_lm_train(dev):
     path, whose counts start from 0 just before it.  The main path takes
     gradients of 18 microbatches (two repeat runs, 1 + 2 microbatches, the
     steps, two profiled steps, the compressed step) and one no-grad
-    forward, all on prefill_tc."""
+    forward, all forwards on prefill_tc and all backwards on the
+    tensor-core pair."""
     gc.collect()
     torch.cuda.empty_cache()
     _lm_train_parity(dev)
@@ -2045,17 +2078,20 @@ def phase_lm_train(dev):
     _lm_train_full(dev)
     fwd = dict(flash_attention.launches_by_path)      # ... and ends here
     bwd = dict(flash_attention.backward_launches)
+    by_path = dict(flash_attention.backward_launches_by_path)
     n_layers = get_config("llama3.2-1b").n_layers
     grad_mbs = 2 + 3 + TRAIN_LM_STEPS + 2 + 1
     require(fwd == {**dict.fromkeys(fwd, 0),
                     "prefill_tc": (grad_mbs + 1) * n_layers}
             and bwd == {"dq": grad_mbs * n_layers,
-                        "dkdv": grad_mbs * n_layers},
+                        "dkdv": grad_mbs * n_layers}
+            and by_path == {"tc": grad_mbs * n_layers, "general": 0},
             f"the LM train path launched K2 {fwd} forward and {bwd} "
-            f"backward, expected {(grad_mbs + 1) * n_layers} prefill_tc and "
-            f"{grad_mbs * n_layers} of each backward kernel")
+            f"backward ({by_path} by path), expected "
+            f"{(grad_mbs + 1) * n_layers} prefill_tc and "
+            f"{grad_mbs * n_layers} of each backward kernel, all on tc")
     require(spmm.launches == 0, "lm_train launched spmm_csr")
-    return flash_attention.launches, fwd, bwd
+    return flash_attention.launches, fwd, bwd, by_path
 
 
 def _zero_counts() -> None:
@@ -2066,6 +2102,8 @@ def _zero_counts() -> None:
         flash_attention.launches_by_path, 0)
     flash_attention.backward_launches = dict.fromkeys(
         flash_attention.backward_launches, 0)
+    flash_attention.backward_launches_by_path = dict.fromkeys(
+        flash_attention.backward_launches_by_path, 0)
 
 
 def main() -> int:
@@ -2104,11 +2142,13 @@ def main() -> int:
     phase_lm_parity(dev)
     flash_launches, flash_by_path = phase_lm_serve(dev, flash_rows)
     require(flash_launches > 0, "the LM path never launched flash_attention")
-    train_launches_k2, train_by_path, train_bwd = phase_lm_train(dev)
+    train_launches_k2, train_by_path, train_bwd, train_bwd_by_path = (
+        phase_lm_train(dev))
 
     head = kernel_rows[0]
     flash_head = next(r for r in flash_rows
                       if r["shape"].startswith("decode"))
+    bwd_head = flash_bwd_rows[0]                 # the train shape, L = 1024
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "spmm_bsr", "route": "cuda",
@@ -2144,6 +2184,9 @@ def main() -> int:
         "launches_by_phase": {"lm_serve": flash_by_path,
                               "lm_train": train_by_path},
         "backward_launches": train_bwd,
+        "backward_launches_by_path": train_bwd_by_path,
+        "backward_source": "src/repro_torch/kernels/csrc/"
+                           "flash_attention_bwd_tc.cu",
         "max_abs_err": flash_worst,
         "backward_max_abs_err": flash_bwd_worst,
         "ms": flash_head["ms"], "device_ms": flash_head["device_ms"],
@@ -2158,9 +2201,23 @@ def main() -> int:
             "library_ms", "library_device_ms", "library_cut_ms",
             "library_cut_device_ms")} for r in flash_rows},
         "backward_shapes": {r["shape"]: {key: r.get(key) for key in (
-            "max_abs_err", "ms", "device_ms", "device_ms_by_kernel",
+            "path", "max_abs_err", "ms", "device_ms", "device_ms_by_kernel",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_device_ms")} for r in flash_bwd_rows}}]})
+            "library_device_ms")} for r in flash_bwd_rows}}, {
+        "name": "flash_attention_bwd_tc", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:117",
+        "launches": sum(train_bwd.values()),
+        "launches_by_kernel": train_bwd,
+        "backward_launches_by_path": train_bwd_by_path,
+        "max_abs_err": flash_bwd_worst,
+        "ms": bwd_head["ms"], "device_ms": bwd_head["device_ms"],
+        "device_ms_by_kernel": bwd_head["device_ms_by_kernel"],
+        "plain_ms": bwd_head["plain_ms"], "bound_ms": bwd_head["bound_ms"],
+        "bound_by": bwd_head["bound_by"],
+        "library_ms": bwd_head["library_ms"],
+        "library_device_ms": bwd_head["library_device_ms"],
+        "shape": bwd_head["shape"]}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

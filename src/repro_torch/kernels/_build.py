@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` file has a plain C interface.  At first CUDA use each is
 compiled with ``nvcc`` for ``sm_90a`` (all files at once, one process each),
 linked into one shared library under ``build/repro_torch/`` in the checkout,
-and loaded with ``ctypes``.  The library's name carries a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+and loaded with ``ctypes``.  The library's name carries a hash of the sources,
+the headers they include (``csrc/*.cuh``) and the flags, so an edited source
+or header is rebuilt and an unchanged tree is reused.
 A failed build raises.  Nothing here runs at import time, so the package
 imports on a machine without ``nvcc``.
 """
@@ -70,6 +71,10 @@ def _sources() -> list:
     return srcs
 
 
+def _headers() -> list:
+    return sorted(SRC_DIR.glob("*.cuh"))
+
+
 def _run_all(cmds) -> str:
     """Start every command at once; raise on the first failure."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
@@ -93,7 +98,7 @@ def build() -> BuildResult:
     """Compile ``csrc/*.cu`` into the shared library unless it exists."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + _headers():
         h.update(s.name.encode())
         h.update(s.read_bytes())
     lib = BUILD_DIR / f"libreprotorch_kernels_{h.hexdigest()[:16]}.so"
@@ -135,9 +140,13 @@ def load_library() -> ctypes.CDLL:
            + [ctypes.c_float, i32, ptr])
     lib.flash_attention_bwd_dq.argtypes = bwd
     lib.flash_attention_bwd_dkdv.argtypes = bwd
+    # The tensor-core backward: the same arguments, bf16 only (no dtype).
+    lib.flash_attention_bwd_tc_dq.argtypes = bwd[:-2] + [ptr]
+    lib.flash_attention_bwd_tc_dkdv.argtypes = bwd[:-2] + [ptr]
     for fn in (lib.flash_attention_fwd, lib.flash_attention_prefill_bf16,
                lib.flash_attention_decode, lib.flash_attention_bwd_dq,
-               lib.flash_attention_bwd_dkdv):
+               lib.flash_attention_bwd_dkdv, lib.flash_attention_bwd_tc_dq,
+               lib.flash_attention_bwd_tc_dkdv):
         fn.restype = i32
     lib.repro_torch_cuda_error_string.argtypes = [i32]
     lib.repro_torch_cuda_error_string.restype = ctypes.c_char_p

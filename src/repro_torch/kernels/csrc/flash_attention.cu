@@ -68,20 +68,19 @@
 // Two more kernels are the backward (flash_bwd_dq_kernel, then
 // flash_bwd_dkdv_kernel; see their section below): the reference has no
 // backward kernel, so they write out the flash-attention backward on the
-// CUDA cores, with the forward's masks and log2-domain scores.
+// CUDA cores, with the forward's masks and log2-domain scores.  They take
+// the calls that the tensor-core backward (flash_attention_bwd_tc.cu: bf16,
+// the prefill's head dims, 16-byte aligned rows) does not.  The helpers
+// both sources use live in flash_common.cuh.
 //
 // Every entry point launches on the given stream and returns the launch's
 // cudaError_t (cudaGetLastError right after the launch).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   int64_t q[4], k[4], v[4], o[4];
@@ -119,78 +118,6 @@ Strides unpack_strides(const int64_t* s) {
     st.o[i] = s[12 + i];
   }
   return st;
-}
-
-// Raise a kernel's dynamic shared-memory limit when it needs more than the
-// default 48 KB.
-template <typename K>
-int allow_smem(K kern, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// ------------------------------------------------ async copies and mma.sync
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-fills the destination when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x by the SFU's ex2.approx (relative error ~2^-22, -inf -> 0): the bf16
-// prefill only, whose p is rounded to bf16 next.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two floats rounded to bf16, the lower column in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // =============================================== general CUDA-core kernel
@@ -977,32 +904,13 @@ int launch_decode_d(const void* q, const void* k, const void* v, void* out,
 //   (what makes GQA deterministic); writes scale dK and dV.
 //
 // Both are bound by operations (10 D flops per query row and live key, in
-// fp32 here); the tensor cores, the LSE emitted by the forward and TMA
-// staging are later work.
+// fp32 here).  bf16 calls with the prefill's head dims and 16-byte aligned
+// rows take the tensor-core pair of flash_attention_bwd_tc.cu instead.
 constexpr int kBwdWarps = 8;
 constexpr int kBwdThreads = kBwdWarps * 32;
 constexpr int kBwdPerWarp = 8;                     // rows (dq) or keys (dkdv)
 constexpr int kBwdBlock = kBwdWarps * kBwdPerWarp;  // 64 per CTA
 constexpr int kBwdTile = 32;                        // keys or queries per tile
-
-struct BwdStrides {
-  int64_t q[4], k[4], v[4], o[4], dout[4], dq[4], dk[4], dv[4];
-};
-
-BwdStrides unpack_bwd_strides(const int64_t* s) {
-  BwdStrides st;
-  for (int i = 0; i < 4; ++i) {
-    st.q[i] = s[i];
-    st.k[i] = s[4 + i];
-    st.v[i] = s[8 + i];
-    st.o[i] = s[12 + i];
-    st.dout[i] = s[16 + i];
-    st.dq[i] = s[20 + i];
-    st.dk[i] = s[24 + i];
-    st.dv[i] = s[28 + i];
-  }
-  return st;
-}
 
 template <int DC>
 size_t bwd_smem_bytes() {
@@ -1407,20 +1315,6 @@ int launch_bwd_dc(const BwdArgs& a, bool dkdv, cudaStream_t stream) {
   if (a.D <= 64) return launch_bwd<T, 2>(a, dkdv, stream);
   if (a.D <= 128) return launch_bwd<T, 4>(a, dkdv, stream);
   return launch_bwd<T, 8>(a, dkdv, stream);
-}
-
-bool valid_dims(int B, int Hq, int Hkv, int Lq, int Lk, int D) {
-  return B >= 1 && B <= 65535 && Hkv >= 1 && Hkv <= 65535 && Hq >= 1 &&
-         Hq % Hkv == 0 && Lq >= 1 && Lk >= 0 && D >= 1 && D <= 256;
-}
-
-// The vector paths' layout: last dim contiguous, every other stride and
-// the base 16-byte aligned.
-bool aligned16(const void* p, const int64_t* s, size_t esize) {
-  if (((uintptr_t)p & 15) != 0 || s[3] != 1) return false;
-  for (int i = 0; i < 3; ++i)
-    if ((s[i] * (int64_t)esize) % 16 != 0) return false;
-  return true;
 }
 
 }  // namespace

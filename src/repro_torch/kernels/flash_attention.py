@@ -45,16 +45,28 @@ Backward.  In grad mode, when q, k or v requires grad, the call goes
 through ``_FlashAttention`` (a ``torch.autograd.Function``): its forward
 launches the kernel :func:`kernel_path` names, as above, and saves q, k, v,
 the output and ``kv_len``; its backward is :func:`flash_attention_bwd`,
-which launches two more kernels of ``csrc/flash_attention.cu`` on CUDA
-tensors: ``flash_attention_bwd_dq`` (it recomputes each row's log-sum-exp
-and Delta = rowsum(dO o), then dQ over the key tiles) and, after it on the
-same stream, ``flash_attention_bwd_dkdv`` (a CTA per 64 keys sums dK and dV
-over the group's query heads and the query tiles in order).  The reference
-puts no ``custom_vjp`` on its Pallas call, so they follow the flash-attention
-backward's formulas (:func:`flash_attention_bwd_plain` writes them out in
-plain fp32 torch), on the CUDA cores, without atomics: a launch repeats bit
-for bit.  They read every input, ``dout`` included, through its strides:
-no copy is made.  ``kv_len`` gets no gradient.
+which launches two more kernels on CUDA tensors: a dq kernel (it recomputes
+each row's log-sum-exp and Delta = rowsum(dO o) into an fp32 (B, Hq, Lq)
+scratch, then dQ over the key tiles) and, after it on the same stream, a
+dkdv kernel (a CTA per 64 keys sums dK and dV over the group's query heads
+and the query tiles in order).  The reference puts no ``custom_vjp`` on its
+Pallas call, so they follow the flash-attention backward's formulas
+(:func:`flash_attention_bwd_plain` writes them out in plain fp32 torch),
+without atomics: a launch repeats bit for bit.  ``kv_len`` gets no
+gradient.  :func:`backward_path` picks the pair by dtype, head dim and
+strides alone, never by data:
+
+* ``"tc"`` for bf16 with D in ``TC_HEAD_DIMS`` when all eight tensors (q,
+  k, v, out, dout, dq, dk, dv) pass :func:`aligned16`:
+  ``csrc/flash_attention_bwd_tc.cu``, ``mma.sync`` bf16 tensor-core
+  products over cp.async-staged 64-row tiles, P and dS rounded to bf16 in
+  registers before their products.
+* ``"general"`` otherwise (fp32, other head dims, unaligned views): the
+  CUDA-core fp32 kernels of ``csrc/flash_attention.cu``, any strides.  TF32
+  would break the fp32 gate (1e-4 of max|ref|).
+
+Neither copies an input: ``dout`` and the model's views are read through
+their strides.
 
 Dispatch.  A CPU tensor goes to :func:`flash_attention_plain` (and, in the
 backward, to :func:`flash_attention_bwd_plain`).  A CUDA tensor launches a
@@ -62,12 +74,15 @@ kernel or the call raises; there is no fallback.
 ``flash_attention.launches`` counts forward launches, one per call, and
 ``flash_attention.launches_by_path`` the same launches by kernel;
 ``flash_attention.backward_launches`` counts the backward's launches by
-kernel (``"dq"``, ``"dkdv"``), one each per backward.
+kernel (``"dq"``, ``"dkdv"``), one each per backward, and
+``flash_attention.backward_launches_by_path`` counts backwards by path
+(``"tc"``, ``"general"``), one per backward.
 
-:func:`flash_decode_split_plain` and :func:`flash_prefill_tiles_plain`
-mirror the two vector kernels' order of work (per-split partials combined in
-split order; 64-key tiles with P rounded to v's dtype) in plain torch; only
-the tests use them.
+:func:`flash_decode_split_plain`, :func:`flash_prefill_tiles_plain` and
+:func:`flash_bwd_tc_tiles_plain` mirror the vector kernels' order of work
+(per-split partials combined in split order; 64-key tiles with P rounded to
+v's dtype; the tensor-core backward's tiles and bf16 roundings) in plain
+torch; only the tests use them.
 """
 from __future__ import annotations
 
@@ -107,6 +122,18 @@ def kernel_path(dtype: torch.dtype, Hq: int, Hkv: int, Lq: int, D: int,
         return "decode"
     if dtype == torch.bfloat16 and D in TC_HEAD_DIMS:
         return "prefill_tc"
+    return "general"
+
+
+def backward_path(dtype: torch.dtype, Hq: int, Hkv: int, Lq: int, D: int,
+                  aligned: bool = True) -> str:
+    """Which backward kernels a CUDA call takes: "tc" or "general" (the
+    module docstring gives the rule).  Like :func:`kernel_path` it takes the
+    call's shape, but only the dtype, the head dim and ``aligned`` (every
+    one of the eight tensors passes :func:`aligned16`) decide: the
+    tensor-core kernels take any group and any Lq."""
+    if aligned and dtype == torch.bfloat16 and D in TC_HEAD_DIMS:
+        return "tc"
     return "general"
 
 
@@ -273,6 +300,52 @@ def flash_prefill_tiles_plain(q, k, v, kv_len: Optional[torch.Tensor] = None,
     return out.reshape(B, Hq, Lq, D).to(q.dtype)
 
 
+def flash_bwd_tc_tiles_plain(q, k, v, out, dout,
+                             kv_len: Optional[torch.Tensor] = None,
+                             causal: bool = True,
+                             scale: Optional[float] = None):
+    """The tensor-core backward's order of work in plain torch: each row's
+    LSE from an online softmax over ``TC_TILE``-key tiles in the log2
+    domain (the dq kernel's pass 1), P = exp2(S - LSE), dS = P (dP - Delta)
+    in fp32, P and dS rounded to q's dtype before their products (as the
+    kernels round them to bf16 in registers), dQ summed over the key tiles
+    in ascending order, dK and dV over (group head, query tile) in order.
+    Used by the tests only."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    T = TC_TILE
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    s = _masked_scores(q, k, kv_len, causal, scale)      # (B,Hkv,g,Lq,Lk)
+    m = torch.full(s.shape[:-1], float("-inf"), device=q.device)
+    l = torch.zeros_like(m)
+    for j0 in range(0, Lk, T):
+        m_new = torch.maximum(m, s[..., j0:j0 + T].amax(-1))
+        p, m_use = _exp2_shifted(s[..., j0:j0 + T], m_new)
+        l = l * torch.exp2(m - m_use) + p.sum(-1)
+        m = m_new
+    lse = torch.where(l > 0, m + torch.log2(l), float("inf"))
+    qf = q.float().reshape(B, Hkv, g, Lq, D)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    do = dout.float().reshape(B, Hkv, g, Lq, D)
+    delta = (do * out.float().reshape(B, Hkv, g, Lq, D)).sum(-1)
+    p = torch.exp2(s - lse[..., None])            # masked or dead rows: 0
+    ds = p * (do @ vf.transpose(-1, -2) - delta[..., None])
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dq = torch.zeros_like(qf)
+    for j0 in range(0, Lk, T):
+        dq += ds[..., j0:j0 + T] @ kf[..., j0:j0 + T, :]
+    dk = torch.zeros((B, Hkv, Lk, D), device=q.device)
+    dv = torch.zeros_like(dk)
+    for hh in range(g):
+        for i0 in range(0, Lq, T):
+            rows = slice(i0, i0 + T)
+            dv += p[:, :, hh, rows].transpose(-1, -2) @ do[:, :, hh, rows]
+            dk += ds[:, :, hh, rows].transpose(-1, -2) @ qf[:, :, hh, rows]
+    return ((dq * scale).reshape(B, Hq, Lq, D).to(q.dtype),
+            (dk * scale).to(k.dtype), dv.to(v.dtype))
+
+
 def flash_attention(q, k, v, kv_len: Optional[torch.Tensor] = None, *,
                     causal: bool = True, scale: Optional[float] = None):
     """Blockwise attention, (B, Hq, Lq, D) -> (B, Hq, Lq, D).  CPU tensors
@@ -292,6 +365,7 @@ flash_attention.launches = 0
 flash_attention.launches_by_path = {"decode": 0, "prefill_tc": 0,
                                     "general": 0}
 flash_attention.backward_launches = {"dq": 0, "dkdv": 0}
+flash_attention.backward_launches_by_path = {"tc": 0, "general": 0}
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -325,7 +399,7 @@ def flash_attention_bwd(q, k, v, out, dout,
     """(dq, dk, dv) of :func:`flash_attention` at ``(q, k, v)``, given its
     output ``out`` and the output gradient ``dout``.  CPU tensors take
     :func:`flash_attention_bwd_plain`; CUDA tensors launch the two backward
-    kernels, or raise."""
+    kernels that :func:`backward_path` names, or raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, kv_len, causal,
                                          scale)
@@ -434,24 +508,32 @@ def _flash_bwd_cuda(q, k, v, out, dout, kv_len, causal: bool, scale):
     # The row statistics the dq kernel writes and the dkdv kernel reads.
     lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
-    strides = (ctypes.c_int64 * 32)(*(s for t in (q, k, v, out, dout, dq, dk,
-                                                  dv) for s in t.stride()))
+    tensors = (q, k, v, out, dout, dq, dk, dv)
+    path = backward_path(q.dtype, Hq, Hkv, Lq, D,
+                         all(aligned16(t) for t in tensors))
+    strides = (ctypes.c_int64 * 32)(*(s for t in tensors for s in t.stride()))
     kl = None if kv_len is None else kv_len.data_ptr()
-    dims = (strides, B, Hq, Hkv, Lq, Lk, D, int(bool(causal)), float(scale),
-            _DTYPES[q.dtype])
+    dims = (strides, B, Hq, Hkv, Lq, Lk, D, int(bool(causal)), float(scale))
+    if path == "general":
+        dims += (_DTYPES[q.dtype],)
     lib = _build.load_library()
+    dq_fn, dkdv_fn = ((lib.flash_attention_bwd_tc_dq,
+                       lib.flash_attention_bwd_tc_dkdv) if path == "tc" else
+                      (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkdv))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_bwd_dq(
+        err = dq_fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             kl, *dims, stream)
-        _build.check(lib, err, "flash_attention backward launch (dq)")
+        _build.check(lib, err, f"flash_attention backward launch (dq, {path})")
         flash_attention.backward_launches["dq"] += 1
-        err = lib.flash_attention_bwd_dkdv(
+        err = dkdv_fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             kl, *dims, stream)
-        _build.check(lib, err, "flash_attention backward launch (dkdv)")
+        _build.check(lib, err,
+                     f"flash_attention backward launch (dkdv, {path})")
         flash_attention.backward_launches["dkdv"] += 1
+    flash_attention.backward_launches_by_path[path] += 1
     return dq, dk, dv

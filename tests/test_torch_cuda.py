@@ -33,8 +33,8 @@ from repro_torch.kernels import (  # noqa: E402
     spmm_packed_plain, spmm_plain)
 from repro_torch.kernels.gnn_aggregate import transpose_packed  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_bwd_plain, flash_attention_plain,
-    kernel_path)
+    backward_path, flash_attention, flash_attention_bwd_plain,
+    flash_attention_plain, flash_bwd_tc_tiles_plain, kernel_path)
 from repro_torch import models as lm  # noqa: E402
 from repro_torch.models.common import attention_any  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
@@ -307,24 +307,44 @@ def test_bsp_train_step_on_card_matches_cpu_and_repeats(dev, model, exchange):
 
 
 # K2's backward: every forward kernel under grad (prefill_tc, general, and
-# decode shapes), causal and not, Lq != Lk, GQA groups 1, 4 and 8, head dims
-# 32, 64 and 128, L off the 64-row tiles, ragged kv_len with a 0 row.
+# decode shapes) and both backward paths (tc, general), causal and not,
+# Lq != Lk both ways, GQA groups 1, 4 and 8, head dims 32, 64 and 128, L
+# off the 64-row tiles, ragged kv_len with a 0 row, Lq = 1 in bf16, and
+# the LM train shape.
 FLASH_BWD_CASES = [
-    # B, Hq, Hkv, Lq, Lk, D, causal, kv_len, dtype, forward path
-    (2, 8, 2, 128, 128, 64, True, None, torch.bfloat16, "prefill_tc"),
-    (1, 32, 8, 200, 200, 64, True, None, torch.bfloat16, "prefill_tc"),
-    (2, 8, 8, 70, 150, 32, True, None, torch.bfloat16, "prefill_tc"),
-    (2, 8, 1, 100, 60, 128, True, None, torch.bfloat16, "prefill_tc"),
-    (3, 8, 2, 65, 65, 64, False, [0, 33, 65], torch.bfloat16, "prefill_tc"),
-    (2, 4, 2, 128, 128, 64, True, None, torch.float32, "general"),
-    (2, 4, 1, 100, 100, 32, True, None, torch.float32, "general"),
-    (1, 8, 8, 96, 160, 128, True, [150], torch.float32, "general"),
-    (2, 16, 2, 77, 40, 64, True, None, torch.float32, "general"),
-    (2, 6, 2, 40, 40, 100, False, [0, 17], torch.float32, "general"),
-    (3, 32, 8, 1, 300, 64, False, [0, 150, 300], torch.bfloat16, "decode"),
-    (2, 8, 2, 4, 200, 64, True, [77, 200], torch.float32, "decode"),
+    # B, Hq, Hkv, Lq, Lk, D, causal, kv_len, dtype, forward, backward path
+    (2, 8, 2, 128, 128, 64, True, None, torch.bfloat16, "prefill_tc", "tc"),
+    (1, 32, 8, 200, 200, 64, True, None, torch.bfloat16, "prefill_tc", "tc"),
+    (2, 8, 8, 70, 150, 32, True, None, torch.bfloat16, "prefill_tc", "tc"),
+    (2, 8, 1, 100, 60, 128, True, None, torch.bfloat16, "prefill_tc", "tc"),
+    (3, 8, 2, 65, 65, 64, False, [0, 33, 65], torch.bfloat16, "prefill_tc",
+     "tc"),
+    (4, 32, 8, 1024, 1024, 64, True, None, torch.bfloat16, "prefill_tc",
+     "tc"),
+    (2, 8, 8, 130, 130, 32, False, None, torch.bfloat16, "prefill_tc", "tc"),
+    (1, 16, 4, 96, 200, 128, True, [170], torch.bfloat16, "prefill_tc",
+     "tc"),
+    (2, 32, 8, 77, 77, 64, True, None, torch.bfloat16, "prefill_tc", "tc"),
+    (2, 8, 2, 130, 130, 64, True, [0, 100], torch.bfloat16, "prefill_tc",
+     "tc"),
+    (2, 4, 2, 128, 128, 64, True, None, torch.float32, "general", "general"),
+    (2, 4, 1, 100, 100, 32, True, None, torch.float32, "general", "general"),
+    (1, 8, 8, 96, 160, 128, True, [150], torch.float32, "general", "general"),
+    (2, 16, 2, 77, 40, 64, True, None, torch.float32, "general", "general"),
+    (2, 6, 2, 40, 40, 100, False, [0, 17], torch.float32, "general",
+     "general"),
+    (2, 6, 2, 40, 40, 100, True, [0, 17], torch.bfloat16, "general",
+     "general"),
+    (3, 32, 8, 1, 300, 64, False, [0, 150, 300], torch.bfloat16, "decode",
+     "tc"),
+    (2, 8, 2, 4, 200, 64, True, [77, 200], torch.float32, "decode",
+     "general"),
 ]
 FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 0.0)}
+# The tensor-core backward against its mirror (the same tiles and bf16
+# roundings): one bf16 ulp at the top of the range (up to 2^-7 of max|ref|)
+# plus the fp32 sums' order inside the products.
+FLASH_BWD_TC_MIRROR_TOL = 1e-2
 
 
 def _assert_grad_close(got, ref, dtype):
@@ -336,22 +356,26 @@ def _assert_grad_close(got, ref, dtype):
         assert err <= rel * float(r.float().abs().max()) + abs_, err
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,Lq,Lk,D,causal,kv_len,dtype,path",
-                         FLASH_BWD_CASES)
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,Lq,Lk,D,causal,kv_len,dtype,path,bpath", FLASH_BWD_CASES)
 def test_flash_backward_matches_plain_and_is_deterministic(
-        dev, B, Hq, Hkv, Lq, Lk, D, causal, kv_len, dtype, path):
+        dev, B, Hq, Hkv, Lq, Lk, D, causal, kv_len, dtype, path, bpath):
     """Under grad the call takes its forward kernel once and returns an
     output with a backward; the backward launches the two backward kernels
-    once each, repeats bit for bit, and is within tolerance of the plain
-    backward on the same (q, k, v, out, dout): the model's (B, L, H, D)
-    views, and a dout with the strides autograd gives."""
+    of its path once each, repeats bit for bit, and is within tolerance of
+    the plain backward on the same (q, k, v, out, dout) (and, on "tc", of
+    its mirror): the model's (B, L, H, D) views, and a dout with the
+    strides autograd gives.  The gradient of each input alone is the one
+    taken through all three."""
     q, k, v = (t.detach().requires_grad_(True) for t in _flash_inputs(
         dev, B, Hq, Hkv, Lq, Lk, D, dtype, seed=Lq))
     kl = (torch.tensor(kv_len, dtype=torch.int32, device=dev)
           if kv_len else None)
     assert kernel_path(dtype, Hq, Hkv, Lq, D) == path
+    assert backward_path(dtype, Hq, Hkv, Lq, D) == bpath
     fwd = dict(flash_attention.launches_by_path)
     bwd = dict(flash_attention.backward_launches)
+    by_path = dict(flash_attention.backward_launches_by_path)
     out = flash_attention(q, k, v, kl, causal=causal)
     assert out.grad_fn is not None
     dout = torch.randn((B, Lq, Hq, D), generator=torch.Generator(
@@ -362,20 +386,35 @@ def test_flash_backward_matches_plain_and_is_deterministic(
     assert flash_attention.launches_by_path[path] == fwd[path] + 1
     assert flash_attention.backward_launches == {
         "dq": bwd["dq"] + 2, "dkdv": bwd["dkdv"] + 2}
+    assert flash_attention.backward_launches_by_path == {
+        **by_path, bpath: by_path[bpath] + 2}
     for a, b in zip(got, again):
         assert torch.equal(a, b)
-    ref = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
-                                    out.detach(), dout, kl, causal)
-    _assert_grad_close(got, ref, dtype)
+    args = (q.detach(), k.detach(), v.detach(), out.detach(), dout, kl,
+            causal)
+    _assert_grad_close(got, flash_attention_bwd_plain(*args), dtype)
+    if bpath == "tc":
+        for g, r in zip(got, flash_bwd_tc_tiles_plain(*args)):
+            err = float((g.float() - r.float()).abs().max())
+            assert err <= FLASH_BWD_TC_MIRROR_TOL * float(
+                r.float().abs().max()), err
     if kv_len and kv_len[0] == 0:               # a fully masked batch row
         for g in got:
             assert torch.equal(g[0], torch.zeros_like(g[0]))
+    for i in range(3):                          # each input alone
+        leaves = [t.detach() for t in (q, k, v)]
+        leaves[i].requires_grad_(True)
+        g, = torch.autograd.grad(flash_attention(*leaves, kl, causal=causal),
+                                 leaves[i], dout)
+        assert torch.equal(g, got[i])
+    assert flash_attention.backward_launches_by_path == {
+        **by_path, bpath: by_path[bpath] + 5}
     with torch.no_grad():
         plain_out = flash_attention(q, k, v, kl, causal=causal)
     assert plain_out.grad_fn is None and torch.equal(plain_out, out)
-    assert flash_attention.launches_by_path[path] == fwd[path] + 2
+    assert flash_attention.launches_by_path[path] == fwd[path] + 5
     assert flash_attention.backward_launches == {
-        "dq": bwd["dq"] + 2, "dkdv": bwd["dkdv"] + 2}
+        "dq": bwd["dq"] + 5, "dkdv": bwd["dkdv"] + 5}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

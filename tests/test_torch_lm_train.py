@@ -514,10 +514,14 @@ def test_chip_smoke_lm_train_phases_run_on_cpu(monkeypatch, capsys):
         FA.flash_attention.launches_by_path[path] += 1
         return plain_forward(q, k, v, kv_len, causal, scale)
 
-    def backward(*args):
+    def backward(q, k, v, out, dout, *rest):
+        path = FA.backward_path(q.dtype, q.shape[1], k.shape[1], q.shape[2],
+                                q.shape[3], all(FA.aligned16(t) for t in (
+                                    q, k, v, out, dout)))
         for key in FA.flash_attention.backward_launches:
             FA.flash_attention.backward_launches[key] += 1
-        return FA.flash_attention_bwd_plain(*args)
+        FA.flash_attention.backward_launches_by_path[path] += 1
+        return FA.flash_attention_bwd_plain(q, k, v, out, dout, *rest)
 
     def attention_any(q, k, v, *, causal, chunk, kv_len=None):
         return FA.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -527,8 +531,8 @@ def test_chip_smoke_lm_train_phases_run_on_cpu(monkeypatch, capsys):
     def device_ms(fn, reps=25, warmup=3, tries=3, label="", parts=None):
         fn()
         if parts is not None:
-            parts.update({"flash_bwd_dq_kernel": 0.0,
-                          "flash_bwd_dkdv_kernel": 0.0})
+            parts.update({"flash_bwd_dq_tc_kernel": 0.0,
+                          "flash_bwd_dkdv_tc_kernel": 0.0})
         return 0.0
 
     monkeypatch.setattr(cs, "get_config", lambda arch: small)
@@ -551,14 +555,16 @@ def test_chip_smoke_lm_train_phases_run_on_cpu(monkeypatch, capsys):
     rows, worst = cs.phase_flash_backward(dev)
     assert [r["shape"] for r in rows] == ["train_B4_L1024_bwd",
                                           "train_B4_L512_bwd"]
-    launches, fwd, bwd = cs.phase_lm_train(dev)
+    assert all(r["path"] == "tc" for r in rows)
+    launches, fwd, bwd, by_path = cs.phase_lm_train(dev)
     # The counts are the main path's alone (the parity pass runs before
     # they start), per layer: the full model's no-grad loss, 2 x grads_of,
     # 1 + 2 microbatches, 10 steps, 2 profiled steps and 1 compressed step
-    # on "prefill_tc", all but the first with a backward.
+    # on "prefill_tc", all but the first with a backward on "tc".
     n = small.n_layers
     assert fwd == {"decode": 0, "prefill_tc": 19 * n, "general": 0}
     assert bwd == {"dq": 18 * n, "dkdv": 18 * n} and launches == 19 * n
+    assert by_path == {"tc": 18 * n, "general": 0}
     out = [json.loads(line) for line in capsys.readouterr().out.splitlines()
            if line.startswith("{")]
     train = next(r for r in out if r.get("phase") == "lm_train")

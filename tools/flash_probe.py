@@ -14,13 +14,17 @@ The timing helper and the shapes are copies of ``chip_smoke.py``'s, so
 that a tree older than them is timed alike.
 
 Shapes (llama3.2-1b: 32/8 heads, head dim 64, bf16, seed 0): causal
-prefill at L = 512 and 1024 (B = 1), and decode of 8 slots against a
-2048-position cache with kv_len drawn from [64, 1056].  For each it prints
-the kernel's device time per call (``torch.profiler``'s CUDA time over
-``--reps`` calls) and, as the yardstick of that process, the same for
+prefill at L = 512 and 1024 (B = 1), decode of 8 slots against a
+2048-position cache with kv_len drawn from [64, 1056], and the causal
+backward at the LM train step's shape (B = 4, L = 1024) and at L = 512
+(trees that have ``flash_attention_bwd``).  For each it prints the
+kernel's device time per call (``torch.profiler``'s CUDA time over
+``--reps`` calls; for the backward also by kernel, and the path when the
+tree counts one) and, as the yardstick of that process, the same for
 ``scaled_dot_product_attention`` on the same inputs (at decode also over
-the cache cut to the longest live row), with the card's name and power
-limit.  One JSON line per tree and shape.
+the cache cut to the longest live row; for the backward its autograd
+backward), with the card's name and power limit.  One JSON line per tree
+and shape.
 """
 from __future__ import annotations
 
@@ -33,10 +37,11 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _device_ms(torch, fn, reps, tries=3):
+def _device_ms(torch, fn, reps, tries=3, parts=None):
     """CUDA time per call over ``reps`` calls, as ``chip_smoke.device_ms``
     (kept here so that older trees given by ``--src`` are timed alike): a
-    window that lost device events is measured again."""
+    window that lost device events is measured again.  ``parts``, if
+    given, receives each kernel's time per call by its name."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -50,6 +55,9 @@ def _device_ms(torch, fn, reps, tries=3):
         dev = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         if dev and all(e.count % reps == 0 for e in dev):
+            if parts is not None:
+                parts.update({e.key[:60]: e.self_device_time_total / 1e3
+                              / reps for e in dev})
             return sum(e.self_device_time_total for e in dev) / 1e3 / reps
     return "not measured"
 
@@ -61,6 +69,7 @@ def probe(src: str, reps: int) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
 
@@ -116,6 +125,38 @@ def probe(src: str, reps: int) -> None:
             row["library_cut_device_ms"] = _device_ms(
                 torch, lambda: sdpa(q, kc, vc, kl, causal), reps)
         print(json.dumps(row), flush=True)
+    if not hasattr(FA, "flash_attention_bwd"):
+        return
+    for L in (1024, 512):
+        q, k, v = views(4, L)
+        out = flash_attention(q, k, v)
+        dout = torch.randn((4, L, Hq, D), generator=gen, device=dev,
+                           dtype=bf16).transpose(1, 2)
+        by_path = dict(getattr(flash_attention, "backward_launches_by_path",
+                               {}))
+        got = FA.flash_attention_bwd(q, k, v, out, dout, None, True)
+        ref = FA.flash_attention_bwd_plain(q, k, v, out, dout, None, True)
+        path = [key for key, n in getattr(
+            flash_attention, "backward_launches_by_path", {}).items()
+            if n != by_path.get(key)]
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                 enable_gqa=True)
+        parts = {}
+        row = {"src": src, "shape": f"bwd_B4_L{L}",
+               "path": path[0] if path else "general",
+               "max_rel_err": max(
+                   float((g.float() - r.float()).abs().max()
+                         / r.float().abs().max()) for g, r in zip(got, ref)),
+               "device_ms": _device_ms(torch, lambda: FA.flash_attention_bwd(
+                   q, k, v, out, dout, None, True), reps, parts=parts),
+               "device_ms_by_kernel": parts,
+               "library_device_ms": _device_ms(
+                   torch, lambda: torch.autograd.grad(
+                       lib_out, leaves, dout, retain_graph=True), reps),
+               "nvidia_smi": smi}
+        print(json.dumps(row), flush=True)
+        del got, ref, leaves, lib_out
 
 
 def main() -> int:
