@@ -8,8 +8,8 @@ CUDA toolkit (``nvcc``):
 
 It builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc`` and drives the port's paths: the GNN pipeline at the paper's full
-widths, then LM serving and LM training on llama3.2-1b at its published
-width:
+widths, then LM serving and LM training on llama3.2-1b and MoE serving on
+deepseek-moe-16b at their published widths:
 
   device  the card's name, count and power limit (exit 1 without a card);
   build   nvcc for sm_90a, with the build seconds and each kernel's ptxas
@@ -78,7 +78,9 @@ width:
           overflows e_cap;
   kernels flash_attention against its plain torch version at the LM path's
           prefill (L = 512, 1024: the bf16 tensor-core kernel) and decode
-          (cache strides, ragged kv_len: the split-key kernel) shapes, with
+          (cache strides, ragged kv_len: the split-key kernel) shapes, and
+          at deepseek-moe-16b's (16/16 heads of 128: prefill L = 1024,
+          decode of 8 slots over 2048 positions), with
           the same error, determinism, time, device time and bound fields as
           K1 and scaled_dot_product_attention as the library call (at decode
           also over the cache cut to the longest live row); a decoded batch
@@ -108,8 +110,28 @@ width:
           re-scored by a teacher-forced forward; prefill and decode-tick
           times;
   lm_profile  torch.profiler over 4 decode ticks with 8 live slots: the
-          device's busy share, kernel time by name and K2's device time
-          per tick;
+          device's busy share, kernel time by name and by class (K2, grouped
+          GEMM, other GEMMs, elementwise) and K2's device time per tick;
+  moe_parity  deepseek-moe-16b at full width cut to 2 layers (the dense
+          first layer and one MoE layer: 64 experts top-6, 2 shared), fp32,
+          as lm_parity, and the router's expert sets equal on the card and
+          the CPU at every (token, layer), with the smallest gap between a
+          token's k-th and (k+1)-th router probability; then the MoE FFN
+          alone at full width, 512 tokens in bf16 on the card, against the
+          dense oracle (moe_ffn_dense_ref) and bit-equal twice;
+  moe_serve  the full 28-layer bf16 deepseek-moe-16b (16.4 B parameters,
+          32.8 GB, drawn on the card in bf16) behind ServeEngine (8 slots,
+          2048 positions) serves 16 requests of 32 tokens; K2 launches
+          28 x (prefills + ticks) (every prefill on prefill_tc at D = 128,
+          group 1, every tick on the split decode) and every MoE layer two
+          grouped GEMMs on the grouped_mm route; two requests re-scored by a
+          teacher-forced forward routed as serving routed them, every served
+          token held as in lm_serve, and the router's own choices in that
+          pass against the served ones at every (position, layer); tick,
+          prefill and setup times and peak memory; moe_profile as
+          lm_profile; then moe_route_fp32: the same model in fp32 serves
+          two of the prompts and an unforced teacher-forced forward agrees
+          with serving's routes at all but 1% of (position, layer) pairs;
   lm_train_parity  llama3.2-1b at full width cut to 2 layers, fp32, 2 x
           128 tokens from the data pipeline: loss_fn and every gradient
           leaf on the card (K2 both ways) against the CPU's;
@@ -129,7 +151,8 @@ Each phase prints JSON lines.  Any failed check exits non-zero.  Before
 the last line it prints the kernels summary and the ``nvidia-smi`` name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The
 kernel summary's ``launches`` are the main paths' (train, then the GNN
-forward path from bsp to evolve, then LM serving, then LM training), each
+forward path from bsp to evolve, then LM serving, MoE serving, then LM
+training), each
 counted from 0; its ``flash_attention_bwd_tc`` entry is K2's tensor-core
 backward (both kernels' launches on the LM training path).
 """
@@ -155,6 +178,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import models as lm  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.configs import get_config, gnn_paper  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     CostModel, apply_delta, glad_e, glad_s, greedy_layout,
@@ -226,6 +250,28 @@ LM_PARITY_TOL = 1e-3
 SERVE_GAP_TOL = 0.25
 LLAMA_SLOTS = 8
 LLAMA_MAX_LEN = 2048
+# moe_serve: deepseek-moe-16b behind the same engine shape.  The
+# teacher-forced pass routes every (position, layer) to the experts serving
+# chose, so it computes serving's function and its logits differ by
+# rounding alone: every served token is held to SERVE_GAP_TOL.  The
+# router's own choice in that pass sees serving's hidden state up to bf16
+# rounding, which flips near-ties between the k-th and (k+1)-th expert of
+# a near-uniform random router: 2.1% of prompt and 11% of decode pairs on
+# an H100 (PERF.md, PR 19 F), at most 18% of one layer's pairs of a kind.
+# A wrong router, a misaligned position or a leaking pad changes nearly
+# every pair it touches (a random 6 of 64 equals the served set with
+# probability 1.3e-8): at most half of each (kind, MoE layer) cell may
+# differ, so a fault confined to one layer still shows.  Where rounding
+# is 2**-24, the fp32 model's serving and teacher forcing, unforced, may
+# differ at no more than 1% of all pairs (moe_route_fp32).
+MOE_SLOTS = 8
+MOE_MAX_LEN = 2048
+MOE_ROUTE_FLIP_SHARE = 0.01
+MOE_ROUTE_FLIP_CELL_SHARE = 0.5
+# moe_parity: the routed MoE FFN alone in bf16 against the dense oracle,
+# relative to max|ref|: both round the expert outputs to bf16 (the oracle
+# also its combine), the routed path sums in another order.
+MOE_FFN_BF16_TOL = 2e-2
 # lm_train: steps on one fixed batch (the loss must fall), and the gate on
 # the first moments of 2 microbatches against 1, elementwise as the
 # reference's (tests/test_train.py:45: rtol 2e-3, atol 2e-5, for fp32
@@ -1326,9 +1372,26 @@ def phase_flash_kernels(dev):
         dev, torch.int32)
     main_cases.append(("decode_B8_S2048", q, cache[1].transpose(1, 2),
                        cache[0].transpose(1, 2), kv_len, False))
+    # deepseek-moe-16b's attention (moe_serve's): 16/16 heads of 128, group
+    # 1; prefill at L = 1024, decode of 8 slots as above.
+    ds = get_config("deepseek-moe-16b")
+    main_cases.append(("deepseek_prefill_L1024_D128", *_bhld_views(
+        gen, dev, 1, ds.n_heads, ds.n_kv_heads, 1024, 1024, ds.hd, bf16),
+        None, True))
+    cache = torch.randn((2, MOE_SLOTS, MOE_MAX_LEN, ds.n_kv_heads, ds.hd),
+                        generator=gen, device=dev, dtype=bf16)
+    q = torch.randn((MOE_SLOTS, 1, ds.n_heads, ds.hd), generator=gen,
+                    device=dev, dtype=bf16).transpose(1, 2)
+    kv_len = torch.from_numpy(rng.integers(64, 1057, size=MOE_SLOTS)).to(
+        dev, torch.int32)
+    main_cases.append(("deepseek_decode_B8_S2048_D128", q,
+                       cache[1].transpose(1, 2), cache[0].transpose(1, 2),
+                       kv_len, False))
+    del cache
     rows, worst = [], 0.0
     for label, q, k, v, kl, causal in main_cases:
-        path = kernel_path(q.dtype, Hq, Hkv, q.shape[2], D)
+        path = kernel_path(q.dtype, q.shape[1], k.shape[1], q.shape[2],
+                           q.shape[3])
         out, err = _check_flash(label, q, k, v, kl, causal, path)
         worst = max(worst, err)
         lib_err = float((_sdpa(q, k, v, kl, causal).float()
@@ -1342,7 +1405,8 @@ def phase_flash_kernels(dev):
         library = lambda: _sdpa(q, k, v, kl, causal)  # noqa: E731
         row = {
             "shape": label, "dtype": "bf16", "path": path, "max_abs_err": err,
-            "path": path, "bitwise_equal": True, "library_max_abs_diff": lib_err,
+            "heads": [q.shape[1], k.shape[1]], "head_dim": q.shape[3],
+            "bitwise_equal": True, "library_max_abs_diff": lib_err,
             "ms": time_ms(kernel), "device_ms": device_ms(kernel, label=label),
             "plain_ms": time_ms(
                 lambda: flash_attention_plain(q, k, v, kl, causal)),
@@ -1788,21 +1852,39 @@ def phase_lm_serve(dev, flash_rows):
           "teacher_forced_exact": exact, "teacher_forced_checked": 64,
           "teacher_forced_max_gap": max(gaps), "gap_tol": SERVE_GAP_TOL,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    _profile_decode(engine, cfg)
+    _profile_decode(engine, cfg, "lm_profile", LLAMA_SLOTS)
     return launches, by_path
 
 
-def _profile_decode(engine, cfg, ticks: int = 4):
+def _kernel_kind(name: str) -> str:
+    """The class of a profiled device entry, by its name: K2, the grouped
+    GEMM (CUTLASS's grouped kernel behind ``torch._grouped_mm``), the
+    other GEMMs (cuBLAS, CUTLASS), or elementwise and the rest."""
+    low = name.lower()
+    if "flash_" in low:
+        return "k2"
+    if "group" in low:
+        return "grouped_gemm"
+    if any(key in low for key in ("gemm", "gemv", "nvjet", "cutlass",
+                                  "xmma", "cublas")):
+        return "gemm"
+    return "elementwise_and_other"
+
+
+def _profile_decode(engine, cfg, phase: str, slots: int, ticks: int = 4):
     """Where a decode tick's time goes: ``torch.profiler`` over a few ticks
-    with all 8 slots live, after the counted run.  Prints the device's busy
-    share of the window and kernel time by name; "not measured" where the
-    trace holds no device time."""
+    with all ``slots`` live, after the counted run.  Prints the device's
+    busy share of the window, kernel time by name and by class
+    (:func:`_kernel_kind`) and the launches per tick; "not measured" where
+    the trace holds no device time."""
     rng = np.random.default_rng(SEED + 3)
-    for i in range(LLAMA_SLOTS):
+    for i in range(slots):
         engine.submit(Request(uid=100 + i, prompt=rng.integers(
             1, cfg.vocab, size=512), max_new_tokens=ticks + 2, eos_id=-1))
     engine.tick()                             # admit all, one decode
     torch.cuda.synchronize()
+    require(all(r is not None for r in engine.live),
+            f"{phase}: not every slot is live in the profiled window")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1816,17 +1898,448 @@ def _profile_decode(engine, cfg, ticks: int = 4):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     k2 = [e for e in kernels if "flash_" in e.key]
     k2_ms = sum(e.self_device_time_total for e in k2) / 1e3 / ticks
+    by_kind, launches_by_kind = {}, {}
+    for e in kernels:
+        kind = _kernel_kind(e.key)
+        by_kind[kind] = (by_kind.get(kind, 0.0)
+                         + e.self_device_time_total / 1e3 / ticks)
+        launches_by_kind[kind] = launches_by_kind.get(kind, 0) + e.count / ticks
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    emit({"phase": "lm_profile", "ticks": ticks, "window_ms": wall_ms,
+    emit({"phase": phase, "ticks": ticks, "live_slots": slots,
+          "window_ms": wall_ms,
           "device_busy_ms": busy_ms if kernels else "not measured",
           "device_busy_share": busy_ms / wall_ms if kernels
           else "not measured",
           "kernel_launches_per_tick": sum(e.count for e in kernels) / ticks,
           "k2_device_ms_per_tick": k2_ms if k2 else "not measured",
           "k2_launches_per_tick": sum(e.count for e in k2) / ticks,
+          "device_ms_per_tick_by_kind": by_kind if kernels
+          else "not measured",
+          "launches_per_tick_by_kind": launches_by_kind,
           "top_kernels_ms_per_tick": {
               e.key[:80]: e.self_device_time_total / 1e3 / ticks
               for e in top}})
+
+
+# ------------------------------------------------------------- MoE serving
+class _RouteLog:
+    """Records the experts ``models.moe.router_topk`` picks, call by call
+    (the MoE layers in the order they run), while it is entered: it wraps
+    the module's function, which ``moe_ffn`` looks up at each call, and
+    puts it back on exit.  With ``gaps`` each call also records, per
+    token, the gap between the k-th and (k+1)-th router probability (a
+    near-tie that rounding may flip).  With ``force``, one index tensor per
+    call in call order, each call still records the router's own choice
+    but routes to the forced experts, weighted as ``router_topk`` weights
+    its own: the router's probabilities there, renormalised.  It stores
+    device tensors and syncs nothing."""
+
+    def __init__(self, gaps: bool = False, force=None):
+        self.gaps, self.force = gaps, force
+        self.calls = []
+
+    def __enter__(self):
+        self._orig = moe.router_topk
+
+        def recording(x, w_router, k):
+            idx, w, aux = self._orig(x, w_router, k)
+            gap = None
+            if self.gaps or self.force is not None:
+                probs = torch.softmax(x.float() @ w_router.float(), -1)
+            if self.gaps:
+                top = probs.topk(k + 1, dim=-1).values
+                gap = top[..., k - 1] - top[..., k]
+            if self.force is not None:
+                forced = self.force[len(self.calls)].reshape(idx.shape)
+                w = probs.gather(-1, forced)
+                w = (w / w.sum(-1, keepdim=True).clamp_min(1e-9)).to(x.dtype)
+            self.calls.append((idx, gap))
+            return (idx if self.force is None else forced), w, aux
+
+        moe.router_topk = recording
+        return self
+
+    def __exit__(self, *exc):
+        moe.router_topk = self._orig
+
+
+def _expert_sets(idx):
+    """The chosen experts as sets: each row's top-k indices sorted."""
+    return idx.sort(dim=-1).values
+
+
+def phase_moe_parity(dev):
+    """deepseek-moe-16b at full width cut to 2 layers (the dense first
+    layer and one MoE layer with all 64 experts and the 2 shared), fp32:
+    the card against the CPU on the same weights, as lm_parity, with the
+    router's expert sets equal at every (token, layer); then the MoE FFN
+    alone at full width in bf16 on the card against the dense oracle."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=2,
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    cpu_params = _to_cpu(params)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int64)
+               for n in (100, 300)]
+    max_len, steps = 512 + 16, 8
+    _zero_counts()
+    with _RouteLog(gaps=True) as g_log:
+        g_logits, g_toks, g_cache, launches = _lm_run(cfg, params, prompts,
+                                                      max_len, steps, dev)
+    torch.cuda.synchronize()
+    g_routes = dict(moe.grouped_gemm.launches_by_route)
+    require(launches == [cfg.n_layers] * (len(prompts) + steps),
+            f"moe_parity: flash_attention launches per call {launches}, "
+            f"expected {cfg.n_layers} each")
+    with _RouteLog() as c_log:
+        c_logits, c_toks, c_cache, c_launches = _lm_run(
+            cfg, cpu_params, prompts, max_len, steps, torch.device("cpu"))
+    require(c_launches == [0] * len(c_launches), "the CPU run launched K2")
+    n_calls = len(prompts) + steps                   # one MoE layer each
+    require(len(g_log.calls) == len(c_log.calls) == n_calls,
+            f"moe_parity: router calls {len(g_log.calls)} / "
+            f"{len(c_log.calls)}, expected {n_calls}")
+    for (gi, _), (ci, _) in zip(g_log.calls, c_log.calls):
+        require(torch.equal(_expert_sets(gi).cpu(), _expert_sets(ci)),
+                "moe_parity: the router chose other experts on the card "
+                "than on the CPU")
+    min_gap = min(float(gap.min()) for _, gap in g_log.calls)
+    errs = [allclose_err(g.cpu(), c, LM_PARITY_TOL)
+            for g, c in zip(g_logits, c_logits)]
+    errs += [allclose_err(g_cache[key].cpu(), c_cache[key], LM_PARITY_TOL)
+             for key in ("k", "v")]
+    max_abs = max(float((g.cpu() - c).abs().max())
+                  for g, c in zip(g_logits, c_logits))
+    require(max(errs) <= LM_PARITY_TOL, f"moe_parity: card vs CPU beyond "
+            f"{LM_PARITY_TOL}: excess {max(errs)}")
+    require(torch.equal(g_toks.cpu(), c_toks),
+            f"moe_parity: greedy tokens differ: {g_toks.tolist()} vs "
+            f"{c_toks.tolist()}")
+    require(torch.equal(g_cache["len"].cpu(), c_cache["len"]),
+            "moe_parity: cache lengths differ")
+    peak_2layer = torch.cuda.max_memory_allocated() / 1e9
+
+    # The MoE FFN alone at full width, bf16, 512 tokens: the layer's
+    # weights rounded to bf16, against the dense oracle on the card.
+    bf16 = torch.bfloat16
+    layer = params["layers"]
+    p = {"router": layer["router"][0].to(bf16),
+         "w13": layer["moe_w13"][0].to(bf16), "w2": layer["moe_w2"][0].to(bf16)}
+    del params, cpu_params, g_cache, c_cache
+    x = torch.randn((1, 512, cfg.d_model), generator=torch.Generator(
+        dev).manual_seed(SEED + 5), device=dev).to(bf16)
+    before = dict(moe.grouped_gemm.launches_by_route)
+    out, aux = moe.moe_ffn(cfg, p, x)
+    again, _ = moe.moe_ffn(cfg, p, x)
+    ffn_routes = {r: n - before[r]
+                  for r, n in moe.grouped_gemm.launches_by_route.items()}
+    ref, ref_aux = moe.moe_ffn_dense_ref(cfg, p, x)
+    torch.cuda.synchronize()
+    scale = float(ref.float().abs().max())
+    ffn_err = float((out.float() - ref.float()).abs().max())
+    require(ffn_routes == {"grouped_mm": 4, "loop": 0},
+            f"moe_parity: the bf16 MoE FFN took the routes {ffn_routes}, "
+            "expected 2 grouped_mm calls each")
+    require(bool(torch.isfinite(out).all()) and out.shape == x.shape,
+            "moe_parity: the bf16 MoE FFN's output is not finite")
+    require(ffn_err <= MOE_FFN_BF16_TOL * scale, f"moe_parity: the bf16 MoE "
+            f"FFN is {ffn_err} off the dense oracle (max|ref| {scale})")
+    require(torch.equal(out, again), "moe_parity: the bf16 MoE FFN is not "
+            "bit-equal run to run")
+    require(abs(float(aux) - float(ref_aux)) <= 1e-6,
+            "moe_parity: the routed and dense aux losses differ")
+    ffn = lambda: moe.moe_ffn(cfg, p, x)  # noqa: E731
+    emit({"phase": "moe_parity", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "experts": [cfg.n_experts, cfg.top_k, cfg.n_shared_experts],
+          "vocab": cfg.vocab, "dtype": "float32",
+          "prompt_lengths": [len(p) for p in prompts], "decode_steps": steps,
+          "launches_per_call": launches, "grouped_gemm_routes": g_routes,
+          "logits_max_abs_diff": max_abs, "allclose_excess": max(errs),
+          "tol": LM_PARITY_TOL, "greedy_tokens_equal": True,
+          "expert_sets_equal": True, "router_calls": n_calls,
+          "min_router_gap_kth_vs_next": min_gap,
+          "tokens": g_toks.tolist(), "peak_mem_gb": peak_2layer,
+          "ffn_bf16": {"tokens": x.shape[1], "routes_two_calls": ffn_routes,
+                       "max_abs_err": ffn_err, "ref_max_abs": scale,
+                       "tol_rel": MOE_FFN_BF16_TOL, "bit_equal_twice": True,
+                       "ms": time_ms(ffn),
+                       "device_ms": device_ms(ffn, label="moe_ffn bf16")}})
+
+
+def _serve_tick_routes(calls, watch, admitted, decoded, n_moe):
+    """After one engine tick whose router calls are ``calls`` (each
+    admitted request's prefill, then the decode of the ``decoded``
+    requests; one call per MoE layer each): the experts each watched
+    request's tokens were routed to, in the router's order.  ``watch`` maps
+    a request's uid to its record: its slot, its prompt's experts by layer,
+    and one entry by layer for each decode step that fed it a token."""
+    require(len(calls) == n_moe * (len(admitted) + int(bool(decoded))),
+            f"moe_serve: {len(calls)} router calls in a tick of "
+            f"{len(admitted)} prefills, expected {n_moe} per prefill and "
+            "per decode")
+    for j, r in enumerate(admitted):
+        if r.uid in watch:
+            watch[r.uid]["prompt"] = [
+                idx[0, :len(r.prompt)]
+                for idx, _ in calls[j * n_moe:(j + 1) * n_moe]]
+    for r in decoded:
+        if r.uid in watch:
+            slot = watch[r.uid]["slot"]
+            watch[r.uid]["decode"].append([idx[slot, 0]
+                                           for idx, _ in calls[-n_moe:]])
+
+
+def _serve_watched(engine, reqs, n_moe):
+    """Serve ``reqs`` to the end, recording the experts the first two were
+    routed to (:func:`_serve_tick_routes`).  Each tick is timed alone, from
+    its launch to the card's end of it; the bookkeeping of its routes runs
+    outside the clock.  Returns the decode ticks' and the admitting ticks'
+    seconds and the watched requests' records."""
+    for r in reqs:
+        engine.submit(r)
+    watch = {r.uid: {"slot": None, "prompt": None, "decode": []}
+             for r in reqs[:2]}
+    decode_s, admit_s = [], []
+    while engine.queue or any(r is not None for r in engine.live):
+        queued = list(engine.queue)
+        live = [r for r in engine.live if r is not None]
+        prefills, ticks = engine.stats.prefills, engine.stats.ticks
+        with _RouteLog() as log:
+            t = time.perf_counter()
+            engine.tick()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        (decode_s if engine.stats.prefills == prefills else admit_s).append(dt)
+        admitted = queued[:len(queued) - len(engine.queue)]
+        for r in admitted:
+            if r.uid in watch:
+                watch[r.uid]["slot"] = next(
+                    i for i, x in enumerate(engine.live) if x is r)
+        _serve_tick_routes(log.calls, watch, admitted,
+                           live + admitted if engine.stats.ticks > ticks
+                           else [], n_moe)
+    return decode_s, admit_s, watch
+
+
+def _rescore(cfg, params, reqs, watch, n_moe, dev, force: bool):
+    """Each watched request re-scored by one teacher-forced forward over its
+    prompt and served tokens; with ``force`` that pass is routed at every
+    (position, layer) to the experts serving chose there, so it computes
+    serving's function.  The router's own choices in the pass are counted
+    against serving's by kind of position (prompt, decode) and MoE layer.
+    Returns the counts, the router gaps (all and where the choices
+    differ) and, per served token, its gap below the teacher-forced top
+    logit and whether every layer agreed at the position that fed it."""
+    flips = {"prompt": [0] * n_moe, "decode": [0] * n_moe}
+    pairs = {"prompt": 0, "decode": 0}
+    flip_gaps, all_gaps, token_gaps, token_agree, exact = [], [], [], [], 0
+    for r in reqs[:2]:
+        n, rec = len(r.prompt), watch[r.uid]
+        require(len(rec["decode"]) == len(r.out_tokens) - 1,
+                f"{len(rec['decode'])} decode steps recorded for a request "
+                f"of {len(r.out_tokens)} tokens")
+        served = [torch.cat([rec["prompt"][layer]]
+                            + [step[layer][None] for step in rec["decode"]])
+                  for layer in range(n_moe)]          # (n + 31, k) each
+        toks = np.concatenate([r.prompt, r.out_tokens[:-1]])
+        with _RouteLog(gaps=True, force=served if force else None) as log:
+            logits, _ = lm.forward(cfg, params, {
+                "tokens": torch.from_numpy(toks)[None].to(dev)})
+        require(len(log.calls) == n_moe, f"the teacher-forced forward made "
+                f"{len(log.calls)} router calls, expected {n_moe}")
+        same = torch.ones(len(toks), dtype=torch.bool, device=dev)
+        for layer, (idx, gap) in enumerate(log.calls):
+            agree = (_expert_sets(idx[0])
+                     == _expert_sets(served[layer])).all(-1)
+            same &= agree
+            flips["prompt"][layer] += int((~agree[:n]).sum())
+            flips["decode"][layer] += int((~agree[n:]).sum())
+            flip_gaps.append(gap[0][~agree])
+            all_gaps.append(gap[0])
+        pairs["prompt"] += n * n_moe
+        pairs["decode"] += (len(toks) - n) * n_moe
+        rows = logits[0, n - 1:n - 1 + len(r.out_tokens)].float()
+        served_toks = torch.tensor(r.out_tokens, device=dev)
+        require(bool(torch.isfinite(rows).all()), "non-finite logits")
+        token_gaps.append(rows.max(-1).values
+                          - rows[torch.arange(len(served_toks)), served_toks])
+        token_agree.append(same[n - 1:n - 1 + len(r.out_tokens)])
+        exact += int((rows.argmax(-1) == served_toks).sum())
+    flip_gaps, all_gaps = torch.cat(flip_gaps), torch.cat(all_gaps)
+    n_flips = sum(flips["prompt"]) + sum(flips["decode"])
+    n_pairs = pairs["prompt"] + pairs["decode"]
+    token_gaps, token_agree = torch.cat(token_gaps), torch.cat(token_agree)
+    summary = {
+        "route_pairs": n_pairs, "route_flips": n_flips,
+        "route_flip_share": n_flips / n_pairs,
+        "route_pairs_by_kind": pairs,
+        "route_flips_by_layer": flips,
+        "route_flip_share_by_kind": {
+            kind: sum(flips[kind]) / pairs[kind] for kind in pairs},
+        "route_flip_max_share_of_a_layer": {
+            kind: max(flips[kind]) * n_moe / pairs[kind] for kind in pairs},
+        "route_flip_max_router_gap": (float(flip_gaps.max())
+                                      if flip_gaps.numel() else 0.0),
+        "router_gap_quantiles": {
+            q: float(torch.quantile(all_gaps.float(), q))
+            for q in (0.01, 0.05, 0.5)},
+        "teacher_forced_exact": exact,
+        "teacher_forced_checked": len(token_gaps),
+        "teacher_forced_agreed": int(token_agree.sum())}
+    return summary, token_gaps, token_agree
+
+
+def _moe_route_fp32(dev, prompts):
+    """The router's gate where rounding cannot flip it: the full 28-layer
+    deepseek-moe-16b in fp32 (the bf16 model's weights before rounding)
+    serves two prompts, 32 tokens each, behind ServeEngine, and an
+    unforced teacher-forced forward re-scores them.  The router may choose
+    other experts in the two passes at no more than MOE_ROUTE_FLIP_SHARE of
+    the (position, layer) pairs, and every served token fed by positions
+    where every layer agreed is within SERVE_GAP_TOL of the top logit."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              dtype=torch.float32, param_dtype=torch.float32)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    engine = ServeEngine(cfg, params, slots=2, max_len=MOE_MAX_LEN,
+                         device=dev)
+    del params
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=32, eos_id=-1)
+            for i, p in enumerate(prompts)]
+    _, _, watch = _serve_watched(engine, reqs, n_moe)
+    require(all(r.done and len(r.out_tokens) == 32 for r in reqs),
+            f"moe_route_fp32: token counts {[len(r.out_tokens) for r in reqs]}")
+    check, token_gaps, agreed = _rescore(cfg, engine.params, reqs, watch,
+                                         n_moe, dev, force=False)
+    held = token_gaps[agreed]
+    check["teacher_forced_max_gap"] = float(held.max()) if held.numel() else 0.0
+    emit({"phase": "moe_route_fp32", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": "float32",
+          "prompt_lengths": [len(p) for p in prompts], **check,
+          "route_flip_tol": MOE_ROUTE_FLIP_SHARE, "gap_tol": SERVE_GAP_TOL,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    require(check["route_flips"] <= MOE_ROUTE_FLIP_SHARE * check["route_pairs"],
+            f"moe_route_fp32: the router chose other experts at "
+            f"{check['route_flips']} of {check['route_pairs']} (position, "
+            "layer) pairs in serving than in teacher forcing")
+    require(check["teacher_forced_max_gap"] <= SERVE_GAP_TOL,
+            f"moe_route_fp32: a served token is "
+            f"{check['teacher_forced_max_gap']} below the teacher-forced top "
+            "logit where every layer agreed")
+
+
+def phase_moe_serve(dev, flash_rows):
+    """Main path: the full 28-layer bf16 deepseek-moe-16b behind
+    ServeEngine, every layer's attention through K2 and every MoE layer's
+    experts through the grouped GEMM's grouped_mm route; then the same
+    model in fp32 holds the router (:func:`_moe_route_fp32`)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)  # the CLI's rule
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    engine = ServeEngine(cfg, params, slots=MOE_SLOTS, max_len=MOE_MAX_LEN,
+                         device=dev)
+    require(engine.params["layers"]["moe_w13"] is params["layers"]["moe_w13"],
+            "moe_serve: the engine copied weights already in bf16")
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in optim.leaves(engine.params)) / 1e9
+    resident_gb = torch.cuda.memory_allocated() / 1e9   # + the KV cache
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, size=int(n)),
+                    max_new_tokens=32, eos_id=-1)
+            for i, n in enumerate(rng.integers(64, 1025, size=16))]
+
+    _zero_counts()                            # the main path starts here
+    decode_s, admit_s, watch = _serve_watched(engine, reqs, n_moe)
+    run_s = sum(decode_s) + sum(admit_s)      # the ticks alone
+    launches = flash_attention.launches       # ... and ends here
+    by_path = dict(flash_attention.launches_by_path)
+    routes = dict(moe.grouped_gemm.launches_by_route)
+    s = engine.stats
+    require(all(r.done and len(r.out_tokens) == 32 for r in reqs),
+            f"moe_serve: token counts {[len(r.out_tokens) for r in reqs]}")
+    require(s.completed == 16 and s.prefills == 16, f"moe_serve: {s}")
+    require(launches == cfg.n_layers * (s.prefills + s.ticks),
+            f"moe_serve: {launches} flash_attention launches, expected "
+            f"{cfg.n_layers} x ({s.prefills} prefills + {s.ticks} ticks)")
+    require(spmm.launches == 0, "moe_serve launched spmm_csr")
+    require(by_path == {"prefill_tc": cfg.n_layers * s.prefills,
+                        "decode": cfg.n_layers * s.ticks, "general": 0},
+            f"moe_serve: flash_attention launches by kernel {by_path}, "
+            "expected every prefill on prefill_tc, every tick on decode")
+    require(routes == {"grouped_mm": 2 * n_moe * (s.prefills + s.ticks),
+                       "loop": 0},
+            f"moe_serve: grouped GEMM calls by route {routes}, expected "
+            f"2 x {n_moe} MoE layers x (prefills + ticks) on grouped_mm")
+
+    # Two requests re-scored by a teacher-forced forward routed as serving
+    # routed them: every served token is held, and the router's own
+    # choices in that pass against serving's, in each (kind, layer) cell.
+    route_check, token_gaps, _ = _rescore(cfg, engine.params, reqs, watch,
+                                          n_moe, dev, force=True)
+    route_check.update(teacher_forced_max_gap=float(token_gaps.max()),
+                       gap_tol=SERVE_GAP_TOL,
+                       route_flip_cell_tol=MOE_ROUTE_FLIP_CELL_SHARE)
+    emit({"phase": "moe_serve_routes", **route_check})
+    worst = max(route_check["route_flip_max_share_of_a_layer"].values())
+    require(worst <= MOE_ROUTE_FLIP_CELL_SHARE, f"moe_serve: in one MoE "
+            f"layer the router chose other experts in teacher forcing than "
+            f"in serving at {worst:.3f} of one kind of position")
+    require(route_check["teacher_forced_max_gap"] <= SERVE_GAP_TOL,
+            f"moe_serve: a served token is "
+            f"{route_check['teacher_forced_max_gap']} below the "
+            "teacher-forced top logit")
+
+    prefill_ms = {}
+    for L in sorted({ServeEngine._bucket(len(r.prompt)) for r in reqs}):
+        batch = _bucketed(reqs[0].prompt[:1].repeat(L), dev)
+        prefill_ms[L] = time_ms(lambda: lm.prefill(
+            cfg, engine.params, batch, MOE_MAX_LEN), reps=5, warmup=1)
+    tick_ms = statistics.median(decode_s) * 1e3
+    decode_row = next((r for r in flash_rows
+                       if r["shape"].startswith("deepseek_decode")),
+                      {"device_ms": "not measured"})
+    tokens = s.generated_tokens + s.prefills
+    emit({"phase": "moe_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "moe_layers": n_moe, "dtype": "bfloat16",
+          "params": cfg.params_count(), "weights_gb": weights_gb,
+          "resident_gb": resident_gb,
+          "slots": MOE_SLOTS, "max_len": MOE_MAX_LEN, "requests": len(reqs),
+          "prompt_lengths": [len(r.prompt) for r in reqs],
+          "prefills": s.prefills, "ticks": s.ticks, "completed": s.completed,
+          "tokens": tokens, "flash_attention_launches": launches,
+          "setup_s": setup_s, "run_s": run_s, "tok_per_s": tokens / run_s,
+          "decode_tick_ms_median": tick_ms,
+          "decode_tick_ms_p90": float(np.percentile(decode_s, 90)) * 1e3,
+          "admit_tick_ms_median": statistics.median(admit_s) * 1e3,
+          "prefill_ms_by_bucket": prefill_ms,
+          "flash_attention_launches_by_path": by_path,
+          "grouped_gemm_route": "grouped_mm",
+          "grouped_gemm_launches_by_route": routes,
+          "k2_share_of_decode_tick": (
+              cfg.n_layers * decode_row["device_ms"] / tick_ms
+              if isinstance(decode_row["device_ms"], float)
+              else "not measured"),
+          **route_check,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    _profile_decode(engine, cfg, "moe_profile", MOE_SLOTS)
+    del engine
+    _moe_route_fp32(dev, [r.prompt for r in reqs[:2]])
+    return launches, by_path
 
 
 def _k2_counts():
@@ -2104,6 +2617,8 @@ def _zero_counts() -> None:
         flash_attention.backward_launches, 0)
     flash_attention.backward_launches_by_path = dict.fromkeys(
         flash_attention.backward_launches_by_path, 0)
+    moe.grouped_gemm.launches_by_route = dict.fromkeys(
+        moe.grouped_gemm.launches_by_route, 0)
 
 
 def main() -> int:
@@ -2142,6 +2657,9 @@ def main() -> int:
     phase_lm_parity(dev)
     flash_launches, flash_by_path = phase_lm_serve(dev, flash_rows)
     require(flash_launches > 0, "the LM path never launched flash_attention")
+    phase_moe_parity(dev)
+    moe_launches, moe_by_path = phase_moe_serve(dev, flash_rows)
+    require(moe_launches > 0, "the MoE path never launched flash_attention")
     train_launches_k2, train_by_path, train_bwd, train_bwd_by_path = (
         phase_lm_train(dev))
 
@@ -2178,10 +2696,11 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:117",
-        "launches": flash_launches + train_launches_k2,
-        "launches_by_path": {key: flash_by_path[key] + train_by_path[key]
-                             for key in flash_by_path},
+        "launches": flash_launches + moe_launches + train_launches_k2,
+        "launches_by_path": {key: flash_by_path[key] + moe_by_path[key]
+                             + train_by_path[key] for key in flash_by_path},
         "launches_by_phase": {"lm_serve": flash_by_path,
+                              "moe_serve": moe_by_path,
                               "lm_train": train_by_path},
         "backward_launches": train_bwd,
         "backward_launches_by_path": train_bwd_by_path,

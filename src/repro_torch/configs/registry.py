@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-The reference's ten archs keep their ids.  The dense family runs in the
-port; an arch of a family not ported yet raises ``NotImplementedError``
+The reference's ten archs keep their ids.  The dense and MoE families run
+in the port; an arch of a family not ported yet raises ``NotImplementedError``
 naming the slice queued for it (``ROADMAP.md``).  The dry-run input specs
 (``input_specs``, ``all_cells``) belong to ``launch/`` and come with it.
 """
@@ -16,6 +16,8 @@ ARCHS = {
     "qwen2.5-32b": "qwen2_5_32b",
     "yi-9b": "yi_9b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 # Archs of the reference whose family has no port yet -> family.
@@ -24,8 +26,6 @@ QUEUED = {
     "xlstm-1.3b": "ssm",
     "seamless-m4t-medium": "encdec",
     "internvl2-2b": "vlm",
-    "deepseek-moe-16b": "moe",
-    "kimi-k2-1t-a32b": "moe",
 }
 
 

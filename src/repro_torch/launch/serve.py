@@ -4,7 +4,12 @@
       --smoke --device cpu --requests 8 --max-new 12
 
 The counterpart of ``repro.launch.serve``.  ``--device`` defaults to the
-card; the weights are random, drawn from seed 0 on that device.
+card; the weights are random, drawn from seed 0 on that device.  At full
+width (without ``--smoke``) they are held in ``cfg.dtype``
+(``param_dtype = dtype``), so deepseek-moe-16b's 16.4 B parameters take
+32.8 GB in bf16 and the engine keeps no second copy:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
 """
 from __future__ import annotations
 
@@ -36,6 +41,8 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.smoke:
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    else:
+        cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)
     params = zoo.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
                       device=dev)

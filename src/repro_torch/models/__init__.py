@@ -1,11 +1,12 @@
 """Model zoo: family dispatch.
 
-The dense family runs in the port; the others raise ``NotImplementedError``
-naming the slice queued for them (``common.QUEUED_FAMILIES``).
+The dense and MoE families run in the port, both through ``transformer``;
+the others raise ``NotImplementedError`` naming the slice queued for them
+(``common.QUEUED_FAMILIES``).
 """
 from repro_torch.models.common import (LMConfig, QUEUED_FAMILIES, SHAPES,
                                        ShapeCfg, check_family)
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 
 
 def family_module(cfg: LMConfig):
@@ -40,5 +41,5 @@ def init_cache(cfg, batch, max_len, device="cuda"):
 __all__ = [
     "LMConfig", "QUEUED_FAMILIES", "SHAPES", "ShapeCfg", "family_module",
     "init_params", "forward", "loss_fn", "prefill", "decode_step",
-    "init_cache", "transformer",
+    "init_cache", "moe", "transformer",
 ]

@@ -1,0 +1,160 @@
+"""Fine-grained MoE layer (DeepSeekMoE / Kimi-K2 style) on one device.
+
+The torch counterpart of ``repro.models.moe`` without a mesh:
+
+  router_topk        fp32 softmax over ``x @ w_router``, top-k, weights
+                     renormalised to sum 1, Switch-style aux loss
+  grouped_gemm       ``jax.lax.ragged_dot``'s semantics: row i times the
+                     weight of its group; rows past ``sum(group_sizes)``
+                     give zero
+  moe_ffn            the routed experts, dropless, on one device
+  moe_ffn_dense_ref  every expert on every token, one-hot combine (the
+                     oracle of the tests and of ``chip_smoke.py``)
+
+``moe_ffn`` computes the function the reference computes where there is no
+mesh (``transformer._ffn_moe_local``, which is ``moe_ffn_dense_ref``): every
+token gets its top-k experts and none is dropped.  It computes it routed,
+not densely: the ``T * k`` assignments are sorted by expert (stable), the
+rows gathered in that order, the experts' two products run as grouped GEMMs
+over the groups, each row weighted by its router weight, and the rows put
+back to ``(T, k, d)`` and summed over k in fp32.  That is the dense oracle's
+function up to the order of summation.  Nothing in it is an atomic or an
+``index_add_``, so it repeats bit for bit, and a token's result never
+depends on the other tokens of the batch beyond the GEMMs' tiling (a pad
+token of a serving bucket never takes a real token's place).  The
+reference's ``moe_ffn`` of the same name is the expert-parallel path under
+a mesh, with a per-expert capacity that drops overflow; it agrees with this
+one wherever nothing overflows, and its capacity semantics come with the
+mesh slice (ROADMAP.md).
+
+The grouped GEMM.  ``ragged_dot`` is XLA, not a Pallas kernel, so its port
+is a library call, as the dense GEMMs are ``torch.matmul``.  Two routes,
+picked by :func:`grouped_gemm_route` from the device and the shapes, never
+from the data and never because a call raised:
+
+* ``"grouped_mm"``: ``torch._grouped_mm(x, w, offs=...)`` with the group
+  ends on the device, for every call on a CUDA card whose row lengths
+  ``torch._grouped_mm`` takes; in bf16 one launch per product and no host
+  sync (the served path), in fp32 torch's own per-group fallback;
+* ``"loop"``: one ``torch.matmul`` per non-empty group over sizes read to
+  the host once per call, for the CPU and for rows that are not whole
+  16-byte chunks.
+
+``grouped_gemm.launches_by_route`` counts the calls by route, one per
+grouped GEMM.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import LMConfig
+
+
+def router_topk(x, w_router, k: int):
+    """x (..., d) -> (idx (..., k) int64, weights (..., k) x.dtype, aux)."""
+    logits = x.float() @ w_router.float()
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, k, dim=-1)
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+    # Load-balance aux loss (Switch-style): E * sum_e f_e * p_e.
+    E = w_router.shape[-1]
+    me = probs.reshape(-1, E).mean(0)
+    experts = torch.arange(E, device=x.device)
+    one_hot = (idx.reshape(-1, k, 1) == experts).float().sum(1)
+    ce = one_hot.mean(0) / k
+    aux = E * torch.sum(me * ce)
+    return idx, w.to(x.dtype), aux
+
+
+def grouped_gemm_route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """Which route :func:`grouped_gemm` takes for ``x (m, k)`` and ``w (g,
+    k, n)``: "grouped_mm" on a CUDA card when both row lengths are whole
+    16-byte chunks (``torch._grouped_mm``'s stride rule), else "loop"."""
+    k, n = w.shape[-2:]
+    aligned = all(length * x.element_size() % 16 == 0 for length in (k, n))
+    return "grouped_mm" if x.is_cuda and aligned else "loop"
+
+
+def _grouped(x, w, ends):
+    """Rows ``ends[e-1]:ends[e]`` of ``x`` times ``w[e]``; ``ends`` (g,)
+    int32, the groups' cumulative sizes, on x's device.  Rows past
+    ``ends[-1]`` are left unspecified on the grouped_mm route and 0 on the
+    loop route.  One count per call."""
+    route = grouped_gemm_route(x, w)
+    grouped_gemm.launches_by_route[route] += 1
+    x, w = x.contiguous(), w.contiguous()
+    if route == "grouped_mm":
+        return torch._grouped_mm(x, w, offs=ends)
+    parts, start = [], 0
+    for e, end in enumerate(ends.tolist()):
+        if end > start:
+            parts.append(x[start:end] @ w[e])
+        start = end
+    parts.append(x.new_zeros((x.shape[0] - start, w.shape[-1])))
+    return torch.cat(parts)
+
+
+def grouped_gemm(x, w, group_sizes):
+    """``jax.lax.ragged_dot(x, w, group_sizes)``: x (m, k), w (g, k, n),
+    group_sizes (g,) -> (m, n) in x's dtype; row i is multiplied by the
+    weight of the group it falls in, and rows past ``sum(group_sizes)`` are
+    0."""
+    ends = torch.cumsum(group_sizes.to(x.device), 0).to(torch.int32)
+    out = _grouped(x, w, ends)
+    past = torch.arange(x.shape[0], device=x.device) >= ends[-1]
+    return out.masked_fill(past[:, None], 0)
+
+
+grouped_gemm.launches_by_route = {"grouped_mm": 0, "loop": 0}
+
+
+def moe_ffn(cfg: LMConfig, p: Dict[str, torch.Tensor],
+            x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, L, d) -> ((B, L, d) routed experts' output, aux loss).
+
+    p: {'router': (d, E), 'w13': (E, d, 2f), 'w2': (E, f, d)}.  Computes
+    the mesh-free function of the reference (``moe_ffn_dense_ref``):
+    dropless top-k routing, the experts' SwiGLU with the activation in
+    fp32, the outputs weighted by the router and summed over k in fp32;
+    routed over grouped GEMMs (the module docstring)."""
+    idx, weights, aux = router_topk(x, p["router"], cfg.top_k)
+    B, L, d = x.shape
+    k, E = cfg.top_k, cfg.n_experts
+    xf = x.reshape(-1, d)
+    n = xf.shape[0] * k
+    flat = idx.reshape(n)
+    order = torch.sort(flat, stable=True).indices     # assignments by expert
+    experts = torch.arange(E, device=x.device, dtype=flat.dtype)
+    ends = torch.searchsorted(flat[order], experts, right=True,
+                              out_int32=True)         # cumulative sizes
+    h = _grouped(xf[order // k], p["w13"].to(x.dtype), ends)
+    g, u = h.chunk(2, dim=-1)
+    act = (F.silu(g.float()) * u.float()).to(x.dtype)
+    y = _grouped(act, p["w2"].to(x.dtype), ends)
+    y = y.float() * weights.reshape(n)[order].float()[:, None]
+    back = torch.empty_like(order)
+    back[order] = torch.arange(n, device=x.device)    # the inverse permutation
+    out = y[back].view(-1, k, d).sum(1)
+    return out.to(x.dtype).reshape(B, L, d), aux
+
+
+def moe_ffn_dense_ref(cfg: LMConfig, p: Dict[str, torch.Tensor],
+                      x: torch.Tensor):
+    """Oracle: every expert on every token, one-hot combine (the
+    reference's ``moe_ffn_dense_ref``; tests and ``chip_smoke.py`` only)."""
+    idx, weights, aux = router_topk(x, p["router"], cfg.top_k)
+    B, L, d = x.shape
+    xf = x.reshape(-1, d)
+    h = torch.einsum("td,edf->tef", xf, p["w13"].to(x.dtype))
+    g, u = h.chunk(2, dim=-1)
+    act = F.silu(g.float()) * u.float()
+    y = torch.einsum("tef,efd->ted", act.to(xf.dtype), p["w2"].to(x.dtype))
+    comb = torch.zeros((xf.shape[0], cfg.n_experts), dtype=x.dtype,
+                       device=x.device)
+    comb.scatter_add_(1, idx.reshape(-1, cfg.top_k),
+                      weights.reshape(-1, cfg.top_k))
+    out = torch.einsum("te,ted->td", comb, y)
+    return out.reshape(B, L, d), aux

@@ -1,27 +1,35 @@
-"""Decoder-only transformer LM, dense GQA family (llama/qwen/yi/phi3).
+"""Decoder-only transformer LM: dense GQA (llama/qwen/yi/phi3) and
+fine-grained MoE (deepseek/kimi).
 
-The torch counterpart of the dense path of ``repro.models.transformer`` on
-one device:
+The torch counterpart of the dense and MoE paths of
+``repro.models.transformer`` on one device:
 
-  forward      — teacher-forced logits (evaluation and training)
+  forward      — teacher-forced logits and the MoE aux loss (evaluation and
+                 training)
   loss_fn      — next-token cross entropy over ``forward`` (training)
   prefill      — forward + KV-cache construction (inference prefill)
   decode_step  — one token against a padded KV cache (inference decode)
 
 Parameters are a plain dict with the reference's keys and stacked layout
-(``params["layers"][name]`` has a leading ``n_layers`` axis); the layer loop
-is a Python loop over that axis in place of ``lax.scan``.  Weights are kept
-in ``cfg.param_dtype`` and cast to ``cfg.dtype`` where used, as the
-reference does; :func:`cast_params` makes those casts once (same values),
-which is what the serving engine runs on.  Attention goes through
+(``params["layers"][name]`` has a leading layer axis; an MoE model keeps its
+first ``first_dense_layers`` dense layers in their own stack,
+``params["dense_layers"]``, and its KV cache layers ``0 ..
+first_dense_layers - 1`` are theirs); the layer loop is a Python loop over
+those axes in place of ``lax.scan``.  Weights are kept in
+``cfg.param_dtype`` and cast to ``cfg.dtype`` where used, as the reference
+does; :func:`cast_params` makes those casts once (same values), which is
+what the serving engine runs on.  Attention goes through
 ``common.attention_any``: the flash-attention kernel (K2) on the card, with
-its hand-written backward when training.  With ``cfg.remat`` set and grad
-on, ``forward`` checkpoints each layer (``torch.utils.checkpoint``, the
-reference's ``jax.checkpoint`` per scanned layer), so a layer's forward,
-K2 included, runs again in the backward.
+its hand-written backward when training.  An MoE layer's FFN is
+``moe.moe_ffn`` (top-k routing, dropless, over grouped GEMMs) plus the
+shared experts as one dense SwiGLU; it computes what the reference's
+mesh-free path computes.  With ``cfg.remat`` set and grad on, ``forward``
+checkpoints each layer (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` per scanned layer), so a layer's forward, K2 included,
+runs again in the backward.
 
-The MoE and VLM members of the reference's family dispatch raise
-``NotImplementedError``: they come with their own slices.
+The VLM member of the reference's family dispatch raises
+``NotImplementedError``: it comes with its own slice.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (LMConfig, apply_rope, attention_any,
                                        check_family, dense_init, rms_norm,
                                        rope_tables, sharded_ce_loss)
@@ -51,21 +60,35 @@ def _attn_shapes(cfg: LMConfig):
     }
 
 
-def _layer_shapes(cfg: LMConfig):
+def _layer_shapes(cfg: LMConfig, moe: bool):
     d = cfg.d_model
     shapes = {"ln1": (d,), "ln2": (d,), **_attn_shapes(cfg)}
     if cfg.qkv_bias:
         shapes.update({"bq": (cfg.n_heads * cfg.hd,),
                        "bk": (cfg.n_kv_heads * cfg.hd,),
                        "bv": (cfg.n_kv_heads * cfg.hd,)})
-    shapes.update({"w13": (d, 2 * cfg.d_ff), "w2": (cfg.d_ff, d)})
+    if moe:
+        f = cfg.expert_d_ff
+        shapes.update({
+            "router": (d, cfg.n_experts),
+            "moe_w13": (cfg.n_experts, d, 2 * f),
+            "moe_w2": (cfg.n_experts, f, d),
+        })
+        if cfg.n_shared_experts:
+            fs = cfg.n_shared_experts * f
+            shapes.update({"shared_w13": (d, 2 * fs), "shared_w2": (fs, d)})
+    else:
+        shapes.update({"w13": (d, 2 * cfg.d_ff), "w2": (cfg.d_ff, d)})
     return shapes
 
 
 def _stack_init(gen: torch.Generator, shapes: Dict[str, tuple], n: int,
                 dtype, dev) -> Dict[str, torch.Tensor]:
     """The reference's ``_stack_init``: norms ones, biases zeros, matrices
-    Normal(0, 1/sqrt(fan_in)) with fan_in = shape[-2]."""
+    Normal(0, 1/sqrt(fan_in)) with fan_in = shape[-2].  Each layer's slice
+    of a matrix is drawn in fp32, scaled in place and cast into the
+    ``(n, ...)`` tensor of ``dtype``, so a full-width stack never exists in
+    fp32 and a bf16 init is the fp32 init rounded once."""
     out = {}
     for name, shp in shapes.items():
         if name.startswith("ln"):
@@ -74,9 +97,18 @@ def _stack_init(gen: torch.Generator, shapes: Dict[str, tuple], n: int,
             out[name] = torch.zeros((n,) + shp, dtype=dtype, device=dev)
         else:
             std = (shp[-2] if len(shp) > 1 else shp[-1]) ** -0.5
-            flat = torch.randn((n,) + shp, generator=gen, device=gen.device)
-            out[name] = (flat * std).to(device=dev, dtype=dtype)
+            out[name] = torch.empty((n,) + shp, dtype=dtype, device=dev)
+            for i in range(n):
+                out[name][i] = torch.randn(shp, generator=gen,
+                                           device=gen.device).mul_(std)
     return out
+
+
+def _n_dense(cfg: LMConfig) -> int:
+    """Layers in ``params["dense_layers"]``: an MoE model's first
+    ``first_dense_layers``; 0 for the dense family, whose layers are all in
+    ``params["layers"]``."""
+    return cfg.first_dense_layers if cfg.n_experts else 0
 
 
 def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
@@ -90,14 +122,19 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     vp, pdt = vocab_padded(cfg), cfg.param_dtype
+    n_dense = _n_dense(cfg)
     params = {
         "embed": dense_init(gen, (vp, cfg.d_model), pdt, scale=0.02).to(dev),
         "final_norm": torch.ones((cfg.d_model,), dtype=pdt, device=dev),
-        "layers": _stack_init(gen, _layer_shapes(cfg), cfg.n_layers, pdt, dev),
+        "layers": _stack_init(gen, _layer_shapes(cfg, bool(cfg.n_experts)),
+                              cfg.n_layers - n_dense, pdt, dev),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, (cfg.d_model, vp), pdt,
                                        scale=0.02).to(dev)
+    if n_dense:
+        params["dense_layers"] = _stack_init(
+            gen, _layer_shapes(cfg, moe=False), n_dense, pdt, dev)
     return params
 
 
@@ -117,14 +154,28 @@ def params_from_jax(params_np, device: DeviceLike = "cuda") -> Dict:
 def cast_params(cfg: LMConfig, params: Dict) -> Dict:
     """Every weight cast once to ``cfg.dtype``.  The values are those of the
     reference's per-use ``.astype(cfg.dtype)``, so results are unchanged;
-    the model functions' own casts are then no-ops."""
+    the model functions' own casts are then no-ops.  A weight already in
+    ``cfg.dtype`` is returned as it is, not copied."""
     if isinstance(params, dict):
         return {k: cast_params(cfg, v) for k, v in params.items()}
     return params.to(cfg.dtype)
 
 
-def _layer(params: Dict, i: int) -> Dict[str, torch.Tensor]:
-    return {name: t[i] for name, t in params["layers"].items()}
+def _layers(cfg: LMConfig, params: Dict):
+    """Each layer's weights with its kind, in order: ``(p, moe)`` for the
+    dense stack's layers, then the main stack's.  The stacked tensors are
+    unbound once, so under grad a stack's gradient is one stack of the
+    per-layer gradients."""
+    stacks = [(params["layers"], bool(cfg.n_experts))]
+    if _n_dense(cfg):
+        stacks.insert(0, (params["dense_layers"], False))
+    out = []
+    for stack, moe in stacks:
+        split = {name: t.unbind(0) for name, t in stack.items()}
+        n = next(iter(stack.values())).shape[0]
+        out += [({name: t[i] for name, t in split.items()}, moe)
+                for i in range(n)]
+    return out
 
 
 # ------------------------------------------------------------------- blocks
@@ -178,10 +229,28 @@ def _ffn_dense(cfg: LMConfig, p, x):
     return x + act @ p["w2"].to(h.dtype)
 
 
-def _one_layer(cfg: LMConfig, p, x, cos, sin, cache=None, cache_at=None,
-               kv_len=None):
+def _ffn_moe(cfg: LMConfig, p, x):
+    """Routed experts (``moe.moe_ffn``) plus the shared experts as one dense
+    SwiGLU over ``n_shared_experts * expert_d_ff``.  Returns (x', aux)."""
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    out, aux = moe_lib.moe_ffn(
+        cfg, {"router": p["router"], "w13": p["moe_w13"], "w2": p["moe_w2"]},
+        h)
+    if cfg.n_shared_experts:
+        g, u = (h @ p["shared_w13"].to(h.dtype)).chunk(2, dim=-1)
+        act = (F.silu(g.float()) * u.float()).to(h.dtype)
+        out = out + act @ p["shared_w2"].to(h.dtype)
+    return x + out, aux
+
+
+def _one_layer(cfg: LMConfig, p, x, cos, sin, moe: bool, cache=None,
+               cache_at=None, kv_len=None):
+    """Returns (x', (k, v), aux); aux is 0.0 for a dense layer."""
     x, kv = _attn(cfg, p, x, cos, sin, cache, cache_at, kv_len)
-    return _ffn_dense(cfg, p, x), kv
+    if moe:
+        x, aux = _ffn_moe(cfg, p, x)
+        return x, kv, aux
+    return _ffn_dense(cfg, p, x), kv, 0.0
 
 
 # ------------------------------------------------------------------ forward
@@ -200,30 +269,31 @@ def _rope(cfg: LMConfig, positions):
     return rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.dtype)
 
 
-def _layer_out(cfg: LMConfig, p, x, cos, sin):
-    return _one_layer(cfg, p, x, cos, sin)[0]
+def _layer_out(cfg: LMConfig, p, x, cos, sin, moe: bool):
+    x, _, aux = _one_layer(cfg, p, x, cos, sin, moe)
+    return x, aux
 
 
 def forward(cfg: LMConfig, params, batch: Dict):
     """batch: {'tokens': (B, L) int}.  Returns (logits (B, L, vocab_padded),
-    aux_loss = 0.0).  The stacked layer weights are unbound once, so their
-    gradient is one stack of the per-layer gradients; with ``cfg.remat``
-    and grad on, each layer is checkpointed."""
+    aux_loss): aux is the MoE layers' router losses summed (0.0 for the
+    dense family).  With ``cfg.remat`` and grad on, each layer is
+    checkpointed."""
     check_family(cfg.name, cfg.family)
     x = _embed(cfg, params, batch["tokens"])
     L = x.shape[1]
     cos, sin = _rope(cfg, torch.arange(L, device=x.device)[None, :])
-    stack = {name: t.unbind(0) for name, t in params["layers"].items()}
     remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
-        p = {name: t[i] for name, t in stack.items()}
+    aux = 0.0
+    for p, moe in _layers(cfg, params):
         if remat:
-            x = checkpoint(_layer_out, cfg, p, x, cos, sin,
-                           use_reentrant=False)
+            x, a = checkpoint(_layer_out, cfg, p, x, cos, sin, moe,
+                              use_reentrant=False)
         else:
-            x = _layer_out(cfg, p, x, cos, sin)
+            x, a = _layer_out(cfg, p, x, cos, sin, moe)
+        aux = aux + a
     x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
-    return _unembed(cfg, params, x), 0.0
+    return _unembed(cfg, params, x), aux
 
 
 def loss_fn(cfg: LMConfig, params, batch: Dict, aux_weight: float = 0.01):
@@ -265,8 +335,8 @@ def prefill(cfg: LMConfig, params, batch: Dict, max_len: int):
     shp = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.hd)
     k = torch.zeros(shp, dtype=x.dtype, device=dev)
     v = torch.zeros(shp, dtype=x.dtype, device=dev)
-    for i in range(cfg.n_layers):
-        x, (k_l, v_l) = _one_layer(cfg, _layer(params, i), x, cos, sin)
+    for i, (p, moe) in enumerate(_layers(cfg, params)):
+        x, (k_l, v_l), _ = _one_layer(cfg, p, x, cos, sin, moe)
         k[i, :, :L] = k_l
         v[i, :, :L] = v_l
     x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
@@ -293,10 +363,10 @@ def decode_step(cfg: LMConfig, params, tokens, cache):
     cur = cache["len"]
     cos, sin = _rope(cfg, cur[:, None])
     kv_len = cur + 1
-    for i in range(cfg.n_layers):
-        x, _ = _one_layer(cfg, _layer(params, i), x, cos, sin,
-                          cache=(cache["k"][i], cache["v"][i]), cache_at=cur,
-                          kv_len=kv_len)
+    for i, (p, moe) in enumerate(_layers(cfg, params)):
+        x, _, _ = _one_layer(cfg, p, x, cos, sin, moe,
+                             cache=(cache["k"][i], cache["v"][i]),
+                             cache_at=cur, kv_len=kv_len)
     x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
     logits = _unembed(cfg, params, x)
     return logits, {"k": cache["k"], "v": cache["v"], "len": cur + 1}

@@ -15,8 +15,12 @@ decode masks KV beyond ``len``).  The reference's ``trace_counts`` counted
 counter with CUDA graphs.
 
 The engine runs on weights cast once to ``cfg.dtype`` (the same values as
-the reference's per-use casts).  On the card every layer's attention, in
-prefill and in decode, is the flash-attention kernel (K2).
+the reference's per-use casts; weights already in ``cfg.dtype`` are kept as
+they are, with no second copy).  It serves the dense and MoE families as
+the reference does: an MoE layer routes every token of a padded bucket,
+and a pad token never takes a real token's place (``models.moe``).  On the
+card every layer's attention, in prefill and in decode, is the
+flash-attention kernel (K2).
 """
 from __future__ import annotations
 
@@ -52,8 +56,8 @@ class EngineStats:
 
 
 class ServeEngine:
-    """Continuous batching for the KV-cache (dense) family on one device.
-    ``params`` lie on ``device``."""
+    """Continuous batching for the KV-cache (dense and MoE) families on one
+    device.  ``params`` lie on ``device``."""
 
     def __init__(self, cfg: LMConfig, params, slots: int = 4,
                  max_len: int = 256, device: DeviceLike = "cuda"):

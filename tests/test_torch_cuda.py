@@ -1,8 +1,8 @@
 """Checks that need a CUDA card: the spmm_csr (K1) and flash_attention
 kernels (K2 both ways) against their plain torch versions, the wrappers'
 input checks, and the port's card paths (BSP forward and train step, K1's
-backward, LM prefill, decode and train step, the LM training CLI) against
-its CPU paths.  Without a card every test here skips.  The file
+backward, LM prefill, decode and train step, the LM training CLI, the MoE
+FFN and its grouped GEMM's routes, MoE serving) against its CPU paths.  Without a card every test here skips.  The file
 imports neither ``jax`` nor ``repro``, so it runs on a machine with the card
 and the port alone:
 
@@ -36,6 +36,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     backward_path, flash_attention, flash_attention_bwd_plain,
     flash_attention_plain, flash_bwd_tc_tiles_plain, kernel_path)
 from repro_torch import models as lm  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.common import LMConfig  # noqa: E402
+from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.models.common import attention_any  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models.common import ShapeCfg  # noqa: E402
@@ -555,6 +558,8 @@ def _flash_twice(q, k, v, kl, causal, path, scale=None):
     (2, 8, 2, 64, 200, 128, True, [150, 64]),
     (1, 40, 8, 130, 130, 128, True, None),        # group 5
     (1, 4, 1, 40, 130, 64, True, [0]),            # fully masked
+    (1, 16, 16, 300, 300, 128, True, None),       # deepseek: group 1, D 128
+    (2, 16, 16, 64, 200, 128, True, [150, 64]),
 ])
 def test_flash_prefill_tensor_cores_match_plain(dev, B, Hq, Hkv, Lq, Lk, D,
                                                 causal, kv_len):
@@ -572,7 +577,8 @@ SPLIT_KV_LENS = [0, 1, 127, 128, 129, 300]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,Lq,D,causal", [
     (32, 8, 1, 64, False), (8, 8, 1, 64, False), (8, 4, 1, 128, False),
-    (8, 2, 4, 64, True), (4, 1, 2, 32, True)])
+    (8, 2, 4, 64, True), (4, 1, 2, 32, True),
+    (16, 16, 1, 128, False)])                     # deepseek: group 1, D 128
 def test_flash_split_decode_matches_plain(dev, dtype, Hq, Hkv, Lq, D, causal):
     """Every kv_len edge of the 128-key splits in one batch over a
     300-key cache (not a multiple of the split)."""
@@ -756,3 +762,104 @@ def test_launch_train_smoke_on_card(capsys):
     cfg = get_smoke_config("llama3.2-1b")
     assert flash_attention.backward_launches == {
         k: n + 20 * cfg.n_layers for k, n in bwd.items()}
+
+
+# --------------------------------------------------------------------- MoE
+def _moe_case(dev, dtype, T=96, d=64, E=8, k=2, f=32, seed=0):
+    cfg = LMConfig(name="t", family="moe", n_layers=1, d_model=d, n_heads=2,
+                   n_kv_heads=2, d_ff=0, vocab=64, n_experts=E, top_k=k,
+                   expert_d_ff=f, dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+    p = {"router": torch.randn((d, E), generator=gen) * d ** -0.5,
+         "w13": torch.randn((E, d, 2 * f), generator=gen) * d ** -0.5,
+         "w2": torch.randn((E, f, d), generator=gen) * f ** -0.5}
+    p = {key: v.to(dev, dtype) for key, v in p.items()}
+    x = torch.randn((2, T // 2, d), generator=gen).to(dev, dtype)
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "grouped_mm"),
+                                         (torch.float32, "grouped_mm")])
+def test_moe_ffn_on_card_matches_dense_oracle_and_repeats(dev, dtype, route):
+    """The routed MoE FFN on the card, bf16 and fp32 on torch._grouped_mm,
+    each against moe_ffn_dense_ref on the card (bf16 within 2e-2 of
+    max|ref|, fp32 1e-5) and bit-equal twice."""
+    cfg, p, x = _moe_case(dev, dtype)
+    before = dict(moe.grouped_gemm.launches_by_route)
+    out, aux = moe.moe_ffn(cfg, p, x)
+    again, _ = moe.moe_ffn(cfg, p, x)
+    torch.cuda.synchronize()
+    assert moe.grouped_gemm.launches_by_route[route] == before[route] + 4
+    ref, ref_aux = moe.moe_ffn_dense_ref(cfg, p, x)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    scale = float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= tol * scale
+    assert torch.equal(out, again)
+    assert float(aux) == pytest.approx(float(ref_aux), abs=1e-6)
+
+
+@pytest.mark.parametrize("dtype,n,route", [(torch.bfloat16, 48, "grouped_mm"),
+                                           (torch.float32, 48, "grouped_mm"),
+                                           (torch.bfloat16, 44, "loop")])
+def test_grouped_gemm_routes_match_the_per_expert_loop(dev, dtype, n, route):
+    """grouped_gemm on the card (grouped_mm where the rows are whole
+    16-byte chunks, else the loop) against a per-expert loop of matmuls:
+    an empty group, rows past the last group give 0."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((70, 64), generator=gen).to(dev, dtype)
+    w = torch.randn((5, 64, n), generator=gen).to(dev, dtype)
+    sizes = [13, 0, 29, 1, 20]                   # 63 rows; 7 past the end
+    before = dict(moe.grouped_gemm.launches_by_route)
+    out = moe.grouped_gemm(x, w, torch.tensor(sizes, device=dev))
+    assert moe.grouped_gemm.launches_by_route[route] == before[route] + 1
+    ref, start = torch.zeros((70, n), device=dev, dtype=dtype), 0
+    for e, size in enumerate(sizes):
+        ref[start:start + size] = x[start:start + size] @ w[e]
+        start += size
+    torch.testing.assert_close(out, ref, rtol=2e-2 if dtype == torch.bfloat16
+                               else 1e-5, atol=1e-5)
+    assert torch.equal(out[63:], torch.zeros_like(out[63:]))
+
+
+def _serve_tokens(cfg, params, dev, prompts, max_new=6):
+    eng = ServeEngine(cfg, params, slots=2, max_len=64, device=dev)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new, eos_id=-1)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    stats = eng.run(max_ticks=50)
+    return [r.out_tokens for r in reqs], stats
+
+
+def test_moe_smoke_served_on_card(dev):
+    """deepseek's smoke config behind ServeEngine on the card: in fp32 the
+    same tokens as on the CPU from the same weights; in bf16 (head dim 64)
+    every request completes with every prefill on prefill_tc (prompts past
+    16 tokens: with group 1, a bucket of up to 16 rows takes the decode
+    kernel), every tick on the split decode and every MoE layer's grouped
+    GEMMs on grouped_mm."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 400, size=n).astype(np.int32)
+               for n in (20, 17, 30, 25, 40)]
+    cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    card, _ = _serve_tokens(cfg, params, dev, prompts)
+    cpu, _ = _serve_tokens(cfg, _to_cpu(params), torch.device("cpu"),
+                           prompts)
+    assert card == cpu
+    cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
+                              head_dim=64)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    k2 = dict(flash_attention.launches_by_path)
+    routes = dict(moe.grouped_gemm.launches_by_route)
+    tokens, stats = _serve_tokens(cfg, params, dev, prompts)
+    assert all(len(t) == 6 for t in tokens)
+    n, n_moe = cfg.n_layers, cfg.n_layers - cfg.first_dense_layers
+    calls = stats.prefills + stats.ticks
+    assert {key: flash_attention.launches_by_path[key] - k2[key]
+            for key in k2} == {"prefill_tc": n * stats.prefills,
+                               "decode": n * stats.ticks, "general": 0}
+    assert {key: moe.grouped_gemm.launches_by_route[key] - routes[key]
+            for key in routes} == {"grouped_mm": 2 * n_moe * calls,
+                                   "loop": 0}

@@ -161,9 +161,9 @@ def test_unported_families_name_their_slice():
         with pytest.raises(NotImplementedError, match=f"family '{family}'.*"
                            "slice"):
             registry.get_config(arch)
-    moe = dataclasses.replace(registry.get_smoke_config("llama3.2-1b"),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tz.init_params(moe, device="cpu")
+    vlm = dataclasses.replace(registry.get_smoke_config("llama3.2-1b"),
+                              family="vlm")
+    with pytest.raises(NotImplementedError, match="VLM"):
+        tz.init_params(vlm, device="cpu")
     with pytest.raises(KeyError):
         registry.get_config("gpt-2")
