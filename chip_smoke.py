@@ -8,8 +8,9 @@ CUDA toolkit (``nvcc``):
 
 It builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc`` and drives the port's paths: the GNN pipeline at the paper's full
-widths, then LM serving and LM training on llama3.2-1b and MoE serving on
-deepseek-moe-16b at their published widths:
+widths, then LM serving and LM training on llama3.2-1b, MoE serving on
+deepseek-moe-16b and the recurrent families' serving on zamba2-1.2b and
+xlstm-1.3b at their published widths:
 
   device  the card's name, count and power limit (exit 1 without a card);
   build   nvcc for sm_90a, with the build seconds and each kernel's ptxas
@@ -80,7 +81,8 @@ deepseek-moe-16b at their published widths:
           prefill (L = 512, 1024: the bf16 tensor-core kernel) and decode
           (cache strides, ragged kv_len: the split-key kernel) shapes, and
           at deepseek-moe-16b's (16/16 heads of 128: prefill L = 1024,
-          decode of 8 slots over 2048 positions), with
+          decode of 8 slots over 2048 positions) and zamba2-1.2b's (32/32
+          heads of 64: prefill at L = 337 and 1000, decode as above), with
           the same error, determinism, time, device time and bound fields as
           K1 and scaled_dot_product_attention as the library call (at decode
           also over the cache cut to the longest live row); a decoded batch
@@ -132,6 +134,24 @@ deepseek-moe-16b at their published widths:
           lm_profile; then moe_route_fp32: the same model in fp32 serves
           two of the prompts and an unforced teacher-forced forward agrees
           with serving's routes at all but 1% of (position, layer) pairs;
+  hybrid_parity, xlstm_parity  zamba2-1.2b cut to 6 layers (one
+          shared-block site) and xlstm-1.3b cut to 8 (its one sLSTM layer)
+          at full width, fp32: the teacher-forced forward over 300 tokens,
+          then two prompts prefilled at their exact lengths and 8 greedy
+          decode steps, card against CPU: logits, every cache key, tokens;
+  hybrid_serve, xlstm_serve  each full-depth bf16 model behind
+          ServeEngine with lm_serve's traffic, every prompt prefilled at
+          its exact length; K2 6 x (prefills + ticks) for zamba2 (every
+          prefill on prefill_tc, every tick on decode), 0 for xlstm;
+          every served token re-scored by a bf16 teacher-forced forward
+          and by the fp32 model over the same weights: serving's logits no
+          further from the fp32 model's than the forward's
+          (REC_NOISE_RATIO), zamba2's tokens also to lm_serve's gate;
+          prefill ms by length, tick times, a profiled window as
+          lm_profile;
+  recurrent_fp32  both full-depth models in fp32 serve two prompts (one
+          past an SSD chunk), and each token's served logits agree with
+          the teacher-forced forward's within 2e-3, tokens equal;
   lm_train_parity  llama3.2-1b at full width cut to 2 layers, fp32, 2 x
           128 tokens from the data pipeline: loss_fn and every gradient
           leaf on the card (K2 both ways) against the CPU's;
@@ -151,8 +171,8 @@ Each phase prints JSON lines.  Any failed check exits non-zero.  Before
 the last line it prints the kernels summary and the ``nvidia-smi`` name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The
 kernel summary's ``launches`` are the main paths' (train, then the GNN
-forward path from bsp to evolve, then LM serving, MoE serving, then LM
-training), each
+forward path from bsp to evolve, then LM serving, MoE serving, hybrid
+serving, then LM training), each
 counted from 0; its ``flash_attention_bwd_tc`` entry is K2's tensor-core
 backward (both kernels' launches on the LM training path).
 """
@@ -178,7 +198,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import models as lm  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import moe, ssm  # noqa: E402
 from repro_torch.configs import get_config, gnn_paper  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     CostModel, apply_delta, glad_e, glad_s, greedy_layout,
@@ -268,6 +288,26 @@ MOE_SLOTS = 8
 MOE_MAX_LEN = 2048
 MOE_ROUTE_FLIP_SHARE = 0.01
 MOE_ROUTE_FLIP_CELL_SHARE = 0.5
+# The recurrent families (hybrid_serve: zamba2-1.2b, xlstm_serve:
+# xlstm-1.3b) behind lm_serve's engine shape, with its traffic.
+# recurrent_fp32 holds each decode step of the fp32 models against the
+# teacher-forced forward with the reference's own gate for that identity
+# (tests/test_models_zoo.py: rtol = atol = 2e-3).
+REC_SLOTS = 8
+REC_MAX_LEN = 2048
+REC_FP32_TOL = 2e-3
+# Serving's logits against the fp32 model over the same weights (the bf16
+# model's function without its activation rounding), beside the bf16
+# teacher-forced forward's: bf16 rounding alone moves both about as far
+# (on an H100, zamba2 median 0.143 / 0.142, xlstm 1.284 / 1.299 over the
+# 512 served positions), so serving's distance may be at most
+# REC_NOISE_RATIO times the forward's, at the median and at the largest
+# position.  Injected state-path faults move serving alone, to 1.66-30
+# times (tools/recurrent_probe.py --phases faults; PERF.md).  xLSTM's bf16
+# rounding moves its logits by 1.3 at the median, so lm_serve's per-token
+# SERVE_GAP_TOL holds zamba2's tokens only; the exact identity for both is
+# recurrent_fp32's.
+REC_NOISE_RATIO = 1.25
 # moe_parity: the routed MoE FFN alone in bf16 against the dense oracle,
 # relative to max|ref|: both round the expert outputs to bf16 (the oracle
 # also its combine), the routed path sums in another order.
@@ -1387,6 +1427,23 @@ def phase_flash_kernels(dev):
     main_cases.append(("deepseek_decode_B8_S2048_D128", q,
                        cache[1].transpose(1, 2), cache[0].transpose(1, 2),
                        kv_len, False))
+    # zamba2-1.2b's shared attention block (hybrid_serve's): 32/32 heads of
+    # 64, group 1; prefill at exact lengths off every power of two, decode
+    # of 8 slots over 2048 positions with ragged kv_len.
+    zc = get_config("zamba2-1.2b")
+    for L in (337, 1000):
+        main_cases.append((f"zamba2_prefill_L{L}_D64", *_bhld_views(
+            gen, dev, 1, zc.n_heads, zc.n_kv_heads, L, L, zc.hd, bf16),
+            None, True))
+    cache = torch.randn((2, REC_SLOTS, REC_MAX_LEN, zc.n_kv_heads, zc.hd),
+                        generator=gen, device=dev, dtype=bf16)
+    q = torch.randn((REC_SLOTS, 1, zc.n_heads, zc.hd), generator=gen,
+                    device=dev, dtype=bf16).transpose(1, 2)
+    kv_len = torch.from_numpy(rng.integers(64, 1057, size=REC_SLOTS)).to(
+        dev, torch.int32)
+    main_cases.append(("zamba2_decode_B8_S2048_D64", q,
+                       cache[1].transpose(1, 2), cache[0].transpose(1, 2),
+                       kv_len, False))
     del cache
     rows, worst = [], 0.0
     for label, q, k, v, kl, causal in main_cases:
@@ -1695,19 +1752,23 @@ def _bucketed(prompt, dev):
 
 
 def _lm_run(cfg, params, prompts, max_len, steps, dev):
-    """Prefill each prompt in its bucket, splice the caches into one batch,
-    then ``steps`` greedy decode steps.  Returns logits, tokens, the final
-    cache and K2's launches per call."""
+    """Prefill each prompt as the engine does (in its bucket for the
+    KV-cache families, at its exact length for the recurrent ones), splice
+    every key of the caches into one batch, then ``steps`` greedy decode
+    steps.  Returns logits, tokens, the final cache and K2's launches per
+    call."""
     logits, caches, launches = [], [], []
     for p in prompts:
+        batch = (_bucketed(p, dev) if cfg.family in ("dense", "moe")
+                 else {"tokens": torch.from_numpy(p)[None].to(dev)})
         before = flash_attention.launches
-        lg, c = lm.prefill(cfg, params, _bucketed(p, dev), max_len)
+        lg, c = lm.prefill(cfg, params, batch, max_len)
         launches.append(flash_attention.launches - before)
         logits.append(lg[:, -1])
         caches.append(c)
-    cache = {"k": torch.cat([c["k"] for c in caches], dim=1),
-             "v": torch.cat([c["v"] for c in caches], dim=1),
-             "len": torch.cat([c["len"] for c in caches])}
+    cache = {key: torch.cat([c[key] for c in caches],
+                            dim=0 if key == "len" else 1)
+             for key in caches[0]}
     toks = [torch.stack([lg.argmax(-1) for lg in logits], dim=1)[0]]
     step_logits = [torch.cat(logits)]
     for _ in range(steps):
@@ -1784,15 +1845,8 @@ def phase_lm_serve(dev, flash_rows):
     flash_attention.launches = 0
     flash_attention.launches_by_path = dict.fromkeys(
         flash_attention.launches_by_path, 0)
-    decode_s, admit_s = [], []
     t_run = time.perf_counter()
-    while engine.queue or any(r is not None for r in engine.live):
-        prefills = engine.stats.prefills
-        t = time.perf_counter()
-        engine.tick()
-        torch.cuda.synchronize()
-        (decode_s if engine.stats.prefills == prefills else admit_s).append(
-            time.perf_counter() - t)
+    decode_s, admit_s = _timed_ticks(engine)
     run_s = time.perf_counter() - t_run
     launches = flash_attention.launches       # ... and ends here
     by_path = dict(flash_attention.launches_by_path)
@@ -1854,6 +1908,20 @@ def phase_lm_serve(dev, flash_rows):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     _profile_decode(engine, cfg, "lm_profile", LLAMA_SLOTS)
     return launches, by_path
+
+
+def _timed_ticks(engine):
+    """Tick ``engine`` until every request is done; returns the host
+    seconds of the ticks that only decoded and of those that admitted."""
+    decode_s, admit_s = [], []
+    while engine.queue or any(r is not None for r in engine.live):
+        prefills = engine.stats.prefills
+        t = time.perf_counter()
+        engine.tick()
+        torch.cuda.synchronize()
+        (decode_s if engine.stats.prefills == prefills else admit_s).append(
+            time.perf_counter() - t)
+    return decode_s, admit_s
 
 
 def _kernel_kind(name: str) -> str:
@@ -2342,6 +2410,319 @@ def phase_moe_serve(dev, flash_rows):
     return launches, by_path
 
 
+# ------------------------------------------------------ recurrent families
+def _k2_sites(cfg) -> int:
+    """K2 launches per prefill or decode call: one per shared-block site of
+    the hybrid family, none for xLSTM."""
+    return ssm.num_shared_calls(cfg) if cfg.family == "hybrid" else 0
+
+
+def _fresh_device():
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _recurrent_parity(phase: str, arch: str, n_layers: int, dev):
+    """``arch`` at full width cut to ``n_layers``, fp32: the card against
+    the CPU on the same weights.  The teacher-forced forward over a
+    300-token prompt, then two prompts (100 and 300 tokens, the SSD scan
+    past one chunk) prefilled at their exact lengths and 8 greedy decode
+    steps: logits, every cache key and the tokens."""
+    _fresh_device()
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              dtype=torch.float32)
+    sites = _k2_sites(cfg)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    cpu_params = _to_cpu(params)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int64)
+               for n in (100, 300)]
+    max_len, steps = 512 + 16, 8
+    long = torch.from_numpy(prompts[1])[None]
+    g_fwd, _ = lm.forward(cfg, params, {"tokens": long.to(dev)})
+    c_fwd, _ = lm.forward(cfg, cpu_params, {"tokens": long})
+    g_logits, g_toks, g_cache, launches = _lm_run(cfg, params, prompts,
+                                                  max_len, steps, dev)
+    torch.cuda.synchronize()
+    require(launches == [sites] * (len(prompts) + steps),
+            f"{phase}: flash_attention launches per call {launches}, "
+            f"expected {sites} each")
+    c_logits, c_toks, c_cache, c_launches = _lm_run(
+        cfg, cpu_params, prompts, max_len, steps, torch.device("cpu"))
+    require(c_launches == [0] * len(c_launches), "the CPU run launched K2")
+    errs = {"forward": allclose_err(g_fwd.cpu(), c_fwd, LM_PARITY_TOL),
+            "step_logits": max(allclose_err(g.cpu(), c, LM_PARITY_TOL)
+                               for g, c in zip(g_logits, c_logits))}
+    errs.update({key: allclose_err(g_cache[key].cpu(), c_cache[key],
+                                   LM_PARITY_TOL)
+                 for key in c_cache if key != "len"})
+    require(max(errs.values()) <= LM_PARITY_TOL, f"{phase}: card vs CPU "
+            f"beyond {LM_PARITY_TOL}: excess by output {errs}")
+    require(torch.equal(g_toks.cpu(), c_toks),
+            f"{phase}: greedy tokens differ: {g_toks.tolist()} vs "
+            f"{c_toks.tolist()}")
+    require(torch.equal(g_cache["len"].cpu(), c_cache["len"]),
+            f"{phase}: cache lengths differ")
+    emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": "float32",
+          "k2_sites": sites, "prompt_lengths": [len(p) for p in prompts],
+          "forward_length": len(prompts[1]), "decode_steps": steps,
+          "launches_per_call": launches,
+          "forward_max_abs_diff": float((g_fwd.cpu() - c_fwd).abs().max()),
+          "logits_max_abs_diff": max(float((g.cpu() - c).abs().max())
+                                     for g, c in zip(g_logits, c_logits)),
+          "allclose_excess_by_output": errs, "tol": LM_PARITY_TOL,
+          "cache_keys": sorted(c_cache), "greedy_tokens_equal": True,
+          "tokens": g_toks.tolist(),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
+def phase_hybrid_parity(dev):
+    """zamba2-1.2b cut to 6 layers: one shared-block site runs."""
+    _recurrent_parity("hybrid_parity", "zamba2-1.2b", 6, dev)
+
+
+def phase_xlstm_parity(dev):
+    """xlstm-1.3b cut to 8 layers: its one sLSTM layer runs."""
+    _recurrent_parity("xlstm_parity", "xlstm-1.3b", 8, dev)
+
+
+def _rescore_recurrent(cfg, params, reqs, served, dev):
+    """Each request's served tokens re-scored by one bf16 teacher-forced
+    forward and by the fp32 model over the same weights widened (the bf16
+    model's function without its activation rounding).  ``served`` maps a
+    request to the logits serving computed for each of its tokens
+    (:class:`_LogitLog`).  Returns, per served token, its gap below the
+    bf16 forward's top logit, and per position the distance (max over the
+    vocab) of serving's logits and of the bf16 forward's from the fp32
+    model's, and how many served tokens are the bf16 forward's top."""
+    f32 = dataclasses.replace(cfg, dtype=torch.float32,
+                              param_dtype=torch.float32)
+    wide = optim.tree_map(lambda t: t.float(), params)
+    gaps, d_served, d_forward, exact = [], [], [], 0
+    for r in reqs:
+        n, count = len(r.prompt), len(r.out_tokens)
+        batch = {"tokens": torch.from_numpy(np.concatenate(
+            [r.prompt, r.out_tokens[:-1]]))[None].to(dev)}
+        rows = lm.forward(cfg, params, batch)[0][0, n - 1:n - 1 + count]
+        ref = lm.forward(f32, wide, batch)[0][0, n - 1:n - 1 + count]
+        rows = rows.float()
+        got = torch.stack(served[r.uid]).float()
+        require(bool(torch.isfinite(rows).all() and torch.isfinite(got).all()),
+                f"{cfg.name}: non-finite logits")
+        tok = torch.tensor(r.out_tokens, device=dev)
+        gaps.append(rows.max(-1).values - rows[torch.arange(count), tok])
+        exact += int((rows.argmax(-1) == tok).sum())
+        d_served.append((got - ref).abs().amax(-1))
+        d_forward.append((rows - ref).abs().amax(-1))
+    del wide
+    return torch.cat(gaps), torch.cat(d_served), torch.cat(d_forward), exact
+
+
+def _recurrent_serve(phase: str, arch: str, dev, gap_gate: bool):
+    """Main path: the full-depth bf16 model behind ServeEngine with
+    lm_serve's traffic, every prompt prefilled at its exact length.  K2
+    launches once per shared-block site per prefill (prefill_tc) and per
+    tick (decode).  Every served token is re-scored
+    (:func:`_rescore_recurrent`): serving's logits may be no further from
+    the fp32 model's than the bf16 teacher-forced forward's are
+    (REC_NOISE_RATIO, at the median and at the largest position), and with
+    ``gap_gate`` each token is the bf16 forward's top or within
+    SERVE_GAP_TOL of it (lm_serve's gate)."""
+    _fresh_device()
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)  # the CLI's rule
+    sites = _k2_sites(cfg)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    engine = ServeEngine(cfg, params, slots=REC_SLOTS, max_len=REC_MAX_LEN,
+                         device=dev)
+    del params                       # the engine holds the same tensors
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in optim.leaves(engine.params)) / 1e9
+    n_params = sum(t.numel() for t in optim.leaves(engine.params))
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in engine.cache.values()) / 1e9
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, size=int(n)),
+                    max_new_tokens=32, eos_id=-1)
+            for i, n in enumerate(rng.integers(64, 1025, size=16))]
+    for r in reqs:
+        engine.submit(r)
+
+    _zero_counts()                            # the main path starts here
+    with _LogitLog(engine, reqs) as log:
+        decode_s, admit_s = _timed_ticks(engine)
+    run_s = sum(decode_s) + sum(admit_s)      # the ticks alone
+    launches = flash_attention.launches       # ... and ends here
+    by_path = dict(flash_attention.launches_by_path)
+    s = engine.stats
+    require(all(r.done and len(r.out_tokens) == 32 for r in reqs),
+            f"{phase}: token counts {[len(r.out_tokens) for r in reqs]}")
+    require(s.completed == 16 and s.prefills == 16, f"{phase}: {s}")
+    require(launches == sites * (s.prefills + s.ticks),
+            f"{phase}: {launches} flash_attention launches, expected "
+            f"{sites} x ({s.prefills} prefills + {s.ticks} ticks)")
+    require(by_path == {"prefill_tc": sites * s.prefills,
+                        "decode": sites * s.ticks, "general": 0},
+            f"{phase}: flash_attention launches by kernel {by_path}, "
+            "expected every prefill on prefill_tc, every tick on decode")
+    require(spmm.launches == 0, f"{phase} launched spmm_csr")
+
+    gaps, d_served, d_forward, exact = _rescore_recurrent(
+        cfg, engine.params, reqs, log.logits, dev)
+    ratio = {"median": float(d_served.median() / d_forward.median()),
+             "max": float(d_served.max() / d_forward.max())}
+
+    prompt = torch.from_numpy(reqs[0].prompt[:1].repeat(1024))[None].to(dev)
+    prefill_ms = {L: time_ms(lambda: lm.prefill(
+        cfg, engine.params, {"tokens": prompt[:, :L]}, REC_MAX_LEN),
+        reps=2, warmup=1) for L in (64, 256, 1024)}
+    tokens = s.generated_tokens + s.prefills
+    emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "dtype": "bfloat16", "params": n_params,
+          "params_count": cfg.params_count(), "weights_gb": weights_gb,
+          "cache_gb": cache_gb, "resident_gb": resident_gb,
+          "k2_sites": sites, "slots": REC_SLOTS, "max_len": REC_MAX_LEN,
+          "requests": len(reqs),
+          "prompt_lengths": [len(r.prompt) for r in reqs],
+          "prefills": s.prefills, "ticks": s.ticks, "completed": s.completed,
+          "tokens": tokens, "flash_attention_launches": launches,
+          "flash_attention_launches_by_path": by_path,
+          "setup_s": setup_s, "run_s": run_s, "tok_per_s": tokens / run_s,
+          "decode_tick_ms_median": statistics.median(decode_s) * 1e3,
+          "decode_tick_ms_p90": float(np.percentile(decode_s, 90)) * 1e3,
+          "admit_tick_ms_median": statistics.median(admit_s) * 1e3,
+          "prefill_ms_by_length": prefill_ms,
+          "teacher_forced_exact": exact,
+          "teacher_forced_checked": int(gaps.numel()),
+          "teacher_forced_max_gap": float(gaps.max()),
+          "gap_tol": SERVE_GAP_TOL if gap_gate else "not gated",
+          "served_vs_fp32": {"median": float(d_served.median()),
+                             "max": float(d_served.max())},
+          "bf16_forward_vs_fp32": {"median": float(d_forward.median()),
+                                   "max": float(d_forward.max())},
+          "noise_ratio": ratio, "noise_ratio_tol": REC_NOISE_RATIO,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    require(max(ratio.values()) <= REC_NOISE_RATIO, f"{phase}: serving's "
+            f"logits are {ratio} times as far from the fp32 model's as the "
+            "bf16 teacher-forced forward's")
+    require(not gap_gate or float(gaps.max()) <= SERVE_GAP_TOL,
+            f"{phase}: a served token is {float(gaps.max())} below the "
+            "teacher-forced top logit")
+    _profile_decode(engine, cfg, phase.replace("serve", "profile"), REC_SLOTS)
+    return launches, by_path
+
+
+def phase_hybrid_serve(dev):
+    return _recurrent_serve("hybrid_serve", "zamba2-1.2b", dev,
+                            gap_gate=True)
+
+
+def phase_xlstm_serve(dev):
+    """xlstm-1.3b's served tokens are not held to SERVE_GAP_TOL: bf16
+    rounding alone moves its logits by far more (REC_NOISE_RATIO)."""
+    return _recurrent_serve("xlstm_serve", "xlstm-1.3b", dev,
+                            gap_gate=False)
+
+
+class _LogitLog:
+    """Records, per request, the logits serving computed for each of its
+    tokens while it is entered: it wraps the zoo's ``prefill`` and
+    ``decode_step``, which the engine looks up at each call, and puts them
+    back on exit.  A prefill's logits go to the request admitted next (in
+    ``order``), a tick's row ``i`` to the request live in slot ``i``."""
+
+    def __init__(self, engine, order):
+        self.engine, self.order = engine, iter(order)
+        self.logits = {}
+
+    def __enter__(self):
+        self.prefill, self.decode = lm.prefill, lm.decode_step
+
+        def prefill(*args):
+            lg, cache = self.prefill(*args)
+            self.logits[next(self.order).uid] = [lg[0, -1]]
+            return lg, cache
+
+        def decode(*args):
+            lg, cache = self.decode(*args)
+            for i, r in enumerate(self.engine.live):
+                if r is not None:
+                    self.logits[r.uid].append(lg[i, 0])
+            return lg, cache
+        lm.prefill, lm.decode_step = prefill, decode
+        return self
+
+    def __exit__(self, *exc):
+        lm.prefill, lm.decode_step = self.prefill, self.decode
+
+
+def phase_recurrent_fp32(dev):
+    """Both full-depth recurrent models in fp32 (unrounded weights) serve two
+    prompts (200 tokens, past one SSD chunk, and 77), 32 tokens each,
+    behind ServeEngine; each token's logits as served against the
+    teacher-forced forward at that position (REC_FP32_TOL), and the served
+    tokens equal to its greedy ones.  Where rounding is 2**-24 a miss is a
+    fault of the state path."""
+    for arch in ("zamba2-1.2b", "xlstm-1.3b"):
+        _fresh_device()
+        cfg = dataclasses.replace(get_config(arch), dtype=torch.float32,
+                                  param_dtype=torch.float32)
+        params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                                dev)
+        engine = ServeEngine(cfg, params, slots=2, max_len=REC_MAX_LEN,
+                             device=dev)
+        del params
+        weights_gb = sum(t.numel() * t.element_size()
+                         for t in optim.leaves(engine.params)) / 1e9
+        rng = np.random.default_rng(SEED + 4)
+        reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, size=n),
+                        max_new_tokens=32, eos_id=-1)
+                for i, n in enumerate((200, 77))]
+        for r in reqs:
+            engine.submit(r)
+        with _LogitLog(engine, reqs) as log:
+            engine.run()
+        require(all(r.done and len(r.out_tokens) == 32 for r in reqs),
+                f"recurrent_fp32 {arch}: token counts "
+                f"{[len(r.out_tokens) for r in reqs]}")
+        excess, max_abs, equal = [], [], True
+        for r in reqs:
+            n = len(r.prompt)
+            toks = np.concatenate([r.prompt, r.out_tokens[:-1]])
+            logits, _ = lm.forward(cfg, engine.params, {
+                "tokens": torch.from_numpy(toks)[None].to(dev)})
+            rows = logits[0, n - 1:n - 1 + len(r.out_tokens)]
+            served = torch.stack(log.logits[r.uid])
+            require(served.shape == rows.shape, f"recurrent_fp32 {arch}: "
+                    f"{tuple(served.shape)} served logits, expected "
+                    f"{tuple(rows.shape)}")
+            excess.append(allclose_err(served, rows, REC_FP32_TOL))
+            max_abs.append(float((served - rows).abs().max()))
+            equal &= r.out_tokens == rows.argmax(-1).tolist()
+        emit({"phase": "recurrent_fp32", "arch": cfg.name,
+              "n_layers": cfg.n_layers, "dtype": "float32",
+              "weights_gb": weights_gb,
+              "prompt_lengths": [len(r.prompt) for r in reqs],
+              "tokens_checked": sum(len(r.out_tokens) for r in reqs),
+              "logits_max_abs_diff": max(max_abs),
+              "allclose_excess": max(excess), "tol": REC_FP32_TOL,
+              "tokens_equal": equal,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        require(equal, f"recurrent_fp32 {arch}: served tokens differ from "
+                "the teacher-forced greedy ones")
+        require(max(excess) <= REC_FP32_TOL, f"recurrent_fp32 {arch}: served "
+                f"logits beyond rtol = atol = {REC_FP32_TOL} of the "
+                f"teacher-forced forward (excess {max(excess)}, max abs "
+                f"{max(max_abs)})")
+        del engine
+
+
 def _k2_counts():
     return (dict(flash_attention.launches_by_path),
             dict(flash_attention.backward_launches))
@@ -2660,6 +3041,14 @@ def main() -> int:
     phase_moe_parity(dev)
     moe_launches, moe_by_path = phase_moe_serve(dev, flash_rows)
     require(moe_launches > 0, "the MoE path never launched flash_attention")
+    phase_hybrid_parity(dev)
+    hybrid_launches, hybrid_by_path = phase_hybrid_serve(dev)
+    require(hybrid_launches > 0,
+            "the hybrid path never launched flash_attention")
+    phase_xlstm_parity(dev)
+    xlstm_launches, _ = phase_xlstm_serve(dev)
+    require(xlstm_launches == 0, "the xLSTM path launched flash_attention")
+    phase_recurrent_fp32(dev)
     train_launches_k2, train_by_path, train_bwd, train_bwd_by_path = (
         phase_lm_train(dev))
 
@@ -2696,11 +3085,14 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:117",
-        "launches": flash_launches + moe_launches + train_launches_k2,
+        "launches": (flash_launches + moe_launches + hybrid_launches
+                     + train_launches_k2),
         "launches_by_path": {key: flash_by_path[key] + moe_by_path[key]
-                             + train_by_path[key] for key in flash_by_path},
+                             + hybrid_by_path[key] + train_by_path[key]
+                             for key in flash_by_path},
         "launches_by_phase": {"lm_serve": flash_by_path,
                               "moe_serve": moe_by_path,
+                              "hybrid_serve": hybrid_by_path,
                               "lm_train": train_by_path},
         "backward_launches": train_bwd,
         "backward_launches_by_path": train_bwd_by_path,

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-The reference's ten archs keep their ids.  The dense and MoE families run
-in the port; an arch of a family not ported yet raises ``NotImplementedError``
-naming the slice queued for it (``ROADMAP.md``).  The dry-run input specs
+The reference's ten archs keep their ids.  The dense, MoE, hybrid (Mamba2)
+and xLSTM families run in the port; an arch of a family not ported yet
+raises ``NotImplementedError`` naming the slice queued for it
+(``ROADMAP.md``).  The dry-run input specs
 (``input_specs``, ``all_cells``) belong to ``launch/`` and come with it.
 """
 from __future__ import annotations
@@ -18,12 +19,12 @@ ARCHS = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 # Archs of the reference whose family has no port yet -> family.
 QUEUED = {
-    "zamba2-1.2b": "hybrid",
-    "xlstm-1.3b": "ssm",
     "seamless-m4t-medium": "encdec",
     "internvl2-2b": "vlm",
 }

@@ -10,6 +10,9 @@ width (without ``--smoke``) they are held in ``cfg.dtype``
 32.8 GB in bf16 and the engine keeps no second copy:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
+
+The recurrent families run the same way (``--arch zamba2-1.2b``, ``--arch
+xlstm-1.3b``); they prefill each prompt at its exact length.
 """
 from __future__ import annotations
 

@@ -1,17 +1,25 @@
 """Model zoo: family dispatch.
 
-The dense and MoE families run in the port, both through ``transformer``;
-the others raise ``NotImplementedError`` naming the slice queued for them
-(``common.QUEUED_FAMILIES``).
+The dense and MoE families run through ``transformer``, the hybrid (Mamba2
++ shared attention) family through ``ssm`` and the xLSTM family through
+``xlstm``; the others raise ``NotImplementedError`` naming the slice queued
+for them (``common.QUEUED_FAMILIES``).
 """
 from repro_torch.models.common import (LMConfig, QUEUED_FAMILIES, SHAPES,
                                        ShapeCfg, check_family)
-from repro_torch.models import moe, transformer
+from repro_torch.models import moe, ssm, transformer, xlstm
+
+_FAMILY = {
+    "dense": transformer,
+    "moe": transformer,
+    "hybrid": ssm,
+    "ssm": xlstm,
+}
 
 
 def family_module(cfg: LMConfig):
     check_family(cfg.name, cfg.family)
-    return transformer
+    return _FAMILY[cfg.family]
 
 
 def init_params(cfg, generator=None, device="cuda"):
@@ -41,5 +49,5 @@ def init_cache(cfg, batch, max_len, device="cuda"):
 __all__ = [
     "LMConfig", "QUEUED_FAMILIES", "SHAPES", "ShapeCfg", "family_module",
     "init_params", "forward", "loss_fn", "prefill", "decode_step",
-    "init_cache", "moe", "transformer",
+    "init_cache", "moe", "ssm", "transformer", "xlstm",
 ]

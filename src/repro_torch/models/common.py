@@ -29,18 +29,16 @@ _MASKED = -1e30                    # the reference's masking constant
 
 # Families of the reference the port runs, and those it does not run yet ->
 # the slice that brings each (ROADMAP.md).
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 QUEUED_FAMILIES = {
     "vlm": "the VLM family slice (patch frontend)",
-    "hybrid": "the SSM/hybrid family slice (Mamba2 SSD)",
-    "ssm": "the xLSTM family slice",
     "encdec": "the enc-dec family slice",
 }
 
 
 def check_family(name: str, family: str) -> None:
     """Raise ``NotImplementedError`` naming the slice queued for a family
-    the port does not run yet; the dense and MoE families pass."""
+    the port does not run yet; the ported families pass."""
     if family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{name}: family {family!r} is not ported yet; it comes with "

@@ -151,13 +151,24 @@ def params_from_jax(params_np, device: DeviceLike = "cuda") -> Dict:
     return conv(params_np)
 
 
+# Weights the reference reads ``.astype(float32)`` at use, whatever
+# ``cfg.dtype`` is: the MoE router (``moe.router_topk``), Mamba2's decay,
+# skip and step-bias vectors (``ssm.mamba_forward``) and the sLSTM's
+# recurrent matrix (``xlstm.slstm_forward``).  Rounding them to a bf16
+# ``cfg.dtype`` would change what the model computes, so :func:`cast_params`
+# leaves them in ``param_dtype``.
+FP32_AT_USE = frozenset({"router", "A_log", "D", "dt_bias", "r"})
+
+
 def cast_params(cfg: LMConfig, params: Dict) -> Dict:
-    """Every weight cast once to ``cfg.dtype``.  The values are those of the
-    reference's per-use ``.astype(cfg.dtype)``, so results are unchanged;
-    the model functions' own casts are then no-ops.  A weight already in
-    ``cfg.dtype`` is returned as it is, not copied."""
+    """The weights cast once to ``cfg.dtype`` where the reference casts them
+    to ``cfg.dtype`` at use, so results are unchanged and the model
+    functions' own casts are no-ops.  The leaves named in
+    :data:`FP32_AT_USE` are returned as they are (the same tensor), as is a
+    weight already in ``cfg.dtype``: neither is copied."""
     if isinstance(params, dict):
-        return {k: cast_params(cfg, v) for k, v in params.items()}
+        return {k: v if k in FP32_AT_USE else cast_params(cfg, v)
+                for k, v in params.items()}
     return params.to(cfg.dtype)
 
 

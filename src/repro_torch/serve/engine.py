@@ -1,26 +1,30 @@
-"""Batched serving engine: continuous batching over a slot-based KV cache.
+"""Batched serving engine: continuous batching over a slot-based cache.
 
 The torch counterpart of ``repro.serve.engine``.  One ``decode_step`` serves
 all slots per tick; requests flow through
-  queue -> prefill (builds the request's KV, written into a free slot)
+  queue -> prefill (builds the request's cache, spliced into a free slot)
   -> decode ticks (all live slots advance one token)
   -> completion (EOS / max_new_tokens / cache full) frees the slot.
 
-Per-slot lengths ride in the cache's ``len`` vector.  Prompts are padded to
-power-of-two buckets, as in the reference, where that bounded the jitted
-prefill's traces; the port runs eagerly and keeps the buckets so that both
-compute the same thing (pad positions are inert: attention is causal and
-decode masks KV beyond ``len``).  The reference's ``trace_counts`` counted
-``jax.jit`` traces, which eager PyTorch has none of; it returns as a capture
-counter with CUDA graphs.
+Per-slot lengths ride in the cache's ``len`` vector.  For the KV-cache
+families (dense, MoE) prompts are padded to power-of-two buckets, as in the
+reference, where that bounded the jitted prefill's traces; the port runs
+eagerly and keeps the buckets so that both compute the same thing (pad
+positions are inert: attention is causal and decode masks KV beyond
+``len``).  The recurrent families (hybrid, xLSTM) would carry a pad token
+through their state, so they prefill at the prompt's exact length, as the
+reference does.  A slot receives every key of the request's cache but
+``len`` (KV, SSM and conv state, mLSTM and sLSTM state).  The reference's
+``trace_counts`` counted ``jax.jit`` traces, which eager PyTorch has none
+of; it returns as a capture counter with CUDA graphs.
 
-The engine runs on weights cast once to ``cfg.dtype`` (the same values as
-the reference's per-use casts; weights already in ``cfg.dtype`` are kept as
-they are, with no second copy).  It serves the dense and MoE families as
-the reference does: an MoE layer routes every token of a padded bucket,
-and a pad token never takes a real token's place (``models.moe``).  On the
-card every layer's attention, in prefill and in decode, is the
-flash-attention kernel (K2).
+The engine runs on weights cast once to ``cfg.dtype``
+(``transformer.cast_params``: the values of the reference's per-use casts;
+the leaves the reference reads in fp32, and weights already in
+``cfg.dtype``, are kept as they are, with no second copy).  An MoE layer
+routes every token of a padded bucket, and a pad token never takes a real
+token's place (``models.moe``).  On the card every attention, in prefill
+and in decode, is the flash-attention kernel (K2).
 """
 from __future__ import annotations
 
@@ -56,8 +60,8 @@ class EngineStats:
 
 
 class ServeEngine:
-    """Continuous batching for the KV-cache (dense and MoE) families on one
-    device.  ``params`` lie on ``device``."""
+    """Continuous batching for every ported family on one device.
+    ``params`` lie on ``device``."""
 
     def __init__(self, cfg: LMConfig, params, slots: int = 4,
                  max_len: int = 256, device: DeviceLike = "cuda"):
@@ -68,6 +72,8 @@ class ServeEngine:
         self.slots = slots
         self.max_len = max_len
         self.cache = zoo.init_cache(cfg, slots, max_len, device=self.device)
+        # Only the KV-cache families take bucketed prompts (module docstring).
+        self._bucketed = cfg.family in ("dense", "moe")
         self.live: List[Optional[Request]] = [None] * slots
         self.queue: deque[Request] = deque()
         self.stats = EngineStats()
@@ -85,17 +91,21 @@ class ServeEngine:
         return 1 << max(length - 1, 0).bit_length()
 
     def _insert(self, slot: int, req: Request) -> bool:
-        """Prefill one request; splice its KV into the batch cache.  If the
-        request already finishes at prefill (first generated token is EOS,
-        or a one-token budget), it completes here and the slot stays free —
-        returns True iff the slot was occupied."""
+        """Prefill one request; splice its cache into the batch cache.  If
+        the request already finishes at prefill (first generated token is
+        EOS, or a one-token budget), it completes here and the slot stays
+        free — returns True iff the slot was occupied."""
         L = len(req.prompt)
-        bucket = min(self._bucket(L), self.max_len)
-        prompt = torch.zeros((1, bucket), dtype=torch.long)
-        prompt[0, :L] = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long)
-        batch = {"tokens": prompt.to(self.device),
-                 "lengths": torch.tensor([L], dtype=torch.int32,
-                                         device=self.device)}
+        tokens = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long)
+        if self._bucketed:
+            bucket = min(self._bucket(L), self.max_len)
+            prompt = torch.zeros((1, bucket), dtype=torch.long)
+            prompt[0, :L] = tokens
+            batch = {"tokens": prompt.to(self.device),
+                     "lengths": torch.tensor([L], dtype=torch.int32,
+                                             device=self.device)}
+        else:
+            batch = {"tokens": tokens[None].to(self.device)}
         logits, rcache = zoo.prefill(self.cfg, self.params, batch,
                                      self.max_len)
         self.stats.prefills += 1
@@ -105,8 +115,9 @@ class ServeEngine:
             req.done = True
             self.stats.completed += 1
             return False
-        for key in ("k", "v"):
-            self.cache[key][:, slot] = rcache[key][:, 0]
+        for key, t in rcache.items():
+            if key != "len":
+                self.cache[key][:, slot] = t[:, 0]
         self.cache["len"][slot] = L
         self.live[slot] = req
         return True

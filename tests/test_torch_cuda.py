@@ -2,9 +2,10 @@
 kernels (K2 both ways) against their plain torch versions, the wrappers'
 input checks, and the port's card paths (BSP forward and train step, K1's
 backward, LM prefill, decode and train step, the LM training CLI, the MoE
-FFN and its grouped GEMM's routes, MoE serving) against its CPU paths.  Without a card every test here skips.  The file
-imports neither ``jax`` nor ``repro``, so it runs on a machine with the card
-and the port alone:
+FFN and its grouped GEMM's routes, MoE serving, the recurrent families'
+prefill, decode and serving) against its CPU paths.  Without a card every
+test here skips.  The file imports neither ``jax`` nor ``repro``, so it runs
+on a machine with the card and the port alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -863,3 +864,73 @@ def test_moe_smoke_served_on_card(dev):
     assert {key: moe.grouped_gemm.launches_by_route[key] - routes[key]
             for key in routes} == {"grouped_mm": 2 * n_moe * calls,
                                    "loop": 0}
+
+
+# ------------------------------------------------- recurrent families (K2)
+@pytest.mark.parametrize("B,Lq,Lk,kv_len,path", [
+    (1, 337, 337, None, "prefill_tc"), (1, 1000, 1000, None, "prefill_tc"),
+    (8, 1, 2048, [64, 1056, 300, 1, 777, 2048, 129, 500], "decode")])
+def test_flash_zamba2_shapes_match_plain(dev, B, Lq, Lk, kv_len, path):
+    """zamba2-1.2b's shared attention: 32/32 heads of 64 (group 1) in bf16,
+    prefill at exact lengths off the powers of two, decode over the slot
+    cache with ragged kv_len."""
+    q, k, v = _flash_inputs(dev, B, 32, 32, Lq, Lk, 64, torch.bfloat16,
+                            seed=Lq)
+    kl = (torch.tensor(kv_len, dtype=torch.int32, device=dev)
+          if kv_len else None)
+    _flash_twice(q, k, v, kl, kv_len is None, path)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_recurrent_prefill_and_decode_on_card_match_cpu(dev, arch):
+    """The smoke models in fp32, one prompt past an SSD chunk: prefill and
+    3 decode steps on the card against the CPU, logits and every cache
+    key; the hybrid's attention launches K2 once per shared-block site."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    cpu = _to_cpu(params)
+    sites = lm.ssm.num_shared_calls(cfg) if cfg.family == "hybrid" else 0
+    tok = torch.randint(1, 500, (2, 150),
+                        generator=torch.Generator().manual_seed(1))
+    before = flash_attention.launches
+    gl, gc = lm.prefill(cfg, params, {"tokens": tok.to(dev)}, 192)
+    assert flash_attention.launches - before == sites
+    cl, cc = lm.prefill(cfg, cpu, {"tokens": tok}, 192)
+    torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    for step in range(3):
+        nxt = torch.tensor([[3 + step], [9 + step]])
+        gl, gc = lm.decode_step(cfg, params, nxt.to(dev), gc)
+        cl, cc = lm.decode_step(cfg, cpu, nxt, cc)
+        torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    assert sorted(gc) == sorted(cc)
+    for key in cc:
+        torch.testing.assert_close(gc[key].cpu(), cc[key], rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_recurrent_smoke_served_on_card(dev, arch):
+    """The smoke models behind ServeEngine on the card: in fp32 the same
+    tokens as on the CPU from the same weights; in bf16 (the hybrid with
+    head dim 64) every request completes, each prefill at its exact length
+    on prefill_tc and each tick on the split decode, once per site."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 400, size=n).astype(np.int32)
+               for n in (20, 17, 30, 25, 40)]
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    card, _ = _serve_tokens(cfg, params, dev, prompts)
+    cpu, _ = _serve_tokens(cfg, _to_cpu(params), torch.device("cpu"),
+                           prompts)
+    assert card == cpu
+    cfg = get_smoke_config(arch)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    k2 = dict(flash_attention.launches_by_path)
+    tokens, stats = _serve_tokens(cfg, params, dev, prompts)
+    assert all(len(t) == 6 for t in tokens)
+    sites = lm.ssm.num_shared_calls(cfg) if cfg.family == "hybrid" else 0
+    assert {key: flash_attention.launches_by_path[key] - k2[key]
+            for key in k2} == {"prefill_tc": sites * stats.prefills,
+                               "decode": sites * stats.ticks, "general": 0}

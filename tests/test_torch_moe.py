@@ -266,6 +266,29 @@ def test_engine_keeps_weights_already_in_compute_dtype(pair):
     assert eng.params["dense_layers"]["w13"] is tp["dense_layers"]["w13"]
 
 
+def test_engine_keeps_the_router_in_fp32_under_bf16_compute():
+    """dtype bf16 over param_dtype fp32 (deepseek-moe-16b's own split): the
+    reference routes with the router read .astype(float32), so the engine
+    keeps the fp32 tensor it was given, and routing over the engine's
+    weights is routing over the fp32 weights, bit for bit."""
+    cfg = dataclasses.replace(registry.get_smoke_config("deepseek-moe-16b"),
+                              dtype=torch.bfloat16, param_dtype=torch.float32)
+    tp = tz.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = ServeEngine(cfg, tp, slots=1, max_len=16, device="cpu")
+    router = eng.params["layers"]["router"]
+    assert router is tp["layers"]["router"]
+    assert router.dtype == torch.float32
+    assert eng.params["layers"]["moe_w13"].dtype == torch.bfloat16
+    x = torch.randn((3, 7, cfg.d_model), generator=torch.Generator().manual_seed(
+        1)).to(torch.bfloat16)
+    for layer in range(router.shape[0]):
+        got = TM.router_topk(x, router[layer], cfg.top_k)
+        ref = TM.router_topk(x, tp["layers"]["router"][layer].float(),
+                             cfg.top_k)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
 def test_launch_serve_cli_runs_deepseek_smoke_on_cpu():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
