@@ -9,8 +9,9 @@ CUDA toolkit (``nvcc``):
 It builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc`` and drives the port's paths: the GNN pipeline at the paper's full
 widths, then LM serving and LM training on llama3.2-1b, MoE serving on
-deepseek-moe-16b and the recurrent families' serving on zamba2-1.2b and
-xlstm-1.3b at their published widths:
+deepseek-moe-16b, the recurrent families' serving on zamba2-1.2b and
+xlstm-1.3b, and the VLM and enc-dec families' serving on internvl2-2b and
+seamless-m4t-medium, at their published widths:
 
   device  the card's name, count and power limit (exit 1 without a card);
   build   nvcc for sm_90a, with the build seconds and each kernel's ptxas
@@ -81,8 +82,12 @@ xlstm-1.3b at their published widths:
           prefill (L = 512, 1024: the bf16 tensor-core kernel) and decode
           (cache strides, ragged kv_len: the split-key kernel) shapes, and
           at deepseek-moe-16b's (16/16 heads of 128: prefill L = 1024,
-          decode of 8 slots over 2048 positions) and zamba2-1.2b's (32/32
-          heads of 64: prefill at L = 337 and 1000, decode as above), with
+          decode of 8 slots over 2048 positions), zamba2-1.2b's (32/32
+          heads of 64: prefill at L = 337 and 1000, decode as above),
+          internvl2-2b's (16/8 heads of 128: prefill at L = 768, decode as
+          above) and seamless-m4t-medium's (16/16 heads of 64, none causal:
+          the encoder at L = 1024, the cross-attention of 8 32-token
+          prompts and of 8 decode rows over 1024 frames), with
           the same error, determinism, time, device time and bound fields as
           K1 and scaled_dot_product_attention as the library call (at decode
           also over the cache cut to the longest live row); a decoded batch
@@ -152,6 +157,29 @@ xlstm-1.3b at their published widths:
   recurrent_fp32  both full-depth models in fp32 serve two prompts (one
           past an SSD chunk), and each token's served logits agree with
           the teacher-forced forward's within 2e-3, tokens equal;
+  vlm_parity, encdec_parity  internvl2-2b cut to 2 layers and
+          seamless-m4t-medium cut to 2 + 2 at full width, fp32: two prompts
+          (64 tokens after 256 stub patches; 16 tokens over 1024 stub
+          frames), the teacher-forced forward, then one prefill and 8
+          greedy decode steps, card against CPU: logits, every cache key
+          (enc-dec's cross-attention xk/xv too), tokens;
+  vlm_serve  the full 24-layer bf16 internvl2-2b behind ServeEngine with
+          lm_serve's traffic, text only at exact length (as the reference's
+          engine serves it): K2 24 x (prefills + ticks) by kernel, every
+          served token against a teacher-forced forward (lm_serve's gate);
+          then 256 patches + a 512-token prompt and 16 decode steps through
+          the zoo, each token against the forward with the patches; tick,
+          prefill and profile (vlm_profile) lines;
+  encdec_serve  the full 12 + 12-layer bf16 seamless-m4t-medium: 8
+          utterances of 1024 frames with 32-token prompts prefilled in one
+          batch, 32 decode steps (the reference's form of enc-dec serving);
+          K2 36 per prefill (encoder, decoder self, cross: prefill_tc) and
+          24 per step (decode); every token against teacher forcing;
+          encoder and prefill ms, step times; then the idle-slot repair on
+          the card (llama3.2-1b cut to 2 layers, an idle slot's len past
+          max_len: no device assert);
+  zoo_fp32  both at full depth in fp32: 16 decode steps' logits against the
+          teacher-forced forward within 2e-3, tokens equal;
   lm_train_parity  llama3.2-1b at full width cut to 2 layers, fp32, 2 x
           128 tokens from the data pipeline: loss_fn and every gradient
           leaf on the card (K2 both ways) against the CPU's;
@@ -172,7 +200,7 @@ the last line it prints the kernels summary and the ``nvidia-smi`` name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The
 kernel summary's ``launches`` are the main paths' (train, then the GNN
 forward path from bsp to evolve, then LM serving, MoE serving, hybrid
-serving, then LM training), each
+serving, VLM serving, enc-dec serving, then LM training), each
 counted from 0; its ``flash_attention_bwd_tc`` entry is K2's tensor-core
 backward (both kernels' launches on the LM training path).
 """
@@ -308,6 +336,24 @@ REC_FP32_TOL = 2e-3
 # SERVE_GAP_TOL holds zamba2's tokens only; the exact identity for both is
 # recurrent_fp32's.
 REC_NOISE_RATIO = 1.25
+# The VLM and enc-dec families.  vlm_serve: internvl2-2b behind lm_serve's
+# engine shape and traffic (text only, as the reference's engine serves
+# it), then one prefill of VLM_PATCHES stub patches in front of a
+# VLM_PROMPT-token prompt and VLM_STEPS decode steps through the zoo.
+# encdec_serve: the reference's own form of enc-dec serving
+# (tests/test_models_zoo.py:65-88), ENCDEC_BATCH utterances of
+# frontend_len frames with ENCDEC_PROMPT-token decoder prompts prefilled in
+# one batch, then ENCDEC_STEPS decode steps.  zoo_fp32 holds both models'
+# decode against teacher forcing in fp32 with the reference's gate for
+# that identity (REC_FP32_TOL: tests/test_models_zoo.py:88).
+VLM_SLOTS = 8
+VLM_MAX_LEN = 2048
+VLM_PATCHES = 256
+VLM_PROMPT = 512
+VLM_STEPS = 16
+ENCDEC_BATCH = 8
+ENCDEC_PROMPT = 32
+ENCDEC_STEPS = 32
 # moe_parity: the routed MoE FFN alone in bf16 against the dense oracle,
 # relative to max|ref|: both round the expert outputs to bf16 (the oracle
 # also its combine), the routed path sums in another order.
@@ -1444,6 +1490,41 @@ def phase_flash_kernels(dev):
     main_cases.append(("zamba2_decode_B8_S2048_D64", q,
                        cache[1].transpose(1, 2), cache[0].transpose(1, 2),
                        kv_len, False))
+    # internvl2-2b's attention (vlm_serve's): 16/8 heads of 128, group 2;
+    # prefill of the stub patches and a prompt (causal), decode of 8 slots
+    # over 2048 positions with ragged kv_len.
+    iv = get_config("internvl2-2b")
+    L = VLM_PATCHES + VLM_PROMPT
+    main_cases.append((f"internvl2_prefill_L{L}_D128", *_bhld_views(
+        gen, dev, 1, iv.n_heads, iv.n_kv_heads, L, L, iv.hd, bf16),
+        None, True))
+    cache = torch.randn((2, VLM_SLOTS, VLM_MAX_LEN, iv.n_kv_heads, iv.hd),
+                        generator=gen, device=dev, dtype=bf16)
+    q = torch.randn((VLM_SLOTS, 1, iv.n_heads, iv.hd), generator=gen,
+                    device=dev, dtype=bf16).transpose(1, 2)
+    kv_len = torch.from_numpy(rng.integers(64, 1057, size=VLM_SLOTS)).to(
+        dev, torch.int32)
+    main_cases.append(("internvl2_decode_B8_S2048_D128", q,
+                       cache[1].transpose(1, 2), cache[0].transpose(1, 2),
+                       kv_len, False))
+    # seamless-m4t-medium's (encdec_serve's): 16/16 heads of 64, group 1,
+    # none causal and none with kv_len: the encoder's self-attention over
+    # the frames, the decoder prompt's cross-attention over them (Lq = 32:
+    # one partial 64-row tile of the tensor-core prefill) and decode's
+    # cross-attention (Lq = 1 over every frame).
+    sm = get_config("seamless-m4t-medium")
+    Fm = sm.frontend_len
+    main_cases.append((f"seamless_encoder_L{Fm}_D64", *_bhld_views(
+        gen, dev, 1, sm.n_heads, sm.n_kv_heads, Fm, Fm, sm.hd, bf16),
+        None, False))
+    main_cases.append((
+        f"seamless_cross_prefill_B{ENCDEC_BATCH}_Lq{ENCDEC_PROMPT}_Lk{Fm}",
+        *_bhld_views(gen, dev, ENCDEC_BATCH, sm.n_heads, sm.n_kv_heads,
+                     ENCDEC_PROMPT, Fm, sm.hd, bf16), None, False))
+    main_cases.append((
+        f"seamless_cross_decode_B{ENCDEC_BATCH}_Lk{Fm}",
+        *_bhld_views(gen, dev, ENCDEC_BATCH, sm.n_heads, sm.n_kv_heads, 1,
+                     Fm, sm.hd, bf16), None, False))
     del cache
     rows, worst = [], 0.0
     for label, q, k, v, kl, causal in main_cases:
@@ -2723,6 +2804,397 @@ def phase_recurrent_fp32(dev):
         del engine
 
 
+# ------------------------------------------------ the VLM and enc-dec families
+def _batch_run(cfg, params, batch, max_len, steps, times=None):
+    """Prefill ``batch`` in one call (every row's prompt of one length:
+    the reference's enc-dec prefill has no ``lengths``), then ``steps``
+    greedy decode steps through the zoo.  Returns the logits of the prefill
+    and of each step, the tokens (B, 1 + steps), the final cache and K2's
+    launches per call; with ``times``, appends each call's host seconds
+    (the card synchronised)."""
+    logits, toks, launches = [], [], []
+    lg, cache = None, None
+    for i in range(steps + 1):
+        before = flash_attention.launches
+        t = time.perf_counter()
+        if i == 0:
+            lg, cache = lm.prefill(cfg, params, batch, max_len)
+        else:
+            lg, cache = lm.decode_step(cfg, params, toks[-1][:, None], cache)
+        if times is not None:
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        launches.append(flash_attention.launches - before)
+        logits.append(lg[:, -1])
+        toks.append(lg[:, -1].argmax(-1))
+    return logits, torch.stack(toks, 1), cache, launches
+
+
+def _k2_per_call(cfg) -> tuple:
+    """K2 launches of one prefill and of one decode step: one per decoder
+    layer, and for enc-dec one per encoder layer and one cross-attention
+    per decoder layer at prefill, self and cross per decoder layer at
+    decode."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    return cfg.n_layers, cfg.n_layers
+
+
+def _frontend_batch(cfg, rng, B: int, prompt: int) -> dict:
+    """numpy tokens and the stub frontend's input (VLM patches, enc-dec
+    frames) from ``rng``."""
+    batch = {"tokens": rng.integers(1, cfg.vocab, size=(B, prompt))}
+    key = "patches" if cfg.family == "vlm" else "frames"
+    n = VLM_PATCHES if cfg.family == "vlm" else cfg.frontend_len
+    batch[key] = rng.standard_normal((B, n, cfg.frontend_dim),
+                                     dtype=np.float32)
+    return batch
+
+
+def _on(batch, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _frontend_parity(phase: str, cfg, prompt: int, dev):
+    """``cfg`` (a full-width model cut in depth), fp32: the card against the
+    CPU on the same weights.  Two prompts of ``prompt`` tokens with the
+    stub frontend's input: the teacher-forced forward, then one prefill
+    and 8 greedy decode steps: logits, every cache key, the tokens."""
+    _fresh_device()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    cpu_params = _to_cpu(params)
+    batch = _frontend_batch(cfg, np.random.default_rng(SEED + 2), 2, prompt)
+    extra = VLM_PATCHES if cfg.family == "vlm" else 0
+    max_len, steps = extra + prompt + 16, 8
+    g_fwd, _ = lm.forward(cfg, params, _on(batch, dev))
+    c_fwd, _ = lm.forward(cfg, cpu_params, _on(batch, "cpu"))
+    g_logits, g_toks, g_cache, launches = _batch_run(
+        cfg, params, _on(batch, dev), max_len, steps)
+    torch.cuda.synchronize()
+    per_prefill, per_step = _k2_per_call(cfg)
+    require(launches == [per_prefill] + [per_step] * steps,
+            f"{phase}: flash_attention launches per call {launches}, "
+            f"expected {per_prefill} per prefill and {per_step} per step")
+    c_logits, c_toks, c_cache, c_launches = _batch_run(
+        cfg, cpu_params, _on(batch, "cpu"), max_len, steps)
+    require(c_launches == [0] * len(c_launches), "the CPU run launched K2")
+    errs = {"forward": allclose_err(g_fwd.cpu(), c_fwd, LM_PARITY_TOL),
+            "step_logits": max(allclose_err(g.cpu(), c, LM_PARITY_TOL)
+                               for g, c in zip(g_logits, c_logits))}
+    errs.update({key: allclose_err(g_cache[key].cpu(), c_cache[key],
+                                   LM_PARITY_TOL)
+                 for key in c_cache if key not in ("len", "xlen")})
+    require(max(errs.values()) <= LM_PARITY_TOL, f"{phase}: card vs CPU "
+            f"beyond {LM_PARITY_TOL}: excess by output {errs}")
+    require(torch.equal(g_toks.cpu(), c_toks),
+            f"{phase}: greedy tokens differ: {g_toks.tolist()} vs "
+            f"{c_toks.tolist()}")
+    for key in ("len", "xlen"):
+        require(key not in c_cache or torch.equal(g_cache[key].cpu(),
+                                                  c_cache[key]),
+                f"{phase}: cache {key} differs")
+    emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "n_enc_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
+          "vocab": cfg.vocab, "dtype": "float32",
+          "batch": {k: list(v.shape) for k, v in batch.items()},
+          "decode_steps": steps, "launches_per_call": launches,
+          "forward_max_abs_diff": float((g_fwd.cpu() - c_fwd).abs().max()),
+          "logits_max_abs_diff": max(float((g.cpu() - c).abs().max())
+                                     for g, c in zip(g_logits, c_logits)),
+          "allclose_excess_by_output": errs, "tol": LM_PARITY_TOL,
+          "cache_keys": sorted(c_cache), "greedy_tokens_equal": True,
+          "tokens": g_toks.tolist(),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
+def phase_vlm_parity(dev):
+    """internvl2-2b at full width cut to 2 layers: 64-token prompts after
+    VLM_PATCHES patches."""
+    cfg = dataclasses.replace(get_config("internvl2-2b"), n_layers=2,
+                              dtype=torch.float32)
+    _frontend_parity("vlm_parity", cfg, 64, dev)
+
+
+def phase_encdec_parity(dev):
+    """seamless-m4t-medium at full width cut to 2 encoder and 2 decoder
+    layers: 16-token decoder prompts over frontend_len frames."""
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium"), n_layers=2,
+                              n_enc_layers=2, dtype=torch.float32)
+    _frontend_parity("encdec_parity", cfg, 16, dev)
+
+
+def _served_gaps(cfg, params, batch, toks, start: int):
+    """Each served token (``toks`` (B, n), the first from the prefill) held
+    against one teacher-forced forward over the prompt and the served
+    tokens but the last: its gap below that row's top logit, and how many
+    are the top.  ``start`` is the prompt's last position in the forward's
+    output (after any patches)."""
+    n = toks.shape[1]
+    fb = {**batch, "tokens": torch.cat([batch["tokens"], toks[:, :-1]], 1)}
+    rows = lm.forward(cfg, params, fb)[0][:, start:start + n].float()
+    require(bool(torch.isfinite(rows).all()), f"{cfg.name}: non-finite "
+            "teacher-forced logits")
+    top = rows.max(-1).values
+    got = rows.gather(-1, toks[..., None].long())[..., 0]
+    return top - got, int((rows.argmax(-1) == toks).sum())
+
+
+def phase_vlm_serve(dev):
+    """Main path: the full 24-layer bf16 internvl2-2b behind ServeEngine
+    with lm_serve's traffic, text only, every prompt prefilled at its exact
+    length.  K2 launches n_layers x (prefills + ticks), every prefill on
+    prefill_tc (D = 128, group 2), every tick on decode; every served token
+    held to lm_serve's gate by a teacher-forced forward.  Then the patch
+    path through the zoo: VLM_PATCHES patches and a VLM_PROMPT-token
+    prompt prefilled, VLM_STEPS decode steps, each token held to the same
+    gate by the forward with the patches."""
+    _fresh_device()
+    cfg = get_config("internvl2-2b")
+    cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)  # the CLI's rule
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    engine = ServeEngine(cfg, params, slots=VLM_SLOTS, max_len=VLM_MAX_LEN,
+                         device=dev)
+    del params                       # the engine holds the same tensors
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in optim.leaves(engine.params)) / 1e9
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, size=int(n)),
+                    max_new_tokens=32, eos_id=-1)
+            for i, n in enumerate(rng.integers(64, 1025, size=16))]
+    for r in reqs:
+        engine.submit(r)
+
+    _zero_counts()                            # the main path starts here
+    decode_s, admit_s = _timed_ticks(engine)
+    run_s = sum(decode_s) + sum(admit_s)
+    launches = flash_attention.launches       # ... and ends here
+    by_path = dict(flash_attention.launches_by_path)
+    s = engine.stats
+    n = cfg.n_layers
+    require(all(r.done and len(r.out_tokens) == 32 for r in reqs),
+            f"vlm_serve: token counts {[len(r.out_tokens) for r in reqs]}")
+    require(s.completed == 16 and s.prefills == 16, f"vlm_serve: {s}")
+    require(launches == n * (s.prefills + s.ticks),
+            f"vlm_serve: {launches} flash_attention launches, expected "
+            f"{n} x ({s.prefills} prefills + {s.ticks} ticks)")
+    require(by_path == {"prefill_tc": n * s.prefills, "decode": n * s.ticks,
+                        "general": 0},
+            f"vlm_serve: flash_attention launches by kernel {by_path}, "
+            "expected every prefill on prefill_tc, every tick on decode")
+    require(spmm.launches == 0, "vlm_serve launched spmm_csr")
+    gaps, exact = [], 0
+    for r in reqs:
+        g, e = _served_gaps(cfg, engine.params, {"tokens": torch.from_numpy(
+            r.prompt)[None].to(dev)}, torch.tensor([r.out_tokens],
+                                                   device=dev),
+            len(r.prompt) - 1)
+        gaps.append(g.flatten())
+        exact += e
+    gaps = torch.cat(gaps)
+    require(float(gaps.max()) <= SERVE_GAP_TOL, f"vlm_serve: a served token "
+            f"is {float(gaps.max())} below the teacher-forced top logit")
+
+    # The patch path: one request with the stub frontend's patches.
+    batch = _on(_frontend_batch(cfg, np.random.default_rng(SEED + 5), 1,
+                                VLM_PROMPT), dev)
+    before = _k2_counts()
+    _, ptoks, _, plaunches = _batch_run(cfg, engine.params, batch,
+                                        VLM_MAX_LEN, VLM_STEPS)
+    torch.cuda.synchronize()
+    require(plaunches == [n] * (VLM_STEPS + 1) and _k2_delta(before)[0] == {
+            "prefill_tc": n, "decode": n * VLM_STEPS},
+            f"vlm_serve: the patch path launched K2 {plaunches} times per "
+            "call, expected n_layers each, prefill on prefill_tc")
+    pgaps, pexact = _served_gaps(cfg, engine.params, batch, ptoks,
+                                 VLM_PATCHES + VLM_PROMPT - 1)
+    require(float(pgaps.max()) <= SERVE_GAP_TOL, f"vlm_serve: a token served "
+            f"after patches is {float(pgaps.max())} below the teacher-forced "
+            "top logit")
+
+    prompt = torch.from_numpy(reqs[0].prompt[:1].repeat(1024))[None].to(dev)
+    prefill_ms = {L: time_ms(lambda: lm.prefill(
+        cfg, engine.params, {"tokens": prompt[:, :L]}, VLM_MAX_LEN),
+        reps=3, warmup=1) for L in (64, 256, 1024)}
+    prefill_ms[f"{VLM_PATCHES}+{VLM_PROMPT}"] = time_ms(lambda: lm.prefill(
+        cfg, engine.params, batch, VLM_MAX_LEN), reps=3, warmup=1)
+    tokens = s.generated_tokens + s.prefills
+    emit({"phase": "vlm_serve", "arch": cfg.name, "n_layers": n,
+          "dtype": "bfloat16", "weights_gb": weights_gb,
+          "slots": VLM_SLOTS, "max_len": VLM_MAX_LEN, "requests": len(reqs),
+          "prompt_lengths": [len(r.prompt) for r in reqs],
+          "prefills": s.prefills, "ticks": s.ticks, "completed": s.completed,
+          "tokens": tokens, "flash_attention_launches": launches,
+          "flash_attention_launches_by_path": by_path,
+          "setup_s": setup_s, "run_s": run_s, "tok_per_s": tokens / run_s,
+          "decode_tick_ms_median": statistics.median(decode_s) * 1e3,
+          "decode_tick_ms_p90": float(np.percentile(decode_s, 90)) * 1e3,
+          "admit_tick_ms_median": statistics.median(admit_s) * 1e3,
+          "prefill_ms_by_length": prefill_ms,
+          "teacher_forced_exact": exact,
+          "teacher_forced_checked": int(gaps.numel()),
+          "teacher_forced_max_gap": float(gaps.max()),
+          "patches": VLM_PATCHES, "patch_prompt": VLM_PROMPT,
+          "patch_steps": VLM_STEPS, "patch_launches_per_call": plaunches,
+          "patch_exact": pexact, "patch_checked": int(pgaps.numel()),
+          "patch_max_gap": float(pgaps.max()), "gap_tol": SERVE_GAP_TOL,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    _profile_decode(engine, cfg, "vlm_profile", VLM_SLOTS)
+    return launches, by_path
+
+
+def _idle_slot_on_card(dev):
+    """The idle-slot repair on the card: llama3.2-1b cut to 2 layers behind
+    ServeEngine(slots=2, max_len=16), four runs of one 10-token request,
+    so the idle slot's ``len`` passes the cache; its dropped writes must
+    raise no device-side assert (the synchronize would report one)."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    engine = ServeEngine(cfg, params, slots=2, max_len=16, device=dev)
+    rng = np.random.default_rng(SEED + 6)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, size=10),
+                    eos_id=-1) for i in range(4)]
+    for r in reqs:
+        engine.submit(r)
+        engine.run()
+    torch.cuda.synchronize()
+    lens = engine.cache["len"].tolist()
+    require(all(r.done for r in reqs) and lens[1] > engine.max_len,
+            f"idle slot: requests done {[r.done for r in reqs]}, len {lens}")
+    return {"slots": 2, "max_len": engine.max_len, "runs": len(reqs),
+            "ticks": engine.stats.ticks, "len": lens}
+
+
+def phase_encdec_serve(dev):
+    """Main path: the full 12 + 12-layer bf16 seamless-m4t-medium serving
+    ENCDEC_BATCH utterances in the reference's form: one batched prefill
+    (encoder, decoder prompt, cross-attention caches), then ENCDEC_STEPS
+    greedy decode steps through the zoo.  K2 launches exactly
+    n_enc_layers + 2 n_layers per prefill (all on prefill_tc) and
+    2 n_layers per step (all on decode); every served token held to
+    lm_serve's gate by a teacher-forced forward.  Then the idle-slot
+    repair on the card (:func:`_idle_slot_on_card`)."""
+    _fresh_device()
+    cfg = get_config("seamless-m4t-medium")
+    cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in optim.leaves(params)) / 1e9
+    batch = _on(_frontend_batch(cfg, np.random.default_rng(SEED),
+                                ENCDEC_BATCH, ENCDEC_PROMPT), dev)
+    max_len = ENCDEC_PROMPT + ENCDEC_STEPS
+
+    _zero_counts()                            # the main path starts here
+    times = []
+    _, toks, cache, per_call = _batch_run(cfg, params, batch, max_len,
+                                          ENCDEC_STEPS, times)
+    launches = flash_attention.launches       # ... and ends here
+    by_path = dict(flash_attention.launches_by_path)
+    per_prefill, per_step = _k2_per_call(cfg)
+    require(per_call == [per_prefill] + [per_step] * ENCDEC_STEPS,
+            f"encdec_serve: flash_attention launches per call {per_call}, "
+            f"expected {per_prefill} per prefill, {per_step} per step")
+    require(by_path == {"prefill_tc": per_prefill,
+                        "decode": per_step * ENCDEC_STEPS, "general": 0},
+            f"encdec_serve: flash_attention launches by kernel {by_path}, "
+            "expected the prefill's on prefill_tc, every step's on decode")
+    require(spmm.launches == 0, "encdec_serve launched spmm_csr")
+    require(cache["len"].tolist() == [max_len] * ENCDEC_BATCH,
+            f"encdec_serve: cache len {cache['len'].tolist()}")
+    gaps, exact = _served_gaps(cfg, params, batch, toks, ENCDEC_PROMPT - 1)
+    require(float(gaps.max()) <= SERVE_GAP_TOL, f"encdec_serve: a served "
+            f"token is {float(gaps.max())} below the teacher-forced top "
+            "logit")
+
+    encode_ms = time_ms(lambda: lm.encdec.encode(cfg, params,
+                                                 batch["frames"]),
+                        reps=5, warmup=1)
+    prefill_ms = time_ms(lambda: lm.prefill(cfg, params, batch, max_len),
+                         reps=5, warmup=1)
+    last = toks[:, -1:]
+    step = lambda: lm.decode_step(cfg, params, last, cache)  # noqa: E731
+    step_device_ms = device_ms(step, reps=10, label="encdec decode step")
+    idle = _idle_slot_on_card(dev)
+    tokens = int(toks.numel())
+    run_s = sum(times)
+    emit({"phase": "encdec_serve", "arch": cfg.name,
+          "n_enc_layers": cfg.n_enc_layers, "n_layers": cfg.n_layers,
+          "dtype": "bfloat16", "weights_gb": weights_gb,
+          "utterances": ENCDEC_BATCH, "frames": cfg.frontend_len,
+          "prompt": ENCDEC_PROMPT, "decode_steps": ENCDEC_STEPS,
+          "tokens": tokens, "flash_attention_launches": launches,
+          "flash_attention_launches_by_path": by_path,
+          "launches_per_prefill": per_prefill, "launches_per_step": per_step,
+          "setup_s": setup_s, "run_s": run_s, "tok_per_s": tokens / run_s,
+          "prefill_ms_in_run": times[0] * 1e3,
+          "prefill_ms": prefill_ms, "encoder_ms": encode_ms,
+          "decoder_prefill_ms": prefill_ms - encode_ms,
+          "decode_step_ms_median": statistics.median(times[1:]) * 1e3,
+          "decode_step_ms_p90": float(np.percentile(times[1:], 90)) * 1e3,
+          "decode_step_device_ms": step_device_ms,
+          "teacher_forced_exact": exact,
+          "teacher_forced_checked": int(gaps.numel()),
+          "teacher_forced_max_gap": float(gaps.max()),
+          "gap_tol": SERVE_GAP_TOL, "idle_slot_on_card": idle,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, by_path
+
+
+def phase_zoo_fp32(dev):
+    """Both models at full depth in fp32: two prompts with the stub
+    frontend's input prefilled in one batch (internvl2: VLM_PATCHES
+    patches and 64 tokens; seamless: frontend_len frames and 16 tokens)
+    and 16 greedy decode steps; each step's logits against the
+    teacher-forced forward at its position within REC_FP32_TOL (the
+    reference's gate for this identity, tests/test_models_zoo.py:88), the
+    tokens equal to its greedy ones."""
+    for arch, prompt in (("internvl2-2b", 64), ("seamless-m4t-medium", 16)):
+        _fresh_device()
+        cfg = dataclasses.replace(get_config(arch), dtype=torch.float32,
+                                  param_dtype=torch.float32)
+        params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                                dev)
+        weights_gb = sum(t.numel() * t.element_size()
+                         for t in optim.leaves(params)) / 1e9
+        batch = _on(_frontend_batch(cfg, np.random.default_rng(SEED + 4), 2,
+                                    prompt), dev)
+        extra = VLM_PATCHES if cfg.family == "vlm" else 0
+        steps = 16
+        logits, toks, _, _ = _batch_run(cfg, params, batch,
+                                        extra + prompt + steps, steps)
+        fb = {**batch, "tokens": torch.cat([batch["tokens"], toks[:, :-1]],
+                                           1)}
+        start = extra + prompt - 1
+        rows = lm.forward(cfg, params, fb)[0][:, start:start + steps + 1]
+        served = torch.stack(logits, 1)
+        require(served.shape == rows.shape, f"zoo_fp32 {arch}: "
+                f"{tuple(served.shape)} served logits, expected "
+                f"{tuple(rows.shape)}")
+        excess = allclose_err(served, rows, REC_FP32_TOL)
+        equal = torch.equal(toks, rows.argmax(-1))
+        emit({"phase": "zoo_fp32", "arch": cfg.name,
+              "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
+              "dtype": "float32", "weights_gb": weights_gb,
+              "batch": {k: list(v.shape) for k, v in batch.items()},
+              "decode_steps": steps, "tokens_checked": int(toks.numel()),
+              "logits_max_abs_diff": float((served - rows).abs().max()),
+              "allclose_excess": excess, "tol": REC_FP32_TOL,
+              "tokens_equal": equal,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        require(equal, f"zoo_fp32 {arch}: served tokens differ from the "
+                "teacher-forced greedy ones")
+        require(excess <= REC_FP32_TOL, f"zoo_fp32 {arch}: served logits "
+                f"beyond rtol = atol = {REC_FP32_TOL} of the teacher-forced "
+                f"forward (excess {excess})")
+        del params
+
+
 def _k2_counts():
     return (dict(flash_attention.launches_by_path),
             dict(flash_attention.backward_launches))
@@ -3049,6 +3521,14 @@ def main() -> int:
     xlstm_launches, _ = phase_xlstm_serve(dev)
     require(xlstm_launches == 0, "the xLSTM path launched flash_attention")
     phase_recurrent_fp32(dev)
+    phase_vlm_parity(dev)
+    vlm_launches, vlm_by_path = phase_vlm_serve(dev)
+    require(vlm_launches > 0, "the VLM path never launched flash_attention")
+    phase_encdec_parity(dev)
+    encdec_launches, encdec_by_path = phase_encdec_serve(dev)
+    require(encdec_launches > 0,
+            "the enc-dec path never launched flash_attention")
+    phase_zoo_fp32(dev)
     train_launches_k2, train_by_path, train_bwd, train_bwd_by_path = (
         phase_lm_train(dev))
 
@@ -3086,13 +3566,16 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:117",
         "launches": (flash_launches + moe_launches + hybrid_launches
-                     + train_launches_k2),
+                     + vlm_launches + encdec_launches + train_launches_k2),
         "launches_by_path": {key: flash_by_path[key] + moe_by_path[key]
-                             + hybrid_by_path[key] + train_by_path[key]
+                             + hybrid_by_path[key] + vlm_by_path[key]
+                             + encdec_by_path[key] + train_by_path[key]
                              for key in flash_by_path},
         "launches_by_phase": {"lm_serve": flash_by_path,
                               "moe_serve": moe_by_path,
                               "hybrid_serve": hybrid_by_path,
+                              "vlm_serve": vlm_by_path,
+                              "encdec_serve": encdec_by_path,
                               "lm_train": train_by_path},
         "backward_launches": train_bwd,
         "backward_launches_by_path": train_bwd_by_path,

@@ -1,16 +1,15 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-The reference's ten archs keep their ids.  The dense, MoE, hybrid (Mamba2)
-and xLSTM families run in the port; an arch of a family not ported yet
-raises ``NotImplementedError`` naming the slice queued for it
-(``ROADMAP.md``).  The dry-run input specs
+The reference's ten archs keep their ids, and every one of them runs in
+the port (``QUEUED``, the archs whose family waits for a later slice, is
+empty).  An unknown id raises ``KeyError``.  The dry-run input specs
 (``input_specs``, ``all_cells``) belong to ``launch/`` and come with it.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.common import LMConfig, check_family
+from repro_torch.models.common import LMConfig
 
 ARCHS = {
     "llama3.2-1b": "llama3_2_1b",
@@ -21,21 +20,17 @@ ARCHS = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "zamba2-1.2b": "zamba2_1_2b",
     "xlstm-1.3b": "xlstm_1_3b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "internvl2-2b": "internvl2_2b",
 }
 
-# Archs of the reference whose family has no port yet -> family.
-QUEUED = {
-    "seamless-m4t-medium": "encdec",
-    "internvl2-2b": "vlm",
-}
+# Archs of the reference whose family has no port yet -> family: none.
+QUEUED: dict = {}
 
 
 def _module(arch: str):
-    if arch in QUEUED:
-        check_family(arch, QUEUED[arch])
     if arch not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; known: "
-                       f"{sorted(ARCHS) + sorted(QUEUED)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
 
 

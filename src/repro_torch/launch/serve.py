@@ -12,7 +12,9 @@ width (without ``--smoke``) they are held in ``cfg.dtype``
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
 
 The recurrent families run the same way (``--arch zamba2-1.2b``, ``--arch
-xlstm-1.3b``); they prefill each prompt at its exact length.
+xlstm-1.3b``), and the VLM family as text only (``--arch internvl2-2b``);
+they prefill each prompt at its exact length.  The enc-dec family
+(``--arch seamless-m4t-medium``) is refused, as the reference refuses it.
 """
 from __future__ import annotations
 
@@ -46,6 +48,9 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
     else:
         cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)
+    if cfg.family in ("encdec",):
+        raise SystemExit("serve CLI drives decoder-only archs; "
+                         "enc-dec serving needs frames input (see tests)")
     params = zoo.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
                       device=dev)

@@ -1,19 +1,22 @@
 """Model zoo: family dispatch.
 
-The dense and MoE families run through ``transformer``, the hybrid (Mamba2
-+ shared attention) family through ``ssm`` and the xLSTM family through
-``xlstm``; the others raise ``NotImplementedError`` naming the slice queued
-for them (``common.QUEUED_FAMILIES``).
+The dense, MoE and VLM families run through ``transformer``, the hybrid
+(Mamba2 + shared attention) family through ``ssm``, the xLSTM family
+through ``xlstm`` and the enc-dec family through ``encdec``: every family
+of the reference.  A family the reference does not have raises
+``NotImplementedError`` (``common.check_family``).
 """
 from repro_torch.models.common import (LMConfig, QUEUED_FAMILIES, SHAPES,
                                        ShapeCfg, check_family)
-from repro_torch.models import moe, ssm, transformer, xlstm
+from repro_torch.models import encdec, moe, ssm, transformer, xlstm
 
 _FAMILY = {
     "dense": transformer,
     "moe": transformer,
+    "vlm": transformer,
     "hybrid": ssm,
     "ssm": xlstm,
+    "encdec": encdec,
 }
 
 
@@ -49,5 +52,5 @@ def init_cache(cfg, batch, max_len, device="cuda"):
 __all__ = [
     "LMConfig", "QUEUED_FAMILIES", "SHAPES", "ShapeCfg", "family_module",
     "init_params", "forward", "loss_fn", "prefill", "decode_step",
-    "init_cache", "moe", "ssm", "transformer", "xlstm",
+    "init_cache", "encdec", "moe", "ssm", "transformer", "xlstm",
 ]

@@ -27,22 +27,18 @@ from repro_torch.kernels import ops
 
 _MASKED = -1e30                    # the reference's masking constant
 
-# Families of the reference the port runs, and those it does not run yet ->
-# the slice that brings each (ROADMAP.md).
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
-QUEUED_FAMILIES = {
-    "vlm": "the VLM family slice (patch frontend)",
-    "encdec": "the enc-dec family slice",
-}
+# The reference's families, all ported; none is queued for a later slice.
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "encdec")
+QUEUED_FAMILIES: dict = {}
 
 
 def check_family(name: str, family: str) -> None:
-    """Raise ``NotImplementedError`` naming the slice queued for a family
-    the port does not run yet; the ported families pass."""
+    """Raise ``NotImplementedError`` for a family the reference does not
+    have; the reference's families pass."""
     if family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{name}: family {family!r} is not ported yet; it comes with "
-            f"{QUEUED_FAMILIES.get(family, 'a later slice')} (ROADMAP.md)")
+            f"{name}: family {family!r} is not a family of the reference "
+            f"({', '.join(PORTED_FAMILIES)})")
 
 
 # ------------------------------------------------------------------- configs

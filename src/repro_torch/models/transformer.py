@@ -1,8 +1,7 @@
-"""Decoder-only transformer LM: dense GQA (llama/qwen/yi/phi3) and
-fine-grained MoE (deepseek/kimi).
+"""Decoder-only transformer LM: dense GQA (llama/qwen/yi/phi3),
+fine-grained MoE (deepseek/kimi) and the VLM backbone (internvl2).
 
-The torch counterpart of the dense and MoE paths of
-``repro.models.transformer`` on one device:
+The torch counterpart of ``repro.models.transformer`` on one device:
 
   forward      — teacher-forced logits and the MoE aux loss (evaluation and
                  training)
@@ -28,8 +27,11 @@ checkpoints each layer (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` per scanned layer), so a layer's forward, K2 included,
 runs again in the backward.
 
-The VLM member of the reference's family dispatch raises
-``NotImplementedError``: it comes with its own slice.
+The VLM family is the dense model with a stub vision frontend:
+``batch["patches"]`` (B, P, frontend_dim), projected by ``patch_proj``,
+goes in front of the token embeddings in ``forward`` and ``prefill``;
+``loss_fn`` scores the text positions only and ``decode_step`` is the dense
+one.
 """
 from __future__ import annotations
 
@@ -135,6 +137,9 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
     if n_dense:
         params["dense_layers"] = _stack_init(
             gen, _layer_shapes(cfg, moe=False), n_dense, pdt, dev)
+    if cfg.family == "vlm":
+        params["patch_proj"] = dense_init(
+            gen, (cfg.frontend_dim, cfg.d_model), pdt).to(dev)
     return params
 
 
@@ -172,21 +177,45 @@ def cast_params(cfg: LMConfig, params: Dict) -> Dict:
     return params.to(cfg.dtype)
 
 
-def _layers(cfg: LMConfig, params: Dict):
-    """Each layer's weights with its kind, in order: ``(p, moe)`` for the
-    dense stack's layers, then the main stack's.  The stacked tensors are
+def unstack(stack: Dict[str, torch.Tensor]):
+    """A stack's per-layer weight dicts, in order.  The stacked tensors are
     unbound once, so under grad a stack's gradient is one stack of the
     per-layer gradients."""
+    split = {name: t.unbind(0) for name, t in stack.items()}
+    n = next(iter(stack.values())).shape[0]
+    return [{name: t[i] for name, t in split.items()} for i in range(n)]
+
+
+def _layers(cfg: LMConfig, params: Dict):
+    """Each layer's weights with its kind, in order: ``(p, moe)`` for the
+    dense stack's layers, then the main stack's."""
     stacks = [(params["layers"], bool(cfg.n_experts))]
     if _n_dense(cfg):
         stacks.insert(0, (params["dense_layers"], False))
-    out = []
-    for stack, moe in stacks:
-        split = {name: t.unbind(0) for name, t in stack.items()}
-        n = next(iter(stack.values())).shape[0]
-        out += [({name: t[i] for name, t in split.items()}, moe)
-                for i in range(n)]
-    return out
+    return [(p, moe) for stack, moe in stacks for p in unstack(stack)]
+
+
+def write_cache_rows(ck, cv, cache_at, k, v) -> None:
+    """Write the new keys and values k, v (B, L, Hkv, hd) IN PLACE into the
+    caches ck, cv (B, S, Hkv, hd) at per-row offsets ``cache_at`` (B,).
+
+    A column at or past S is dropped, as the reference's functional
+    ``.at[rows, cols].set`` drops it: an idle serving slot's ``len`` counts
+    up every tick and passes the cache, and its write must neither fault
+    nor land anywhere.  The drop stays on the device (no host read, so a
+    decode step can be captured in a CUDA graph): the column is clamped to
+    S - 1 and the value already there is written back.  Callers write one
+    token a row (decode, L = 1), so a clamped column is its own row's and
+    meets no other write of the same ``index_put_``."""
+    B, L = k.shape[:2]
+    S = ck.shape[1]
+    rows = torch.arange(B, device=k.device)[:, None]
+    cols = cache_at.long()[:, None] + torch.arange(L, device=k.device)
+    keep = (cols < S)[:, :, None, None]
+    cols = cols.clamp(max=S - 1)
+    for cache, new in ((ck, k), (cv, v)):
+        cache[rows, cols] = torch.where(keep, new.to(cache.dtype),
+                                        cache[rows, cols])
 
 
 # ------------------------------------------------------------------- blocks
@@ -196,9 +225,9 @@ def _attn(cfg: LMConfig, p, x, cos, sin, cache=None, cache_at=None,
 
     With ``cache = (ck, cv)`` ((B, S, Hkv, hd) views of the stacked cache),
     the new keys and values are written into it IN PLACE at per-row offsets
-    ``cache_at`` (B,), an ``index_put_``; the reference's update was
-    functional (``.at[rows, cols].set``).  Attention then runs over the whole
-    cache, masked to ``kv_len``."""
+    ``cache_at`` (B,) (:func:`write_cache_rows`; the reference's update was
+    functional, ``.at[rows, cols].set``).  Attention then runs over the
+    whole cache, masked to ``kv_len``."""
     B, L, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -217,10 +246,7 @@ def _attn(cfg: LMConfig, p, x, cos, sin, cache=None, cache_at=None,
 
     if cache is not None:
         ck, cv = cache
-        rows = torch.arange(B, device=x.device)[:, None]
-        cols = cache_at.long()[:, None] + torch.arange(L, device=x.device)
-        ck[rows, cols] = k.to(ck.dtype)
-        cv[rows, cols] = v.to(cv.dtype)
+        write_cache_rows(ck, cv, cache_at, k, v)
         # The reference's decode attends with its direct path at any cache
         # length: chunk = S keeps the CPU side off the chunked path.
         out = attention_any(q, ck.to(q.dtype), cv.to(q.dtype), causal=False,
@@ -276,6 +302,16 @@ def _unembed(cfg: LMConfig, params, x):
     return x @ w.to(cfg.dtype)
 
 
+def _with_patches(cfg: LMConfig, params, batch: Dict, x):
+    """The VLM family: ``batch["patches"] @ patch_proj`` in front of the
+    token embeddings ``x``; other families and text-only batches pass."""
+    if cfg.family == "vlm" and "patches" in batch:
+        pe = batch["patches"].to(cfg.dtype) @ params["patch_proj"].to(
+            cfg.dtype)
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
 def _rope(cfg: LMConfig, positions):
     return rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.dtype)
 
@@ -286,12 +322,13 @@ def _layer_out(cfg: LMConfig, p, x, cos, sin, moe: bool):
 
 
 def forward(cfg: LMConfig, params, batch: Dict):
-    """batch: {'tokens': (B, L) int}.  Returns (logits (B, L, vocab_padded),
-    aux_loss): aux is the MoE layers' router losses summed (0.0 for the
-    dense family).  With ``cfg.remat`` and grad on, each layer is
-    checkpointed."""
+    """batch: {'tokens': (B, L) int, optional 'patches' (B, P,
+    frontend_dim) for the VLM family}.  Returns (logits (B, P + L,
+    vocab_padded), aux_loss): aux is the MoE layers' router losses summed
+    (0.0 for the other families).  With ``cfg.remat`` and grad on, each
+    layer is checkpointed."""
     check_family(cfg.name, cfg.family)
-    x = _embed(cfg, params, batch["tokens"])
+    x = _with_patches(cfg, params, batch, _embed(cfg, params, batch["tokens"]))
     L = x.shape[1]
     cos, sin = _rope(cfg, torch.arange(L, device=x.device)[None, :])
     remat = cfg.remat and torch.is_grad_enabled()
@@ -312,7 +349,7 @@ def loss_fn(cfg: LMConfig, params, batch: Dict, aux_weight: float = 0.01):
     (B, L), labels -100 = ignore.  Returns a 0-d fp32 tensor."""
     logits, aux = forward(cfg, params, batch)
     labels = batch["labels"]
-    if logits.shape[1] != labels.shape[1]:
+    if logits.shape[1] != labels.shape[1]:    # VLM: drop the patch positions
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
     return sharded_ce_loss(logits, labels.long(), aux, aux_weight)
 
@@ -334,13 +371,14 @@ def prefill(cfg: LMConfig, params, batch: Dict, max_len: int):
     row when prompts are right-padded to a shared bucket: logits are
     gathered at position length-1 and ``cache["len"]`` is set per row.
     Trailing pad is harmless: attention is causal (pad rows never feed real
-    rows) and decode masks KV beyond ``len``."""
+    rows) and decode masks KV beyond ``len``.  A VLM batch's ``patches``
+    go in front of the tokens and their positions extend the cache."""
     check_family(cfg.name, cfg.family)
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
-    x = _embed(cfg, params, tokens)
+    x = _with_patches(cfg, params, batch, _embed(cfg, params, tokens))
     B, L, _ = x.shape
-    max_len = max(max_len, L)
+    max_len = max(max_len, L)          # VLM: the patch positions
     dev = x.device
     cos, sin = _rope(cfg, torch.arange(L, device=dev)[None, :])
     shp = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.hd)

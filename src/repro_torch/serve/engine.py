@@ -12,8 +12,14 @@ reference, where that bounded the jitted prefill's traces; the port runs
 eagerly and keeps the buckets so that both compute the same thing (pad
 positions are inert: attention is causal and decode masks KV beyond
 ``len``).  The recurrent families (hybrid, xLSTM) would carry a pad token
-through their state, so they prefill at the prompt's exact length, as the
-reference does.  A slot receives every key of the request's cache but
+through their state, and a VLM prompt's positions are offset by its
+patches, so these prefill at the prompt's exact length, as the reference
+does.  The engine serves a VLM as text only: a ``Request`` carries no
+patches, and the reference's engine passes none.  The enc-dec family is
+refused at construction: its prefill needs ``batch["frames"]``, which a
+``Request`` does not carry, so the reference's engine fails on it at the
+first prefill (enc-dec is served through ``models.prefill``/
+``decode_step``).  A slot receives every key of the request's cache but
 ``len`` (KV, SSM and conv state, mLSTM and sLSTM state).  The reference's
 ``trace_counts`` counted ``jax.jit`` traces, which eager PyTorch has none
 of; it returns as a capture counter with CUDA graphs.
@@ -60,12 +66,17 @@ class EngineStats:
 
 
 class ServeEngine:
-    """Continuous batching for every ported family on one device.
+    """Continuous batching for every decoder-only family on one device.
     ``params`` lie on ``device``."""
 
     def __init__(self, cfg: LMConfig, params, slots: int = 4,
                  max_len: int = 256, device: DeviceLike = "cuda"):
-        zoo.family_module(cfg)                  # raises for unported families
+        zoo.family_module(cfg)                  # raises for unknown families
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"{cfg.name}: ServeEngine serves decoder-only families; an "
+                "enc-dec prefill needs batch['frames'], which a Request "
+                "does not carry (use models.prefill/decode_step)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = cast_params(cfg, params)

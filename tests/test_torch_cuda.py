@@ -3,9 +3,10 @@ kernels (K2 both ways) against their plain torch versions, the wrappers'
 input checks, and the port's card paths (BSP forward and train step, K1's
 backward, LM prefill, decode and train step, the LM training CLI, the MoE
 FFN and its grouped GEMM's routes, MoE serving, the recurrent families'
-prefill, decode and serving) against its CPU paths.  Without a card every
-test here skips.  The file imports neither ``jax`` nor ``repro``, so it runs
-on a machine with the card and the port alone:
+prefill, decode and serving, the VLM and enc-dec families' prefill and
+decode, an idle serving slot past the cache) against its CPU paths.
+Without a card every test here skips.  The file imports neither ``jax``
+nor ``repro``, so it runs on a machine with the card and the port alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -934,3 +935,100 @@ def test_recurrent_smoke_served_on_card(dev, arch):
     assert {key: flash_attention.launches_by_path[key] - k2[key]
             for key in k2} == {"prefill_tc": sites * stats.prefills,
                                "decode": sites * stats.ticks, "general": 0}
+
+
+# ------------------------------------------ VLM and enc-dec families (K2)
+@pytest.mark.parametrize("Lq", [17, 48, 64, 200])
+def test_flash_noncausal_prefill_with_fewer_queries_than_keys(dev, Lq):
+    """The enc-dec cross-attention's branch of the tensor-core prefill:
+    bf16, causal=False, Lq != Lk = 1024 (a partial 64-row tile at Lq = 17,
+    48 and 200), D = 64, group 1, no kv_len: every key read, no row under
+    a causal limit."""
+    q, k, v = _flash_inputs(dev, 2, 16, 16, Lq, 1024, 64, torch.bfloat16,
+                            seed=Lq)
+    assert kernel_path(q.dtype, 16, 16, Lq, 64) == "prefill_tc"
+    _flash_twice(q, k, v, None, False, "prefill_tc")
+
+
+@pytest.mark.parametrize("B,Lq,Lk,causal,kv_len,path", [
+    (1, 768, 768, True, None, "prefill_tc"),
+    (2, 64, 300, False, None, "prefill_tc"),
+    (8, 1, 2048, False, [64, 1056, 300, 1, 777, 2048, 129, 500], "decode")])
+def test_flash_internvl2_shapes_match_plain(dev, B, Lq, Lk, causal, kv_len,
+                                            path):
+    """internvl2-2b's attention: 16/8 heads of 128 (group 2) in bf16, the
+    prefill of 256 patches + 512 tokens, a non-causal prefill and decode
+    over the slot cache with ragged kv_len."""
+    q, k, v = _flash_inputs(dev, B, 16, 8, Lq, Lk, 128, torch.bfloat16,
+                            seed=Lq)
+    kl = (torch.tensor(kv_len, dtype=torch.int32, device=dev)
+          if kv_len else None)
+    _flash_twice(q, k, v, kl, causal, path)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cross_decode_without_kv_len(dev, dtype):
+    """Decode's cross-attention: one query per row over all 1024 frames'
+    keys with kv_len=None, on the split decode."""
+    q, k, v = _flash_inputs(dev, 8, 16, 16, 1, 1024, 64, dtype, seed=3)
+    _flash_twice(q, k, v, None, False, "decode")
+
+
+def test_engine_idle_slot_past_max_len_on_card(dev):
+    """An idle slot's len passes max_len while the other slot serves (four
+    runs of one request): the dropped cache writes raise no device-side
+    assert, and the served tokens equal the CPU engine's."""
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 400, size=10) for _ in range(4)]
+    out = []
+    for d, p in ((dev, params), (torch.device("cpu"), _to_cpu(params))):
+        eng = ServeEngine(cfg, p, slots=2, max_len=16, device=d)
+        toks = []
+        for i, prompt in enumerate(prompts):
+            req = Request(uid=i, prompt=prompt, eos_id=-1)
+            eng.submit(req)
+            eng.run()
+            toks.append(req.out_tokens)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        out.append((toks, eng.cache["len"].tolist()))
+    assert out[0] == out[1] and out[0][1][1] > 16
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-medium"])
+def test_frontend_families_on_card_match_cpu(dev, arch):
+    """The smoke models in fp32 with their stub frontend's input: prefill
+    and 3 decode steps on the card against the CPU, logits and every cache
+    key, K2 once per attention (enc-dec: encoder, decoder self and cross
+    at prefill; self and cross per step)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    cpu = _to_cpu(params)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(1, 500, (2, 20), generator=gen)}
+    key = "patches" if cfg.family == "vlm" else "frames"
+    batch[key] = torch.randn((2, cfg.frontend_len, cfg.frontend_dim),
+                             generator=gen)
+    enc = cfg.family == "encdec"
+    before = flash_attention.launches
+    gl, gc = lm.prefill(cfg, params, {k: t.to(dev) for k, t in batch.items()},
+                        64)
+    assert flash_attention.launches - before == (
+        cfg.n_enc_layers + 2 * cfg.n_layers if enc else cfg.n_layers)
+    cl, cc = lm.prefill(cfg, cpu, batch, 64)
+    torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    for step in range(3):
+        nxt = torch.tensor([[3 + step], [9 + step]])
+        before = flash_attention.launches
+        gl, gc = lm.decode_step(cfg, params, nxt.to(dev), gc)
+        assert flash_attention.launches - before == (
+            2 * cfg.n_layers if enc else cfg.n_layers)
+        cl, cc = lm.decode_step(cfg, cpu, nxt, cc)
+        torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    assert sorted(gc) == sorted(cc)
+    for name in cc:
+        torch.testing.assert_close(gc[name].cpu(), cc[name], rtol=1e-4,
+                                   atol=1e-4)

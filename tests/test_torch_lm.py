@@ -141,7 +141,8 @@ def test_params_layout_equals_reference(pair):
     assert torch.equal(own["layers"]["ln1"], torch.ones_like(own["layers"]["ln1"]))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["internvl2-2b",
+                                  "seamless-m4t-medium"])
 def test_registry_configs_equal_reference(arch):
     for get_t, get_j in ((registry.get_config, j_get_config),
                          (registry.get_smoke_config, j_get_smoke)):
@@ -156,14 +157,22 @@ def test_registry_configs_equal_reference(arch):
 
 
 def test_unported_families_name_their_slice():
-    for arch, family in registry.QUEUED.items():
-        assert j_get_config(arch).family == family
-        with pytest.raises(NotImplementedError, match=f"family '{family}'.*"
-                           "slice"):
-            registry.get_config(arch)
-    vlm = dataclasses.replace(registry.get_smoke_config("llama3.2-1b"),
-                              family="vlm")
-    with pytest.raises(NotImplementedError, match="VLM"):
-        tz.init_params(vlm, device="cpu")
+    """Every arch of the reference's registry resolves in the port, with
+    its family, and its family module is the reference's counterpart; no
+    arch or family is queued; an unknown family or arch still raises."""
+    from repro.configs import ARCHS as J_ARCHS
+    assert sorted(registry.ARCHS) == sorted(J_ARCHS)
+    assert registry.QUEUED == {} and tz.QUEUED_FAMILIES == {}
+    for arch in J_ARCHS:
+        cfg = registry.get_config(arch)
+        assert cfg.family == j_get_config(arch).family, arch
+        assert tz.family_module(cfg).__name__.split(".")[-1] == \
+            jz.family_module(j_get_config(arch)).__name__.split(".")[-1]
+    odd = dataclasses.replace(registry.get_smoke_config("llama3.2-1b"),
+                              family="rnn")
+    with pytest.raises(NotImplementedError, match="family 'rnn'"):
+        tz.init_params(odd, device="cpu")
+    with pytest.raises(NotImplementedError, match="family 'rnn'"):
+        TC.check_family(odd.name, odd.family)
     with pytest.raises(KeyError):
         registry.get_config("gpt-2")

@@ -378,11 +378,13 @@ def _chip_smoke_on_cpu(monkeypatch, configs):
     on the CPU at the smoke widths in ``configs`` (arch -> config): K2's
     plain version behind a wrapper that counts launches by the kernel the
     card would take, the CUDA clock, memory stats and timers stubbed.
-    Returns the module and a switch: with ``card["now"]`` False attention
-    takes the CPU's plain path, as the parity phases' CPU runs do."""
+    Every second call of ``_lm_run`` and ``_batch_run`` (counted together
+    in the returned list) takes the CPU's plain attention, as the parity
+    phases' CPU runs do.  Returns the module and that list."""
     import importlib.util
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import common as TC
+    from repro_torch.models import encdec as TE
 
     spec = importlib.util.spec_from_file_location("chip_smoke_rec_cpu",
                                                   ROOT / "chip_smoke.py")
@@ -409,23 +411,27 @@ def _chip_smoke_on_cpu(monkeypatch, configs):
                                   v.transpose(1, 2), kv_len,
                                   causal=causal).transpose(1, 2)
 
-    lm_run, runs = cs._lm_run, []
+    runs = []
 
-    def lm_run_second_on_cpu(*args):
-        """A parity phase's first run stands for the card's, the second is
-        the CPU's and takes the plain attention."""
-        card["now"] = len(runs) % 2 == 0
-        runs.append(1)
-        try:
-            return lm_run(*args)
-        finally:
-            card["now"] = True
+    def second_on_cpu(run):
+        def wrapped(*args):
+            """A parity phase's first run stands for the card's, the second
+            is the CPU's and takes the plain attention."""
+            card["now"] = len(runs) % 2 == 0
+            runs.append(1)
+            try:
+                return run(*args)
+            finally:
+                card["now"] = True
+        return wrapped
 
     monkeypatch.setattr(cs, "get_config", lambda arch: configs[arch])
     monkeypatch.setattr(FA, "_forward", forward)
     monkeypatch.setattr(TC, "attention_any", attention_any)
     monkeypatch.setattr(TT, "attention_any", attention_any)
-    monkeypatch.setattr(cs, "_lm_run", lm_run_second_on_cpu)
+    monkeypatch.setattr(TE, "attention_any", attention_any)
+    for name in ("_lm_run", "_batch_run"):
+        monkeypatch.setattr(cs, name, second_on_cpu(getattr(cs, name)))
     for name, fn in (("synchronize", lambda *a: None),
                      ("empty_cache", lambda: None),
                      ("reset_peak_memory_stats", lambda *a: None),
