@@ -10,8 +10,9 @@ It builds the port's hand-written kernels from ``src/repro_torch/kernels/
 csrc`` and drives the port's paths: the GNN pipeline at the paper's full
 widths, then LM serving and LM training on llama3.2-1b, MoE serving on
 deepseek-moe-16b, the recurrent families' serving on zamba2-1.2b and
-xlstm-1.3b, and the VLM and enc-dec families' serving on internvl2-2b and
-seamless-m4t-medium, at their published widths:
+xlstm-1.3b, the VLM and enc-dec families' serving on internvl2-2b and
+seamless-m4t-medium, and the training of those five families, at their
+published widths:
 
   device  the card's name, count and power limit (exit 1 without a card);
   build   nvcc for sm_90a, with the build seconds and each kernel's ptxas
@@ -106,7 +107,14 @@ seamless-m4t-medium, at their published widths:
           as the library call; then small cases through autograd on every
           forward kernel and both backward paths, fp32 and bf16 (causal
           and not, Lq != Lk, groups 1, 4 and 8, D = 32, 64 and 128, ragged
-          kv_len with a 0 row, Lq = 1);
+          kv_len with a 0 row, Lq = 1); then the training path's rows:
+          K2's backward at deepseek-moe-16b's (D = 128, causal, L = 1024),
+          internvl2-2b's (16/8 heads of 128, L = 256 + 1024) and
+          seamless-m4t-medium's (non-causal, L = 1024) training shapes,
+          and the grouped GEMM's backward (dx over wᵀ, the K-ragged dw) at
+          deepseek-moe-16b's width for both products of a MoE layer,
+          against the loop route, with autograd through
+          torch._grouped_mm as the library call;
   lm_parity  llama3.2-1b at full width cut to 2 layers, fp32: prefill of two
           bucketed prompts and 8 greedy decode steps on the card (K2) and on
           the CPU (plain attention) agree, with n_layers launches per call;
@@ -193,16 +201,32 @@ seamless-m4t-medium, at their published widths:
           every backward on the tensor-core pair (the fp32 parity pass's
           on the CUDA-core pair);
           step ms, tokens/s, peak memory, one profiled step (busy share,
-          K2's device time), and whether the same step repeats bit for bit.
+          K2's device time), and whether the same step repeats bit for bit;
+  moe_train, hybrid_train, vlm_train, encdec_train, xlstm_train  each of
+          deepseek-moe-16b (cut to 1 dense + MOE_TRAIN_LAYERS MoE layers by
+          memory), zamba2-1.2b, internvl2-2b (256 stub patches a row),
+          seamless-m4t-medium (1024 stub frames a row) and xlstm-1.3b (4 x
+          256 tokens, 6 steps) trained at full width: first its parity
+          part (cut to 2 (2 + 2) layers, fp32, grads_of on the card and
+          the CPU: the loss, every gradient leaf, the MoE router's expert
+          sets, launches), then its main path (bf16 compute, fp32
+          weights, AdamW, every layer checkpointed as the configs say, 4 x
+          1024 tokens): step 0's loss equals a no-grad forward's, grads_of
+          twice from one state bit-equal, 10 steps each finite with the
+          last below the first, two profiled steps (busy share, device
+          time by class: K2 and the grouped GEMM each way, cuBLAS,
+          elementwise), K2 and grouped GEMM launches exactly by kernel,
+          path and route; step ms, tokens/s, peak memory.
 
 Each phase prints JSON lines.  Any failed check exits non-zero.  Before
 the last line it prints the kernels summary and the ``nvidia-smi`` name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The
 kernel summary's ``launches`` are the main paths' (train, then the GNN
 forward path from bsp to evolve, then LM serving, MoE serving, hybrid
-serving, VLM serving, enc-dec serving, then LM training), each
-counted from 0; its ``flash_attention_bwd_tc`` entry is K2's tensor-core
-backward (both kernels' launches on the LM training path).
+serving, VLM serving, enc-dec serving, then LM training and the five
+families' training), each counted from 0; its ``flash_attention_bwd_tc``
+entry is K2's tensor-core backward (both kernels' launches on the
+training paths, by phase).
 """
 from __future__ import annotations
 
@@ -369,6 +393,41 @@ MOE_FFN_BF16_TOL = 2e-2
 # reference's; the excess over the reference's own rtol is reported.
 TRAIN_LM_STEPS = 10
 MB_M_RTOL, MB_M_ATOL, MB_M_REF_RTOL = 2 ** -7, 2e-5, 2e-3
+# The families' training (moe_train, hybrid_train, vlm_train, encdec_train,
+# xlstm_train).  TRAIN_PARITY: the 2-layer (2 + 2) fp32 cut of each, run on
+# the card and the CPU, with the config changes that keep every kind of
+# layer in it (xLSTM's sLSTM layer; zamba2 at 4 layers, two sites of its
+# shared block, so the block's gradient sums over sites) and the sequence
+# length (past one SSD chunk of 128 for the recurrent two).
+# TRAIN_MAIN: the full-width run (bf16 compute, fp32 parameters, AdamW),
+# with its depth cut, sequence length, steps and learning rate: 1e-3, the
+# CLI's default, but for zamba2-1.2b, whose loss climbs past step 0's by
+# step 8 at 1e-3 in fp32 compute as in bf16 (tools/train_probe.py --phases
+# sweep; PERF.md), so 3e-4, OptConfig's default.  deepseek-moe-16b: 1
+# dense + MOE_TRAIN_LAYERS MoE layers, the most that leave 10 GB of the
+# card free (one more runs out of memory: fp32 weights, gradients and
+# AdamW moments take 16 bytes a parameter, 9.4 GB a MoE layer).
+# xlstm-1.3b: 4 x 256 tokens and 6 steps: its sLSTM loop is sequential in
+# L (256 still spans two SSD chunks) and a step takes ~5.5 s.
+MOE_TRAIN_LAYERS = 5
+TRAIN_FAMILY_STEPS = 10
+TRAIN_PARITY = {
+    "moe_train": ("deepseek-moe-16b", {"n_layers": 2}, 128),
+    "hybrid_train": ("zamba2-1.2b", {"n_layers": 4, "attn_every": 2}, 160),
+    "vlm_train": ("internvl2-2b", {"n_layers": 2}, 128),
+    "encdec_train": ("seamless-m4t-medium",
+                     {"n_layers": 2, "n_enc_layers": 2}, 128),
+    "xlstm_train": ("xlstm-1.3b", {"n_layers": 2, "slstm_every": 2}, 160),
+}
+TRAIN_MAIN = {
+    "moe_train": ("deepseek-moe-16b", {"n_layers": 1 + MOE_TRAIN_LAYERS},
+                  1024, TRAIN_FAMILY_STEPS, 1e-3),
+    "hybrid_train": ("zamba2-1.2b", {}, 1024, TRAIN_FAMILY_STEPS, 3e-4),
+    "vlm_train": ("internvl2-2b", {}, 1024, TRAIN_FAMILY_STEPS, 1e-3),
+    "encdec_train": ("seamless-m4t-medium", {}, 1024, TRAIN_FAMILY_STEPS,
+                     1e-3),
+    "xlstm_train": ("xlstm-1.3b", {}, 256, 6, 1e-3),
+}
 
 
 def emit(obj) -> None:
@@ -1700,6 +1759,63 @@ def _check_flash_bwd(label, q, k, v, out, dout, kv_len, causal):
     return got, worst, path
 
 
+def _flash_bwd_row(label, gen, dev, B, Hq, Hkv, L, D, causal):
+    """K2's backward at one bf16 shape (B, Hq/Hkv heads of D, Lq = Lk =
+    L) against its plain version, on the tensor-core pair: error, bitwise
+    repeat, times, device times (both kernels and each alone), the plain
+    version's time, the backward of scaled_dot_product_attention by
+    autograd as the library call, and the bound.  Returns (row, err)."""
+    bf16 = torch.bfloat16
+    q, k, v = _bhld_views(gen, dev, B, Hq, Hkv, L, L, D, bf16)
+    out = flash_attention(q, k, v, causal=causal)
+    dout = torch.randn((B, L, Hq, D), generator=gen, device=dev,
+                       dtype=bf16).transpose(1, 2)
+    (dq, dk, dv), err, path = _check_flash_bwd(label, q, k, v, out, dout,
+                                               None, causal)
+    require(path == "tc", f"{label}: the backward took {path}, not tc")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                             enable_gqa=True)
+    lib_grads = torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)
+    lib_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(lib_grads, (dq, dk, dv)))
+    require(lib_err <= 0.1 * max(float(g.abs().max()) for g in (dq, dk, dv)),
+            f"{label}: the library backward disagrees by {lib_err}")
+    fwd_ops, _ = _flash_work(q, k, None, causal)
+    ops = fwd_ops // 4 * 10                   # 10 D per (row, live key)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    kernel = lambda: flash_attention_bwd(  # noqa: E731
+        q, k, v, out, dout, None, causal)
+    library = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, leaves, dout, retain_graph=True)
+    by_kernel = {}
+    row = {
+        "shape": label, "dtype": "bf16", "heads": [Hq, Hkv], "head_dim": D,
+        "causal": causal, "path": path, "max_abs_err": err,
+        "bitwise_equal": True, "library_max_abs_diff": lib_err,
+        "ms": time_ms(kernel, reps=10),
+        "device_ms": device_ms(kernel, reps=10, label=label,
+                               parts=by_kernel),
+        "plain_ms": time_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, out, dout, None, causal), reps=5),
+        "library_ms": time_ms(library, reps=10),
+        "library_device_ms": device_ms(library, reps=10,
+                                       label=label + " library"),
+        "library_call": "torch.autograd.grad of torch.nn.functional."
+                        f"scaled_dot_product_attention(q, k, v, "
+                        f"is_causal={causal}, enable_gqa=True)",
+        "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    row["device_ms_by_kernel"] = {
+        ("dq" if "bwd_dq" in key else "dkdv" if "bwd_dkdv" in key
+         else key[:60]): ms for key, ms in by_kernel.items()}
+    emit({"phase": "kernels", "kernel": "flash_attention_backward", **row})
+    return row, err
+
+
 def phase_flash_backward(dev):
     """K2's backward kernels against flash_attention_bwd_plain: at the LM
     train step's shape (B = 4, 32/8 heads, L = 1024, D = 64, bf16, causal)
@@ -1714,59 +1830,10 @@ def phase_flash_backward(dev):
     bf16 = torch.bfloat16
     rows, worst = [], 0.0
     for L in (1024, 512):
-        label = f"train_B4_L{L}_bwd"
-        q, k, v = _bhld_views(gen, dev, 4, Hq, Hkv, L, L, D, bf16)
-        out = flash_attention(q, k, v)
-        dout = torch.randn((4, L, Hq, D), generator=gen, device=dev,
-                           dtype=bf16).transpose(1, 2)
-        (dq, dk, dv), err, path = _check_flash_bwd(label, q, k, v, out, dout,
-                                                   None, True)
-        require(path == "tc", f"{label}: the backward took {path}, not tc")
-        worst = max(worst, err)
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                                 enable_gqa=True)
-        lib_grads = torch.autograd.grad(lib_out, leaves, dout,
-                                        retain_graph=True)
-        lib_err = max(float((a.float() - b.float()).abs().max())
-                      for a, b in zip(lib_grads, (dq, dk, dv)))
-        require(lib_err <= 0.1 * max(float(g.abs().max())
-                                     for g in (dq, dk, dv)),
-                f"{label}: the library backward disagrees by {lib_err}")
-        fwd_ops, _ = _flash_work(q, k, None, True)
-        ops = fwd_ops // 4 * 10               # 10 D per (row, live key)
-        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / BF16_OPS_PER_S * 1e3
-        kernel = lambda: flash_attention_bwd(  # noqa: E731
-            q, k, v, out, dout, None, True)
-        library = lambda: torch.autograd.grad(  # noqa: E731
-            lib_out, leaves, dout, retain_graph=True)
-        by_kernel = {}
-        row = {
-            "shape": label, "dtype": "bf16", "path": path, "max_abs_err": err,
-            "bitwise_equal": True, "library_max_abs_diff": lib_err,
-            "ms": time_ms(kernel, reps=10),
-            "device_ms": device_ms(kernel, reps=10, label=label,
-                                   parts=by_kernel),
-            "plain_ms": time_ms(lambda: flash_attention_bwd_plain(
-                q, k, v, out, dout, None, True), reps=5),
-            "library_ms": time_ms(library, reps=10),
-            "library_device_ms": device_ms(library, reps=10,
-                                           label=label + " library"),
-            "library_call": "torch.autograd.grad of torch.nn.functional."
-                            "scaled_dot_product_attention(q, k, v, "
-                            "is_causal=True, enable_gqa=True)",
-            "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        row["device_ms_by_kernel"] = {
-            ("dq" if "bwd_dq" in key else "dkdv" if "bwd_dkdv" in key
-             else key[:60]): ms for key, ms in by_kernel.items()}
+        row, err = _flash_bwd_row(f"train_B4_L{L}_bwd", gen, dev, 4, Hq, Hkv,
+                                  L, D, True)
         rows.append(row)
-        emit({"phase": "kernels", "kernel": "flash_attention_backward",
-              **row})
-        del leaves, lib_out, lib_grads
+        worst = max(worst, err)
     # Small cases through autograd: every forward kernel under grad and both
     # backward paths (bf16 takes "tc", fp32 "general"), causal and not,
     # Lq != Lk both ways, groups 1, 4 and 8, D = 32, 64 and 128, L off the
@@ -1815,6 +1882,115 @@ def phase_flash_backward(dev):
     require(paths["tc"] > 0 and paths["general"] > 0,
             f"the backward cases did not cover both paths: {paths}")
     return rows, worst
+
+
+def _grouped_bwd_row(name, x, w, dy, ends):
+    """The grouped GEMM's backward (autograd through ``torch._grouped_mm``,
+    the reference's ragged adjoints: dx over wᵀ, the K-ragged dw) for one
+    product at deepseek-moe-16b's width on the grouped_mm route, against
+    the loop route's (its plain version, one product per group): error
+    relative to max|ref|, bitwise repeat, device times and the bound.  The
+    port's route is torch's own derivative of ``torch._grouped_mm``, so no
+    other library call stands beside it."""
+    route = moe.grouped_gemm_route(x, w)
+    require(route == "grouped_mm", f"grouped GEMM backward {name}: the "
+            f"route is {route}")
+    leaves = [t.detach().requires_grad_(True) for t in (x, w)]
+    before = dict(moe.grouped_gemm.backward_launches_by_route)
+    out = moe._grouped(*leaves, ends)
+    got = torch.autograd.grad(out, leaves, dy, retain_graph=True)
+    again = torch.autograd.grad(moe._grouped(*leaves, ends), leaves, dy)
+    require(moe.grouped_gemm.backward_launches_by_route == {
+        **before, "grouped_mm": before["grouped_mm"] + 2},
+        f"grouped GEMM backward {name}: not counted once a call on "
+        "grouped_mm")
+    loop_out = moe._product("loop", *leaves, ends)
+    ref = torch.autograd.grad(loop_out, leaves, dy, retain_graph=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for label, g, g2, r in zip(("dx", "dw"), got, again, ref):
+        require(torch.equal(g, g2), f"grouped GEMM backward {name}: {label} "
+                "not bitwise equal across two calls")
+        err = float((g.float() - r.float()).abs().max())
+        scale = float(r.float().abs().max())
+        require(err <= MOE_FFN_BF16_TOL * scale, f"grouped GEMM backward "
+                f"{name}: {label} max abs err {err} vs the loop (max|ref| "
+                f"{scale})")
+        errs[label] = err
+    kernel = lambda: torch.autograd.grad(  # noqa: E731
+        out, leaves, dy, retain_graph=True)
+    plain = lambda: torch.autograd.grad(  # noqa: E731
+        loop_out, leaves, dy, retain_graph=True)
+    m, k = x.shape
+    N = w.shape[-1]
+    ops = 2 * 2 * m * k * N                   # dx and dw, 2 m k n each
+    nbytes = (2 * x.numel() + dy.numel() + 2 * w.numel()) * x.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    row = {"kernel": "grouped_gemm_backward", "shape": name,
+           "rows": m, "k": k, "n": N, "groups": w.shape[0], "dtype": "bf16",
+           "route": route, "max_abs_err": errs, "bitwise_equal": True,
+           "device_ms": device_ms(kernel, reps=10, label=name),
+           "ms": time_ms(kernel, reps=10),
+           "plain_ms": time_ms(plain, reps=5),
+           "plain_device_ms": device_ms(plain, reps=5, label=name + " loop"),
+           "library_ms": None,
+           "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    emit({"phase": "kernels", **row})
+    return row
+
+
+def phase_train_kernels(dev):
+    """The training path's kernel rows: K2's backward at the families'
+    training shapes (deepseek-moe-16b: 16/16 heads of 128, causal, B = 4,
+    L = 1024, where the tensor-core dkdv spills; internvl2-2b: 16/8 heads
+    of 128, causal, L = 256 patches + 1024 tokens; zamba2-1.2b's shared
+    block: 32/32 heads of 64, causal, L = 1024; seamless-m4t-medium: 16/16
+    heads of 64, non-causal, L = 1024, its encoder's and its
+    cross-attention's shape in training, and causal, its decoder's
+    self-attention), then the grouped GEMM's backward
+    at deepseek-moe-16b's width: both products of one MoE layer over the
+    4 x 1024 tokens' 6 assignments each, routed by a random router.
+    Returns the K2 rows, their largest error and the grouped GEMM rows."""
+    gen = torch.Generator(dev).manual_seed(SEED + 7)
+    ds, vl, zb, sm = (get_config(a) for a in (
+        "deepseek-moe-16b", "internvl2-2b", "zamba2-1.2b",
+        "seamless-m4t-medium"))
+    rows, worst = [], 0.0
+    for label, cfg, L, causal in (
+            ("deepseek_train_B4_L1024_D128_bwd", ds, 1024, True),
+            ("internvl2_train_B4_L1280_D128_g2_bwd", vl, VLM_PATCHES + 1024,
+             True),
+            ("zamba2_train_B4_L1024_D64_bwd", zb, 1024, True),
+            ("seamless_train_B4_L1024_D64_noncausal_bwd", sm, 1024, False),
+            ("seamless_dec_train_B4_L1024_D64_bwd", sm, 1024, True)):
+        row, err = _flash_bwd_row(label, gen, dev, 4, cfg.n_heads,
+                                  cfg.n_kv_heads, L, cfg.hd, causal)
+        rows.append(row)
+        worst = max(worst, err)
+
+    bf16 = torch.bfloat16
+    d, E, f, k = ds.d_model, ds.n_experts, ds.expert_d_ff, ds.top_k
+    x = torch.randn((4 * 1024, d), generator=gen, device=dev).to(bf16)
+    router = torch.randn((d, E), generator=gen, device=dev) * d ** -0.5
+    idx, _, _ = moe.router_topk(x, router, k)
+    flat = idx.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    ends = torch.searchsorted(flat[order], torch.arange(E, device=dev),
+                              right=True, out_int32=True)
+    xs = x[order // k].contiguous()
+    act = torch.randn((xs.shape[0], f), generator=gen, device=dev).to(bf16)
+    w13 = (torch.randn((E, d, 2 * f), generator=gen, device=dev)
+           * d ** -0.5).to(bf16)
+    w2 = (torch.randn((E, f, d), generator=gen, device=dev)
+          * f ** -0.5).to(bf16)
+    gg = [_grouped_bwd_row(
+        name, a, w, torch.randn((a.shape[0], w.shape[-1]), generator=gen,
+                                device=dev).to(bf16), ends)
+        for name, a, w in (("deepseek_w13_T4096x6_bwd", xs, w13),
+                           ("deepseek_w2_T4096x6_bwd", act, w2))]
+    return rows, worst, gg
 
 
 # ------------------------------------------------------------ LM serving path
@@ -3001,11 +3177,11 @@ def phase_vlm_serve(dev):
     # The patch path: one request with the stub frontend's patches.
     batch = _on(_frontend_batch(cfg, np.random.default_rng(SEED + 5), 1,
                                 VLM_PROMPT), dev)
-    before = _k2_counts()
+    before = _counts()
     _, ptoks, _, plaunches = _batch_run(cfg, engine.params, batch,
                                         VLM_MAX_LEN, VLM_STEPS)
     torch.cuda.synchronize()
-    require(plaunches == [n] * (VLM_STEPS + 1) and _k2_delta(before)[0] == {
+    require(plaunches == [n] * (VLM_STEPS + 1) and _counts_delta(before)[0] == {
             "prefill_tc": n, "decode": n * VLM_STEPS},
             f"vlm_serve: the patch path launched K2 {plaunches} times per "
             "call, expected n_layers each, prefill on prefill_tc")
@@ -3195,15 +3371,20 @@ def phase_zoo_fp32(dev):
         del params
 
 
-def _k2_counts():
+def _counts():
     return (dict(flash_attention.launches_by_path),
-            dict(flash_attention.backward_launches))
+            dict(flash_attention.backward_launches),
+            dict(flash_attention.backward_launches_by_path),
+            dict(moe.grouped_gemm.launches_by_route),
+            dict(moe.grouped_gemm.backward_launches_by_route))
 
 
-def _k2_delta(before):
-    fwd, bwd = _k2_counts()
-    return ({k: n - before[0][k] for k, n in fwd.items() if n - before[0][k]},
-            {k: n - before[1][k] for k, n in bwd.items()})
+def _counts_delta(before):
+    """Launches since ``before`` (:func:`_counts`): K2 forwards by kernel,
+    K2 backwards by kernel and by path, grouped GEMMs forward and backward
+    by route; keys with no launch are left out."""
+    return tuple({k: n - b[k] for k, n in now.items() if n - b[k]}
+                 for now, b in zip(_counts(), before))
 
 
 def _lm_train_parity(dev):
@@ -3217,12 +3398,12 @@ def _lm_train_parity(dev):
     batch = batch_at_step(cfg, ShapeCfg("lm_train_parity", 128, 2, "train"),
                           0)
     grads_of = make_train_step(cfg).grads_of
-    before = _k2_counts()
+    before = _counts()
     by_path = dict(flash_attention.backward_launches_by_path)
     loss, grads = grads_of(params, {k: torch.from_numpy(x).to(dev)
                                     for k, x in batch.items()})
     torch.cuda.synchronize()
-    launched = _k2_delta(before)
+    launched = _counts_delta(before)[:2]
     require(launched == ({"general": cfg.n_layers},
                          {"dq": cfg.n_layers, "dkdv": cfg.n_layers})
             and flash_attention.backward_launches_by_path == {
@@ -3303,20 +3484,19 @@ def _lm_train_full(dev):
     per_mb = lambda m: ({"prefill_tc": m * L},  # noqa: E731
                         {"dq": m * L, "dkdv": m * L})
     with torch.no_grad():
-        before = _k2_counts()
+        before = _counts()
         fwd_loss = float(lm.loss_fn(cfg, params, batch))
-        require(_k2_delta(before) == ({"prefill_tc": L},
-                                      {"dq": 0, "dkdv": 0}),
+        require(_counts_delta(before)[:2] == ({"prefill_tc": L}, {}),
                 "lm_train: the no-grad loss did not take prefill_tc once a "
                 "layer")
 
     # Two runs of the same step from the same state (a report).
     grads_of = make_train_step(cfg, opt_cfg).grads_of
-    before = _k2_counts()
+    before = _counts()
     loss_a, grads_a = grads_of(params, batch)
     torch.cuda.synchronize()
-    require(_k2_delta(before) == per_mb(1), f"lm_train: K2 launches "
-            f"{_k2_delta(before)} for one microbatch")
+    require(_counts_delta(before)[:2] == per_mb(1), f"lm_train: K2 launches "
+            f"{_counts_delta(before)[:2]} for one microbatch")
     loss_b, grads_b = grads_of(params, batch)
     differ = [name for (name, a), b in zip(optim.named_leaves(grads_a),
                                            optim.leaves(grads_b))
@@ -3332,12 +3512,13 @@ def _lm_train_full(dev):
     moments, mb_loss = {}, {}
     for mb in (1, 2):
         state = init_opt_state(zero, params)
-        before = _k2_counts()
+        before = _counts()
         _, state, _, m = make_train_step(cfg, zero, microbatches=mb)(
             params, state, None, batch)
         torch.cuda.synchronize()
-        require(_k2_delta(before) == per_mb(mb), f"lm_train: K2 launches "
-                f"{_k2_delta(before)} for {mb} microbatches")
+        require(_counts_delta(before)[:2] == per_mb(mb), f"lm_train: K2 "
+                f"launches {_counts_delta(before)[:2]} for {mb} "
+                "microbatches")
         moments[mb], mb_loss[mb] = state.m, float(m["loss"])
         del state
     mb_rel = abs(mb_loss[2] - mb_loss[1]) / abs(mb_loss[1])
@@ -3460,6 +3641,284 @@ def phase_lm_train(dev):
     return flash_attention.launches, fwd, bwd, by_path
 
 
+# ------------------------------------------------ training of the families
+def _train_k2_sites(cfg) -> tuple:
+    """K2's sites in one training forward, and how many of them a remat
+    backward runs again: every attention of the transformer families and
+    of enc-dec (the encoder's, the decoder's self- and cross-attention;
+    each layer checkpointed under ``cfg.remat``), zamba2's shared-block
+    sites (outside its checkpointed Mamba layers), none for xLSTM."""
+    if cfg.family == "hybrid":
+        return ssm.num_shared_calls(cfg), 0
+    if cfg.family == "ssm":
+        return 0, 0
+    sites = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.family == "encdec"
+             else cfg.n_layers)
+    return sites, sites if cfg.remat else 0
+
+
+def _train_gg_calls(cfg) -> tuple:
+    """Grouped GEMM calls of one microbatch: (forward, backward).  Two
+    products a MoE layer, run again by a remat backward."""
+    if cfg.family != "moe":
+        return 0, 0
+    prods = 2 * (cfg.n_layers - cfg.first_dense_layers)
+    return prods * (2 if cfg.remat else 1), prods
+
+
+def _expected(cfg, grad_mbs: int, no_grad: int, fwd_path: str,
+              bwd_path: str):
+    """The launches ``_counts_delta`` must show after ``grad_mbs``
+    microbatches under grad and ``no_grad`` forwards without it, K2's on
+    ``fwd_path`` and ``bwd_path``, every grouped GEMM on grouped_mm (the
+    card's route at every dtype the phases run)."""
+    sites, again = _train_k2_sites(cfg)
+    gg_fwd, gg_bwd = _train_gg_calls(cfg)
+    fwd = no_grad * sites + grad_mbs * (sites + again)
+    bwd = grad_mbs * sites
+    gg_f = no_grad * gg_fwd // (2 if cfg.remat else 1) + grad_mbs * gg_fwd
+    return tuple({k: n for k, n in d.items() if n} for d in (
+        {fwd_path: fwd}, {"dq": bwd, "dkdv": bwd}, {bwd_path: bwd},
+        {"grouped_mm": gg_f}, {"grouped_mm": grad_mbs * gg_bwd}))
+
+
+def _family_cfg(arch: str, cut: dict, dtype=None):
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def _train_parity(phase: str, arch: str, cut: dict, L: int, dev):
+    """``arch`` at full width cut to ``cut`` (TRAIN_PARITY), fp32, B = 2 x L
+    from the data pipeline: ``grads_of`` (remat as the main run) on the
+    card (K2 both ways on the CUDA-core pair; the MoE grouped GEMMs both
+    ways on grouped_mm) against the CPU's (the plain attention, the loop
+    route): the loss within 1e-4 relative, every gradient leaf within
+    1e-3 * max|ref| + 1e-5 (lm_train_parity's gates), K2 and grouped GEMM
+    launches exactly, and for MoE the router's expert sets equal on both
+    devices at every call."""
+    _fresh_device()
+    cfg = _family_cfg(arch, cut, torch.float32)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    batch = batch_at_step(cfg, ShapeCfg(phase, L, 2, "train"), 0)
+    grads_of = make_train_step(cfg).grads_of
+    before = _counts()
+    with _RouteLog() as g_log:
+        loss, grads = grads_of(params, _on(batch, dev))
+    torch.cuda.synchronize()
+    launched = _counts_delta(before)
+    want = _expected(cfg, 1, 0, "general", "general")
+    require(launched == want, f"{phase} parity: launches {launched}, "
+            f"expected {want}")
+    t0 = time.perf_counter()
+    with _RouteLog() as c_log:
+        ref_loss, ref = grads_of(_to_cpu(params), _on(batch,
+                                                      torch.device("cpu")))
+    cpu_s = time.perf_counter() - t0
+    require(len(g_log.calls) == len(c_log.calls)
+            and all(torch.equal(_expert_sets(gi).cpu(), _expert_sets(ci))
+                    for (gi, _), (ci, _) in zip(g_log.calls, c_log.calls)),
+            f"{phase} parity: the router chose other experts on the card "
+            "than on the CPU")
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    require(loss_rel <= 1e-4, f"{phase} parity: loss {float(loss)} vs the "
+            f"CPU's {float(ref_loss)}")
+    excess, errs = -np.inf, {}
+    for (key, r), g in zip(optim.named_leaves(ref), optim.leaves(grads)):
+        err = float((g.cpu() - r).abs().max())
+        errs[key] = err
+        excess = max(excess, err - 1e-3 * float(r.abs().max()) - 1e-5)
+    require(excess <= 0, f"{phase} parity: a gradient leaf beyond "
+            f"1e-3 * max|ref| + 1e-5 (excess {excess}): {errs}")
+    emit({"phase": f"{phase}_parity", "arch": cfg.name, "cut": cut,
+          "d_model": cfg.d_model, "dtype": "float32", "remat": cfg.remat,
+          "batch": [2, L], "loss": float(loss), "cpu_loss": float(ref_loss),
+          "loss_rel_err": loss_rel, "grad_max_abs_err": errs,
+          "grad_excess": excess, "launches": launched,
+          "router_calls": len(g_log.calls),
+          "expert_sets_equal": cfg.family == "moe" or "no router",
+          "cpu_grad_s": cpu_s})
+
+
+def _train_class(name: str) -> str:
+    """The class of a device kernel in a training step, by its name: K2
+    forward or backward, the grouped GEMM, cuBLAS and CUTLASS GEMMs,
+    elementwise work and the rest."""
+    low = name.lower()
+    if "flash_bwd" in low:
+        return "k2_backward"
+    if "flash_" in low:
+        return "k2_forward"
+    return {"grouped_gemm": "grouped_gemm", "gemm": "cublas"}.get(
+        _kernel_kind(name), "elementwise")
+
+
+def _profile_train(step, state, batch, tree: bool, steps: int = 2):
+    """Two train steps under torch.profiler after a traced warm-up step (a
+    window's first call loses events): each step's wall time, the device's
+    busy share and the device time per step by class
+    (:func:`_train_class`).  With ``tree`` (the MoE family) the trace
+    holds the CPU ops too, and the grouped GEMM's time is split into its
+    backward (kernels launched under ``GroupedMmBackward0``) and its
+    forward (the rest, a remat backward's recompute included); without it
+    only the device is traced (xlstm's sLSTM loop launches ~150k kernels
+    a step, and tracing their CPU side costs minutes)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA] + (
+        [torch.profiler.ProfilerActivity.CPU] if tree else [])
+    traced, wall = [], []
+    with torch.profiler.profile(
+            activities=acts,
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=steps),
+            on_trace_ready=lambda p: traced.append(p.events())) as prof:
+        for i in range(steps + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state = step(*state, batch)[:3]
+            torch.cuda.synchronize()
+            if i:
+                wall.append((time.perf_counter() - t) * 1e3)
+            prof.step()
+    events = traced[0] if traced else []
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation       # the steps' GPU spans
+              and not e.name.startswith("ProfilerStep")]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    by_class, launches = {}, {}
+    for e in device:
+        kind = _train_class(e.name)
+        ms = e.time_range.elapsed_us() / 1e3
+        by_class[kind] = by_class.get(kind, 0.0) + ms
+        launches[kind] = launches.get(kind, 0) + 1
+    if tree and "grouped_gemm" in by_class:
+        bwd_ms, bwd_n = 0.0, 0
+        for e in events:
+            up, under = e, False
+            while up is not None and not under:
+                under = "GroupedMmBackward" in up.name
+                up = up.cpu_parent
+            for kern in e.kernels if under else ():
+                # A CPU op may list itself with its own name; only device
+                # kernels count.
+                if kern.name != e.name and _train_class(
+                        kern.name) == "grouped_gemm":
+                    bwd_ms += kern.duration / 1e3
+                    bwd_n += 1
+        for d, bwd in ((by_class, bwd_ms), (launches, bwd_n)):
+            d["grouped_gemm_forward"] = d.pop("grouped_gemm") - bwd
+            d["grouped_gemm_backward"] = bwd
+    wall_ms = sum(wall)
+    per = lambda d: {k: v / steps for k, v in d.items()}  # noqa: E731
+    return state, {
+        "profiled_steps": steps, "profiled_step_ms": wall,
+        "device_busy_ms_per_step": busy / steps if device
+        else "not measured",
+        "device_busy_share": busy / wall_ms if device else "not measured",
+        "device_ms_per_step_by_class": per(by_class) if device
+        else "not measured",
+        "launches_per_step_by_class": per(launches),
+        "kernel_launches_per_step": len(device) / steps}
+
+
+def _train_main(phase: str, arch: str, cut: dict, seq: int, steps: int,
+                lr: float, dev):
+    """``arch`` at full width (depth cut by ``cut``): bf16 compute, fp32
+    parameters, AdamW from optim.for_model at ``lr``, 4 x ``seq`` tokens
+    from the data pipeline through make_train_step:
+    step 0's loss within 1e-3 of a no-grad forward's, ``grads_of`` twice
+    from the same state bit-equal, ``steps`` steps each finite with the
+    last below the first, then two profiled steps; K2 and grouped GEMM
+    launches exactly at each part.  Returns the microbatches under grad
+    and the no-grad forwards it ran."""
+    _fresh_device()
+    cfg = _family_cfg(arch, cut)
+    n = 4 * seq
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    opt_cfg = dataclasses.replace(optim.for_model(cfg), lr=lr)
+    batch = _on(batch_at_step(cfg, ShapeCfg(phase, seq, 4, "train"), 0), dev)
+    on_card = ("prefill_tc", "tc")
+    with torch.no_grad():
+        before = _counts()
+        fwd_loss = float(lm.loss_fn(cfg, params, batch))
+        require(_counts_delta(before) == _expected(cfg, 0, 1, *on_card),
+                f"{phase}: the no-grad loss launched {_counts_delta(before)}")
+
+    grads_of = make_train_step(cfg, opt_cfg).grads_of
+    before = _counts()
+    loss_a, grads_a = grads_of(params, batch)
+    torch.cuda.synchronize()
+    require(_counts_delta(before) == _expected(cfg, 1, 0, *on_card),
+            f"{phase}: one microbatch launched {_counts_delta(before)}, "
+            f"expected {_expected(cfg, 1, 0, *on_card)}")
+    loss_b, grads_b = grads_of(params, batch)
+    differ = [name for (name, a), b in zip(optim.named_leaves(grads_a),
+                                           optim.leaves(grads_b))
+              if not torch.equal(a, b)]
+    require(torch.equal(loss_a, loss_b) and not differ,
+            f"{phase}: grads_of twice from the same state differ (loss "
+            f"{float(loss_a)} / {float(loss_b)}; leaves {differ})")
+    finite = all(bool(torch.isfinite(g).all()) for g in optim.leaves(grads_a))
+    require(finite, f"{phase}: a gradient is not finite")
+    del grads_a, grads_b
+
+    step = make_train_step(cfg, opt_cfg)
+    state = (params, init_opt_state(opt_cfg, params), None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, _, m = step(*state, batch)
+        end.record()
+        end.synchronize()
+        state = (params, opt_state, None)
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(np.isfinite(losses).all() and losses[-1] < losses[0],
+            f"{phase}: {steps} steps did not lower the loss: {losses}")
+    step0_rel = abs(losses[0] - fwd_loss) / abs(fwd_loss)
+    require(step0_rel <= 1e-3, f"{phase}: step 0's loss {losses[0]} vs the "
+            f"no-grad forward's {fwd_loss}")
+    state, prof = _profile_train(step, state, batch, cfg.family == "moe")
+    med = statistics.median(step_ms[1:])
+    sites, again = _train_k2_sites(cfg)
+    emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "cut": cut, "d_model": cfg.d_model, "vocab": cfg.vocab,
+          "params": sum(t.numel() for t in optim.leaves(params)),
+          "dtype": "bfloat16", "param_dtype": "float32", "remat": cfg.remat,
+          "optimizer": opt_cfg.name, "lr": opt_cfg.lr, "batch": [4, seq],
+          "no_grad_loss": fwd_loss, "step0_loss": losses[0],
+          "step0_rel_err": step0_rel, "losses": losses,
+          "grads_bit_equal_twice": True,
+          "k2_sites_per_microbatch": sites, "k2_sites_recomputed": again,
+          "grouped_gemm_calls_per_microbatch": _train_gg_calls(cfg),
+          "step_ms": step_ms, "step_ms_median": med,
+          "tokens_per_s": n / (med / 1e3), "peak_mem_gb": peak_gb,
+          "card_mem_gb": torch.cuda.mem_get_info(dev)[1] / 1e9, **prof})
+    return 2 + steps + 1 + prof["profiled_steps"], 1
+
+
+def phase_family_train(phase: str, dev):
+    """One family's training: the parity part, then the main path, whose
+    counts start from 0 just before it.  Returns the main path's K2
+    forwards by kernel and backwards by kernel and by path."""
+    arch, cut, L = TRAIN_PARITY[phase]
+    _train_parity(phase, arch, cut, L, dev)
+    arch, cut, seq, steps, lr = TRAIN_MAIN[phase]
+    _zero_counts()                            # the main path starts here
+    grad_mbs, no_grad = _train_main(phase, arch, cut, seq, steps, lr, dev)
+    got = _counts()                           # ... and ends here
+    cfg = _family_cfg(arch, cut)
+    want = _expected(cfg, grad_mbs, no_grad, "prefill_tc", "tc")
+    require(tuple({k: n for k, n in d.items() if n} for d in got) == want,
+            f"{phase}: the main path launched {got}, expected {want}")
+    require(spmm.launches == 0, f"{phase} launched spmm_csr")
+    _fresh_device()
+    return got[0], got[1], got[2]
+
+
 def _zero_counts() -> None:
     spmm.launches = 0
     spmm.launches_by_dir = {"fwd": 0, "bwd": 0}
@@ -3472,6 +3931,8 @@ def _zero_counts() -> None:
         flash_attention.backward_launches_by_path, 0)
     moe.grouped_gemm.launches_by_route = dict.fromkeys(
         moe.grouped_gemm.launches_by_route, 0)
+    moe.grouped_gemm.backward_launches_by_route = dict.fromkeys(
+        moe.grouped_gemm.backward_launches_by_route, 0)
 
 
 def main() -> int:
@@ -3484,6 +3945,9 @@ def main() -> int:
     kernel_rows, bwd_rows, worst = phase_kernels([siot, yelp], dev)
     flash_rows, flash_worst = phase_flash_kernels(dev)
     flash_bwd_rows, flash_bwd_worst = phase_flash_backward(dev)
+    train_rows, train_worst, _ = phase_train_kernels(dev)
+    flash_bwd_rows += train_rows
+    flash_bwd_worst = max(flash_bwd_worst, train_worst)
     emit({"phase": "profiler_windows", "off_windows": len(LOST_WINDOWS),
           "windows": LOST_WINDOWS[:12]})
 
@@ -3531,6 +3995,13 @@ def main() -> int:
     phase_zoo_fp32(dev)
     train_launches_k2, train_by_path, train_bwd, train_bwd_by_path = (
         phase_lm_train(dev))
+    family_train = {name: phase_family_train(name, dev)
+                    for name in TRAIN_MAIN}
+    train_fwd_phases = {"lm_train": train_by_path, **{
+        name: {key: got[0].get(key, 0) for key in train_by_path}
+        for name, got in family_train.items()}}
+    train_bwd_phases = {"lm_train": train_bwd, **{
+        name: got[1] for name, got in family_train.items()}}
 
     head = kernel_rows[0]
     flash_head = next(r for r in flash_rows
@@ -3566,19 +4037,26 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:117",
         "launches": (flash_launches + moe_launches + hybrid_launches
-                     + vlm_launches + encdec_launches + train_launches_k2),
+                     + vlm_launches + encdec_launches + sum(
+                         sum(d.values()) for d in train_fwd_phases.values())),
         "launches_by_path": {key: flash_by_path[key] + moe_by_path[key]
                              + hybrid_by_path[key] + vlm_by_path[key]
-                             + encdec_by_path[key] + train_by_path[key]
+                             + encdec_by_path[key]
+                             + sum(d[key] for d in train_fwd_phases.values())
                              for key in flash_by_path},
         "launches_by_phase": {"lm_serve": flash_by_path,
                               "moe_serve": moe_by_path,
                               "hybrid_serve": hybrid_by_path,
                               "vlm_serve": vlm_by_path,
                               "encdec_serve": encdec_by_path,
-                              "lm_train": train_by_path},
-        "backward_launches": train_bwd,
-        "backward_launches_by_path": train_bwd_by_path,
+                              **train_fwd_phases},
+        "backward_launches": {key: sum(d.get(key, 0)
+                                       for d in train_bwd_phases.values())
+                              for key in train_bwd},
+        "backward_launches_by_phase": train_bwd_phases,
+        "backward_launches_by_path": {key: train_bwd_by_path[key] + sum(
+            got[2].get(key, 0) for got in family_train.values())
+            for key in train_bwd_by_path},
         "backward_source": "src/repro_torch/kernels/csrc/"
                            "flash_attention_bwd_tc.cu",
         "max_abs_err": flash_worst,
@@ -3601,9 +4079,14 @@ def main() -> int:
         "name": "flash_attention_bwd_tc", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
         "replaces": "src/repro/kernels/flash_attention.py:117",
-        "launches": sum(train_bwd.values()),
-        "launches_by_kernel": train_bwd,
-        "backward_launches_by_path": train_bwd_by_path,
+        "launches": sum(sum(d.values()) for d in train_bwd_phases.values()),
+        "launches_by_kernel": {key: sum(d.get(key, 0)
+                                        for d in train_bwd_phases.values())
+                               for key in train_bwd},
+        "launches_by_phase": train_bwd_phases,
+        "backward_launches_by_path": {key: train_bwd_by_path[key] + sum(
+            got[2].get(key, 0) for got in family_train.values())
+            for key in train_bwd_by_path},
         "max_abs_err": flash_bwd_worst,
         "ms": bwd_head["ms"], "device_ms": bwd_head["device_ms"],
         "device_ms_by_kernel": bwd_head["device_ms_by_kernel"],

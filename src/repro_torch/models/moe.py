@@ -40,8 +40,22 @@ from the data and never because a call raised:
   the host once per call, for the CPU and for rows that are not whole
   16-byte chunks.
 
-``grouped_gemm.launches_by_route`` counts the calls by route, one per
-grouped GEMM.
+The adjoints are autograd's through the product, and they are the
+reference's (``grouped_gemm``'s ``custom_vjp``, ``_gg_bwd``): ``dx =
+grouped(dy, wᵀ)`` and a ragged ``dw[e] = x[group e]ᵀ dy[group e]``, with
+the forward's FLOPs.  The reference needs its ``custom_vjp`` because
+autodiff of ``ragged_dot`` makes ``dW`` dense ("30x total-step compute");
+torch's derivative of ``torch._grouped_mm`` is already the ragged pair
+(``dx`` over ``wᵀ``, ``dw`` in its K-ragged mode), and on the loop route
+each group's product differentiates alone: ``x`` is split and ``w``
+unbound once, so ``dx`` is one ``cat`` and ``dw`` one ``stack`` (slicing
+them per group would sum a dense zero-filled copy per group).  An empty
+group's ``dw`` is 0, and ``grouped_gemm`` zeroes the rows past the groups
+before the product, so their ``dx`` is 0.
+
+``grouped_gemm.launches_by_route`` counts the forward calls by route, one
+per grouped GEMM, and ``grouped_gemm.backward_launches_by_route`` the
+backward calls, one where autograd reaches a grouped GEMM's output.
 """
 from __future__ import annotations
 
@@ -78,37 +92,52 @@ def grouped_gemm_route(x: torch.Tensor, w: torch.Tensor) -> str:
     return "grouped_mm" if x.is_cuda and aligned else "loop"
 
 
+def _product(route: str, x, w, ends):
+    """Rows ``ends[e-1]:ends[e]`` of ``x (m, k)`` times ``w[e] (k, n)`` on
+    ``route``; rows past ``ends[-1]`` are left unspecified on grouped_mm
+    and 0 on the loop."""
+    if route == "grouped_mm":
+        return torch._grouped_mm(x, w, offs=ends)
+    bounds = [0] + ends.tolist()
+    xs = x.split([b - a for a, b in zip(bounds, bounds[1:])]
+                 + [x.shape[0] - bounds[-1]])
+    parts = [xg @ wg for xg, wg in zip(xs, w.unbind(0)) if len(xg)]
+    parts.append(x.new_zeros((len(xs[-1]), w.shape[-1])))
+    return torch.cat(parts)
+
+
+def _backward_hook(route: str):
+    def hook(dy):
+        grouped_gemm.backward_launches_by_route[route] += 1
+        return dy.contiguous()          # torch._grouped_mm's stride rule
+    return hook
+
+
 def _grouped(x, w, ends):
     """Rows ``ends[e-1]:ends[e]`` of ``x`` times ``w[e]``; ``ends`` (g,)
     int32, the groups' cumulative sizes, on x's device.  Rows past
     ``ends[-1]`` are left unspecified on the grouped_mm route and 0 on the
-    loop route.  One count per call."""
+    loop route.  One count per call, and one per backward."""
     route = grouped_gemm_route(x, w)
     grouped_gemm.launches_by_route[route] += 1
-    x, w = x.contiguous(), w.contiguous()
-    if route == "grouped_mm":
-        return torch._grouped_mm(x, w, offs=ends)
-    parts, start = [], 0
-    for e, end in enumerate(ends.tolist()):
-        if end > start:
-            parts.append(x[start:end] @ w[e])
-        start = end
-    parts.append(x.new_zeros((x.shape[0] - start, w.shape[-1])))
-    return torch.cat(parts)
+    out = _product(route, x.contiguous(), w.contiguous(), ends)
+    if out.requires_grad:
+        out.register_hook(_backward_hook(route))
+    return out
 
 
 def grouped_gemm(x, w, group_sizes):
-    """``jax.lax.ragged_dot(x, w, group_sizes)``: x (m, k), w (g, k, n),
-    group_sizes (g,) -> (m, n) in x's dtype; row i is multiplied by the
-    weight of the group it falls in, and rows past ``sum(group_sizes)`` are
-    0."""
+    """``jax.lax.ragged_dot(x, w, group_sizes)`` with the reference's
+    ragged adjoints: x (m, k), w (g, k, n), group_sizes (g,) -> (m, n) in
+    x's dtype; row i is multiplied by the weight of the group it falls in,
+    and rows past ``sum(group_sizes)`` are 0 (and get no gradient)."""
     ends = torch.cumsum(group_sizes.to(x.device), 0).to(torch.int32)
-    out = _grouped(x, w, ends)
-    past = torch.arange(x.shape[0], device=x.device) >= ends[-1]
-    return out.masked_fill(past[:, None], 0)
+    past = (torch.arange(x.shape[0], device=x.device) >= ends[-1])[:, None]
+    return _grouped(x.masked_fill(past, 0), w, ends).masked_fill(past, 0)
 
 
 grouped_gemm.launches_by_route = {"grouped_mm": 0, "loop": 0}
+grouped_gemm.backward_launches_by_route = {"grouped_mm": 0, "loop": 0}
 
 
 def moe_ffn(cfg: LMConfig, p: Dict[str, torch.Tensor],
@@ -130,7 +159,12 @@ def moe_ffn(cfg: LMConfig, p: Dict[str, torch.Tensor],
     experts = torch.arange(E, device=x.device, dtype=flat.dtype)
     ends = torch.searchsorted(flat[order], experts, right=True,
                               out_int32=True)         # cumulative sizes
-    h = _grouped(xf[order // k], p["w13"].to(x.dtype), ends)
+    # Each token k times, then the assignments in expert order: a gather
+    # by a permutation, whose backward sees each index once (the gradient
+    # repeats bit for bit; gathering ``xf[order // k]`` would accumulate
+    # repeated indices).
+    xk = xf[:, None].expand(-1, k, -1).reshape(n, d)
+    h = _grouped(xk[order], p["w13"].to(x.dtype), ends)
     g, u = h.chunk(2, dim=-1)
     act = (F.silu(g.float()) * u.float()).to(x.dtype)
     y = _grouped(act, p["w2"].to(x.dtype), ends)

@@ -11,8 +11,16 @@ returns them with a new ``step``.  The reference's update is functional; at
 llama3.2-1b's 1.24 B parameters a functional copy of parameters and both
 moments would hold another 20 GB of device memory.  Each leaf computes the
 reference's formulas in fp32 in the reference's order and casts the
-result to the leaf's dtype.  ``opt_state_specs`` (GSPMD sharding) comes
-with ``launch/``'s mesh work.
+result to the leaf's dtype.  The reference's ``clip_by_global_norm`` is
+applied inside the update: its scale ``min(1, max_norm / max(norm,
+1e-9))`` multiplies each gradient as ``(g * scale).to(g.dtype)``.  A leaf
+is updated in flat chunks of ``UPDATE_CHUNK`` elements, so the step holds
+no clipped copy of the gradients and its fp32 temporaries stay
+the size of a chunk: a stacked leaf of a model's layers (deepseek-moe-16b's
+routed experts, 1.5 B parameters in four MoE layers) would otherwise take
+several leaf-sized temporaries at once.  Every element sees the same
+operations either way, so the result is the same bit for bit.
+``opt_state_specs`` (GSPMD sharding) comes with ``launch/``'s mesh work.
 """
 from __future__ import annotations
 
@@ -73,13 +81,28 @@ def init_opt_state(cfg: OptConfig, params) -> OptState:
     return OptState(torch.zeros((), dtype=torch.int32, device=dev), m, v)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled by min(1, max_norm / max(norm, 1e-9)), norm): new
-    tensors in each leaf's dtype.  The norm is the sqrt of the sum over
-    the leaves, in order, of each leaf's fp32 sum of squares."""
-    gn = torch.sqrt(sum(g.float().square().sum() for g in leaves(grads)))
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
+def _global_norm(grads):
+    """The sqrt of the sum over the leaves, in order, of each leaf's fp32
+    sum of squares."""
+    return torch.sqrt(sum(g.float().square().sum() for g in leaves(grads)))
+
+
+def _clip_scale(gn, max_norm: float):
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+
+
+# Elements a leaf's update works on at once (:func:`apply_updates`).
+UPDATE_CHUNK = 1 << 26
+
+
+def _chunks(p, g, *moments):
+    """Aligned flat chunks of a leaf's parameter, gradient and moments, the
+    written ones (parameter, moments: contiguous, as ``init_params`` and
+    :func:`init_opt_state` make them) as views, so an in-place write to a
+    chunk lands in the tensor."""
+    return zip(p.view(-1).split(UPDATE_CHUNK),
+               g.reshape(-1).split(UPDATE_CHUNK),
+               *(t.view(-1).split(UPDATE_CHUNK) for t in moments))
 
 
 @torch.no_grad()
@@ -87,7 +110,8 @@ def apply_updates(cfg: OptConfig, params, grads, state: OptState):
     """One clipped AdamW or Lion step, in place.  Returns (params,
     OptState(step + 1, m, v), grad_norm): the same parameter and moment
     tensors, updated."""
-    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+    gn = _global_norm(grads)
+    scale = _clip_scale(gn, cfg.grad_clip)
     step = state.step + 1
     if cfg.name == "adamw":
         t = step.float()
@@ -95,7 +119,7 @@ def apply_updates(cfg: OptConfig, params, grads, state: OptState):
         bc2 = 1.0 - cfg.b2 ** t
 
         def upd(p, g, m, v):
-            g32 = g.float()
+            g32 = (g * scale).to(g.dtype).float()
             m2 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
             v.copy_(cfg.b2 * v + (1 - cfg.b2) * g32.square())
             delta = (m2 / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
@@ -103,18 +127,20 @@ def apply_updates(cfg: OptConfig, params, grads, state: OptState):
             p.copy_((p.float() - cfg.lr * delta).to(p.dtype))
             m.copy_(m2.to(m.dtype))
 
-        tree_map(upd, params, grads, state.m, state.v)
+        tree_map(lambda *leaf: [upd(*c) for c in _chunks(*leaf)],
+                 params, grads, state.m, state.v)
         return params, OptState(step, state.m, state.v), gn
     if cfg.name == "lion":
         def upd(p, g, m):
-            g32 = g.float()
+            g32 = (g * scale).to(g.dtype).float()
             m32 = m.float()
             u = torch.sign(cfg.b1 * m32 + (1 - cfg.b1) * g32)
             u = u + cfg.weight_decay * p.float()
             p.copy_((p.float() - cfg.lr * u).to(p.dtype))
             m.copy_((cfg.b2 * m32 + (1 - cfg.b2) * g32).to(m.dtype))
 
-        tree_map(upd, params, grads, state.m)
+        tree_map(lambda *leaf: [upd(*c) for c in _chunks(*leaf)],
+                 params, grads, state.m)
         return params, OptState(step, state.m, state.v), gn
     raise ValueError(cfg.name)
 

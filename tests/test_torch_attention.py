@@ -168,7 +168,7 @@ def test_cpu_dispatch_takes_plain_path_and_never_launches():
     np.testing.assert_allclose(
         ops.attention(tq, tk, tv, kl, causal=True, impl="ref").numpy(),
         plain.numpy(), rtol=1e-5, atol=1e-5)
-    assert flash_attention.launches == before == 0
+    assert flash_attention.launches == before
     with pytest.raises(ValueError):
         ops.attention(tq, tk, tv, causal=True, impl="kernel")
     with pytest.raises(ValueError):

@@ -1032,3 +1032,102 @@ def test_frontend_families_on_card_match_cpu(dev, arch):
     for name in cc:
         torch.testing.assert_close(gc[name].cpu(), cc[name], rtol=1e-4,
                                    atol=1e-4)
+
+
+# ------------------------------------------------ training of the families
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grouped_gemm_backward_on_card_matches_loop_and_dense(dev, dtype):
+    """grouped_gemm's ragged adjoints on the grouped_mm route (torch's
+    derivative of ``torch._grouped_mm``: dx over wᵀ, the K-ragged dw)
+    against the loop route's and against autograd through
+    the dense per-row product, with an empty group and rows past the
+    last group (their dx 0), counted once a backward, bit-equal run to
+    run."""
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((70, 64), generator=gen).to(dev, dtype)
+    w = torch.randn((5, 64, 48), generator=gen).to(dev, dtype)
+    dy = torch.randn((70, 48), generator=gen).to(dev, dtype)
+    sizes = torch.tensor([13, 0, 29, 1, 20], device=dev)
+
+    def grads():
+        leaves = [t.detach().requires_grad_(True) for t in (x, w)]
+        return torch.autograd.grad(moe.grouped_gemm(*leaves, sizes), leaves,
+                                   dy)
+    before = dict(moe.grouped_gemm.backward_launches_by_route)
+    got, again = grads(), grads()
+    assert moe.grouped_gemm.backward_launches_by_route == {
+        **before, "grouped_mm": before["grouped_mm"] + 2}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ends = torch.cumsum(sizes, 0).to(torch.int32)
+    leaves = [t.detach().requires_grad_(True) for t in (x, w)]
+    loop = torch.autograd.grad(moe._product("loop", *leaves, ends), leaves,
+                               dy)
+    gid = torch.searchsorted(ends, torch.arange(70, device=dev), right=True)
+    leaves = [t.float().detach().requires_grad_(True) for t in (x, w)]
+    wz = torch.cat([leaves[1], torch.zeros_like(leaves[1][:1])])
+    dense = torch.einsum("mk,mkn->mn", leaves[0], wz[gid])
+    dense_grads = torch.autograd.grad(dense, leaves, dy.float())
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for g, lp, dn in zip(got, loop, dense_grads):
+        for ref in (lp.float(), dn):
+            scale = float(ref.abs().max())
+            assert float((g.float() - ref).abs().max()) <= tol * scale + 1e-6
+    assert torch.equal(got[0][63:], torch.zeros_like(got[0][63:]))
+    assert torch.equal(got[1][1], torch.zeros_like(got[1][1]))
+
+
+TRAIN_ARCHS = ["deepseek-moe-16b", "zamba2-1.2b", "internvl2-2b",
+               "seamless-m4t-medium", "xlstm-1.3b"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_family_train_step_on_card_matches_cpu(dev, arch):
+    """Each family's smoke config cut to 2 layers (2 + 2), fp32, every
+    layer checkpointed: the loss and every gradient leaf of ``grads_of``
+    on the card (K2 both ways, the grouped GEMMs both ways on grouped_mm)
+    against the CPU's, at chip_smoke's parity gates (the loss within 1e-4
+    relative, each leaf within 1e-3 * max|ref| + 1e-5); the card's step
+    bit-equal run to run; one AdamW step on each side, then the losses
+    still agree."""
+    cut = {"n_layers": 2, "remat": True, "dtype": torch.float32}
+    if arch == "seamless-m4t-medium":
+        cut["n_enc_layers"] = 2
+    if arch == "zamba2-1.2b":
+        cut["attn_every"] = 2
+    if arch == "xlstm-1.3b":
+        cut["slstm_every"] = 2
+    cfg = dataclasses.replace(get_smoke_config(arch), **cut)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    cpu = _to_cpu(params)
+    batch = batch_at_step(cfg, ShapeCfg("t", 160, 2, "train"), 0)
+    gb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    cb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    opt = OptConfig(lr=1e-3)
+    step = make_train_step(cfg, opt)
+    loss, grads = step.grads_of(params, gb)
+    loss2, grads2 = step.grads_of(params, gb)
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(a, b) for a, b in zip(optim.leaves(grads),
+                                                  optim.leaves(grads2)))
+    ref_loss, ref = step.grads_of(cpu, cb)
+    assert float(loss) == pytest.approx(float(ref_loss), rel=1e-4)
+    for g, r in zip(optim.leaves(grads), optim.leaves(ref)):
+        assert float((g.cpu() - r).abs().max()) <= (
+            1e-3 * float(r.abs().max()) + 1e-5)
+    params, _, _, _ = step(params, init_opt_state(opt, params), None, gb)
+    cpu, _, _, _ = step(cpu, init_opt_state(opt, cpu), None, cb)
+    assert float(step.grads_of(params, gb)[0]) == pytest.approx(
+        float(step.grads_of(cpu, cb)[0]), rel=1e-4)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_launch_train_family_smoke_on_card(capsys, arch):
+    """``python -m repro_torch.launch.train --arch <family> --smoke`` on
+    the card: 10 steps, the loss finite and falling."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.launch import train as launch_train
+    losses = launch_train.main(["--arch", arch, "--smoke", "--steps", "10"])
+    assert len(losses) == 10 and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
+    assert "on cuda" in capsys.readouterr().out

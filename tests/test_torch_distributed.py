@@ -71,6 +71,7 @@ def _reference(model, agg):
 @pytest.mark.parametrize("model", ["gcn", "sage", "gat"])
 def test_bsp_forward_matches_reference(model, exchange, agg):
     g, assign, sim, full = _reference(model, agg)
+    before = spmm.launches
     tg = port_graph(g)
     plan = TP.compile_plan(tg, partition_from_assign(tg, assign, 4, {}),
                            slack=0.25)
@@ -86,7 +87,7 @@ def test_bsp_forward_matches_reference(model, exchange, agg):
                                        exchange=exchange, aggregate=agg,
                                        device="cpu")
     np.testing.assert_array_equal(one_shot, out)
-    assert spmm.launches == 0                 # CPU tensors never launch
+    assert spmm.launches == before            # CPU tensors never launch
 
 
 @pytest.mark.parametrize("model,exchange", [("gcn", "ppermute"),

@@ -188,21 +188,37 @@ def test_apply_updates_matches_reference_over_three_steps(name):
     assert ts.m["a"].dtype == mdt[1]
 
 
+B1 = optim.OptConfig().b1
+
+
+def _first_moment(grads, max_norm):
+    """One AdamW step of ``apply_updates`` from zero moments: its first
+    moment, ``(1 - b1)`` times the gradients as its clip scaled them, and
+    the global norm."""
+    opt = optim.OptConfig(lr=1e-3, grad_clip=max_norm)
+    params = optim.tree_map(torch.zeros_like, grads)
+    _, state, gn = optim.apply_updates(opt, params, grads,
+                                       optim.init_opt_state(opt, params))
+    return state.m, gn
+
+
 def test_clip_by_global_norm():
+    """The reference's ``clip_by_global_norm`` as ``apply_updates`` applies
+    it: the norm, and the clipped gradients the first moment takes."""
     g = {"a": torch.full((4,), 100.0)}
-    clipped, gn = optim.clip_by_global_norm(g, 1.0)
+    m, gn = _first_moment(g, 1.0)
     assert float(gn) == pytest.approx(200.0)
-    assert float(torch.linalg.norm(clipped["a"])) == pytest.approx(
-        1.0, rel=1e-5)
+    assert float(torch.linalg.norm(m["a"])) == pytest.approx(
+        1.0 - B1, rel=1e-5)
     small = {"a": torch.full((4,), 0.1)}
-    same, _ = optim.clip_by_global_norm(small, 1.0)
-    assert torch.equal(same["a"], small["a"])
+    m, _ = _first_moment(small, 1.0)
+    assert torch.equal(m["a"], (1 - B1) * small["a"])
     rng = np.random.default_rng(2)
     tree = _tree(rng, 5.0)
     jc, jgn = j_clip(jax.tree.map(jnp.asarray, tree), 1.0)
-    tc, tgn = optim.clip_by_global_norm(_torch_tree(tree), 1.0)
+    m, tgn = _first_moment(_torch_tree(tree), 1.0)
     assert float(tgn) == pytest.approx(float(jgn), rel=1e-6)
-    _leaves_close(tc, jc, 1e-6)
+    _leaves_close(optim.tree_map(lambda t: t / (1 - B1), m), jc, 1e-6)
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2.5-32b", "yi-9b",
@@ -497,6 +513,9 @@ def test_chip_smoke_lm_train_phases_run_on_cpu(monkeypatch, capsys):
     from repro_torch.models import common as TC
     from repro_torch.models import transformer as TT
 
+    from test_torch_ssm import keep_counts
+
+    keep_counts(monkeypatch)
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_cpu", Path(__file__).resolve().parents[1]
         / "chip_smoke.py")

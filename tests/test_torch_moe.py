@@ -381,6 +381,9 @@ def test_chip_smoke_moe_phases_run_on_cpu(monkeypatch, capsys):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import common as TC
 
+    from test_torch_ssm import keep_counts
+
+    keep_counts(monkeypatch)
     spec = importlib.util.spec_from_file_location("chip_smoke_moe_cpu",
                                                   ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)

@@ -248,7 +248,7 @@ def test_spmm_packed_cpu_dispatch_takes_plain_path():
                                   T.spmm_packed_plain(pk, f).numpy())
     np.testing.assert_array_equal(T.spmm_packed(pk, f[None])[0].numpy(),
                                   out.numpy())
-    assert T.spmm.launches == before == 0
+    assert T.spmm.launches == before
 
 
 def test_plan_pack_matches_dense_product():

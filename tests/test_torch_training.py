@@ -180,6 +180,7 @@ def _port_step(model, exchange, agg, lr=0.05, seed=0):
 @pytest.mark.parametrize("exchange", ["ppermute", "allgather"])
 @pytest.mark.parametrize("model", MODELS)
 def test_distributed_step_matches_whole_graph_reference(model, exchange, agg):
+    before = TK.spmm.launches
     g, mask, jcfg, jp, params, fwd, step, blocks = _port_step(
         model, exchange, agg)
     assert fwd.mode == ("segment" if model == "gat" else agg)
@@ -199,7 +200,7 @@ def test_distributed_step_matches_whole_graph_reference(model, exchange, agg):
             assert torch.equal(layer[k], p[k] - 0.05 * gr[k])
     assert all(torch.isfinite(v).all() for layer in grads
                for v in layer.values())
-    assert TK.spmm.launches == 0                   # CPU tensors never launch
+    assert TK.spmm.launches == before              # CPU tensors never launch
 
 
 _REF_STEP = textwrap.dedent("""
