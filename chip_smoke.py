@@ -79,6 +79,30 @@ published widths:
           forward bit-equal to a fresh plan's, rebuilds as
           retrace_expected says, and one slot that inserts vertices and
           overflows e_cap;
+  ranks   the per-rank BSP forward (gnn.ranks.make_rank_bsp_forward) as 8
+          spawned processes, one per server of the plans, all on this card
+          over gloo, halos staged through pinned host memory (one spawn,
+          after the GNN path's K1 count is read): rank 0 lays SIoT and
+          Yelp out as layout does and broadcasts the assignments, every
+          rank compiles the main and Random plans and runs GCN, SAGE and
+          GAT under both exchanges; the gathered blocks against the
+          whole-graph forward (FWD_TOL) and the one-device batched forward
+          (error reported), a repeat bit-equal, K1 launches per rank,
+          staging copies per collective, rows and bytes per layer against
+          the plan's schedule, each rank's forward ms split into exchange,
+          plan check and compute beside the one-device forward's ms; the
+          replicated forward on SIoT's Random plan (replicate_greedy)
+          bit-equal to the unreplicated one, and raising without
+          replica0; the whole-graph forward timed on every rank at once and
+          on one at a time;
+  ranks_train  in the same ranks, the train step over both main plans
+          (GCN, SAGE, GAT, ppermute): the loss and every gradient leaf
+          against the one-device step on the card, a step repeated
+          bit-equal, 20 steps lowering the loss with the parameters'
+          digest equal on every rank after each, K1 both ways per step;
+          then phase_patch's relayouts on the ranks' SIoT main plan (0
+          rebuilds and bit-equal to a fresh plan's rank forward after the
+          value-only one, 1 after growth);
   kernels flash_attention against its plain torch version at the LM path's
           prefill (L = 512, 1024: the bf16 tensor-core kernel) and decode
           (cache strides, ragged kv_len: the split-key kernel) shapes, and
@@ -222,7 +246,8 @@ Each phase prints JSON lines.  Any failed check exits non-zero.  Before
 the last line it prints the kernels summary and the ``nvidia-smi`` name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The
 kernel summary's ``launches`` are the main paths' (train, then the GNN
-forward path from bsp to evolve, then LM serving, MoE serving, hybrid
+forward path from bsp to evolve, then the ranks (K1's ``ranks_fwd`` and
+``ranks_bwd``, summed over the ranks), then LM serving, MoE serving, hybrid
 serving, VLM serving, enc-dec serving, then LM training and the five
 families' training), each counted from 0; its ``flash_attention_bwd_tc``
 entry is K2's tensor-core backward (both kernels' launches on the
@@ -232,6 +257,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import statistics
@@ -256,14 +282,16 @@ from repro_torch.core import (  # noqa: E402
     CostModel, apply_delta, glad_e, glad_s, greedy_layout,
     partition_from_assign, random_layout, sample_delta, workload_for)
 from repro_torch.gnn import (  # noqa: E402
-    GNNServeEngine, build_plan_bsr, compile_plan, directed_edges, forward,
-    gather_outputs, init_params, loss_and_grads, make_bsp_forward,
-    make_distributed_train_step, patch_plan, plans_equal, recompile_like,
-    replicate_for_stream, scatter_features, scatter_ints,
-    scatter_replica_halo, serving_cost, set_replication, zipf_requests)
+    GNNServeEngine, broadcast_assign, build_plan_bsr, compile_plan,
+    directed_edges, forward, gather_outputs, init_params, loss_and_grads,
+    make_bsp_forward, make_distributed_train_step, make_rank_bsp_forward,
+    patch_plan, plans_equal, recompile_like, replicate_for_stream,
+    scatter_features, scatter_ints, scatter_replica_halo, serving_cost,
+    set_replication, zipf_requests)
 from repro_torch.graphs import (  # noqa: E402
     DataGraph, build_edge_network, synthetic_siot, synthetic_yelp)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.launch.ranks import run_ranks  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     aligned16, backward_path, decode_split, flash_attention,
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain,
@@ -1427,6 +1455,446 @@ def phase_replicate(siot, params_of, dev):
             require(fwd.stats["builds"] == 3 and torch.equal(out, plain[m]),
                     f"{layout} {m}: with replicas off again, "
                     f"{fwd.stats['builds']} builds (not 3) or another output")
+
+
+# ------------------------------------------------------------ ranks (gloo)
+RANK_LAYOUTS = ("glad_s_mu2", "random")
+RANK_MODELS = ("gcn", "sage", "gat")
+RANK_EXCHANGES = ("ppermute", "allgather")
+RANK_REPS = 10                 # timed forwards per case on every rank
+RANK_TIMEOUT = 600.0           # a lost rank fails the phase, not the run
+
+
+def _rank_layouts(rank, name, g):
+    """Rank 0 lays the graph out as phase_layout does (GLAD-S on the mu2
+    fleet, Random on the default one); every rank gets the assignments."""
+    mine = {}
+    if rank == 0:
+        wl = workload_for("gcn", gnn_paper.ALL[(name, "gcn")].layer_dims[0])
+        cms = {fleet: CostModel(build_edge_network(
+            g, PARTS, seed=SEED, mu_factor=mu), g, wl)
+            for fleet, mu in FLEETS.items()}
+        mine = {"glad_s_mu2": glad_s(cms["mu2"], seed=SEED).assign,
+                "random": random_layout(cms["default"], seed=SEED)}
+    return {layout: broadcast_assign(mine.get(layout), g.n)
+            for layout in RANK_LAYOUTS}
+
+
+def _rank_forwards(rank, name, layout, plan, block, dev):
+    """Every model and exchange over one plan: the output block, a repeat,
+    K1's launches, the traffic per layer and the forward's time split."""
+    rows = {}
+    for model in RANK_MODELS:
+        cfg = gnn_paper.ALL[(name, model)]
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+        for exchange in RANK_EXCHANGES:
+            fwd = make_rank_bsp_forward(cfg, plan, exchange=exchange,
+                                        device=dev)
+            before = spmm.launches
+            staged = dict(fwd.comm.staged)
+            out = fwd(params, block)
+            torch.cuda.synchronize()
+            launched = spmm.launches - before
+            staged = {k: v - staged[k] for k, v in fwd.comm.staged.items()}
+            collectives = len(fwd.comm.log)
+            repeat = torch.equal(out, fwd(params, block))
+            total, exch, check = [], [], []
+            for _ in range(RANK_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fwd(params, block)
+                torch.cuda.synchronize()
+                total.append(time.perf_counter() - t0)
+                exch.append(fwd.stats["exchange_s"])
+                check.append(fwd.stats["agree_s"])
+            rows[(name, layout, model, exchange)] = {
+                "out": out.cpu().numpy(), "repeat": repeat,
+                "launches": launched, "traffic": fwd.stats["traffic"],
+                "staged": staged, "collectives": collectives,
+                "ms": statistics.median(total) * 1e3,
+                "exchange_ms": statistics.median(exch) * 1e3,
+                "plan_check_ms": statistics.median(check) * 1e3}
+    return rows
+
+
+def _rank_contention(rank, g, dev):
+    """The whole-graph GCN forward on the card (no collective), timed on
+    every rank at once and then on one rank at a time while the others
+    wait: what sharing the card costs a rank's compute."""
+    cfg = gnn_paper.SIOT_GCN
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    feats = torch.from_numpy(g.features).to(dev)
+    sd = torch.from_numpy(directed_edges(g.edges)).to(dev)
+
+    def timed():
+        times = []
+        for _ in range(RANK_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(cfg, params, feats, sd)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    timed()                                 # warm-up
+    torch.distributed.barrier()
+    together = timed()
+    alone = None
+    for q in range(PARTS):
+        torch.distributed.barrier()
+        if q == rank:
+            alone = timed()
+    return {"together_ms": together, "alone_ms": alone}
+
+
+def _rank_patch(rank, g, plan, dev):
+    """phase_patch's relayouts on the rank's copy of SIoT's main plan: off
+    it (its halo_cap grows), back to it (value-only), then a stampede
+    (capacity growth); each forward against a fresh plan's."""
+    rng = np.random.default_rng(SEED + 1)
+    k = g.n // 50
+    movers = rng.choice(g.n, size=k, replace=False)
+    home = plan.assign.copy()
+    off = home.copy()
+    off[movers] = (off[movers] + rng.integers(1, PARTS, size=k)) % PARTS
+    grow = home.copy()
+    grow[: g.n // 2] = 0
+    models = ("gcn", "sage")
+    params = {m: init_params(gnn_paper.ALL[("siot", m)],
+                             torch.Generator().manual_seed(SEED), dev)
+              for m in models}
+    fwds = {m: make_rank_bsp_forward(gnn_paper.ALL[("siot", m)], plan,
+                                     device=dev) for m in models}
+    block = scatter_features(plan, g.features)[rank]
+    for m in models:
+        fwds[m](params[m], block)
+    steps = []
+    for label, target in (("off", off), ("back", home), ("growth", grow)):
+        builds = {m: f.stats["builds"] for m, f in fwds.items()}
+        delta = patch_plan(plan, g, target)
+        fresh = recompile_like(plan, g, target)
+        block = scatter_features(plan, g.features)[rank]
+        row = {"step": label, "retrace_expected": delta.retrace_expected,
+               "grew": list(delta.grew),
+               "plans_equal": plans_equal(plan, fresh) == []}
+        for m in models:
+            cfg = gnn_paper.ALL[("siot", m)]
+            out = fwds[m](params[m], block)
+            want = make_rank_bsp_forward(cfg, fresh, device=dev)(params[m],
+                                                                 block)
+            row[m] = {"rebuilds": fwds[m].stats["builds"] - builds[m],
+                      "bit_equal_to_fresh": torch.equal(out, want)}
+        steps.append(row)
+    return steps
+
+
+def _rank_replicas(rank, g, assign, plain_out, dev):
+    """SIoT's Random plan with CostModel.replicate_greedy's replicas: the
+    rank forward bit-equal to the unreplicated one (``plain_out``), with
+    fewer live layer-0 rows; without replica0 it raises."""
+    wl = workload_for("gcn", gnn_paper.SIOT_GCN.layer_dims[0])
+    cm = CostModel(build_edge_network(g, PARTS, seed=SEED,
+                                      mu_factor=FLEETS["default"]), g, wl)
+    repl = cm.replicate_greedy(assign)
+    rplan = compile_plan(g, partition_from_assign(g, assign, PARTS, {}),
+                         slack=SLACK, replication=repl)
+    block = scatter_features(rplan, g.features)[rank]
+    halo0 = scatter_replica_halo(rplan, g.features)[rank]
+    out = {"replicas": repl.count, "rows0": rplan.halo_bytes_ppermute0,
+           "rows": rplan.halo_bytes_ppermute}
+    for model in RANK_MODELS:
+        cfg = gnn_paper.ALL[("siot", model)]
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+        fwd = make_rank_bsp_forward(cfg, rplan, device=dev)
+        got = fwd(params, block, replica0=halo0)
+        out[model] = {"bit_equal": bool(np.array_equal(
+            got.cpu().numpy(), plain_out[("siot", "random", model,
+                                          "ppermute")]["out"])),
+            "live_rows": [t["live_rows_sent"]
+                          for t in fwd.stats["traffic"]]}
+    try:
+        fwd(params, block)
+    except ValueError:
+        out["missing_replica0_raises"] = True
+    else:
+        out["missing_replica0_raises"] = False
+    return out
+
+
+def _param_digest(params) -> str:
+    h = hashlib.sha256()
+    for layer in params:
+        for k in sorted(layer):
+            h.update(layer[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rank_train(rank, name, plan, g, dev):
+    """ranks_train on one main plan: one step's loss and gradients, the
+    step repeated, TRAIN_STEPS steps with the parameters' digest after
+    each, K1's launches per step."""
+    block = scatter_features(plan, g.features)[rank]
+    labels = scatter_ints(plan, g.labels)[rank]
+    mask = scatter_ints(plan, np.ones(g.n, np.float32))[rank]
+    rows = {}
+    for model in RANK_MODELS:
+        cfg = gnn_paper.ALL[(name, model)]
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+        fwd = make_rank_bsp_forward(cfg, plan, device=dev)
+        step = make_distributed_train_step(cfg, fwd, labels, mask,
+                                           lr=TRAIN_LR)
+        before = dict(spmm.launches_by_dir)
+        loss, grads = step.loss_and_grads(params, block)
+        torch.cuda.synchronize()
+        launched = {k: spmm.launches_by_dir[k] - before[k] for k in before}
+        loss2, grads2 = step.loss_and_grads(params, block)
+        new, _ = step(params, block)
+        new2, _ = step(params, block)
+        repeat = (torch.equal(loss, loss2) and _equal_trees(grads, grads2)
+                  and _equal_trees(new, new2))
+        p, losses, digests, times = params, [], [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, step_loss = step(p, block)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(step_loss))
+            digests.append(_param_digest(p))
+        rows[(name, model)] = {
+            "loss": float(loss), "repeat": repeat, "launches": launched,
+            "grads": [{k: v.cpu().numpy() for k, v in layer.items()}
+                      for layer in grads],
+            "losses": losses, "digests": digests,
+            "step_ms": statistics.median(times) * 1e3}
+    return rows
+
+
+def _rank_program(rank, device: str):
+    """One rank of the ranks phases, on ``device`` (the parent's card)
+    beside the others: the layouts (rank 0) and plans, every forward over
+    the plans, the replica checks, ranks_train, then the patches."""
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    _build.load_library()                  # the parent built it
+    _zero_counts()
+    res = {"assign": {}, "forward": {}, "train": {}}
+    graphs, main = {}, {}
+    for name in ("siot", "yelp"):
+        g = synthetic_siot() if name == "siot" else synthetic_yelp()
+        graphs[name] = g
+        for layout, assign in _rank_layouts(rank, name, g).items():
+            res["assign"][(name, layout)] = assign
+            plan = compile_plan(g, partition_from_assign(g, assign, PARTS,
+                                                         {}), slack=SLACK)
+            block = scatter_features(plan, g.features)[rank]
+            res["forward"].update(_rank_forwards(rank, name, layout, plan,
+                                                 block, dev))
+            if layout == "glad_s_mu2":
+                main[name] = plan
+    res["replicas"] = _rank_replicas(rank, graphs["siot"],
+                                     res["assign"][("siot", "random")],
+                                     res["forward"], dev)
+    res["fwd_launches"] = dict(spmm.launches_by_dir)
+    for name, plan in main.items():
+        res["train"].update(_rank_train(rank, name, plan, graphs[name], dev))
+    res["patch"] = _rank_patch(rank, graphs["siot"], main["siot"], dev)
+    res["launches"] = dict(spmm.launches_by_dir)
+    res["contention"] = _rank_contention(rank, graphs["siot"], dev)
+    res["seconds"] = time.perf_counter() - t_start
+    return res
+
+
+def _traffic_check(label, plan, exchange, per_rank, dims):
+    """Rows and bytes per layer summed over the ranks against the plan's
+    schedule; returns the sums."""
+    sums = []
+    for layer, d in enumerate(dims):
+        row = {k: sum(t[layer][k] for t in per_rank) for k in per_rank[0][layer]}
+        if exchange == "ppermute":
+            width = PARTS * sum(r["width"] for r in plan.rounds)
+            ok = (row["rows_sent"] == row["rows_recv"] == width
+                  and row["live_rows_sent"] == plan.halo_bytes_ppermute)
+        else:
+            ok = (row["rows_sent"] == PARTS * plan.cap
+                  and row["rows_recv"] == plan.halo_rows_allgather)
+        ok = ok and row["bytes_sent"] == row["rows_sent"] * d * 4 and (
+            row["bytes_recv"] == row["rows_recv"] * d * 4)
+        require(ok, f"{label} layer {layer}: rows on the wire {row} against "
+                f"the plan's schedule")
+        sums.append(row)
+    return sums
+
+
+def phase_ranks(datasets, dev):
+    """The per-rank BSP forward and train step as RANKS processes sharing
+    cuda:0 over gloo (one spawn), held against the whole-graph forward,
+    the one-device batched program and the plan's schedule; returns K1's
+    launches in the ranks by direction."""
+    t0 = time.perf_counter()
+    res = run_ranks(_rank_program, PARTS, str(dev), timeout=RANK_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    main = {}
+    for ds in datasets:
+        name, g = ds["name"], ds["graph"]
+        for layout in RANK_LAYOUTS:
+            assign = ds["layouts"][layout]["assign"]
+            require(all(np.array_equal(r["assign"][(name, layout)], assign)
+                        for r in res), f"ranks {name} {layout}: rank 0's "
+                    "layout differs from phase_layout's")
+            plan = compile_plan(g, partition_from_assign(g, assign, PARTS,
+                                                         {}), slack=SLACK)
+            build_plan_bsr(plan)
+            blocks = torch.from_numpy(scatter_features(plan, g.features)
+                                      ).to(dev)
+            if layout == "glad_s_mu2":
+                main[name] = (plan, blocks, g)
+            for model in RANK_MODELS:
+                cfg = gnn_paper.ALL[(name, model)]
+                params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                                     dev)
+                ref = forward(cfg, params, ds["feats"], ds["sd"]).cpu()
+                for exchange in RANK_EXCHANGES:
+                    key = (name, layout, model, exchange)
+                    label = "ranks " + " ".join(key)
+                    rec = [r["forward"][key] for r in res]
+                    out = np.stack([x["out"] for x in rec])
+                    full = torch.from_numpy(gather_outputs(plan, out, g.n))
+                    err = allclose_err(full, ref, FWD_TOL)
+                    require(err <= FWD_TOL, f"{label}: rank outputs vs the "
+                            f"whole-graph forward: {err}")
+                    bfwd = make_bsp_forward(cfg, plan, exchange=exchange,
+                                            device=dev)
+                    batched = bfwd(params, blocks).cpu().numpy()
+                    want = cfg.num_layers if model in ("gcn", "sage") else 0
+                    require(all(x["launches"] == want for x in rec),
+                            f"{label}: K1 launches per rank "
+                            f"{[x['launches'] for x in rec]}, expected {want}")
+                    require(all(x["repeat"] for x in rec),
+                            f"{label}: a repeated forward differs")
+                    n_coll = cfg.num_layers * (len(plan.rounds)
+                                               if exchange == "ppermute" else 1)
+                    copies = n_coll if dev.type == "cuda" else 0  # CPU: none
+                    require(all(x["collectives"] == n_coll and x["staged"]
+                                == {"d2h": copies, "h2d": copies}
+                                for x in rec),
+                            f"{label}: staging copies "
+                            f"{[x['staged'] for x in rec]}, expected one "
+                            f"each way for each of {n_coll} collectives")
+                    traffic = _traffic_check(label, plan, exchange,
+                                             [x["traffic"] for x in rec],
+                                             cfg.layer_dims[:-1])
+                    ms = [x["ms"] for x in rec]
+                    exch = [x["exchange_ms"] for x in rec]
+                    check = [x["plan_check_ms"] for x in rec]
+                    emit({"phase": "ranks", "dataset": name, "layout": layout,
+                          "model": model, "exchange": exchange,
+                          "ranks": PARTS, "aggregate": bfwd.mode,
+                          "allclose_excess": err,
+                          "batched_max_abs_err": float(
+                              np.abs(out - batched).max()),
+                          "bit_equal_to_batched": bool(
+                              np.array_equal(out, batched)),
+                          "k1_launches_per_rank": want,
+                          "rows_per_layer": traffic,
+                          "forward_ms_by_rank": ms,
+                          "exchange_ms_by_rank": exch,
+                          "plan_check_ms_by_rank": check,
+                          "compute_ms_by_rank": [a - b - c for a, b, c in
+                                                 zip(ms, exch, check)],
+                          "one_device_forward_ms": time_ms(
+                              lambda: bfwd(params, blocks), reps=20)})
+    _ranks_checks(res, main, dev)
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in ("fwd", "bwd")}
+    emit({"phase": "ranks_summary", "ranks": PARTS,
+          "phase_s": time.perf_counter() - t0, "spawn_s": spawn_s,
+          "rank_program_s": [r["seconds"] for r in res],
+          "whole_graph_forward_ms_all_ranks_at_once": [
+              r["contention"]["together_ms"] for r in res],
+          "whole_graph_forward_ms_one_rank_at_a_time": [
+              r["contention"]["alone_ms"] for r in res],
+          "k1_launches": launches, "k1_launches_by_rank": [
+              r["launches"] for r in res]})
+    return launches
+
+
+def _ranks_checks(res, main, dev):
+    """The replica, ranks_train and patch results of the ranks."""
+    rep = [r["replicas"] for r in res]
+    require(rep[0]["replicas"] > 0 and rep[0]["rows0"] < rep[0]["rows"],
+            f"ranks replicas: {rep[0]['replicas']} replicas, layer-0 rows "
+            f"{rep[0]['rows0']} of {rep[0]['rows']}")
+    for model in RANK_MODELS:
+        require(all(x[model]["bit_equal"] for x in rep), f"ranks replicas "
+                f"{model}: the replicated forward differs from the "
+                "unreplicated one")
+        live = [sum(x[model]["live_rows"][k] for x in rep) for k in (0, 1)]
+        require(live == [rep[0]["rows0"], rep[0]["rows"]], f"ranks replicas "
+                f"{model}: live rows {live}")
+    require(all(x["missing_replica0_raises"] for x in rep),
+            "ranks replicas: a forward without replica0 ran")
+    emit({"phase": "ranks_replicas", "layout": "random",
+          "replicas": rep[0]["replicas"], "halo_rows_layer0": rep[0]["rows0"],
+          "halo_rows_later_layers": rep[0]["rows"],
+          "bit_equal_to_unreplicated": True})
+    for name, (plan, blocks, g) in main.items():
+        labels_b, mask_b = _train_setup(plan, g, dev)[1:]
+        for model in RANK_MODELS:
+            cfg = gnn_paper.ALL[(name, model)]
+            params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+            step1 = make_distributed_train_step(
+                cfg, make_bsp_forward(cfg, plan, exchange="ppermute",
+                                      device=dev), labels_b, mask_b,
+                lr=TRAIN_LR)
+            ref_loss, ref = step1.loss_and_grads(params, blocks)
+            ref = [{k: v.cpu() for k, v in layer.items()} for layer in ref]
+            rec = [r["train"][(name, model)] for r in res]
+            label = f"ranks_train {name} {model}"
+            excess, err = _grad_excess(
+                [{k: torch.from_numpy(v) for k, v in layer.items()}
+                 for layer in rec[0]["grads"]], ref)
+            loss_err = abs(rec[0]["loss"] - float(ref_loss))
+            require(excess <= 0 and loss_err <= FWD_TOL * abs(float(ref_loss)),
+                    f"{label}: vs the one-device step: excess {excess}, loss "
+                    f"{loss_err}")
+            require(all(x["repeat"] for x in rec),
+                    f"{label}: a repeated step differs")
+            require(all(x["digests"] == rec[0]["digests"] and x["losses"]
+                        == rec[0]["losses"] for x in rec),
+                    f"{label}: the ranks' parameters or losses differ")
+            losses = rec[0]["losses"]
+            require(np.isfinite(losses).all() and losses[-1] < losses[0],
+                    f"{label}: {TRAIN_STEPS} steps did not lower the loss")
+            L = cfg.num_layers
+            want = ({"fwd": L, "bwd": L - 1} if model in ("gcn", "sage")
+                    else {"fwd": 0, "bwd": 0})
+            require(all(x["launches"] == want for x in rec),
+                    f"{label}: K1 launches per step "
+                    f"{[x['launches'] for x in rec]}, expected {want}")
+            emit({"phase": "ranks_train", "dataset": name, "model": model,
+                  "ranks": PARTS, "loss": rec[0]["loss"], "loss_err": loss_err,
+                  "grad_max_abs_err": err, "grad_excess": excess,
+                  "bitwise_equal_repeat": True,
+                  "params_equal_on_every_rank": True,
+                  "train_losses": [losses[0], losses[-1]],
+                  "k1_launches_per_step": want,
+                  "step_ms_by_rank": [x["step_ms"] for x in rec],
+                  "one_device_step_ms": time_ms(
+                      lambda: step1(params, blocks), reps=10, warmup=2)})
+    steps = [r["patch"] for r in res]
+    for i, row in enumerate(steps[0]):
+        require(all(s[i] == row for s in steps[1:]),
+                f"ranks patch {row['step']}: the ranks disagree")
+        want = int(row["retrace_expected"])
+        require(row["plans_equal"] and all(
+            row[m]["rebuilds"] == want and row[m]["bit_equal_to_fresh"]
+            for m in ("gcn", "sage")), f"ranks patch {row['step']}: {row}")
+    require([r["retrace_expected"] for r in steps[0]][1:] == [False, True],
+            f"ranks patch: retraces {[r['retrace_expected'] for r in steps[0]]}"
+            ": the relayout back must be value-only, the stampede grow")
+    emit({"phase": "ranks_patch", "steps": steps[0]})
 
 
 # ------------------------------------------------------- flash attention (K2)
@@ -3969,7 +4437,13 @@ def main() -> int:
     require(launches > 0, "the GNN path never launched spmm_csr")
     require(spmm.launches_by_dir["bwd"] == 0,
             "the forward path launched spmm_csr's backward")
-    del params_of, siot, yelp
+    del params_of
+    # The ranks path: its launches are counted in the ranks, each from 0;
+    # the comparison forwards here come after the GNN path's count.
+    rank_launches = phase_ranks([siot, yelp], dev)
+    require(rank_launches["fwd"] > 0 and rank_launches["bwd"] > 0,
+            f"the ranks never launched spmm_csr both ways: {rank_launches}")
+    del siot, yelp
 
     phase_lm_parity(dev)
     flash_launches, flash_by_path = phase_lm_serve(dev, flash_rows)
@@ -4012,11 +4486,14 @@ def main() -> int:
         "name": "spmm_bsr", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spmm_csr.cu",
         "replaces": "src/repro/kernels/gnn_aggregate.py:77",
-        "launches": launches + sum(train_launches.values()),
+        "launches": (launches + sum(train_launches.values())
+                     + sum(rank_launches.values())),
         "launches_by_path": {"gnn": launches,
                              "train_fwd": train_launches["fwd"],
-                             "train_bwd": train_launches["bwd"]},
-        "backward_launches": train_launches["bwd"],
+                             "train_bwd": train_launches["bwd"],
+                             "ranks_fwd": rank_launches["fwd"],
+                             "ranks_bwd": rank_launches["bwd"]},
+        "backward_launches": train_launches["bwd"] + rank_launches["bwd"],
         "max_abs_err": worst,
         "ms": head["ms"], "device_ms": head["device_ms"],
         "plain_ms": head["plain_ms"],

@@ -10,6 +10,9 @@ from repro_torch.gnn.plan import (
 from repro_torch.gnn.distributed import (
     make_bsp_forward, resolve_aggregate, simulate_bsp_forward,
 )
+from repro_torch.gnn.ranks import (
+    RankGroup, broadcast_assign, make_rank_bsp_forward, plan_digest,
+)
 from repro_torch.gnn.training import (
     accuracy, fit, loss_and_grads, make_distributed_train_step, sgd_step,
     train_step,
@@ -28,6 +31,7 @@ __all__ = [
     "plan_caps", "plans_equal", "recompile_like", "resolve_aggregate",
     "scatter_features", "scatter_ints", "scatter_replica_halo",
     "set_replication", "simulate_bsp_forward",
+    "RankGroup", "broadcast_assign", "make_rank_bsp_forward", "plan_digest",
     "EgoBatch", "FeatureCache", "GNNServeEngine", "ServeStats", "ego_tables",
     "extract_ego", "extract_ego_batch", "link_traffic", "make_ego_forward",
     "replicate_for_stream", "request_traffic", "serving_cost",

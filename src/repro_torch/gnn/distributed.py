@@ -47,10 +47,19 @@ the exchange's roll transposes to the opposite roll, and K1's backward is
 the kernel over the transposed operand.  The halo writes have gather-shaped
 backwards; the dump row that takes a round's padded receives is sliced off,
 so its duplicates get no gradient.
+
+One partition.  The same code serves one rank of the per-process forward
+(:mod:`repro_torch.gnn.ranks`): ``_PlanTensors(..., part=q)`` holds
+partition q's rows of every table as P = 1 tensors, and the layer runs
+unchanged on its (1, cap, d) block.  Only the exchange differs: the
+``wire`` argument of :func:`_bsp_forward` moves the rounds' rows and
+gathers the blocks, here by index arithmetic on one device, there by
+collectives between processes.
 """
 from __future__ import annotations
 
 import weakref
+from typing import Optional
 
 import numpy as np
 import torch
@@ -111,23 +120,56 @@ def _plan_pack(plan: ShardPlan):
     return both
 
 
+# The BSR tiling of a partition's own pack (build_plan_bsr's defaults).
+PART_BM, PART_BK = 8, 128
+
+
+def _part_pack(plan: ShardPlan, q: int):
+    """Partition ``q``'s rows of the plan's pack and of its transpose, as
+    P = 1 operands: the entries ``pack_bsr`` makes from
+    ``build_plan_bsr(plan)`` for that partition (each (dst, src) pair of
+    its live arcs once, weighted by its count, sources ascending within a
+    row), at ``e_cap`` entries, but made from its edge table alone.  A
+    rank thus never holds the dense BSR of every partition."""
+    n_rows = -(-plan.cap // PART_BM) * PART_BM
+    rows = -(-plan.table_rows // PART_BK) * PART_BK
+    src, dst = plan.edges_src[q], plan.edges_dst[q]
+    live = dst < plan.cap
+    pair, count = np.unique(dst[live].astype(np.int64) * rows + src[live],
+                            return_counts=True)
+    row_ptr = np.zeros((1, n_rows + 1), np.int32)
+    np.cumsum(np.bincount(pair // rows, minlength=n_rows),
+              out=row_ptr[0, 1:])
+    col = np.zeros((1, plan.e_cap), np.int32)
+    w = np.zeros((1, plan.e_cap), np.float32)
+    col[0, :len(pair)] = pair % rows
+    w[0, :len(pair)] = count
+    packed = PackedBSR(row_ptr, col, w, rows, n_rows)
+    return packed, transpose_packed(packed, rows)
+
+
 class _PlanTensors:
     """The plan tables the forward reads, as device tensors.
 
     Allocated at the plan's current shapes; :meth:`refresh` overwrites them
     in place from the host plan, so the tensors (and their addresses)
-    outlive value-only patches."""
+    outlive value-only patches.  With ``part=q`` they hold partition q's
+    rows only, as P = 1 tables (one rank's share)."""
 
     def __init__(self, plan: ShardPlan, mode: str, exchange: str,
-                 device: torch.device):
-        self.mode, self.exchange = mode, exchange
-        self.replicas = exchange == "ppermute" and plan.has_replicas
-        self.num_parts, self.cap, self.halo_cap = (
-            plan.num_parts, plan.cap, plan.halo_cap)
+                 device: torch.device, part: Optional[int] = None):
+        self.mode, self.exchange, self.part = mode, exchange, part
+        self.replicas = _use_replicas(plan, exchange)
+        self.num_parts = plan.num_parts if part is None else 1
+        self.cap, self.halo_cap = plan.cap, plan.halo_cap
         self.shifts = ([r["shift"] for r in plan.rounds]
                        if exchange == "ppermute" else [])
-        self.table_rows = (plan.bsr.src_rows if mode == "bsr"
-                           else plan.table_rows)
+        if mode != "bsr":
+            self.table_rows = plan.table_rows
+        elif part is None:
+            self.table_rows = plan.bsr.src_rows
+        else:
+            self.table_rows = -(-plan.table_rows // PART_BK) * PART_BK
         arrs = self._host(plan)
         self.t = {}
         for name, arr in arrs.items():
@@ -137,7 +179,7 @@ class _PlanTensors:
             self.t[name] = torch.empty(arr.shape, dtype=dtype, device=device)
         self._copy(arrs)
         if mode == "bsr":
-            n_rows = plan.bsr.nb * plan.bsr.bm
+            n_rows = self.t["bsr_row_ptr"].shape[1] - 1
             self.packed = PackedBSR(
                 self.t["bsr_row_ptr"], self.t["bsr_col"], self.t["bsr_w"],
                 src_rows=self.table_rows, n_rows=n_rows)
@@ -146,20 +188,24 @@ class _PlanTensors:
                 self.t["bsr_t_w"], src_rows=n_rows, n_rows=self.table_rows)
 
     def _host(self, plan: ShardPlan) -> dict:
-        arrs = {"edges_src": plan.edges_src, "edges_dst": plan.edges_dst,
-                "deg": plan.deg, "halo_slot": plan.halo_slot}
+        q = (slice(None) if self.part is None
+             else slice(self.part, self.part + 1))
+        arrs = {"edges_src": plan.edges_src[q], "edges_dst": plan.edges_dst[q],
+                "deg": plan.deg[q], "halo_slot": plan.halo_slot[q]}
         if self.mode == "bsr":
-            for pre, packed in zip(("bsr_", "bsr_t_"), _plan_pack(plan)):
+            packs = (_plan_pack(plan) if self.part is None
+                     else _part_pack(plan, self.part))
+            for pre, packed in zip(("bsr_", "bsr_t_"), packs):
                 arrs[pre + "row_ptr"] = packed.row_ptr
                 arrs[pre + "col"] = packed.col
                 arrs[pre + "w"] = packed.w
         for k, r in enumerate(plan.rounds if self.exchange == "ppermute"
                               else ()):
-            arrs[f"send_flat{k}"] = self._send_flat(r["send_idx"])
-            arrs[f"recv_pos{k}"] = r["recv_pos"]
+            arrs[f"send_flat{k}"] = self._send_flat(r["send_idx"][q])
+            arrs[f"recv_pos{k}"] = r["recv_pos"][q]
         for k, r in enumerate(plan.rounds0 if self.replicas else ()):
-            arrs[f"send_flat0_{k}"] = self._send_flat(r["send_idx"])
-            arrs[f"recv_pos0_{k}"] = r["recv_pos"]
+            arrs[f"send_flat0_{k}"] = self._send_flat(r["send_idx"][q])
+            arrs[f"recv_pos0_{k}"] = r["recv_pos"][q]
         return arrs
 
     def _send_flat(self, send_idx: np.ndarray) -> np.ndarray:
@@ -177,17 +223,34 @@ class _PlanTensors:
         self._copy(self._host(plan))
 
 
-def _exchange_allgather(h: torch.Tensor, halo_slot: torch.Tensor):
+class _OneDevice:
+    """The batched program's wire: every partition is on this device."""
+
+    @staticmethod
+    def shift(send: torch.Tensor, s: int) -> torch.Tensor:
+        """(P, w, d) rows, partition q's sent to (q + s) % P."""
+        return torch.roll(send, shifts=s, dims=0)
+
+    @staticmethod
+    def blocks(h: torch.Tensor) -> torch.Tensor:
+        """Every partition's (cap, d) block, (P, cap, d)."""
+        return h
+
+
+def _exchange_allgather(h: torch.Tensor, halo_slot: torch.Tensor,
+                        wire=_OneDevice):
     """Naive exchange: every block everywhere, halo rows picked by slot.
     Its adjoint sums each vertex's halo copies into its owner's row."""
-    P, cap, d = h.shape
-    flat = torch.cat([h.reshape(P * cap, d), h.new_zeros((1, d))])
+    blocks = wire.blocks(h)
+    P, cap, d = blocks.shape
+    flat = torch.cat([blocks.reshape(P * cap, d), h.new_zeros((1, d))])
     slot = halo_slot.clamp(max=P * cap)
     return gather_rows(flat, slot.reshape(-1)).reshape(
         *slot.shape, d)                                     # (P, halo_cap, d)
 
 
-def _exchange_ppermute(h: torch.Tensor, ops: _PlanTensors, init=None):
+def _exchange_ppermute(h: torch.Tensor, ops: _PlanTensors, init=None,
+                       wire=_OneDevice):
     """Move exactly the cut-link rows (the paper's C_T) round by round.
 
     ``init``: the layer-0 replica halo, (P, halo_cap + 1, d) with the dump
@@ -207,7 +270,7 @@ def _exchange_ppermute(h: torch.Tensor, ops: _PlanTensors, init=None):
         send_flat = ops.t[send_k.format(k)]
         send = gather_rows(table, send_flat.reshape(-1)).reshape(
             *send_flat.shape, d)
-        got = torch.roll(send, shifts=shift, dims=0)         # q <- (q - s) % P
+        got = wire.shift(send, shift)                        # q <- (q - s) % P
         halo[rows, ops.t[recv_k.format(k)]] = got
     return halo[:, : ops.halo_cap]
 
@@ -278,7 +341,8 @@ def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
     return out if last else torch.relu(out)
 
 
-def _bsp_forward(cfg, params, h, ops: _PlanTensors, halo0=None):
+def _bsp_forward(cfg, params, h, ops: _PlanTensors, halo0=None,
+                 wire=_OneDevice):
     P, cap = ops.num_parts, ops.cap
     part = torch.arange(P, device=h.device)[:, None]
     ed = ops.t["edges_dst"]
@@ -288,11 +352,65 @@ def _bsp_forward(cfg, params, h, ops: _PlanTensors, halo0=None):
         idx["dst_mod_flat"] = (ed % cap + part * cap).reshape(-1)
     for k, p in enumerate(params):
         if ops.exchange == "ppermute":
-            halo = _exchange_ppermute(h, ops, init=halo0 if k == 0 else None)
+            halo = _exchange_ppermute(h, ops, halo0 if k == 0 else None,
+                                      wire)
         else:
-            halo = _exchange_allgather(h, ops.t["halo_slot"])
+            halo = _exchange_allgather(h, ops.t["halo_slot"], wire)
         h = _device_layer(cfg, p, h, halo, ops, idx, k == len(params) - 1)
     return h
+
+
+def _use_replicas(plan: ShardPlan, exchange: str) -> bool:
+    return exchange == "ppermute" and plan.has_replicas
+
+
+def _signature(plan: ShardPlan, exchange: str, mode: str,
+               part: Optional[int] = None) -> tuple:
+    """What fixes the resident tensors' shapes: a change rebuilds them."""
+    sig = (plan.cap, plan.halo_cap, plan.e_cap)
+    if exchange == "ppermute":
+        sig += (tuple(r["shift"] for r in plan.rounds),
+                tuple(r["width"] for r in plan.rounds))
+    if _use_replicas(plan, exchange):
+        # rounds0 mirrors rounds' shifts and widths: one flag suffices.
+        sig += ("repl",)
+    if mode == "bsr" and part is None:
+        # A partition's own pack (part=q) is fixed by cap, halo_cap, e_cap.
+        b = plan.bsr
+        sig += (b.bm, b.bk, b.max_blocks, b.src_rows)
+    return sig
+
+
+def _sync_ops(state: dict, plan: ShardPlan, mode: str, exchange: str,
+              device: torch.device, part: Optional[int] = None) -> None:
+    """Bring ``state['ops']`` up to the plan: rebuilt (``builds`` + 1)
+    when its signature changed, refreshed in place when only its version
+    moved."""
+    sig = _signature(plan, exchange, mode, part)
+    if sig != state["sig"]:
+        state["ops"] = _PlanTensors(plan, mode, exchange, device, part)
+        state["sig"] = sig
+        state["builds"] += 1
+        state["version"] = plan.version
+    elif state["version"] != plan.version:
+        state["ops"].refresh(plan)
+        state["version"] = plan.version
+
+
+def _halo0(plan: ShardPlan, exchange: str, replica0, h: torch.Tensor):
+    """The layer-0 halo with the replica-resident rows, (P, halo_cap + 1,
+    d) with the dump row last, on a plan whose ppermute forward has
+    replicas; None otherwise."""
+    if not _use_replicas(plan, exchange):
+        return None
+    if replica0 is None:
+        raise ValueError(
+            "plan has replicas: pass replica0="
+            "scatter_replica_halo(plan, features) so layer 0 can "
+            "serve replica-resident halo slots locally")
+    r0 = torch.as_tensor(replica0, device=h.device).to(h.dtype)
+    return torch.cat([r0, r0.new_zeros((r0.shape[0], 1, r0.shape[-1]))],
+                     dim=1)
 
 
 def make_bsp_forward(
@@ -326,44 +444,11 @@ def make_bsp_forward(
         build_plan_bsr(plan)
     state = {"sig": None, "version": -1, "ops": None, "builds": 0}
 
-    def _use_replicas():
-        return exchange == "ppermute" and plan.has_replicas
-
-    def _signature():
-        sig = (plan.cap, plan.halo_cap, plan.e_cap)
-        if exchange == "ppermute":
-            sig += (tuple(r["shift"] for r in plan.rounds),
-                    tuple(r["width"] for r in plan.rounds))
-        if _use_replicas():
-            # rounds0 mirrors rounds' shifts and widths: one flag suffices.
-            sig += ("repl",)
-        if mode == "bsr":
-            b = plan.bsr
-            sig += (b.bm, b.bk, b.max_blocks, b.src_rows)
-        return sig
-
     def forward(params, blocks, replica0=None):
-        sig = _signature()
-        if sig != state["sig"]:
-            state["ops"] = _PlanTensors(plan, mode, exchange, dev)
-            state["sig"] = sig
-            state["builds"] += 1
-            state["version"] = plan.version
-        elif state["version"] != plan.version:
-            state["ops"].refresh(plan)
-            state["version"] = plan.version
+        _sync_ops(state, plan, mode, exchange, dev)
         h = torch.as_tensor(blocks, device=dev).to(cfg.dtype)
-        halo0 = None
-        if _use_replicas():
-            if replica0 is None:
-                raise ValueError(
-                    "plan has replicas: pass replica0="
-                    "scatter_replica_halo(plan, features) so layer 0 can "
-                    "serve replica-resident halo slots locally")
-            r0 = torch.as_tensor(replica0, device=dev).to(h.dtype)
-            halo0 = torch.cat([r0, r0.new_zeros((r0.shape[0], 1,
-                                                 r0.shape[-1]))], dim=1)
-        return _bsp_forward(cfg, params, h, state["ops"], halo0)
+        return _bsp_forward(cfg, params, h, state["ops"],
+                            _halo0(plan, exchange, replica0, h))
 
     forward.stats = state
     forward.plan = plan

@@ -12,6 +12,13 @@ the exchange's adjoint moves each halo row's gradient back to its owner
 segment sum over owners), and K1's backward is the same kernel over the
 transposed operand.  Every gradient on the card is summed in a fixed order,
 so a step is bit-equal run to run.
+
+Over the rank forward (:func:`repro_torch.gnn.ranks.make_rank_bsp_forward`,
+one process per edge server) each rank's loss is its own rows' masked NLL
+sum over the global mask count, the gradients flow back through the
+exchange's adjoint collectives, and the ranks' gradients are summed in rank
+order (an all-gather, then a sum on the host), so every rank applies the
+same bits and the replicas of the parameters stay equal.
 """
 from __future__ import annotations
 
@@ -111,26 +118,38 @@ def make_distributed_train_step(
 ):
     """Distributed train step over the BSP engine.
 
-    ``bsp_forward(params, blocks, replica0=None) -> (P, cap, classes)`` is
-    :func:`repro_torch.gnn.distributed.make_bsp_forward`'s forward;
-    labels and mask are (P, cap) blocks (``scatter_ints`` of the labels and
-    of a 0/1 mask).  The loss is the masked mean NLL over the blocks, as in
-    the reference.  Returns ``step(params, blocks, replica0=None) -> (new
-    params, loss)``; ``step.loss_and_grads`` gives the loss and the
-    gradients without the update."""
+    ``bsp_forward(params, blocks, replica0=None)`` is
+    :func:`repro_torch.gnn.distributed.make_bsp_forward`'s forward, with
+    labels and mask as (P, cap) blocks (``scatter_ints`` of the labels and
+    of a 0/1 mask); or a rank's forward from
+    :func:`repro_torch.gnn.ranks.make_rank_bsp_forward`, with the rank's
+    own rows of those blocks, shaped as its block without the feature axis.
+    The loss is the masked mean NLL over all blocks, as in the reference;
+    on ranks, every rank gets that global loss and the gradients summed
+    over ranks (building the step is a collective: it sums the mask).
+    Returns ``step(params, blocks, replica0=None) -> (new params, loss)``;
+    ``step.loss_and_grads`` gives the loss and the gradients without the
+    update."""
     dev = bsp_forward.device
+    comm = getattr(bsp_forward, "comm", None)
     labels = _on(labels_blocks, dev, torch.long)
     mask = _on(mask_blocks, dev, torch.float32)
+    total = mask.sum() if comm is None else comm.sum_over_ranks(
+        mask.sum().reshape(1))[0]
+    count = torch.clamp(total, min=1.0)
 
     def loss_of(params, blocks, replica0):
         out = bsp_forward(params, blocks, replica0=replica0)
         logp = torch.log_softmax(out, dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
         nll = nll * mask
-        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+        return nll.sum() / count
 
     def loss_and_grads(params, blocks, replica0=None):
-        return _value_and_grad(loss_of, params, blocks, replica0)
+        loss, grads = _value_and_grad(loss_of, params, blocks, replica0)
+        if comm is not None:
+            loss, grads = _summed_over_ranks(comm, loss, grads)
+        return loss, grads
 
     def step(params, blocks, replica0=None):
         loss, grads = loss_and_grads(params, blocks, replica0)
@@ -139,3 +158,13 @@ def make_distributed_train_step(
     step.loss_and_grads = loss_and_grads
     return step
 
+
+def _summed_over_ranks(comm, loss, grads):
+    """The loss and every gradient leaf summed over the ranks, in rank
+    order, by one collective over their concatenation."""
+    leaves = [g for layer in grads for g in layer.values()]
+    flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in leaves])
+    total = comm.sum_over_ranks(flat)
+    parts = iter(torch.split(total[1:], [g.numel() for g in leaves]))
+    return total[0], [{k: next(parts).reshape(g.shape) for k, g in
+                       layer.items()} for layer in grads]

@@ -21,8 +21,8 @@ import numpy as np  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     CostModel, partition_from_assign, random_layout, workload_for)
 from repro_torch.gnn import (  # noqa: E402
-    GNNConfig, compile_plan, directed_edges, forward, init_params,
-    simulate_bsp_forward)
+    GNNConfig, broadcast_assign, compile_plan, directed_edges, forward,
+    init_params, make_rank_bsp_forward, simulate_bsp_forward)
 from repro_torch.gnn import plan as TP  # noqa: E402
 from repro_torch.gnn.distributed import make_bsp_forward  # noqa: E402
 from repro_torch.gnn.models import segment_sum  # noqa: E402
@@ -33,7 +33,9 @@ from repro_torch.graphs import (  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     BSRAggregate, PackedBSR, build_bsr, pack_bsr, spmm, spmm_packed,
     spmm_packed_plain, spmm_plain)
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.gnn_aggregate import transpose_packed  # noqa: E402
+from repro_torch.launch.ranks import run_ranks  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     backward_path, flash_attention, flash_attention_bwd_plain,
     flash_attention_plain, flash_bwd_tc_tiles_plain, kernel_path)
@@ -309,6 +311,74 @@ def test_bsp_train_step_on_card_matches_cpu_and_repeats(dev, model, exchange):
     for a, b in zip(new, again):
         for k in a:
             assert torch.equal(a[k], b[k])
+
+
+def _card_rank(rank, P):
+    """One of P ranks on cuda:0: a GCN forward and a train step over a
+    random 4-way plan, with K1's launches and the staging copies."""
+    dev = torch.device("cuda", 0)
+    g = synthetic_siot(n=600, target_links=2000)
+    assign = broadcast_assign(np.random.default_rng(0).integers(0, P, g.n)
+                              if rank == 0 else None, g.n)
+    plan = compile_plan(g, partition_from_assign(g, assign, P, {}),
+                        slack=0.25)
+    cfg = GNNConfig("gcn", (52, 16, 2))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    block = TP.scatter_features(plan, g.features)[rank]
+    fwd = make_rank_bsp_forward(cfg, plan, device=dev)
+    before = dict(spmm.launches_by_dir)
+    out = fwd(params, block)
+    torch.cuda.synchronize()
+    fwd_launches = {k: spmm.launches_by_dir[k] - before[k] for k in before}
+    staged = dict(fwd.comm.staged)
+    step = make_distributed_train_step(
+        cfg, fwd, TP.scatter_ints(plan, g.labels)[rank],
+        TP.scatter_ints(plan, np.ones(g.n, np.float32))[rank], lr=0.1)
+    before = dict(spmm.launches_by_dir)
+    loss, grads = step.loss_and_grads(params, block)
+    torch.cuda.synchronize()
+    return {"mode": fwd.mode, "out": out.cpu().numpy(), "loss": float(loss),
+            "grads": [{k: v.cpu().numpy() for k, v in layer.items()}
+                      for layer in grads],
+            "fwd_launches": fwd_launches, "staged": staged,
+            "rounds": len(plan.rounds),
+            "step_launches": {k: spmm.launches_by_dir[k] - before[k]
+                              for k in before}}
+
+
+def test_rank_forward_and_step_on_card(dev):
+    """Four ranks sharing cuda:0 over gloo: the GCN forward (K1 once a
+    layer on every rank, one staging copy each way a round) and a train
+    step (K1's backward once) against the one-device program."""
+    _build.load_library()            # built once here, not in every rank
+    P = 4
+    res = run_ranks(_card_rank, P, P, timeout=300)
+    g = synthetic_siot(n=600, target_links=2000)
+    assign = np.random.default_rng(0).integers(0, P, g.n)
+    plan = compile_plan(g, partition_from_assign(g, assign, P, {}),
+                        slack=0.25)
+    cfg = GNNConfig("gcn", (52, 16, 2))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    blocks = torch.from_numpy(TP.scatter_features(plan, g.features)).to(dev)
+    fwd = make_bsp_forward(cfg, plan, device=dev)
+    ref = fwd(params, blocks).cpu().numpy()
+    step = make_distributed_train_step(
+        cfg, fwd, TP.scatter_ints(plan, g.labels),
+        TP.scatter_ints(plan, np.ones(g.n, np.float32)), lr=0.1)
+    ref_loss, ref_grads = step.loss_and_grads(params, blocks)
+    out = np.stack([r["out"] for r in res])
+    assert float(np.abs(out - ref).max()) <= 2e-4 * float(np.abs(ref).max())
+    for r in res:
+        assert r["mode"] == "bsr" and r["rounds"] > 0
+        assert r["fwd_launches"] == {"fwd": 2, "bwd": 0}
+        assert r["step_launches"] == {"fwd": 2, "bwd": 1}
+        assert r["staged"] == {"d2h": 2 * r["rounds"], "h2d": 2 * r["rounds"]}
+        assert r["loss"] == res[0]["loss"]
+        assert abs(r["loss"] - float(ref_loss)) <= 2e-4 * abs(float(ref_loss))
+        for layer, ref_layer in zip(r["grads"], ref_grads):
+            for k, v in layer.items():
+                want = ref_layer[k].cpu().numpy()
+                assert np.abs(v - want).max() <= 2e-4 * np.abs(want).max(), k
 
 
 # K2's backward: every forward kernel under grad (prefill_tc, general, and
