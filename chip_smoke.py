@@ -79,6 +79,19 @@ published widths:
           forward bit-equal to a fresh plan's, rebuilds as
           retrace_expected says, and one slot that inserts vertices and
           overflows e_cap;
+  ex_quickstart, ex_relayout, ex_serve_gnn, ex_experts  the example
+          twins (repro_torch.launch.*) at the paper's sizes, inside the
+          GNN path's K1 count: quickstart on Yelp (3912 vertices, 8
+          servers; GLAD-S at or below Greedy and below Random, both
+          plans' BSP forwards on K1 within FWD_TOL), adaptive_relayout on
+          Yelp (GLAD-A over EX_RELAYOUT_SLOTS slots of the evolution
+          trace, the live plan patched each slot and one resident forward
+          bound to it: every forward within FWD_TOL, rebuilds == the
+          slots' retrace_expected, K1 twice a forward), serve_gnn on SIoT
+          (6 servers, mu_factor 2.0, 2000 Zipf requests, the most loaded
+          server failing half way: every served answer within FWD_TOL, no
+          vertex left on it, one cache re-seed; req/s and p50/p99 before
+          and after) and expert_placement at the example's size;
   ranks   the per-rank BSP forward (gnn.ranks.make_rank_bsp_forward) as 8
           spawned processes, one per server of the plans, all on this card
           over gloo, halos staged through pinned host memory (one spawn,
@@ -117,9 +130,11 @@ published widths:
           K1 and scaled_dot_product_attention as the library call (at decode
           also over the cache cut to the longest live row); a decoded batch
           equals each row decoded alone, bit for bit; the split decode at
-          every kv_len edge of its splits, f32 and bf16; the tensor-core
-          prefill at D = 96 and 128; fp32 prefill (lm_parity's) on the
-          general kernel at L = 128 and 512; the reference's 7 test cases
+          every kv_len edge of its splits, f32 and bf16; ex_serve_lm's
+          shapes at llama's heads (causal prefill at its buckets L = 4 to
+          32, decode of 4 slots over a 96-position cache at kv_len 1-30);
+          the tensor-core prefill at D = 96 and 128; fp32 prefill
+          (lm_parity's) on the general kernel at L = 128 and 512; the reference's 7 test cases
           and a fully masked row; each case that names a kernel is held
           to have launched it.  K2's backward (the dq kernel, then the
           dkdv kernel, on the path backward_path names: the tensor-core
@@ -148,6 +163,13 @@ published widths:
           kernel and every tick's on the split decode; two requests are
           re-scored by a teacher-forced forward; prefill and decode-tick
           times;
+  ex_serve_lm  the launch.serve_lm twin inside the LM path's K2 count:
+          the example's reduced llama in fp32 (12 requests of 12 tokens,
+          4 slots) with the card's tokens equal to the CPU's, then the
+          full-width bf16 llama3.2-1b behind the same engine, two of its
+          requests re-scored by a teacher-forced forward within
+          SERVE_GAP_TOL; K2 launches n_layers x (prefills + ticks),
+          exactly by kernel path;
   lm_profile  torch.profiler over 4 decode ticks with 8 live slots: the
           device's busy share, kernel time by name and by class (K2, grouped
           GEMM, other GEMMs, elementwise) and K2's device time per tick;
@@ -246,18 +268,23 @@ Each phase prints JSON lines.  Any failed check exits non-zero.  Before
 the last line it prints the kernels summary and the ``nvidia-smi`` name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The
 kernel summary's ``launches`` are the main paths' (train, then the GNN
-forward path from bsp to evolve, then the ranks (K1's ``ranks_fwd`` and
+forward path from bsp to evolve and the example twins (K1's ``gnn`` and
+``examples``), then the ranks (K1's ``ranks_fwd`` and
 ``ranks_bwd``, summed over the ranks), then LM serving, MoE serving, hybrid
 serving, VLM serving, enc-dec serving, then LM training and the five
-families' training), each counted from 0; its ``flash_attention_bwd_tc``
-entry is K2's tensor-core backward (both kernels' launches on the
-training paths, by phase).
+families' training), each counted from 0; K2's ``launches_by_path`` counts
+by kernel and its ``examples_launches`` the part of them that ex_serve_lm
+made (also in ``launches_by_phase``); its ``flash_attention_bwd_tc`` entry
+is K2's tensor-core backward (both kernels' launches on the training
+paths, by phase).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import json
 import os
 import statistics
@@ -291,7 +318,10 @@ from repro_torch.gnn import (  # noqa: E402
 from repro_torch.graphs import (  # noqa: E402
     DataGraph, build_edge_network, synthetic_siot, synthetic_yelp)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.launch import (  # noqa: E402
+    adaptive_relayout, expert_placement, quickstart, serve_gnn, serve_lm)
 from repro_torch.launch.ranks import run_ranks  # noqa: E402
+from repro_torch.launch.serve import serve_config  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     aligned16, backward_path, decode_split, flash_attention,
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain,
@@ -554,6 +584,9 @@ def allclose_err(out, ref, tol: float) -> float:
 
 
 # ------------------------------------------------------------------ phases
+CARD = "not read"               # nvidia-smi's name and power limit
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -563,6 +596,8 @@ def phase_device():
         capture_output=True, text=True, timeout=120)
     require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     smi_line = smi.stdout.strip().splitlines()[0]
+    global CARD
+    CARD = smi_line
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi_line, "torch": torch.__version__,
@@ -1457,6 +1492,213 @@ def phase_replicate(siot, params_of, dev):
                     f"{fwd.stats['builds']} builds (not 3) or another output")
 
 
+# ------------------------------------------------------- the example twins
+# The paper's sizes: synthetic_yelp() and synthetic_siot() at their defaults.
+EX_YELP = {"n": 3912, "links": 4677}
+EX_SIOT = {"graph": "siot", "n": 8001, "links": 33509}
+EX_RELAYOUT_SLOTS = 30          # of the example's 30; PERF.md §4
+EX_REQUESTS = 2000
+EX_LM_REQUESTS = 12             # serve_lm's requests of 12 new tokens
+
+
+def _ex_run(fn, **kw):
+    """Run an example twin's ``main`` with its printed lines captured;
+    returns its record, the lines and the seconds it took."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rec = fn(**kw)
+    torch.cuda.synchronize()
+    return rec, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def phase_ex_quickstart(dev):
+    """launch.quickstart on the paper's Yelp over 8 servers: the Random,
+    Greedy and GLAD-S costs, and the BSP forward of the Random and GLAD-S
+    plans (GCN 100->16->2, K1 in both layers) against the whole-graph
+    forward."""
+    before = spmm.launches
+    rec, lines, secs = _ex_run(quickstart.main, **EX_YELP, device=dev)
+    launched = spmm.launches - before
+    c = rec["costs"]
+    require(c["glad_s"] <= c["greedy"] and c["glad_s"] < c["random"],
+            f"ex_quickstart: GLAD-S cost not below Greedy's and Random's {c}")
+    for name, lay in rec["layouts"].items():
+        require(lay["finite"] and lay["shape"] == [rec["n"], 2]
+                and lay["max_err"] <= FWD_TOL, f"ex_quickstart {name}: "
+                f"shape {lay['shape']}, max_err {lay['max_err']}")
+    want = 2 * len(rec["layouts"])
+    require(launched == want, f"ex_quickstart: {launched} spmm_csr launches, "
+            f"expected {want}")
+    emit({"phase": "ex_quickstart", "card": CARD, "seconds": secs,
+          "spmm_launches": launched, "record": rec, "printed": lines})
+
+
+def phase_ex_relayout(dev):
+    """launch.adaptive_relayout on the paper's Yelp: GLAD-A over the
+    evolution trace with a live plan patched every slot and one resident
+    BSP forward bound to it; every forward against the whole-graph
+    forward, rebuilds exactly as retrace_expected says, K1 twice a
+    forward."""
+    before = spmm.launches
+    rec, _, secs = _ex_run(adaptive_relayout.main,
+                           slots=EX_RELAYOUT_SLOTS, **EX_YELP, device=dev)
+    launched = spmm.launches - before
+    slots = rec["slots"]
+    require(len(slots) == EX_RELAYOUT_SLOTS,
+            f"ex_relayout: {len(slots)} slots")
+    errs = [rec["initial_max_err"]] + [s["max_err"] for s in slots]
+    require(max(errs) <= FWD_TOL and all(s["finite"] for s in slots),
+            f"ex_relayout: forward vs whole-graph forward: {max(errs)}")
+    rebuilt = rec["builds"] - rec["builds_first"]
+    require(rebuilt == rec["retrace_expected"], f"ex_relayout: {rebuilt} "
+            f"rebuilds, retrace_expected over the slots "
+            f"{rec['retrace_expected']}")
+    want = 2 * (len(slots) + 1)
+    require(launched == want, f"ex_relayout: {launched} spmm_csr launches, "
+            f"expected 2 x {len(slots) + 1} forwards")
+    step_s = [s["step_s"] for s in slots]
+    emit({"phase": "ex_relayout", "card": CARD, "seconds": secs,
+          "slots": len(slots), "spmm_launches": launched, "rebuilds": rebuilt,
+          "glad_a_step_s_mean": statistics.mean(step_s),
+          "glad_a_step_s_max": max(step_s),
+          "patch_s_mean": statistics.mean(s["patch_s"] for s in slots),
+          "forward_s_mean": statistics.mean(s["forward_s"] for s in slots),
+          "max_err": max(errs), "record": rec})
+
+
+def phase_ex_serve_gnn(dev):
+    """launch.serve_gnn on the paper's SIoT over 6 servers (mu_factor
+    2.0): the traffic-aware GLAD-S layout, 2000 Zipf requests through the
+    ego-serving engine, the most loaded server failing half way; every
+    served answer against the whole-graph forward, no vertex left on the
+    dead server, one cache re-seed."""
+    before = spmm.launches
+    rec, lines, secs = _ex_run(serve_gnn.main, requests=EX_REQUESTS,
+                               servers=6, **EX_SIOT, device=dev)
+    half = EX_REQUESTS // 2
+    require(rec["served_finite"]
+            and rec["served_shape"] == [[half, 4], [EX_REQUESTS - half, 4]],
+            f"ex_serve_gnn: served shapes {rec['served_shape']}")
+    require(max(rec["served_max_err"]) <= FWD_TOL, f"ex_serve_gnn: served "
+            f"answers vs whole-graph forward {rec['served_max_err']}")
+    require(rec["dead_vertices_left"] == 0
+            and rec["second_half"]["plan_refreshes"] == 1,
+            f"ex_serve_gnn: {rec['dead_vertices_left']} vertices on the dead "
+            f"server, {rec['second_half']['plan_refreshes']} re-seeds")
+    require(spmm.launches == before, "ex_serve_gnn: the ego forward "
+            "launched spmm_csr")
+    emit({"phase": "ex_serve_gnn", "card": CARD, "seconds": secs,
+          "req_per_s": {"before": rec["first_half"]["req_per_s"],
+                        "after": rec["second_half"]["req_per_s"]},
+          "p50_ms": {"before": rec["first_half"]["p50_ms"],
+                     "after": rec["second_half"]["p50_ms"]},
+          "p99_ms": {"before": rec["first_half"]["p99_ms"],
+                     "after": rec["second_half"]["p99_ms"]},
+          "traces": rec["overall"]["traces"], "record": rec,
+          "printed": lines})
+
+
+def phase_ex_experts(dev):
+    """launch.expert_placement at the example's size: 64 experts on 8
+    slices in 2 pods."""
+    rec, lines, secs = _ex_run(expert_placement.main, device=dev)
+    cut = rec["cut_weight"]
+    require(sum(rec["per_slice_experts"]) == rec["experts"]
+            and cut["glad"] < cut["random"],
+            f"ex_experts: {rec['per_slice_experts']}, cut {cut}")
+    emit({"phase": "ex_experts", "card": CARD, "seconds": secs,
+          "record": rec, "printed": lines})
+
+
+def _ex_lm_expected(rec) -> dict:
+    """K2 launches by kernel path that ``launch.serve_lm``'s record implies:
+    ``n_layers`` a prefill at the prompt's bucket, and a tick (one query
+    row a slot)."""
+    dtype = {"torch.float32": torch.float32,
+             "torch.bfloat16": torch.bfloat16}[rec["dtype"]]
+    shape = (rec["n_heads"], rec["n_kv_heads"])
+    want = dict.fromkeys(flash_attention.launches_by_path, 0)
+    for prompt in rec["prompts"]:
+        L = min(ServeEngine._bucket(len(prompt)), rec["max_len"])
+        want[kernel_path(dtype, *shape, L, rec["head_dim"])] += rec["n_layers"]
+    want[kernel_path(dtype, *shape, 1, rec["head_dim"])] += (
+        rec["n_layers"] * rec["ticks"])
+    return want
+
+
+def _ex_lm_rescore(rec, cfg, params, dev, n=2):
+    """The first ``n`` served requests of a ``launch.serve_lm`` record
+    re-scored by one teacher-forced forward each, as lm_serve re-scores
+    its own: returns how many served tokens are the forward's top logit,
+    of how many, and the largest gap below it."""
+    exact, checked, gaps = 0, 0, []
+    for prompt, served in zip(rec["prompts"][:n], rec["tokens"][:n]):
+        toks = torch.tensor(prompt + served[:-1], device=dev)[None]
+        logits, _ = lm.forward(cfg, params, {"tokens": toks})
+        rows = logits[0, len(prompt) - 1:len(toks[0])].float()
+        got = torch.tensor(served, device=dev)
+        require(bool(torch.isfinite(rows).all()),
+                "ex_serve_lm: non-finite teacher-forced logits")
+        gap = rows.max(-1).values - rows[torch.arange(len(got)), got]
+        exact += int((rows.argmax(-1) == got).sum())
+        checked += len(got)
+        gaps.append(float(gap.max()))
+    return exact, checked, max(gaps)
+
+
+def phase_ex_serve_lm(dev):
+    """launch.serve_lm: the example's reduced llama in fp32 on the card and
+    on the CPU (the same tokens), then ``full=True``: the full-width
+    llama3.2-1b in bf16 behind the same engine, two of its requests
+    re-scored by a teacher-forced forward within SERVE_GAP_TOL.  K2
+    launches n_layers x (prefills + ticks), exactly by kernel path."""
+    out, by_path = {}, dict.fromkeys(flash_attention.launches_by_path, 0)
+    for full in (False, True):
+        cfg = serve_config(serve_lm.ARCH, smoke=not full)
+        params = None
+        if full:                     # the twin's own draw, kept to re-score
+            params = lm.init_params(
+                cfg, torch.Generator(dev).manual_seed(0), dev)
+        before = dict(flash_attention.launches_by_path)
+        rec, lines, secs = _ex_run(serve_lm.main, full=full, device=dev,
+                                   params=params)
+        got = {k: flash_attention.launches_by_path[k] - before[k]
+               for k in before}
+        want = _ex_lm_expected(rec)
+        label = "full" if full else "reduced"
+        require(got == want, f"ex_serve_lm {label}: K2 launches by kernel "
+                f"{got}, expected {want}")
+        require(rec["completed"] == EX_LM_REQUESTS and all(
+            len(t) == 12 for t in rec["tokens"]),
+            f"ex_serve_lm {label}: {rec['completed']} completed, tokens "
+            f"{[len(t) for t in rec['tokens']]}")
+        row = {"seconds": secs, "launches_by_path": got,
+               "record": {k: v for k, v in rec.items() if k != "prompts"},
+               "printed": lines}
+        if full:
+            exact, checked, gap = _ex_lm_rescore(rec, cfg, params, dev)
+            require(gap <= SERVE_GAP_TOL, f"ex_serve_lm full: a served token "
+                    f"is {gap} below the teacher-forced top logit")
+            row.update(teacher_forced_exact=exact,
+                       teacher_forced_checked=checked,
+                       teacher_forced_max_gap=gap, gap_tol=SERVE_GAP_TOL)
+        else:
+            cpu, _, cpu_s = _ex_run(serve_lm.main, full=False, device="cpu")
+            require(cpu["tokens"] == rec["tokens"], "ex_serve_lm: the card's "
+                    "tokens differ from the CPU's in fp32")
+            row["cpu_seconds"] = cpu_s
+            row["tokens_equal_cpu"] = True
+        out[label] = row
+        for k in by_path:
+            by_path[k] += got[k]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "ex_serve_lm", "card": CARD, **out})
+    return by_path
+
+
 # ------------------------------------------------------------ ranks (gloo)
 RANK_LAYOUTS = ("glad_s_mu2", "random")
 RANK_MODELS = ("gcn", "sage", "gat")
@@ -2149,6 +2391,35 @@ def phase_flash_kernels(dev):
                   "split": ks,
                   "max_abs_err": err, "tol": FLASH_TOL[dtype],
                   "bitwise_equal": True, "masked_row_zero": True})
+    # ex_serve_lm's full run (launch.serve_lm --full): llama's heads behind
+    # ServeEngine(slots=4, max_len=96).  Its prompts of 4-19 tokens prefill
+    # causally at their buckets: 8 to 32 on one partial 64-row tile of the
+    # tensor-core prefill, 4 (16 rows) on the split decode.  Its ticks
+    # decode the 4 slots over the 96-position cache at kv_len 5-30 (the
+    # prompt and up to 11 tokens; an idle slot attends to 1 key).
+    for L in (4, 8, 16, 32):
+        q, k, v = _bhld_views(gen, dev, 1, Hq, Hkv, L, L, D, bf16)
+        path = kernel_path(bf16, Hq, Hkv, L, D)
+        label = f"serve_lm_prefill_L{L}"
+        _, err = _check_flash(label, q, k, v, None, True, path)
+        worst = max(worst, err)
+        emit({"phase": "kernels", "kernel": "flash_attention", "shape": label,
+              "path": path, "max_abs_err": err, "tol": FLASH_TOL[bf16],
+              "bitwise_equal": True})
+    cache = torch.randn((2, serve_lm.SLOTS, serve_lm.MAX_LEN, Hkv, D),
+                        generator=gen, device=dev, dtype=bf16)
+    q = torch.randn((serve_lm.SLOTS, 1, Hq, D), generator=gen, device=dev,
+                    dtype=bf16).transpose(1, 2)
+    lens = [1, 5, 19, 30]
+    kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    label = f"serve_lm_decode_B{serve_lm.SLOTS}_S{serve_lm.MAX_LEN}"
+    _, err = _check_flash(label, q, cache[1].transpose(1, 2),
+                          cache[0].transpose(1, 2), kl, False, "decode")
+    worst = max(worst, err)
+    emit({"phase": "kernels", "kernel": "flash_attention", "shape": label,
+          "path": "decode", "kv_len": lens, "max_abs_err": err,
+          "tol": FLASH_TOL[bf16], "bitwise_equal": True})
+    del cache
     for arch in ("phi3-mini-3.8b", "qwen2.5-32b"):
         c = get_config(arch)
         q, k, v = _bhld_views(gen, dev, 1, c.n_heads, c.n_kv_heads, 512, 512,
@@ -4433,7 +4704,14 @@ def main() -> int:
     phase_replicate(siot, params_of, dev)
     phase_patch(siot, params_of, dev)
     phase_evolve(siot, params_of, dev)
+    gnn_launches = spmm.launches              # the example twins from here
+    phase_ex_quickstart(dev)
+    phase_ex_relayout(dev)
+    phase_ex_serve_gnn(dev)
+    phase_ex_experts(dev)
     launches = spmm.launches                  # ... and ends here
+    require(launches > gnn_launches,
+            "the example twins never launched spmm_csr")
     require(launches > 0, "the GNN path never launched spmm_csr")
     require(spmm.launches_by_dir["bwd"] == 0,
             "the forward path launched spmm_csr's backward")
@@ -4448,6 +4726,12 @@ def main() -> int:
     phase_lm_parity(dev)
     flash_launches, flash_by_path = phase_lm_serve(dev, flash_rows)
     require(flash_launches > 0, "the LM path never launched flash_attention")
+    ex_by_path = phase_ex_serve_lm(dev)       # inside the LM path's count
+    require(sum(ex_by_path.values()) > 0,
+            "the LM example twin never launched flash_attention")
+    flash_launches += sum(ex_by_path.values())
+    flash_by_path = {k: flash_by_path[k] + ex_by_path[k]
+                     for k in flash_by_path}
     phase_moe_parity(dev)
     moe_launches, moe_by_path = phase_moe_serve(dev, flash_rows)
     require(moe_launches > 0, "the MoE path never launched flash_attention")
@@ -4488,7 +4772,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/gnn_aggregate.py:77",
         "launches": (launches + sum(train_launches.values())
                      + sum(rank_launches.values())),
-        "launches_by_path": {"gnn": launches,
+        "launches_by_path": {"gnn": gnn_launches,
+                             "examples": launches - gnn_launches,
                              "train_fwd": train_launches["fwd"],
                              "train_bwd": train_launches["bwd"],
                              "ranks_fwd": rank_launches["fwd"],
@@ -4521,7 +4806,11 @@ def main() -> int:
                              + encdec_by_path[key]
                              + sum(d[key] for d in train_fwd_phases.values())
                              for key in flash_by_path},
-        "launches_by_phase": {"lm_serve": flash_by_path,
+        "examples_launches": sum(ex_by_path.values()),
+        "launches_by_phase": {"lm_serve": {k: flash_by_path[k]
+                                           - ex_by_path[k]
+                                           for k in flash_by_path},
+                              "ex_serve_lm": ex_by_path,
                               "moe_serve": moe_by_path,
                               "hybrid_serve": hybrid_by_path,
                               "vlm_serve": vlm_by_path,

@@ -1,6 +1,6 @@
 from repro_torch.gnn.models import (
     GNNConfig, directed_edges, forward, init_params, loss_fn,
-    params_from_jax, predict, segment_sum,
+    params_from_jax, params_or_init, predict, segment_sum,
 )
 from repro_torch.gnn.plan import (
     PlanBSR, PlanCaps, PlanDelta, ShardPlan, build_plan_bsr, compile_plan,
@@ -25,7 +25,7 @@ from repro_torch.gnn.serving import (
 
 __all__ = [
     "GNNConfig", "directed_edges", "forward", "init_params", "loss_fn",
-    "params_from_jax", "predict", "segment_sum",
+    "params_from_jax", "params_or_init", "predict", "segment_sum",
     "PlanBSR", "PlanCaps", "PlanDelta", "ShardPlan", "build_plan_bsr",
     "compile_plan", "gather_outputs", "make_bsp_forward", "patch_plan",
     "plan_caps", "plans_equal", "recompile_like", "resolve_aggregate",

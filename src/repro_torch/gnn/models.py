@@ -158,6 +158,17 @@ def init_params(cfg: GNNConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+def params_or_init(cfg: GNNConfig, params=None, device: DeviceLike = "cuda"):
+    """``params`` (a parameter list of tensors or arrays, e.g. the
+    reference's through :func:`params_from_jax`) moved to ``device``, or
+    when it is None, :func:`init_params`'s seed-0 draw there: the same
+    weights on every device."""
+    if params is None:
+        return init_params(cfg, device=device)
+    dev = resolve_device(device)
+    return [{k: torch.as_tensor(v).to(dev) for k, v in layer.items()}
+            for layer in params]
+
 def params_from_jax(params_np, device: DeviceLike = "cuda"):
     """The reference's parameter list (``[{"w", "att_src", "att_dst"}, ...]``
     of arrays, e.g. ``jax.tree.map(np.asarray, params)``) as torch tensors,

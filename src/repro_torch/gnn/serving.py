@@ -256,22 +256,35 @@ def make_ego_forward(cfg: GNNConfig, params, device: DeviceLike = "cuda"):
     Runs the UNMODIFIED layer functions of :mod:`repro_torch.gnn.models`
     over the flattened union graph with :func:`segment_sum`, so semantics
     match the whole-graph forward at the target rows.  Inputs may be numpy
-    arrays or tensors; ``params`` must already live on ``device``."""
+    arrays or tensors; ``params`` must already live on ``device``.
+
+    ``fwd.stats['traces']`` counts the distinct (shape, dtype) signatures
+    of the four inputs the forward has seen: what the reference's jitted
+    forward counts as traces over the same batches, and the number of
+    shapes a captured (CUDA-graph) forward would need.  Bucketed shapes
+    bound it by O(log) per dimension."""
     dev = resolve_device(device)
     layer_fn = _LAYERS[cfg.model]
     K = cfg.num_layers
+    state = {"traces": 0}
+    seen = set()
 
     def fwd(feats, arcs, deg, tgt_rows):
-        feats = torch.as_tensor(feats, device=dev)
-        arcs = torch.as_tensor(arcs, device=dev).long()
-        deg = torch.as_tensor(deg, device=dev)
-        tgt_rows = torch.as_tensor(tgt_rows, device=dev).long()
+        args = [torch.as_tensor(a, device=dev)
+                for a in (feats, arcs, deg, tgt_rows)]
+        sig = tuple((tuple(a.shape), a.dtype) for a in args)
+        if sig not in seen:
+            seen.add(sig)
+            state["traces"] += 1
+        feats, arcs, deg, tgt_rows = args
+        arcs, tgt_rows = arcs.long(), tgt_rows.long()
         n = feats.shape[0]
         h = feats.to(cfg.dtype)
         for k, p in enumerate(params):
             h = layer_fn(p, h, arcs, deg, n, k == K - 1, segment_sum)
         return h[tgt_rows]
 
+    fwd.stats = state
     return fwd
 
 

@@ -31,6 +31,36 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.serve import Request, ServeEngine
 
 
+def serve_config(arch: str, smoke: bool):
+    """``arch``'s config as the launchers serve it: the reduced config in
+    fp32 under ``smoke``, else the full one with its weights held in
+    ``cfg.dtype``."""
+    if smoke:
+        return dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, param_dtype=cfg.dtype)
+
+
+def serve_random(cfg, params, dev, *, requests: int, slots: int = 4,
+                 max_len: int = 96, max_new: int = 12):
+    """Serve ``requests`` random prompts (4-19 tokens of ids 1..vocab,
+    drawn from ``default_rng(0)``) of ``max_new`` tokens each through one
+    ``ServeEngine``; returns its stats, the requests and the seconds the
+    submissions and the run took."""
+    eng = ServeEngine(cfg, params, slots=slots, max_len=max_len, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = []
+    t0 = time.perf_counter()
+    for uid in range(requests):
+        plen = int(rng.integers(4, 20))
+        prompt = rng.integers(1, cfg.vocab, size=plen).astype(np.int32)
+        reqs.append(Request(uid=uid, prompt=prompt, max_new_tokens=max_new,
+                            eos_id=-1))
+        eng.submit(reqs[-1])
+    stats = eng.run()
+    return stats, reqs, time.perf_counter() - t0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -43,27 +73,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if args.smoke:
-        cfg = dataclasses.replace(cfg, dtype=torch.float32)
-    else:
-        cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)
+    cfg = serve_config(args.arch, args.smoke)
     if cfg.family in ("encdec",):
         raise SystemExit("serve CLI drives decoder-only archs; "
                          "enc-dec serving needs frames input (see tests)")
     params = zoo.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
-    eng = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
-                      device=dev)
-
-    rng = np.random.default_rng(0)
-    t0 = time.perf_counter()
-    for uid in range(args.requests):
-        plen = int(rng.integers(4, 20))
-        prompt = rng.integers(1, cfg.vocab, size=plen).astype(np.int32)
-        eng.submit(Request(uid=uid, prompt=prompt,
-                           max_new_tokens=args.max_new, eos_id=-1))
-    stats = eng.run()
-    dt = time.perf_counter() - t0
+    stats, _, dt = serve_random(cfg, params, dev, requests=args.requests,
+                                slots=args.slots, max_len=args.max_len,
+                                max_new=args.max_new)
     print(f"{stats.completed}/{args.requests} requests, "
           f"{stats.generated_tokens} tokens in {stats.ticks} ticks, "
           f"{dt:.2f}s ({stats.generated_tokens / dt:.1f} tok/s) on {dev}")

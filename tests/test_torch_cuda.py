@@ -4,7 +4,8 @@ input checks, and the port's card paths (BSP forward and train step, K1's
 backward, LM prefill, decode and train step, the LM training CLI, the MoE
 FFN and its grouped GEMM's routes, MoE serving, the recurrent families'
 prefill, decode and serving, the VLM and enc-dec families' prefill and
-decode, an idle serving slot past the cache) against its CPU paths.
+decode, an idle serving slot past the cache, the example twins) against
+its CPU paths.
 Without a card every test here skips.  The file imports neither ``jax``
 nor ``repro``, so it runs on a machine with the card and the port alone:
 
@@ -1201,3 +1202,73 @@ def test_launch_train_family_smoke_on_card(capsys, arch):
     assert len(losses) == 10 and np.isfinite(losses).all()
     assert losses[-1] < losses[0]
     assert "on cuda" in capsys.readouterr().out
+
+
+# ------------------------------------------------------- the example twins
+# Fields of a twin's record that are times or name the device: left out of
+# the card-vs-CPU comparison.  Forward floats are compared within 2e-4.
+EX_TIMES = {"glad_s_s", "step_s", "patch_s", "forward_s", "relayout_ms",
+            "req_per_s", "p50_ms", "p99_ms", "device"}
+EX_FLOATS = {"max_err", "initial_max_err", "emb", "served_max_err"}
+
+
+def _ex_split(rec, floats):
+    """``rec`` without its times, with its forward floats moved to
+    ``floats`` (by path)."""
+    if isinstance(rec, dict):
+        out = {}
+        for k, v in rec.items():
+            if k in EX_TIMES:
+                continue
+            if k in EX_FLOATS:
+                floats.append(np.ravel(v).astype(float))
+                continue
+            out[k] = _ex_split(v, floats)
+        return out
+    if isinstance(rec, list):
+        return [_ex_split(v, floats) for v in rec]
+    return rec
+
+
+def _ex_same(card, cpu):
+    fa, fb = [], []
+    assert _ex_split(card, fa) == _ex_split(cpu, fb)
+    assert len(fa) == len(fb)
+    for a, b in zip(fa, fb):
+        assert np.abs(a - b).max() <= 2e-4
+
+
+@pytest.mark.parametrize("name,launches", [
+    ("quickstart", 2 * 2), ("adaptive_relayout", 2 * 31), ("serve_gnn", 0)])
+def test_example_twin_on_card_matches_its_cpu_run(dev, capsys, name,
+                                                  launches):
+    """Each GNN example twin at its example's default size on the card and
+    on the CPU: the records equal but for times and the forward floats
+    (within 2e-4); K1 twice a BSP forward, never in the ego forward."""
+    import importlib
+    main = importlib.import_module(f"repro_torch.launch.{name}").main
+    before = spmm.launches
+    card = main(device=dev)
+    assert spmm.launches - before == launches
+    cpu = main(device="cpu")
+    _ex_same(card, cpu)
+    errs = [card.get("initial_max_err", 0.0)]
+    errs += [s["max_err"] for s in card.get("slots", [])]
+    errs += [v["max_err"] for v in card.get("layouts", {}).values()]
+    errs += card.get("served_max_err", [])
+    assert max(errs) <= 2e-4
+    capsys.readouterr()
+
+
+def test_serve_lm_twin_on_card_matches_cpu(dev, capsys):
+    """``launch.serve_lm`` in fp32 at the example's size: the card's tokens
+    equal the CPU's, with K2 launched n_layers x (prefills + ticks)."""
+    from repro_torch.launch import serve_lm
+    before = flash_attention.launches
+    card = serve_lm.main(device=dev)
+    assert flash_attention.launches - before == card["n_layers"] * (
+        card["prefills"] + card["ticks"])
+    cpu = serve_lm.main(device="cpu")
+    assert card["tokens"] == cpu["tokens"]
+    assert (card["completed"], card["generated_tokens"]) == (12, 132)
+    capsys.readouterr()
