@@ -262,7 +262,26 @@ published widths:
           last below the first, two profiled steps (busy share, device
           time by class: K2 and the grouped GEMM each way, cuBLAS,
           elementwise), K2 and grouped GEMM launches exactly by kernel,
-          path and route; step ms, tokens/s, peak memory.
+          path and route; step ms, tokens/s, peak memory;
+  mesh_parity  the mesh path (Dist over a 1x1 DeviceMesh, NCCL at world
+          size 1; the reference's make_debug_mesh on one device):
+          llama3.2-1b at full width, bf16, its weights laid out by
+          param_specs, forward and prefill bit-equal to the mesh-free
+          path, K2 once a layer a pass on prefill_tc through local_map;
+  mesh_train  llama3.2-1b through jit_train_step on that mesh, 3 steps on
+          4 x 1024 tokens, twice, each run's losses, parameters and
+          moments bit-equal to make_train_step's; K2 both ways counted;
+  mesh_moe  deepseek-moe-16b's expert-parallel moe_ffn with its capacity
+          at full width (64 experts, top-6, bf16, 4096 tokens): nothing
+          dropped at capacity factor 2.0 (the output against the dropless
+          path), about half at 0.5 (the dropped set equal to the rule on
+          the host over the card's own routing), each batched GEMM's
+          device time beside the grouped GEMM's;
+  dryrun  the dry-run (launch/dryrun.py: a fake group of 256 ranks on the
+          host, run beside the mesh phases) of llama3.2-1b train_4k and
+          deepseek-moe-16b prefill_32k on pod16x16: per-device argument
+          bytes equal to the reference dry-run's, memory, FLOPs, HBM and
+          collective bytes and the roofline in the H100's terms.
 
 Each phase prints JSON lines.  Any failed check exits non-zero.  Before
 the last line it prints the kernels summary and the ``nvidia-smi`` name and
@@ -271,10 +290,11 @@ kernel summary's ``launches`` are the main paths' (train, then the GNN
 forward path from bsp to evolve and the example twins (K1's ``gnn`` and
 ``examples``), then the ranks (K1's ``ranks_fwd`` and
 ``ranks_bwd``, summed over the ranks), then LM serving, MoE serving, hybrid
-serving, VLM serving, enc-dec serving, then LM training and the five
-families' training), each counted from 0; K2's ``launches_by_path`` counts
-by kernel and its ``examples_launches`` the part of them that ex_serve_lm
-made (also in ``launches_by_phase``); its ``flash_attention_bwd_tc`` entry
+serving, VLM serving, enc-dec serving, then LM training, the five
+families' training and the mesh phases), each counted from 0; K2's
+``launches_by_path`` counts by kernel and its ``examples_launches`` the
+part of them that ex_serve_lm made (also in ``launches_by_phase``); its
+``flash_attention_bwd_tc`` entry
 is K2's tensor-core backward (both kernels' launches on the training
 paths, by phase).
 """
@@ -329,11 +349,14 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.gnn_aggregate import (  # noqa: E402
     build_bsr, pack_bsr, spmm, spmm_packed, spmm_packed_plain, spmm_plain,
     transpose_packed)
-from repro_torch.models.common import ShapeCfg  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    full_tree, make_debug_mesh, shard_tree)
+from repro_torch.models.common import P, Dist, ShapeCfg  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     CheckpointManager, OptConfig, batch_at_step, init_error_feedback,
     init_opt_state, make_train_step, optim)
+from repro_torch.train.step import jit_train_step  # noqa: E402
 
 PARTS = 8
 SLACK = 0.5
@@ -468,6 +491,18 @@ MB_M_RTOL, MB_M_ATOL, MB_M_REF_RTOL = 2 ** -7, 2e-5, 2e-3
 # xlstm-1.3b: 4 x 256 tokens and 6 steps: its sLSTM loop is sequential in
 # L (256 still spans two SSD chunks) and a step takes ~5.5 s.
 MOE_TRAIN_LAYERS = 5
+# The mesh phases (mesh_parity, mesh_train, mesh_moe, dryrun): a 1x1
+# DeviceMesh over NCCL at world size 1 (the reference's make_debug_mesh on
+# one device).  mesh_train: MESH_TRAIN_STEPS steps of llama3.2-1b on 4 x
+# 1024 tokens.  mesh_moe: deepseek-moe-16b's capacity moe_ffn on
+# MESH_MOE_TOKENS tokens at each of MESH_MOE_FACTORS (2.0: nothing should
+# drop; 0.5: about half the assignments drop).  DRYRUN_PINNED: the dry-run
+# cells and their per-device argument bytes, the reference dry-run's.
+MESH_TRAIN_STEPS = 3
+MESH_MOE_TOKENS = 4096
+MESH_MOE_FACTORS = (2.0, 0.5)
+DRYRUN_PINNED = {"llama3.2-1b:train_4k": 243_949_572,
+                 "deepseek-moe-16b:prefill_32k": 2_054_082_560}
 TRAIN_FAMILY_STEPS = 10
 TRAIN_PARITY = {
     "moe_train": ("deepseek-moe-16b", {"n_layers": 2}, 128),
@@ -4658,6 +4693,340 @@ def phase_family_train(phase: str, dev):
     return got[0], got[1], got[2]
 
 
+@contextlib.contextmanager
+def _one_rank_mesh(dev):
+    """A torch.distributed group of one process (NCCL on the card, gloo on
+    the CPU) and its 1x1 (data, model) mesh; the group is destroyed after."""
+    import socket
+    import torch.distributed as tdist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tdist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                             init_method=f"tcp://localhost:{port}", rank=0,
+                             world_size=1)
+    try:
+        yield make_debug_mesh(1, 1, device_type=dev.type)
+    finally:
+        tdist.destroy_process_group()
+
+
+def _mesh_llama(dev, mesh):
+    """llama3.2-1b at full width (bf16 compute, fp32 weights), its weights
+    whole and laid out on ``mesh`` by param_specs, and 4 x 1024 tokens from
+    the data pipeline, whole and laid out over 'data'."""
+    cfg = get_config("llama3.2-1b")
+    dist = Dist(mesh, batch_axes=("data",))
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    batch = {k: torch.from_numpy(x).to(dev) for k, x in batch_at_step(
+        cfg, ShapeCfg("mesh", 1024, 4, "train"), 0).items()}
+    bspecs = {k: P("data", None) for k in batch}
+    placed = shard_tree(params, lm.param_specs(cfg, dist), mesh)
+    pbatch = {k: shard_tree(v, bspecs[k], mesh) for k, v in batch.items()}
+    return cfg, dist, params, batch, placed, pbatch, bspecs
+
+
+def phase_mesh_parity(dev, mesh):
+    """forward and prefill of the full-width llama3.2-1b under Dist on the
+    1x1 mesh, bit-equal to the mesh-free path on the same weights; K2
+    launched once a layer a pass on prefill_tc, through local_map.
+    Returns the meshed calls' K2 launches by kernel."""
+    cfg, dist, params, batch, placed, pbatch, _ = _mesh_llama(dev, mesh)
+    L, max_len = cfg.n_layers, 1024 + 64
+    meshed = {}
+    with torch.no_grad():
+        ref = lm.forward(cfg, params, batch)[0]
+        before = _counts()
+        got = lm.forward(cfg, placed, pbatch, dist)[0]
+        torch.cuda.synchronize()
+        meshed["forward"] = _counts_delta(before)[0]
+        fwd_equal = bool(torch.equal(got.to_local(), ref))
+        del ref, got
+        r_last, r_cache = lm.prefill(cfg, params, {"tokens": batch["tokens"]},
+                                     max_len)
+        before = _counts()
+        g_last, g_cache = lm.prefill(cfg, placed,
+                                     {"tokens": pbatch["tokens"]}, max_len,
+                                     dist)
+        torch.cuda.synchronize()
+        meshed["prefill"] = _counts_delta(before)[0]
+        pre_equal = {key: bool(torch.equal(g.to_local(), r)) for key, g, r in (
+            ("logits", g_last, r_last), ("k", g_cache["k"], r_cache["k"]),
+            ("v", g_cache["v"], r_cache["v"]),
+            ("len", g_cache["len"], r_cache["len"]))}
+        del r_cache, g_cache
+        ms = {"forward": time_ms(lambda: lm.forward(cfg, params, batch),
+                                 reps=3, warmup=1),
+              "forward_mesh": time_ms(lambda: lm.forward(
+                  cfg, placed, pbatch, dist), reps=3, warmup=1)}
+    for key, got in meshed.items():
+        require(got == {"prefill_tc": L}, f"mesh_parity: the meshed {key} "
+                f"launched K2 {got}, expected {L} on prefill_tc")
+    require(fwd_equal, "mesh_parity: the meshed forward's logits differ "
+            "from the mesh-free forward's")
+    require(all(pre_equal.values()), f"mesh_parity: the meshed prefill "
+            f"differs from the mesh-free one: {pre_equal}")
+    emit({"phase": "mesh_parity", "arch": cfg.name, "n_layers": L,
+          "d_model": cfg.d_model, "dtype": "bfloat16", "mesh": [1, 1],
+          "backend": "nccl" if dev.type == "cuda" else "gloo",
+          "batch": [4, 1024], "prefill_max_len": max_len,
+          "forward_bit_equal": fwd_equal, "prefill_bit_equal": pre_equal,
+          "k2_launches": meshed, "forward_ms": ms})
+    return {k: sum(d.get(k, 0) for d in meshed.values())
+            for k in flash_attention.launches_by_path}
+
+
+def _mesh_train_run(cfg, dist, specs, params, batch, bspecs, opt_cfg):
+    """MESH_TRAIN_STEPS steps from a copy of ``params``: mesh-free
+    (make_train_step) when ``dist`` is None, else jit_train_step on its
+    mesh.  Returns (losses, the final params and moments, whole)."""
+    start = optim.tree_map(lambda t: t.clone(), params)
+    if dist is None:
+        step, state = make_train_step(cfg, opt_cfg), start
+        opt = init_opt_state(opt_cfg, state)
+    else:
+        step = jit_train_step(cfg, dist, specs, opt_cfg, batch_specs=bspecs)
+        state = shard_tree(start, specs, dist.mesh)
+        opt = init_opt_state(opt_cfg, state)
+    del start
+    losses = []
+    for _ in range(MESH_TRAIN_STEPS):
+        state, opt, _, m = step(state, opt, None, batch)
+        loss = m["loss"]
+        losses.append(float(loss.to_local() if hasattr(loss, "to_local")
+                            else loss))
+    return losses, full_tree({"p": state, "m": opt.m, "v": opt.v})
+
+
+def phase_mesh_train(dev, mesh):
+    """llama3.2-1b at full width through jit_train_step on the 1x1 mesh,
+    MESH_TRAIN_STEPS steps on 4 x 1024 tokens, twice, each run's losses,
+    parameters and moments bit-equal to the mesh-free make_train_step's.
+    Returns the meshed runs' K2 launches (forward by kernel, backward by
+    kernel and by path)."""
+    cfg, dist, params, batch, _, _, bspecs = _mesh_llama(dev, mesh)
+    specs = lm.param_specs(cfg, dist)
+    opt_cfg = dataclasses.replace(optim.for_model(cfg), lr=1e-3)
+    ref_losses, ref = _mesh_train_run(cfg, None, specs, params, batch,
+                                      bspecs, opt_cfg)
+    runs, launched, step_s = [], [], []
+    for _ in range(2):
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, got = _mesh_train_run(cfg, dist, specs, params, batch,
+                                      bspecs, opt_cfg)
+        torch.cuda.synchronize()
+        step_s.append((time.perf_counter() - t0) / MESH_TRAIN_STEPS)
+        launched.append(_counts_delta(before)[:3])
+        differ = [name for (name, a), b in zip(optim.named_leaves(got),
+                                               optim.leaves(ref))
+                  if not torch.equal(a, b)]
+        runs.append({"losses": losses, "losses_equal": losses == ref_losses,
+                     "leaves_differing": differ[:8],
+                     "n_leaves_differing": len(differ)})
+        del got
+    L, n = cfg.n_layers, MESH_TRAIN_STEPS
+    want = ({"prefill_tc": n * L}, {"dq": n * L, "dkdv": n * L},
+            {"tc": n * L})
+    for got in launched:
+        require(got == want, f"mesh_train: a run launched K2 {got}, "
+                f"expected {want}")
+    for run in runs:
+        require(run["losses_equal"] and not run["n_leaves_differing"],
+                f"mesh_train: jit_train_step on the 1x1 mesh is not "
+                f"bit-equal to make_train_step: {run}")
+    require(ref_losses[-1] < ref_losses[0], f"mesh_train: {n} steps did "
+            f"not lower the loss: {ref_losses}")
+    emit({"phase": "mesh_train", "arch": cfg.name, "n_layers": L,
+          "dtype": "bfloat16", "param_dtype": "float32", "mesh": [1, 1],
+          "optimizer": opt_cfg.name, "lr": opt_cfg.lr, "batch": [4, 1024],
+          "steps": n, "losses": ref_losses, "runs": runs,
+          "bit_equal_to_mesh_free": True, "bit_equal_twice": True,
+          "mesh_step_s": step_s, "k2_launches_per_run": launched[0]})
+    fwd = {k: sum(g[0].get(k, 0) for g in launched)
+           for k in flash_attention.launches_by_path}
+    bwd = {k: sum(g[1].get(k, 0) for g in launched)
+           for k in flash_attention.backward_launches}
+    by_path = {k: sum(g[2].get(k, 0) for g in launched)
+               for k in flash_attention.backward_launches_by_path}
+    return fwd, bwd, by_path
+
+
+def _host_drops(idx, C: int, E: int) -> torch.Tensor:
+    """The capacity rule on the host: an assignment (t, j) is dropped when
+    C earlier assignments (in flat order t*k + j) chose its expert."""
+    flat = idx.reshape(-1).cpu().numpy()
+    seen = np.zeros(E, np.int64)
+    out = np.zeros(flat.shape, np.int32)
+    for a, e in enumerate(flat):
+        out[a] = seen[e] >= C
+        seen[e] += 1
+    return torch.from_numpy(out.reshape(idx.shape))
+
+
+def _gemm_ms(parts: dict) -> dict:
+    """The matrix-product kernels among ``device_ms``'s parts."""
+    return {name[:90]: t for name, t in parts.items()
+            if any(tag in name.lower() for tag in ("gemm", "nvjet", "cutlass",
+                                                  "xmma", "grouped"))}
+
+
+def phase_mesh_moe(dev, mesh):
+    """deepseek-moe-16b's expert-parallel moe_ffn at full width (64
+    experts of 1408, top-6, bf16) on MESH_MOE_TOKENS tokens on the 1x1
+    mesh: at capacity factor 2.0 the drop count (none: the output within
+    MOE_FFN_BF16_TOL * max|ref| of the dropless path), at 0.5 the dropped
+    set equal to the rule applied on the host to the card's own routing;
+    each batched GEMM's device time beside the grouped GEMM's."""
+    cfg = get_config("deepseek-moe-16b")
+    dist = Dist(mesh, batch_axes=("data",))
+    gen = torch.Generator(dev).manual_seed(SEED + 7)
+    bf16, d, f, E = torch.bfloat16, cfg.d_model, cfg.expert_d_ff, cfg.n_experts
+    p = {"router": torch.randn((d, E), generator=gen, device=dev) * d ** -0.5,
+         "w13": (torch.randn((E, d, 2 * f), generator=gen, device=dev)
+                 * d ** -0.5).to(bf16),
+         "w2": (torch.randn((E, f, d), generator=gen, device=dev)
+                * f ** -0.5).to(bf16)}
+    x = torch.randn((1, MESH_MOE_TOKENS, d), generator=gen,
+                    device=dev).to(bf16)
+    spec = lm.param_specs(cfg, dist)["layers"]
+    sp = {"router": shard_tree(p["router"], P(*spec["router"][1:]), mesh),
+          "w13": shard_tree(p["w13"], P(*spec["moe_w13"][1:]), mesh),
+          "w2": shard_tree(p["w2"], P(*spec["moe_w2"][1:]), mesh)}
+    sx = shard_tree(x, P("data", None, None), mesh)
+    with torch.no_grad():
+        dropless = moe.moe_ffn(cfg, p, x)[0]
+        idx = moe.router_topk(x, p["router"], cfg.top_k)[0]
+        rec = {}
+        for cf in MESH_MOE_FACTORS:
+            c = dataclasses.replace(cfg, capacity_factor=cf)
+            C = moe.capacity(c, MESH_MOE_TOKENS)
+            routes = dict(moe.grouped_gemm.launches_by_route)
+            out, _, dropped = moe.moe_ffn(c, sp, sx, mesh, ("data",),
+                                          return_dropped=True)
+            require(moe.grouped_gemm.launches_by_route == routes,
+                    "mesh_moe: the capacity path ran the grouped GEMM")
+            out, dropped = out.to_local(), dropped.to_local()
+            torch.cuda.synchronize()
+            host = _host_drops(idx, C, E)
+            n_drop = int(dropped.sum())
+            rec[cf] = {"capacity": C, "dropped": n_drop,
+                       "dropped_share": n_drop / idx.numel(),
+                       "drops_equal_host_rule": bool(torch.equal(
+                           dropped.cpu(), host)),
+                       "finite": bool(torch.isfinite(out).all())}
+            require(rec[cf]["finite"] and out.shape == x.shape,
+                    f"mesh_moe: capacity {cf}: the output is not finite")
+            require(rec[cf]["drops_equal_host_rule"], f"mesh_moe: capacity "
+                    f"{cf}: the card's dropped set is not the rule's on its "
+                    "own routing")
+            if n_drop == 0:
+                scale = float(dropless.float().abs().max())
+                err = float((out.float() - dropless.float()).abs().max())
+                rec[cf].update({"max_abs_err_vs_dropless": err,
+                                "ref_max_abs": scale})
+                require(err <= MOE_FFN_BF16_TOL * scale, f"mesh_moe: "
+                        f"capacity {cf} drops nothing but is {err} off the "
+                        f"dropless path (max|ref| {scale})")
+        require(rec[MESH_MOE_FACTORS[-1]]["dropped_share"] >= 0.1,
+                f"mesh_moe: capacity {MESH_MOE_FACTORS[-1]} dropped "
+                f"{rec[MESH_MOE_FACTORS[-1]]['dropped_share']:.3f} of the "
+                "assignments")
+        cap = dataclasses.replace(cfg, capacity_factor=MESH_MOE_FACTORS[0])
+        parts_cap, parts_free = {}, {}
+        cap_ms = device_ms(lambda: moe.moe_ffn(cap, sp, sx, mesh, ("data",)),
+                           reps=5, label="mesh_moe capacity",
+                           parts=parts_cap)
+        free_ms = device_ms(lambda: moe.moe_ffn(cfg, p, x), reps=5,
+                            label="mesh_moe dropless", parts=parts_free)
+        gemms = _moe_gemm_rows(cfg, p, idx, moe.capacity(cap, x.shape[1]),
+                               dev)
+    emit({"phase": "mesh_moe", "arch": cfg.name, "mesh": [1, 1],
+          "experts": [E, cfg.top_k], "expert_d_ff": f, "dtype": "bfloat16",
+          "tokens": MESH_MOE_TOKENS, "capacity_factors": rec,
+          "device_ms": {"capacity": cap_ms, "dropless": free_ms},
+          "gemm_kernels_ms": {"capacity_bmm": _gemm_ms(parts_cap),
+                              "dropless_grouped": _gemm_ms(parts_free)},
+          "gemms": gemms})
+
+
+def _moe_gemm_rows(cfg, p, idx, C: int, dev) -> dict:
+    """Each of the MoE layer's two products alone, device ms: the capacity
+    path's batched GEMMs over (E, C, ·) and the dropless path's grouped
+    GEMMs over the T·k sorted assignments (``idx``'s groups), with the
+    FLOPs each computes (the batched ones over C rows an expert, padding
+    included)."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    gen = torch.Generator(dev).manual_seed(SEED + 8)
+    bf16 = torch.bfloat16
+    xb = torch.randn((E, C, d), generator=gen, device=dev).to(bf16)
+    ab = torch.randn((E, C, f), generator=gen, device=dev).to(bf16)
+    n = idx.numel()
+    xs = torch.randn((n, d), generator=gen, device=dev).to(bf16)
+    xa = torch.randn((n, f), generator=gen, device=dev).to(bf16)
+    ends = torch.searchsorted(torch.sort(idx.reshape(-1)).values,
+                              torch.arange(E, device=dev), right=True,
+                              out_int32=True)
+    rows = {}
+    for name, fn, flops in (
+            ("bmm_w13", lambda: torch.bmm(xb, p["w13"]),
+             2 * E * C * d * 2 * f),
+            ("bmm_w2", lambda: torch.bmm(ab, p["w2"]), 2 * E * C * f * d),
+            ("grouped_w13", lambda: moe._grouped(xs, p["w13"], ends),
+             2 * n * d * 2 * f),
+            ("grouped_w2", lambda: moe._grouped(xa, p["w2"], ends),
+             2 * n * f * d)):
+        ms = device_ms(fn, reps=10, label=f"mesh_moe {name}")
+        rows[name] = {"device_ms": ms, "flops": flops,
+                      "bound_ms": flops / 989e12 * 1e3}
+    return rows
+
+
+def _start_dryrun(out_dir):
+    """The dry-run of DRYRUN_PINNED's cells in a process of its own (CPU
+    only: a fake process group of 256 ranks), started now, read by
+    :func:`phase_dryrun`."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
+         ",".join(DRYRUN_PINNED), "--out", out_dir], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def phase_dryrun(proc, out_dir, t0):
+    """The dry-run's records: each pinned cell ok, its per-device argument
+    bytes the reference dry-run's, 0 < useful_ratio <= 1.5, the
+    bottleneck one of the three terms."""
+    try:
+        log, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    require(proc.returncode == 0 and "2 ok, 0 skipped, 0 failed" in log,
+            f"dryrun: the dry-run failed: {log[-3000:]}")
+    cells = {}
+    for cell, pinned in DRYRUN_PINNED.items():
+        arch, shape = cell.split(":")
+        with open(os.path.join(out_dir, "pod16x16",
+                               f"{arch}__{shape}.json")) as fh:
+            rec = json.load(fh)
+        rf, mem = rec["roofline"], rec["memory"]
+        require(rec["status"] == "ok" and mem["argument_bytes"] == pinned,
+                f"dryrun {cell}: argument bytes {mem['argument_bytes']}, "
+                f"pinned {pinned}")
+        require(0 < rf["useful_ratio"] <= 1.5 and rf["bottleneck"] in (
+            "compute", "memory", "collective"), f"dryrun {cell}: roofline "
+            f"{rf}")
+        cells[cell] = {"memory": mem, "roofline": rf,
+                       "collective_ops": rec["collective_ops"],
+                       "run_s": rec["run_s"]}
+    emit({"phase": "dryrun", "mesh": "pod16x16", "devices": 256,
+          "cells": cells, "hardware": rec["hardware"],
+          "wall_s": time.perf_counter() - t0})
+
+
 def _zero_counts() -> None:
     spmm.launches = 0
     spmm.launches_by_dir = {"fwd": 0, "bwd": 0}
@@ -4755,11 +5124,26 @@ def main() -> int:
         phase_lm_train(dev))
     family_train = {name: phase_family_train(name, dev)
                     for name in TRAIN_MAIN}
+    # The mesh path: the dry-run runs on the host while the card runs the
+    # 1x1 mesh's phases.
+    dry_dir = tempfile.mkdtemp(prefix="dryrun-")
+    t_dry = time.perf_counter()
+    dry = _start_dryrun(dry_dir)
+    _fresh_device()
+    with _one_rank_mesh(dev) as mesh:
+        mesh_fwd = phase_mesh_parity(dev, mesh)
+        mesh_train_fwd, mesh_train_bwd, mesh_train_by_path = (
+            phase_mesh_train(dev, mesh))
+        phase_mesh_moe(dev, mesh)
+    require(spmm.launches == 0, "the mesh phases launched spmm_csr")
+    phase_dryrun(dry, dry_dir, t_dry)
     train_fwd_phases = {"lm_train": train_by_path, **{
         name: {key: got[0].get(key, 0) for key in train_by_path}
-        for name, got in family_train.items()}}
+        for name, got in family_train.items()},
+        "mesh_parity": mesh_fwd, "mesh_train": mesh_train_fwd}
     train_bwd_phases = {"lm_train": train_bwd, **{
-        name: got[1] for name, got in family_train.items()}}
+        name: got[1] for name, got in family_train.items()},
+        "mesh_train": mesh_train_bwd}
 
     head = kernel_rows[0]
     flash_head = next(r for r in flash_rows
@@ -4822,7 +5206,7 @@ def main() -> int:
         "backward_launches_by_phase": train_bwd_phases,
         "backward_launches_by_path": {key: train_bwd_by_path[key] + sum(
             got[2].get(key, 0) for got in family_train.values())
-            for key in train_bwd_by_path},
+            + mesh_train_by_path.get(key, 0) for key in train_bwd_by_path},
         "backward_source": "src/repro_torch/kernels/csrc/"
                            "flash_attention_bwd_tc.cu",
         "max_abs_err": flash_worst,
@@ -4852,7 +5236,7 @@ def main() -> int:
         "launches_by_phase": train_bwd_phases,
         "backward_launches_by_path": {key: train_bwd_by_path[key] + sum(
             got[2].get(key, 0) for got in family_train.values())
-            for key in train_bwd_by_path},
+            + mesh_train_by_path.get(key, 0) for key in train_bwd_by_path},
         "max_abs_err": flash_bwd_worst,
         "ms": bwd_head["ms"], "device_ms": bwd_head["device_ms"],
         "device_ms_by_kernel": bwd_head["device_ms_by_kernel"],

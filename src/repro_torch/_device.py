@@ -15,7 +15,8 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for and
-    absent.  On CUDA, float32 matmuls and convolutions are pinned to full
+    absent.  "meta" (shapes and dtypes, no storage) is taken for the
+    dry-run's abstract inputs.  On CUDA, float32 matmuls and convolutions are pinned to full
     fp32 (no TF32), the precision the JAX reference computes in."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -25,6 +26,6 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
                 "available; pass device='cpu' to run on the host")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -1,5 +1,9 @@
 from repro_torch.configs.registry import (
-    ARCHS, QUEUED, get_config, get_smoke_config,
+    ARCHS, QUEUED, all_cells, applicable_shapes, get_config,
+    get_smoke_config, input_specs, skip_reason,
 )
 
-__all__ = ["ARCHS", "QUEUED", "get_config", "get_smoke_config"]
+__all__ = [
+    "ARCHS", "QUEUED", "all_cells", "applicable_shapes", "get_config",
+    "get_smoke_config", "input_specs", "skip_reason",
+]

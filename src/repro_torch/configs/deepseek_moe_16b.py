@@ -18,3 +18,5 @@ SMOKE = LMConfig(
     n_experts=8, n_shared_experts=2, top_k=2, expert_d_ff=32,
     first_dense_layers=1,
 )
+
+SKIP_SHAPES = {"long_500k": "pure full-attention arch (DESIGN.md §4)"}

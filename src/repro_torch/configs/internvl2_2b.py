@@ -15,3 +15,5 @@ SMOKE = LMConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
     d_ff=128, vocab=512, remat=False, frontend_dim=32, frontend_len=8,
 )
+
+SKIP_SHAPES = {"long_500k": "pure full-attention arch (DESIGN.md §4)"}

@@ -26,3 +26,5 @@ SMOKE = LMConfig(
     n_experts=16, n_shared_experts=1, top_k=4, expert_d_ff=16,
     first_dense_layers=1, optimizer="lion",
 )
+
+SKIP_SHAPES = {"long_500k": "pure full-attention arch (DESIGN.md §4)"}

@@ -14,3 +14,6 @@ SMOKE = LMConfig(
     n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
     d_ff=256, vocab=512, tie_embeddings=True, remat=False,
 )
+
+SKIP_SHAPES = {"long_500k": "pure full-attention arch: O(L^2) softmax over "
+                            "512k KV is out of scope (DESIGN.md §4)"}

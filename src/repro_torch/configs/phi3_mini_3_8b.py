@@ -13,3 +13,5 @@ SMOKE = LMConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
     d_ff=256, vocab=512, remat=False,
 )
+
+SKIP_SHAPES = {"long_500k": "pure full-attention arch (DESIGN.md §4)"}

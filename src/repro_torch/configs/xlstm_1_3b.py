@@ -16,3 +16,5 @@ SMOKE = LMConfig(
     n_layers=4, d_model=64, n_heads=4, n_kv_heads=4,
     d_ff=0, vocab=512, remat=False, ssm_expand=2, slstm_every=3,
 )
+
+SKIP_SHAPES = {}          # recurrent decode -> long_500k runs

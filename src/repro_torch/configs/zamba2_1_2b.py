@@ -16,3 +16,5 @@ SMOKE = LMConfig(
     d_ff=128, vocab=512, remat=False,
     ssm_state=16, ssm_conv=4, ssm_expand=2, ssm_head_dim=16, attn_every=2,
 )
+
+SKIP_SHAPES = {}          # hybrid: sub-quadratic decode -> long_500k runs

@@ -1,9 +1,14 @@
 """Shared LM substrate: config, shape table and core blocks.
 
-The torch counterpart of ``repro.models.common`` for one device.  The
-reference's GSPMD vocabulary (``wsc``, ``batch_spec``, ``scan_layers``,
-``Dist``) has no counterpart here: the port runs on one card and returns to
-it with the multi-device slice.
+The torch counterpart of ``repro.models.common``.  The reference's GSPMD
+vocabulary becomes :class:`P` (a ``PartitionSpec`` as a plain tuple: one
+entry per tensor dimension, each None, a mesh axis name or a tuple of
+names), :func:`placements`, which turns a spec into the placements of a
+``torch.distributed.tensor`` DTensor over a ``DeviceMesh``, and
+:class:`Dist` with its ``wsc`` (defined here so that ``moe`` can use it;
+``transformer`` exports it, as the reference's does).  The reference's
+``scan_layers`` and ``analysis_unroll`` have no counterpart: the port's
+layer loop is a Python loop, eager, so every layer runs and is counted.
 
 Attention keeps the reference's ``(B, L, H, D)`` layout.  On a CUDA tensor
 :func:`attention_any` calls ``kernels.ops.attention``, the hand-written
@@ -18,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +44,150 @@ def check_family(name: str, family: str) -> None:
         raise NotImplementedError(
             f"{name}: family {family!r} is not a family of the reference "
             f"({', '.join(PORTED_FAMILIES)})")
+
+
+# ------------------------------------------------------------------ sharding
+class P(tuple):
+    """``jax.sharding.PartitionSpec`` without JAX: ``P(None, "data",
+    "model")``.  An entry is None (replicated), a mesh axis name, or a tuple
+    of names (one tensor dimension split over several mesh axes)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry, as a tuple (() for None)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def placements(spec, mesh) -> list:
+    """The DTensor placements over ``mesh`` (a ``DeviceMesh`` with
+    ``mesh_dim_names``) of a tensor laid out by ``spec``: ``Shard(i)`` on
+    each mesh axis that splits dimension i, ``Replicate()`` on the others.
+    A dimension split over several axes is split in the mesh's order of
+    those axes (major first), which is the spec's order whenever the spec
+    lists them as the mesh does."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for dim, entry in enumerate(spec):
+        for axis in spec_axes(entry):
+            out[names.index(axis)] = Shard(dim)
+    return out
+
+
+def local_device(x) -> torch.device:
+    """The device of ``x``'s data: a DTensor's local shard's, or x's."""
+    return x.to_local().device if hasattr(x, "to_local") else x.device
+
+
+class _CotangentAs(torch.autograd.Function):
+    """The identity on a DTensor whose gradient is laid out as the DTensor
+    is.  Without it a gradient that arrives partial over ``model`` stays
+    partial, and DTensor then gathers a weight whole to multiply it (the
+    same product on every shard) rather than reduce the gradient once."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.layout = (x.device_mesh, x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(*ctx.layout)
+
+
+@dataclasses.dataclass(frozen=True)
+class Dist:
+    """Distribution context threaded through the model functions, the
+    reference's ``Dist``.  ``mesh`` is a ``torch.distributed``
+    ``DeviceMesh`` with named axes, or None: without a mesh every function
+    is the one-device function and ``wsc`` is the identity.  With a mesh
+    the tensors are DTensors laid out by the specs (``param_specs``,
+    ``launch/sharding.py``), ``wsc`` redistributes to a spec, and a weight
+    is all-gathered over every axis but ``model_axis`` where it is used
+    (:meth:`gathered`: ZeRO-3, its gradient reduce-scattered back)."""
+    mesh: Any = None
+    batch_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    data_axis: str = "data"
+    seq_shard: bool = False        # long-context: shard KV sequence dim
+    fsdp_axes: Tuple[str, ...] = ()   # () -> (data_axis,); kimi adds 'pod'
+
+    @property
+    def fsdp(self):
+        axes = self.fsdp_axes or (self.data_axis,)
+        return axes if len(axes) > 1 else axes[0]
+
+    @property
+    def batch(self):
+        if not self.batch_axes:
+            return None                # tiny-batch shapes: replicate batch dim
+        if len(self.batch_axes) > 1:
+            return self.batch_axes
+        return self.batch_axes[0]
+
+    def placements(self, *spec):
+        return placements(P(*spec), self.mesh)
+
+    def wsc(self, x, *spec):
+        """``x`` redistributed to ``P(*spec)``, and its gradient held to the
+        same spec (a partial gradient is reduced there, as GSPMD constrains
+        the cotangent of a sharding constraint); the identity without a
+        mesh."""
+        if self.mesh is None:
+            return x
+        return _CotangentAs.apply(
+            x.redistribute(self.mesh, self.placements(*spec)))
+
+    def size(self, axis: str) -> int:
+        return self.mesh.size(list(self.mesh.mesh_dim_names).index(axis))
+
+    def rank(self, axis: str) -> int:
+        """This process's coordinate on mesh axis ``axis``."""
+        return self.mesh.get_local_rank(axis)
+
+    def swap(self, pls, axes, placement) -> list:
+        """Placements ``pls`` with ``placement`` on the mesh axes
+        ``axes``."""
+        return [placement if name in axes else pl
+                for name, pl in zip(self.mesh.mesh_dim_names, pls)]
+
+    def batch_partial(self, pls) -> list:
+        """The placements of the gradient of a tensor placed ``pls`` that
+        each batch shard uses whole: partial over the batch axes."""
+        from torch.distributed.tensor import Partial
+        return self.swap(pls, self.batch_axes, Partial())
+
+    def gathered(self, w):
+        """Weight ``w`` whole on every mesh axis but ``model_axis``; the
+        identity without a mesh."""
+        if self.mesh is None:
+            return w
+        from torch.distributed.tensor import Replicate
+        keep = [pl if name == self.model_axis else Replicate()
+                for name, pl in zip(self.mesh.mesh_dim_names, w.placements)]
+        return w.redistribute(self.mesh, keep)
+
+    def local_map(self, fn, out, ins, grads=None):
+        """``fn`` over the local shards of its DTensor arguments (the
+        port's ``shard_map``): ``ins``/``out`` are the arguments' and
+        results' placements, ``grads`` the placements of the arguments'
+        gradients where they differ from ``ins`` (a replicated input that
+        each shard uses in part gets a partial gradient)."""
+        from torch.distributed.tensor.experimental import local_map
+        return local_map(fn, out_placements=out, in_placements=ins,
+                         in_grad_placements=grads or ins,
+                         device_mesh=self.mesh)
+
+
+NO_DIST = Dist()
 
 
 # ------------------------------------------------------------------- configs
@@ -273,18 +422,33 @@ def attention_any(q, k, v, *, causal: bool, chunk: int, kv_len=None):
 
 
 # --------------------------------------------------------------------- loss
+def vocab_iota(logits):
+    """``arange(V)`` over the last dimension of ``logits``; for DTensor
+    logits a DTensor split as that dimension is, taken locally."""
+    V = logits.shape[-1]
+    if not hasattr(logits, "placements"):
+        return torch.arange(V, device=logits.device)
+    from torch.distributed.tensor import (Replicate, Shard,
+                                          distribute_tensor)
+    local = logits.to_local()
+    pls = [Shard(0) if isinstance(pl, Shard) and pl.dim == logits.ndim - 1
+           else Replicate() for pl in logits.placements]
+    return distribute_tensor(torch.arange(V, device=local.device),
+                             logits.device_mesh, pls, src_data_rank=None)
+
+
 def sharded_ce_loss(logits, labels, aux=0.0, aux_weight: float = 0.0):
     """Next-token cross entropy in the reference's formulation (labels
     -100 = ignore): fp32 logits, a detached max, the log-sum-exp as local
     max plus local sum, and the gold logit as a masked sum over the vocab,
-    not a gather.  On one device nothing is sharded; the formulation is
-    kept because its numerics are the reference's."""
+    not a gather.  With DTensor logits (sharded on the vocabulary over
+    ``model``) the max, the sum and the gold logit reduce across shards."""
     mask = (labels >= 0).float()
     labels = labels.clamp_min(0)
     l32 = logits.float()
     m = l32.amax(-1).detach()
     lse = m + torch.log(torch.exp(l32 - m[..., None]).sum(-1))
-    iota = torch.arange(l32.shape[-1], device=l32.device)
+    iota = vocab_iota(l32)
     gold = torch.where(iota == labels[..., None], l32, 0.0).sum(-1)
     nll = (lse - gold) * mask
     loss = nll.sum() / mask.sum().clamp_min(1.0)

@@ -37,9 +37,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.common import (LMConfig, apply_rope, attention_any,
-                                       check_family, dense_init, rms_norm,
-                                       sharded_ce_loss)
+from repro_torch.models.common import (Dist, LMConfig, P, apply_rope,
+                                       attention_any, check_family,
+                                       dense_init, rms_norm, sharded_ce_loss)
 from repro_torch.models.transformer import (_attn_shapes, _embed, _rope,
                                             _stack_init, _unembed, unstack,
                                             vocab_padded, write_cache_rows)
@@ -85,6 +85,24 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
 
 
 # ------------------------------------------------------------------- blocks
+def param_specs(cfg: LMConfig, dist: Dist) -> Dict:
+    """Each parameter's spec, the reference's leaf for leaf."""
+    m, da = dist.model_axis, dist.data_axis
+    att = {"wq": P(None, da, m), "wk": P(None, da, m), "wv": P(None, da, m),
+           "wo": P(None, m, da)}
+    enc = {"ln1": P(None, None), "ln2": P(None, None), **att,
+           "w13": P(None, da, m), "w2": P(None, m, da)}
+    dec = dict(enc)
+    dec.update({"ln_x": P(None, None)})
+    dec.update({f"x_{k}": v for k, v in att.items()})
+    return {
+        "embed": P(None, m), "unembed": P(da, m),
+        "frontend_proj": P(None, m),
+        "enc_norm": P(None), "final_norm": P(None),
+        "encoder": enc, "decoder": dec,
+    }
+
+
 def _mha(cfg: LMConfig, p, prefix: str, x, kv_src, cos, sin, causal: bool,
          cache=None, cache_at=None, kv_len=None, rope: bool = True):
     """Attention with the weights ``prefix + "wq"`` ..; queries from ``x``,

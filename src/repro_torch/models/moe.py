@@ -1,13 +1,13 @@
-"""Fine-grained MoE layer (DeepSeekMoE / Kimi-K2 style) on one device.
-
-The torch counterpart of ``repro.models.moe`` without a mesh:
+"""Fine-grained MoE layer (DeepSeekMoE / Kimi-K2 style), the torch
+counterpart of ``repro.models.moe``:
 
   router_topk        fp32 softmax over ``x @ w_router``, top-k, weights
                      renormalised to sum 1, Switch-style aux loss
   grouped_gemm       ``jax.lax.ragged_dot``'s semantics: row i times the
                      weight of its group; rows past ``sum(group_sizes)``
                      give zero
-  moe_ffn            the routed experts, dropless, on one device
+  moe_ffn            the routed experts: dropless without a mesh, expert
+                     parallel with a per-expert capacity under one
   moe_ffn_dense_ref  every expert on every token, one-hot combine (the
                      oracle of the tests and of ``chip_smoke.py``)
 
@@ -21,11 +21,28 @@ back to ``(T, k, d)`` and summed over k in fp32.  That is the dense oracle's
 function up to the order of summation.  Nothing in it is an atomic or an
 ``index_add_``, so it repeats bit for bit, and a token's result never
 depends on the other tokens of the batch beyond the GEMMs' tiling (a pad
-token of a serving bucket never takes a real token's place).  The
-reference's ``moe_ffn`` of the same name is the expert-parallel path under
-a mesh, with a per-expert capacity that drops overflow; it agrees with this
-one wherever nothing overflows, and its capacity semantics come with the
-mesh slice (ROADMAP.md).
+token of a serving bucket never takes a real token's place).
+
+Under a mesh (``moe_ffn(..., mesh, batch_axes, model_axis, data_axis,
+fsdp_axes)``, the reference's body, ``moe.py:101-185``): tokens are split
+over the batch axes and whole on ``model``; the experts are split over
+``model`` (``E_local = E / model``) and their weights gathered whole over
+the other axes where used.  Each shard routes its tokens (replicated over
+``model``), sorts its T·k assignments stably by local expert (others to
+the tail) and gives each local expert a fixed block of ``C = max(64,
+ceil64(T_local·k / E · capacity_factor))`` rows, so the experts' two
+products are batched GEMMs over ``(E_local, C, ·)`` (``torch.bmm``, as the
+reference's ``einsum`` is XLA's).  The drop rule is the reference CODE's:
+an expert keeps the first C of its assignments in flat token order ``t·k
++ j``, so the later tokens drop whatever their router weight (the
+reference's docstring, ``moe.py:13-15``, says overflow drops "the weakest
+expert"; its code, ``moe.py:149-160``, does not).  The combine gathers
+each kept row back to ``(T, k, d)``, zero where an assignment dropped, and
+sums over k in fp32 (no ``index_add_``: float atomics would break
+bit-identity); the shards' parts are summed over ``model``.  The routing
+and the capacity body run on each shard's local tensors through
+``Dist.local_map``; ``return_dropped`` gives the dropped assignments.  It
+agrees with the dropless function wherever nothing overflows.
 
 The grouped GEMM.  ``ragged_dot`` is XLA, not a Pallas kernel, so its port
 is a library call, as the dense GEMMs are ``torch.matmul``.  Two routes,
@@ -59,12 +76,13 @@ backward calls, one where autograd reaches a grouped GEMM's output.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import functools
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import LMConfig
+from repro_torch.models.common import Dist, LMConfig
 
 
 def router_topk(x, w_router, k: int):
@@ -140,15 +158,128 @@ grouped_gemm.launches_by_route = {"grouped_mm": 0, "loop": 0}
 grouped_gemm.backward_launches_by_route = {"grouped_mm": 0, "loop": 0}
 
 
-def moe_ffn(cfg: LMConfig, p: Dict[str, torch.Tensor],
-            x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def capacity(cfg: LMConfig, tokens: int) -> int:
+    """Rows per local expert for ``tokens`` tokens a shard: ``tokens * k /
+    E * capacity_factor``, rounded up to a multiple of 64, at least 64."""
+    C = int((tokens * cfg.top_k / cfg.n_experts) * cfg.capacity_factor)
+    return max(64, ((C + 63) // 64) * 64)
+
+
+def _capacity_local(cfg: LMConfig, E_local: int, C: int, first: int,
+                    xb, idxb, wb, w13, w2):
+    """One shard's experts ``first .. first + E_local - 1`` over its tokens
+    (the reference's ``moe_ffn`` body): xb (B_l, L, d), idxb/wb (B_l, L,
+    k), w13 (E_local, d, 2f), w2 (E_local, f, d).  Returns this shard's
+    part of the output (B_l, L, d) and its dropped assignments (B_l, L, k)
+    int32, 1 = dropped."""
+    B, L, d = xb.shape
+    k = cfg.top_k
+    n = B * L * k
+    dev = xb.device
+    flat_idx = idxb.reshape(n)
+    local_e = flat_idx - first
+    is_mine = (local_e >= 0) & (local_e < E_local)
+    key = torch.where(is_mine, local_e, E_local)
+    order = torch.sort(key, stable=True).indices     # assignments by expert
+    ends = torch.searchsorted(key[order], torch.arange(
+        E_local, device=dev, dtype=key.dtype), right=True)
+    starts = ends - torch.diff(ends, prepend=ends.new_zeros(1))
+    sizes = ends - starts
+    slot = torch.arange(C, device=dev)
+    valid = slot[None, :] < sizes.clamp(max=C)[:, None]  # (E_local, C)
+    src = order[(starts[:, None] + slot[None, :]).clamp(max=n - 1)]
+    # Each token k times, gathered by assignment: a kept slot reads its own
+    # assignment's row, so the backward sees each kept index once.
+    xk = xb.reshape(-1, 1, d).expand(-1, k, -1).reshape(n, d)
+    xB = xk[src] * valid[..., None].to(xb.dtype)     # (E_local, C, d)
+    h = torch.bmm(xB, w13.to(xb.dtype))
+    g, u = h.chunk(2, dim=-1)
+    act = (F.silu(g.float()) * u.float()).to(xb.dtype)
+    y = torch.bmm(act, w2.to(xb.dtype)).reshape(E_local * C, d)
+    # Back to the assignments: an assignment's slot is its rank among its
+    # expert's assignments; it is kept when that rank is under C.
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=dev)
+    rank = rank - torch.cat([starts, ends[-1:]])[key]
+    kept = is_mine & (rank < C)
+    row = key.clamp(max=E_local - 1) * C + rank.clamp(0, C - 1)
+    out = y[row].float() * wb.reshape(n).float()[:, None]
+    out = torch.where(kept[:, None], out, 0.0)
+    out = out.view(B * L, k, d).sum(1).to(xb.dtype).view(B, L, d)
+    dropped = (is_mine & ~kept).to(torch.int32).view(B, L, k)
+    return out, dropped
+
+
+def _router_local(k: int, x, w_router):
+    """One shard's routing (``router_topk``'s) over its tokens: (idx,
+    weights, the probabilities' sum over the tokens (E,), the top-k counts
+    per expert (E,)); the aux loss needs the last two summed over every
+    token."""
+    probs = torch.softmax(x.float() @ w_router.float(), dim=-1)
+    w, idx = torch.topk(probs, k, dim=-1)
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+    E = w_router.shape[-1]
+    experts = torch.arange(E, device=x.device)
+    counts = (idx.reshape(-1, k, 1) == experts).float().sum(1).sum(0)
+    return idx, w.to(x.dtype), probs.reshape(-1, E).sum(0), counts
+
+
+def _moe_ffn_mesh(cfg: LMConfig, p, x, dist: Dist):
+    """The reference's expert-parallel ``moe_ffn`` over ``dist.mesh``
+    (module docstring).  Returns (out, aux, dropped)."""
+    from torch.distributed.tensor import Partial, Replicate
+    m, b = dist.model_axis, dist.batch
+    B, L, _ = x.shape
+    k, E = cfg.top_k, cfg.n_experts
+    x_pl = dist.placements(b, None, None)
+    r_pl = dist.placements(None, None)
+    sums = dist.swap([Replicate()] * dist.mesh.ndim, dist.batch_axes,
+                     Partial())
+    idx, weights, psum, counts = dist.local_map(
+        functools.partial(_router_local, k), out=(x_pl, x_pl, sums, sums),
+        ins=(x_pl, r_pl), grads=(x_pl, dist.batch_partial(r_pl)))(
+        x, dist.gathered(p["router"]))
+    # Load-balance aux loss (Switch-style): E * sum_e f_e * p_e.
+    aux = E * torch.sum((psum / (B * L)) * (counts / (B * L) / k))
+    msize = dist.size(m)
+    E_local = E // msize
+    bshard = 1
+    for a in dist.batch_axes:
+        bshard *= dist.size(a)
+    C = capacity(cfg, (B // bshard) * L)
+    w_pl = dist.placements(m, None, None)
+    part = dist.swap(x_pl, (m,), Partial())
+    fn = functools.partial(_capacity_local, cfg, E_local, C,
+                           dist.rank(m) * E_local)
+    out, dropped = dist.local_map(
+        fn, out=(part, part), ins=(x_pl, x_pl, x_pl, w_pl, w_pl),
+        grads=(part, x_pl, part, dist.batch_partial(w_pl),
+               dist.batch_partial(w_pl)))(
+        x, idx, weights, dist.gathered(p["w13"]), dist.gathered(p["w2"]))
+    return dist.wsc(out, b, None, None), aux, dist.wsc(dropped, b, None, None)
+
+
+def moe_ffn(cfg: LMConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+            mesh=None, batch_axes=("data",), model_axis: str = "model",
+            data_axis: str = "data", fsdp_axes=None,
+            return_dropped: bool = False):
     """x (B, L, d) -> ((B, L, d) routed experts' output, aux loss).
 
-    p: {'router': (d, E), 'w13': (E, d, 2f), 'w2': (E, f, d)}.  Computes
-    the mesh-free function of the reference (``moe_ffn_dense_ref``):
-    dropless top-k routing, the experts' SwiGLU with the activation in
-    fp32, the outputs weighted by the router and summed over k in fp32;
-    routed over grouped GEMMs (the module docstring)."""
+    p: {'router': (d, E), 'w13': (E, d, 2f), 'w2': (E, f, d)}.  Without a
+    mesh it computes the mesh-free function of the reference
+    (``moe_ffn_dense_ref``): dropless top-k routing, the experts' SwiGLU
+    with the activation in fp32, the outputs weighted by the router and
+    summed over k in fp32; routed over grouped GEMMs (the module
+    docstring).  With ``mesh`` (x and p DTensors laid out by
+    ``transformer.param_specs``) it is the expert-parallel function with
+    its per-expert capacity.  ``return_dropped`` adds a third result, the
+    (B, L, k) int32 dropped assignments (1 = dropped; all 0 without a
+    mesh)."""
+    if mesh is not None:
+        dist = Dist(mesh, tuple(batch_axes), model_axis, data_axis,
+                    fsdp_axes=tuple(fsdp_axes or ()))
+        out, aux, dropped = _moe_ffn_mesh(cfg, p, x, dist)
+        return (out, aux, dropped) if return_dropped else (out, aux)
     idx, weights, aux = router_topk(x, p["router"], cfg.top_k)
     B, L, d = x.shape
     k, E = cfg.top_k, cfg.n_experts
@@ -171,8 +302,10 @@ def moe_ffn(cfg: LMConfig, p: Dict[str, torch.Tensor],
     y = y.float() * weights.reshape(n)[order].float()[:, None]
     back = torch.empty_like(order)
     back[order] = torch.arange(n, device=x.device)    # the inverse permutation
-    out = y[back].view(-1, k, d).sum(1)
-    return out.to(x.dtype).reshape(B, L, d), aux
+    out = y[back].view(-1, k, d).sum(1).to(x.dtype).reshape(B, L, d)
+    if return_dropped:
+        return out, aux, torch.zeros_like(idx, dtype=torch.int32)
+    return out, aux
 
 
 def moe_ffn_dense_ref(cfg: LMConfig, p: Dict[str, torch.Tensor],

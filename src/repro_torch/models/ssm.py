@@ -28,8 +28,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.common import (LMConfig, dense_init, rms_norm,
-                                       sharded_ce_loss)
+from repro_torch.models.common import (Dist, LMConfig, P, dense_init,
+                                       rms_norm, sharded_ce_loss)
 from repro_torch.models.transformer import (_attn, _embed, _ffn_dense,
                                             _rope, _unembed, vocab_padded)
 
@@ -224,6 +224,30 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
         shared["ln2"] = torch.ones((d,), dtype=pdt, device=dev)
         params["shared"] = shared
     return params
+
+
+def param_specs(cfg: LMConfig, dist: Dist) -> Dict:
+    """Each parameter's spec, the reference's leaf for leaf."""
+    m, da = dist.model_axis, dist.data_axis
+    stack = {
+        "norm": P(None, None),
+        "in_proj": P(None, da, m),
+        "conv_w": P(None, None, m),
+        "conv_b": P(None, m),
+        "A_log": P(None, None), "D": P(None, None), "dt_bias": P(None, None),
+        "out_proj": P(None, m, da),
+    }
+    specs = {"embed": P(None, m), "final_norm": P(None), "mamba": stack}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(da, m)
+    if cfg.attn_every:
+        specs["shared"] = {
+            "concat_proj": P(da, m),
+            "ln1": P(None), "ln2": P(None),
+            "wq": P(da, m), "wk": P(da, m), "wv": P(da, m), "wo": P(m, da),
+            "w13": P(da, m), "w2": P(m, da),
+        }
+    return specs
 
 
 def _shared_block(cfg: LMConfig, sp, x, x0, cos, sin, cache=None,

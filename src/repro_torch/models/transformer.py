@@ -1,7 +1,7 @@
 """Decoder-only transformer LM: dense GQA (llama/qwen/yi/phi3),
 fine-grained MoE (deepseek/kimi) and the VLM backbone (internvl2).
 
-The torch counterpart of ``repro.models.transformer`` on one device:
+The torch counterpart of ``repro.models.transformer``:
 
   forward      — teacher-forced logits and the MoE aux loss (evaluation and
                  training)
@@ -32,9 +32,20 @@ The VLM family is the dense model with a stub vision frontend:
 goes in front of the token embeddings in ``forward`` and ``prefill``;
 ``loss_fn`` scores the text positions only and ``decode_step`` is the dense
 one.
+
+Under a mesh (``dist``: ``Dist`` over a ``DeviceMesh``), ``forward``,
+``loss_fn`` and ``prefill`` take parameters and batch as DTensors laid out
+by :func:`param_specs` and ``launch.sharding``: the projections TP over
+``model`` (the KV heads all-gathered where they do not divide it, the
+gate/up weight relaid per shard), weights gathered over the other axes
+where used (ZeRO-3), K2 per shard through ``Dist.local_map``, the MoE
+layer expert parallel with its capacity (``moe``), the prefill's cache
+laid out by ``launch.sharding.cache_specs``.  ``decode_step`` takes no
+mesh yet (ROADMAP.md slice 16).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -44,9 +55,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.common import (LMConfig, apply_rope, attention_any,
-                                       check_family, dense_init, rms_norm,
-                                       rope_tables, sharded_ce_loss)
+from repro_torch.models.common import (NO_DIST, Dist, LMConfig, P,
+                                       apply_rope, attention_any,
+                                       check_family, dense_init, local_device,
+                                       rms_norm, rope_tables, sharded_ce_loss)
+
+
 
 
 def vocab_padded(cfg: LMConfig, mult: int = 256) -> int:
@@ -143,6 +157,76 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+def abstract_params(cfg: LMConfig, dtype=None) -> Dict:
+    """The tree of :func:`init_params` as ``meta`` tensors (shapes and
+    dtypes, no storage; ``dtype`` replaces ``cfg.param_dtype``): what the
+    dry-run lays out over a mesh without drawing a weight."""
+    pdt = dtype or cfg.param_dtype
+
+    def stack(shapes, n):
+        return {k: torch.empty((n,) + shp, dtype=pdt, device="meta")
+                for k, shp in shapes.items()}
+    vp, n_dense = vocab_padded(cfg), _n_dense(cfg)
+    params = {
+        "embed": torch.empty((vp, cfg.d_model), dtype=pdt, device="meta"),
+        "final_norm": torch.empty((cfg.d_model,), dtype=pdt, device="meta"),
+        "layers": stack(_layer_shapes(cfg, bool(cfg.n_experts)),
+                        cfg.n_layers - n_dense),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = torch.empty((cfg.d_model, vp), dtype=pdt,
+                                        device="meta")
+    if n_dense:
+        params["dense_layers"] = stack(_layer_shapes(cfg, False), n_dense)
+    if cfg.family == "vlm":
+        params["patch_proj"] = torch.empty((cfg.frontend_dim, cfg.d_model),
+                                           dtype=pdt, device="meta")
+    return params
+
+
+def _layer_specs(cfg: LMConfig, moe: bool, dist: Dist) -> Dict[str, P]:
+    m, d = dist.model_axis, dist.fsdp
+    specs = {
+        "ln1": P(None, None), "ln2": P(None, None),
+        "wq": P(None, d, m), "wk": P(None, d, m), "wv": P(None, d, m),
+        "wo": P(None, m, d),
+    }
+    if cfg.qkv_bias:
+        specs.update({"bq": P(None, m), "bk": P(None, m), "bv": P(None, m)})
+    if moe:
+        specs.update({
+            "router": P(None, d, None),
+            "moe_w13": P(None, m, d, None),
+            "moe_w2": P(None, m, None, d),
+        })
+        if cfg.n_shared_experts:
+            specs.update({"shared_w13": P(None, d, m),
+                          "shared_w2": P(None, m, d)})
+    else:
+        specs.update({"w13": P(None, d, m), "w2": P(None, m, d)})
+    return specs
+
+
+def param_specs(cfg: LMConfig, dist: Dist) -> Dict:
+    """Each parameter's spec, the reference's leaf for leaf: layers TP over
+    ``model``, FSDP over ``dist.fsdp``.  A tied table is vocab-sharded, so
+    the logits stay sharded on the vocabulary and the lookup pays one
+    (B, L, d) reduction."""
+    m, d = dist.model_axis, dist.fsdp
+    specs = {
+        "embed": P(m, None) if cfg.tie_embeddings else P(None, m),
+        "final_norm": P(None),
+        "layers": _layer_specs(cfg, moe=bool(cfg.n_experts), dist=dist),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(d, m)
+    if cfg.n_experts and cfg.first_dense_layers:
+        specs["dense_layers"] = _layer_specs(cfg, moe=False, dist=dist)
+    if cfg.family == "vlm":
+        specs["patch_proj"] = P(None, m)
+    return specs
+
+
 def params_from_jax(params_np, device: DeviceLike = "cuda") -> Dict:
     """The reference's parameter dict (e.g. ``jax.tree.map(np.asarray,
     params)``) as torch tensors, so both packages compute with the same
@@ -220,14 +304,16 @@ def write_cache_rows(ck, cv, cache_at, k, v) -> None:
 
 # ------------------------------------------------------------------- blocks
 def _attn(cfg: LMConfig, p, x, cos, sin, cache=None, cache_at=None,
-          kv_len=None):
+          kv_len=None, dist: Dist = NO_DIST):
     """Attention block.  Returns (residual_out, (k, v)).
 
     With ``cache = (ck, cv)`` ((B, S, Hkv, hd) views of the stacked cache),
     the new keys and values are written into it IN PLACE at per-row offsets
     ``cache_at`` (B,) (:func:`write_cache_rows`; the reference's update was
     functional, ``.at[rows, cols].set``).  Attention then runs over the
-    whole cache, masked to ``kv_len``."""
+    whole cache, masked to ``kv_len``.  Under a mesh: :func:`_attn_mesh`."""
+    if dist.mesh is not None:
+        return _attn_mesh(cfg, p, x, cos, sin, dist)
     B, L, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -259,20 +345,149 @@ def _attn(cfg: LMConfig, p, x, cos, sin, cache=None, cache_at=None,
     return x + out @ p["wo"].to(out.dtype), (knew, vnew)
 
 
-def _ffn_dense(cfg: LMConfig, p, x):
+def _attn_local(cfg: LMConfig, cos, sin, kv_from, q, k, v):
+    """One shard's causal attention over its q heads: q (B, L, Hl*hd),
+    k/v (B, L, Hk*hd) -> (out (B, L, Hl*hd), k, v roped, (B, L, Hk, hd)).
+    ``kv_from`` is None when k/v hold exactly the KV heads of these q
+    heads; else the first q head's global index, and k/v hold every KV
+    head, of which the shard attends those its q heads read."""
+    B, L, _ = q.shape
+    hd = cfg.hd
+    Hl, Hk = q.shape[-1] // hd, k.shape[-1] // hd
+    q = apply_rope(q.reshape(B, L, Hl, hd), cos[:, :, None, :],
+                   sin[:, :, None, :])
+    k = apply_rope(k.reshape(B, L, Hk, hd), cos[:, :, None, :],
+                   sin[:, :, None, :])
+    v = v.reshape(B, L, Hk, hd)
+    ka, va = k, v
+    if kv_from is not None:
+        g = cfg.group
+        lo, hi = kv_from // g, (kv_from + Hl - 1) // g + 1
+        if Hl % (hi - lo):
+            raise NotImplementedError(
+                f"{cfg.name}: {Hl} q heads a shard do not share their "
+                f"{hi - lo} KV heads evenly")
+        ka, va = k[:, :, lo:hi], v[:, :, lo:hi]
+    out = attention_any(q, ka, va, causal=True, chunk=cfg.attn_chunk)
+    return out.reshape(B, L, Hl * hd), k, v
+
+
+def _attn_mesh(cfg: LMConfig, p, x, cos, sin, dist: Dist):
+    """The attention block under a mesh: the projections TP over
+    ``model``, attention (K2 on the card) per shard through
+    ``dist.local_map``.  A shard holds whole q heads when ``model`` divides
+    ``n_heads`` and whole KV heads when it also divides ``n_kv_heads``.
+    Where the KV heads do not divide (llama3.2-1b's 8 on 16), k and v are
+    all-gathered over ``model`` and each shard attends its q heads' KV
+    group; where the q heads do not divide either (qwen2.5-32b's 40 on 16),
+    every shard attends all heads and keeps its columns.  Either is the
+    function GSPMD computes.  Returns (x', (k, v)) with k, v (B, L, Hkv,
+    hd) roped, placed as ``_attn_layout`` says."""
+    m, b = dist.model_axis, dist.batch
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = h @ dist.gathered(p["wq"]).to(h.dtype)
+    k = h @ dist.gathered(p["wk"]).to(h.dtype)
+    v = h @ dist.gathered(p["wv"]).to(h.dtype)
+    if cfg.qkv_bias:
+        q = q + dist.gathered(p["bq"]).to(h.dtype)
+        k = k + dist.gathered(p["bk"]).to(h.dtype)
+        v = v + dist.gathered(p["bv"]).to(h.dtype)
+    q = dist.wsc(q, b, None, m)
+    q_axis, kv_axis, kv_from = _attn_layout(cfg, dist)
+    q = dist.wsc(q, b, None, q_axis)
+    k = dist.wsc(k, b, None, kv_axis)
+    v = dist.wsc(v, b, None, kv_axis)
+    q_pl = dist.placements(b, None, q_axis)
+    kv_pl = dist.placements(b, None, kv_axis)
+    # A gathered k/v of which each shard reads a part: partial gradients.
+    kv_grad = kv_pl
+    if kv_from is not None:
+        from torch.distributed.tensor import Partial
+        kv_grad = dist.swap(kv_pl, (m,), Partial())
+    fn = functools.partial(_attn_local, cfg, cos, sin, kv_from)
+    out, k, v = dist.local_map(
+        fn, out=(q_pl, kv_pl, kv_pl), ins=(q_pl, kv_pl, kv_pl),
+        grads=(q_pl, kv_grad, kv_grad))(q, k, v)
+    out = dist.wsc(out, b, None, m)
+    y = out @ dist.gathered(p["wo"]).to(out.dtype)
+    return x + dist.wsc(y, b, None, None), (k, v)
+
+
+def _attn_layout(cfg: LMConfig, dist: Dist):
+    """(q's model axis, k/v's model axis, kv_from) for :func:`_attn_mesh`:
+    each None where that tensor is whole on ``model``; ``kv_from`` is the
+    index of this shard's first q head when k/v are gathered under sharded
+    q heads, else None."""
+    m = dist.model_axis
+    msize = dist.size(m)
+    if cfg.n_heads % msize:
+        return None, None, None
+    if cfg.n_kv_heads % msize:
+        return m, None, dist.rank(m) * (cfg.n_heads // msize)
+    return m, m, None
+
+
+def _gate_up_local(q: int, s: int, w):
+    """Shard ``s``'s gate columns ``s*q .. (s+1)*q - 1`` then its up
+    columns, from the whole ``[gate | up]`` weight."""
+    f = w.shape[-1] // 2
+    lo, hi = s * q, (s + 1) * q
+    return torch.cat([w[:, lo:hi], w[:, f + lo:f + hi]], dim=-1)
+
+
+def _swiglu(cfg: LMConfig, h, w13, w2, dist: Dist):
+    """``silu(g) * u`` in fp32 over ``h @ w13 = [g | u]``, times ``w2``,
+    under a mesh.  The stored ``w13`` is split by columns over ``model``,
+    so a shard's columns are all gate or all up; the weight is gathered
+    and each shard takes its gate columns and the same up columns, so one
+    product gives it ``[g_s | u_s]`` and the activation stays split the
+    way ``w2``'s rows are.  With ``model`` of size 1 the stored weight is
+    already that layout and is used as it is."""
+    from torch.distributed.tensor import Partial, Replicate
+    m, b = dist.model_axis, dist.batch
+    w = dist.gathered(w13)
+    msize = dist.size(m)
+    if msize > 1:
+        whole = w.redistribute(dist.mesh, [Replicate()] * dist.mesh.ndim)
+        q = w13.shape[-1] // 2 // msize
+        rep = list(whole.placements)
+        w = dist.local_map(
+            functools.partial(_gate_up_local, q, dist.rank(m)),
+            out=list(w.placements), ins=(rep,),
+            grads=(dist.swap(rep, (m,), Partial()),))(whole)
+    hh = dist.wsc(h @ w.to(h.dtype), b, None, m)
+    pl = list(hh.placements)
+    g, u = dist.local_map(lambda t: t.chunk(2, dim=-1), out=(pl, pl),
+                          ins=(pl,))(hh)
+    act = (F.silu(g.float()) * u.float()).to(h.dtype)
+    return dist.wsc(act @ dist.gathered(w2).to(h.dtype), b, None, None)
+
+
+def _ffn_dense(cfg: LMConfig, p, x, dist: Dist = NO_DIST):
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if dist.mesh is not None:
+        return x + _swiglu(cfg, h, p["w13"], p["w2"], dist)
     g, u = (h @ p["w13"].to(h.dtype)).chunk(2, dim=-1)
     act = (F.silu(g.float()) * u.float()).to(h.dtype)
     return x + act @ p["w2"].to(h.dtype)
 
 
-def _ffn_moe(cfg: LMConfig, p, x):
-    """Routed experts (``moe.moe_ffn``) plus the shared experts as one dense
-    SwiGLU over ``n_shared_experts * expert_d_ff``.  Returns (x', aux)."""
+def _ffn_moe(cfg: LMConfig, p, x, dist: Dist = NO_DIST):
+    """Routed experts (``moe.moe_ffn``: dropless without a mesh, expert
+    parallel with its capacity under one) plus the shared experts as one
+    dense SwiGLU over ``n_shared_experts * expert_d_ff``.  Returns
+    (x', aux)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    out, aux = moe_lib.moe_ffn(
-        cfg, {"router": p["router"], "w13": p["moe_w13"], "w2": p["moe_w2"]},
-        h)
+    experts = {"router": p["router"], "w13": p["moe_w13"], "w2": p["moe_w2"]}
+    if dist.mesh is not None:
+        out, aux = moe_lib.moe_ffn(
+            cfg, experts, h, dist.mesh, dist.batch_axes, dist.model_axis,
+            dist.data_axis, fsdp_axes=dist.fsdp_axes or None)
+        if cfg.n_shared_experts:
+            out = out + _swiglu(cfg, h, p["shared_w13"], p["shared_w2"],
+                                dist)
+        return x + out, aux
+    out, aux = moe_lib.moe_ffn(cfg, experts, h)
     if cfg.n_shared_experts:
         g, u = (h @ p["shared_w13"].to(h.dtype)).chunk(2, dim=-1)
         act = (F.silu(g.float()) * u.float()).to(h.dtype)
@@ -281,33 +496,65 @@ def _ffn_moe(cfg: LMConfig, p, x):
 
 
 def _one_layer(cfg: LMConfig, p, x, cos, sin, moe: bool, cache=None,
-               cache_at=None, kv_len=None):
+               cache_at=None, kv_len=None, dist: Dist = NO_DIST):
     """Returns (x', (k, v), aux); aux is 0.0 for a dense layer."""
-    x, kv = _attn(cfg, p, x, cos, sin, cache, cache_at, kv_len)
+    x, kv = _attn(cfg, p, x, cos, sin, cache, cache_at, kv_len, dist)
     if moe:
-        x, aux = _ffn_moe(cfg, p, x)
+        x, aux = _ffn_moe(cfg, p, x, dist)
         return x, kv, aux
-    return _ffn_dense(cfg, p, x), kv, 0.0
+    return _ffn_dense(cfg, p, x, dist), kv, 0.0
 
 
 # ------------------------------------------------------------------ forward
-def _embed(cfg: LMConfig, params, tokens):
+def _embed_local(offset, table, tokens):
+    """Rows ``tokens - offset`` of one shard's slice of the table; a token
+    outside the slice gives a zero row (another shard holds it)."""
+    rows = tokens.long() - offset
+    inside = (rows >= 0) & (rows < table.shape[0])
+    out = table[rows.clamp(0, table.shape[0] - 1)]
+    return torch.where(inside[..., None], out, 0.0)
+
+
+def _embed(cfg: LMConfig, params, tokens, dist: Dist = NO_DIST):
     """Gather the rows, then cast: the same values as casting the whole
-    table first, without a copy of the (vocab, d) table per call."""
-    return params["embed"][tokens.long()].to(cfg.dtype)
+    table first, without a copy of the (vocab, d) table per call.  Under a
+    mesh each shard gathers from its slice of the table (a tied table is
+    split by vocabulary: the rows of other shards are zeros, summed over
+    ``model``)."""
+    if dist.mesh is None:
+        return params["embed"][tokens.long()].to(cfg.dtype)
+    from torch.distributed.tensor import Partial
+    m, b = dist.model_axis, dist.batch
+    table = params["embed"]
+    tok_pl = dist.placements(b, None)
+    if cfg.tie_embeddings:
+        rows = table.shape[0] // dist.size(m)
+        fn = functools.partial(_embed_local, dist.rank(m) * rows)
+        out_pl = dist.swap(dist.placements(b, None, None), (m,), Partial())
+        t_pl = dist.placements(m, None)
+    else:
+        fn = functools.partial(_embed_local, 0)
+        out_pl = dist.placements(b, None, m)
+        t_pl = dist.placements(None, m)
+    x = dist.local_map(fn, out=out_pl, ins=(t_pl, tok_pl),
+                       grads=(dist.batch_partial(t_pl), tok_pl))(table, tokens)
+    return dist.wsc(x, b, None, None).to(cfg.dtype)
 
 
-def _unembed(cfg: LMConfig, params, x):
+def _unembed(cfg: LMConfig, params, x, dist: Dist = NO_DIST):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return x @ w.to(cfg.dtype)
+    logits = x @ dist.gathered(w).to(cfg.dtype)
+    return dist.wsc(logits, dist.batch, None, dist.model_axis)
 
 
-def _with_patches(cfg: LMConfig, params, batch: Dict, x):
+def _with_patches(cfg: LMConfig, params, batch: Dict, x,
+                  dist: Dist = NO_DIST):
     """The VLM family: ``batch["patches"] @ patch_proj`` in front of the
     token embeddings ``x``; other families and text-only batches pass."""
     if cfg.family == "vlm" and "patches" in batch:
-        pe = batch["patches"].to(cfg.dtype) @ params["patch_proj"].to(
-            cfg.dtype)
+        pe = batch["patches"].to(cfg.dtype) @ dist.gathered(
+            params["patch_proj"]).to(cfg.dtype)
+        pe = dist.wsc(pe, dist.batch, None, None)
         x = torch.cat([pe, x], dim=1)
     return x
 
@@ -316,38 +563,43 @@ def _rope(cfg: LMConfig, positions):
     return rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.dtype)
 
 
-def _layer_out(cfg: LMConfig, p, x, cos, sin, moe: bool):
-    x, _, aux = _one_layer(cfg, p, x, cos, sin, moe)
+def _layer_out(cfg: LMConfig, p, x, cos, sin, moe: bool,
+               dist: Dist = NO_DIST):
+    x, _, aux = _one_layer(cfg, p, x, cos, sin, moe, dist=dist)
     return x, aux
 
 
-def forward(cfg: LMConfig, params, batch: Dict):
+def forward(cfg: LMConfig, params, batch: Dict, dist: Dist = NO_DIST):
     """batch: {'tokens': (B, L) int, optional 'patches' (B, P,
     frontend_dim) for the VLM family}.  Returns (logits (B, P + L,
     vocab_padded), aux_loss): aux is the MoE layers' router losses summed
     (0.0 for the other families).  With ``cfg.remat`` and grad on, each
-    layer is checkpointed."""
+    layer is checkpointed.  Under ``dist.mesh`` params and batch are
+    DTensors laid out by ``param_specs`` and ``launch.sharding``."""
     check_family(cfg.name, cfg.family)
-    x = _with_patches(cfg, params, batch, _embed(cfg, params, batch["tokens"]))
+    x = _with_patches(cfg, params, batch,
+                      _embed(cfg, params, batch["tokens"], dist), dist)
     L = x.shape[1]
-    cos, sin = _rope(cfg, torch.arange(L, device=x.device)[None, :])
+    cos, sin = _rope(cfg, torch.arange(L, device=local_device(x))[None, :])
     remat = cfg.remat and torch.is_grad_enabled()
     aux = 0.0
     for p, moe in _layers(cfg, params):
         if remat:
-            x, a = checkpoint(_layer_out, cfg, p, x, cos, sin, moe,
+            x, a = checkpoint(_layer_out, cfg, p, x, cos, sin, moe, dist,
                               use_reentrant=False)
         else:
-            x, a = _layer_out(cfg, p, x, cos, sin, moe)
+            x, a = _layer_out(cfg, p, x, cos, sin, moe, dist)
         aux = aux + a
     x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
-    return _unembed(cfg, params, x), aux
+    return _unembed(cfg, params, x, dist), aux
 
 
-def loss_fn(cfg: LMConfig, params, batch: Dict, aux_weight: float = 0.01):
+def loss_fn(cfg: LMConfig, params, batch: Dict, dist: Dist = NO_DIST,
+            aux_weight: float = 0.01):
     """Next-token cross entropy of ``forward``: batch {'tokens', 'labels'}
-    (B, L), labels -100 = ignore.  Returns a 0-d fp32 tensor."""
-    logits, aux = forward(cfg, params, batch)
+    (B, L), labels -100 = ignore.  Returns a 0-d fp32 tensor (replicated
+    under a mesh)."""
+    logits, aux = forward(cfg, params, batch, dist)
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:    # VLM: drop the patch positions
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
@@ -355,6 +607,14 @@ def loss_fn(cfg: LMConfig, params, batch: Dict, aux_weight: float = 0.01):
 
 
 # ------------------------------------------------------------------ serving
+def cache_spec(cfg: LMConfig, dist: Dist) -> P:
+    """KV cache (n_layers, B, S, Hkv, hd) sharding: batch-sharded when B
+    divides, sequence-sharded for long-context B=1 (the reference's)."""
+    if dist.seq_shard:
+        return P(None, None, dist.batch, None, None)
+    return P(None, dist.batch, None, None, None)
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
                device: DeviceLike = "cuda"):
     dev = resolve_device(device)
@@ -364,7 +624,78 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
             "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
-def prefill(cfg: LMConfig, params, batch: Dict, max_len: int):
+def _from_local(dist: Dist, local, shape, pls):
+    """A DTensor of global ``shape`` (contiguous) from this shard's
+    ``local`` part."""
+    from torch.distributed.tensor import DTensor
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.insert(0, n)
+        n *= size
+    return DTensor.from_local(local, dist.mesh, pls, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def _cache_layer(k, max_len: int, spec, dist: Dist):
+    """One layer's (B, L, Hkv, hd) keys padded to ``max_len`` positions and
+    laid out by ``spec``."""
+    pad = max_len - k.shape[1]
+    pls = list(k.placements)
+    k = dist.local_map(lambda t: F.pad(t, (0, 0, 0, 0, 0, pad)),
+                       out=pls, ins=(pls,))(k)
+    return dist.wsc(k, *spec)
+
+
+def _last_rows(x, idx):
+    return x[torch.arange(x.shape[0], device=x.device), idx.long()][:, None]
+
+
+def _prefill_mesh(cfg: LMConfig, params, batch: Dict, max_len: int,
+                  dist: Dist):
+    """:func:`prefill` under a mesh.  The cache's k and v are laid out by
+    ``launch.sharding.cache_specs`` for this batch and ``max_len`` (by
+    sequence over ``model`` where the KV heads do not divide it), ``len``
+    replicated."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.launch.sharding import cache_specs
+    from repro_torch.models.common import ShapeCfg
+    x = _with_patches(cfg, params, batch,
+                      _embed(cfg, params, batch["tokens"], dist), dist)
+    B, L, _ = x.shape
+    max_len = max(max_len, L)          # VLM: the patch positions
+    dev = local_device(x)
+    cos, sin = _rope(cfg, torch.arange(L, device=dev)[None, :])
+    spec = cache_specs(cfg, ShapeCfg("prefill", max_len, B, "prefill"),
+                       dist)["k"]
+    ks, vs = [], []
+    for p, moe in _layers(cfg, params):
+        x, (k_l, v_l), _ = _one_layer(cfg, p, x, cos, sin, moe, dist=dist)
+        ks.append(_cache_layer(k_l, max_len, spec[1:], dist))
+        vs.append(_cache_layer(v_l, max_len, spec[1:], dist))
+    shape = (len(ks), B, max_len, cfg.n_kv_heads, cfg.hd)
+    pls = dist.placements(*spec)
+    k = _from_local(dist, torch.stack([t.to_local() for t in ks]), shape, pls)
+    v = _from_local(dist, torch.stack([t.to_local() for t in vs]), shape, pls)
+    x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
+    rep = [Replicate()] * dist.mesh.ndim
+    lengths = batch.get("lengths")
+    if lengths is not None:
+        lengths = dist.wsc(lengths, dist.batch)
+        x_pl = dist.placements(dist.batch, None, None)
+        x_last = dist.local_map(
+            lambda xl, n: _last_rows(xl, torch.clamp(n.long() - 1, 0, L - 1)),
+            out=x_pl, ins=(x_pl, dist.placements(dist.batch)))(x, lengths)
+        cache_len = dist.wsc(lengths.to(torch.int32), None)
+    else:
+        x_last = x[:, -1:]
+        cache_len = _from_local(dist, torch.full(
+            (B,), L, dtype=torch.int32, device=dev), (B,), rep)
+    logits = _unembed(cfg, params, x_last, dist)
+    return logits, {"k": k, "v": v, "len": cache_len}
+
+
+def prefill(cfg: LMConfig, params, batch: Dict, max_len: int,
+            dist: Dist = NO_DIST):
     """Run the prompt, build the KV cache.  Returns (logits_last, cache).
 
     Optional ``batch["lengths"]`` (B,) marks the true prompt length of each
@@ -372,8 +703,11 @@ def prefill(cfg: LMConfig, params, batch: Dict, max_len: int):
     gathered at position length-1 and ``cache["len"]`` is set per row.
     Trailing pad is harmless: attention is causal (pad rows never feed real
     rows) and decode masks KV beyond ``len``.  A VLM batch's ``patches``
-    go in front of the tokens and their positions extend the cache."""
+    go in front of the tokens and their positions extend the cache.  Under
+    ``dist.mesh``: :func:`_prefill_mesh`."""
     check_family(cfg.name, cfg.family)
+    if dist.mesh is not None:
+        return _prefill_mesh(cfg, params, batch, max_len, dist)
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
     x = _with_patches(cfg, params, batch, _embed(cfg, params, tokens))

@@ -33,8 +33,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.common import (LMConfig, _dtype_scale, dense_init,
-                                       rms_norm, sharded_ce_loss)
+from repro_torch.models.common import (Dist, LMConfig, P, _dtype_scale,
+                                       dense_init, rms_norm, sharded_ce_loss)
 from repro_torch.models.ssm import _ssd_chunked_heads
 from repro_torch.models.transformer import _embed, _unembed, vocab_padded
 
@@ -208,6 +208,28 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
         params["unembed"] = dense_init(gen, (cfg.d_model, vp), pdt,
                                        scale=0.02).to(dev)
     return params
+
+
+def param_specs(cfg: LMConfig, dist: Dist) -> Dict:
+    """Each parameter's spec, the reference's leaf for leaf."""
+    m, da = dist.model_axis, dist.data_axis
+    specs = {
+        "embed": P(None, m), "final_norm": P(None),
+        "mlstm": {
+            "norm": P(None, None), "up": P(None, da, m),
+            "wq": P(None, da, m), "wk": P(None, da, m), "wv": P(None, da, m),
+            "w_if": P(None, da, None), "down": P(None, m, da),
+        },
+    }
+    if "s" in _layer_kinds(cfg):
+        specs["slstm"] = {
+            "norm": P(None, None), "w_in": P(None, da, m),
+            "r": P(None, None, None, None), "bias": P(None, m),
+            "out": P(None, da, m),
+        }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(da, m)
+    return specs
 
 
 def _layers(cfg: LMConfig, params):

@@ -20,7 +20,13 @@ the size of a chunk: a stacked leaf of a model's layers (deepseek-moe-16b's
 routed experts, 1.5 B parameters in four MoE layers) would otherwise take
 several leaf-sized temporaries at once.  Every element sees the same
 operations either way, so the result is the same bit for bit.
-``opt_state_specs`` (GSPMD sharding) comes with ``launch/``'s mesh work.
+Under a mesh the parameters, gradients and moments are DTensors laid out
+by the same specs (:func:`opt_state_specs`: the moments live where their
+parameter's shard lives, never gathered).  The global norm is DTensor's
+sum of every leaf's squares over every shard, so the clip scale is the same
+on every process; each leaf's update then runs on its local shard, in flat
+chunks of that shard (a flat view of a DTensor is not a flat view of its
+shard).
 """
 from __future__ import annotations
 
@@ -71,14 +77,42 @@ def leaves(tree) -> list:
     return [x for _, x in named_leaves(tree)]
 
 
+def _is_dtensor(t) -> bool:
+    return hasattr(t, "placements")
+
+
+def _local(t):
+    """A DTensor's local shard (a view of its data), or the tensor."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
 def init_opt_state(cfg: OptConfig, params) -> OptState:
-    m = tree_map(lambda p: torch.zeros(p.shape, dtype=cfg.momentum_dtype,
-                                       device=p.device), params)
-    v_shape = (lambda p: p.shape) if cfg.name == "adamw" else (lambda p: ())
-    v = tree_map(lambda p: torch.zeros(v_shape(p), dtype=torch.float32,
-                                       device=p.device), params)
-    dev = leaves(params)[0].device
+    """Zero moments shaped (and, for DTensor parameters, laid out) as the
+    parameters; Lion's ``v`` is a zero scalar per leaf."""
+    def zeros(p, dtype):
+        if _is_dtensor(p):
+            return torch.zeros_like(p, dtype=dtype)
+        return torch.zeros(p.shape, dtype=dtype, device=p.device)
+    m = tree_map(lambda p: zeros(p, cfg.momentum_dtype), params)
+    if cfg.name == "adamw":
+        v = tree_map(lambda p: zeros(p, torch.float32), params)
+    else:
+        v = tree_map(lambda p: torch.zeros((), dtype=torch.float32,
+                                           device=_local(p).device), params)
+    dev = _local(leaves(params)[0]).device
     return OptState(torch.zeros((), dtype=torch.int32, device=dev), m, v)
+
+
+def opt_state_specs(cfg: OptConfig, param_specs):
+    """The optimizer state's specs (the reference's): ``step`` replicated,
+    ``m`` (and AdamW's ``v``) as the parameters, Lion's ``v`` scalars
+    replicated."""
+    from repro_torch.models.common import P
+    if cfg.name == "adamw":
+        v_specs = param_specs
+    else:
+        v_specs = tree_map(lambda s: P(), param_specs)
+    return OptState(P(), param_specs, v_specs)
 
 
 def _global_norm(grads):
@@ -96,10 +130,11 @@ UPDATE_CHUNK = 1 << 26
 
 
 def _chunks(p, g, *moments):
-    """Aligned flat chunks of a leaf's parameter, gradient and moments, the
-    written ones (parameter, moments: contiguous, as ``init_params`` and
-    :func:`init_opt_state` make them) as views, so an in-place write to a
-    chunk lands in the tensor."""
+    """Aligned flat chunks of a leaf's parameter, gradient and moments (a
+    DTensor's local shard), the written ones (parameter, moments:
+    contiguous, as ``init_params`` and :func:`init_opt_state` make them) as
+    views, so an in-place write to a chunk lands in the tensor."""
+    p, g, *moments = (_local(t) for t in (p, g, *moments))
     return zip(p.view(-1).split(UPDATE_CHUNK),
                g.reshape(-1).split(UPDATE_CHUNK),
                *(t.view(-1).split(UPDATE_CHUNK) for t in moments))
@@ -109,9 +144,14 @@ def _chunks(p, g, *moments):
 def apply_updates(cfg: OptConfig, params, grads, state: OptState):
     """One clipped AdamW or Lion step, in place.  Returns (params,
     OptState(step + 1, m, v), grad_norm): the same parameter and moment
-    tensors, updated."""
+    tensors, updated.  DTensor gradients are first laid out as their
+    parameters."""
+    if _is_dtensor(leaves(params)[0]):
+        grads = tree_map(lambda p, g: g.redistribute(p.device_mesh,
+                                                     p.placements),
+                         params, grads)
     gn = _global_norm(grads)
-    scale = _clip_scale(gn, cfg.grad_clip)
+    scale = _local(_clip_scale(gn, cfg.grad_clip))
     step = state.step + 1
     if cfg.name == "adamw":
         t = step.float()

@@ -1,6 +1,6 @@
 """Train-step builder: microbatched gradient accumulation and optional int8
 gradient compression with error feedback, the counterpart of
-``repro.train.step`` on one device.
+``repro.train.step``.
 
 ``make_train_step(cfg, opt_cfg, microbatches, compress_grads, loss_fn)``
 returns a function
@@ -14,17 +14,25 @@ leading axis and accumulates gradients in a Python loop (the reference's
 in bf16 under Lion, and ``loss / M``.  Gradient compression quantizes each
 leaf to int8 (per-leaf absmax scale) with an error-feedback residual
 carried across steps (``torch.round`` rounds half to even, as
-``jnp.round``).  ``jit_train_step`` (GSPMD sharding) comes with
-``launch/``'s mesh work.
+``jnp.round``).
+
+Under a mesh (``dist``) the step runs over DTensors: ``loss_fn`` is the
+zoo's under ``dist``, each gradient is laid out as its parameter, the
+microbatch split takes global rows ``i*B/M .. (i+1)*B/M - 1`` (the
+reference's reshape) and re-states the batch placement, and the update
+runs on the local shards (``optim``).  :func:`jit_train_step` is the
+reference's name for the step with every input and output laid out by the
+specs; nothing is compiled.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch import models as zoo
-from repro_torch.models.common import LMConfig
+from repro_torch.models.common import Dist, LMConfig, placements
 from repro_torch.train import optim
 
 
@@ -38,8 +46,39 @@ def _quantize_int8(g, ef):
 
 
 def init_error_feedback(params):
-    return optim.tree_map(lambda p: torch.zeros(
-        p.shape, dtype=torch.float32, device=p.device), params)
+    def zeros(p):
+        if hasattr(p, "placements"):
+            return torch.zeros_like(p, dtype=torch.float32)
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return optim.tree_map(zeros, params)
+
+
+def microbatch_dist(dist: Dist, rows: int) -> Dist:
+    """The Dist a batch of ``rows`` rows runs under: ``dist`` when its batch
+    axes split the rows evenly, else the axes that do by
+    ``launch.sharding.batch_dim_spec``'s rule ('data' alone, or none).
+    The reference's sharding constraint pads such a split instead
+    (llama3.2-1b's 16-row microbatches over 2x16 batch shards); either way
+    each device runs one row."""
+    from repro_torch.launch.sharding import batch_dim_spec
+    spec = batch_dim_spec(rows, dist)
+    axes = () if spec is None else (spec if isinstance(spec, tuple)
+                                    else (spec,))
+    if axes == tuple(dist.batch_axes):
+        return dist
+    return dataclasses.replace(dist, batch_axes=axes)
+
+
+def _split_placed(x, microbatches: int, dist: Dist):
+    """Microbatches of a DTensor batch leaf: global rows ``i*B/M ..
+    (i+1)*B/M - 1``, each laid out over the batch axes again."""
+    from torch.distributed.tensor import Replicate
+    rows = x.shape[0] // microbatches
+    whole = x.redistribute(dist.mesh, [Replicate()] * dist.mesh.ndim)
+    whole = whole.reshape((microbatches, rows) + tuple(x.shape[1:]))
+    rest = [None] * (x.ndim - 1)
+    spec = microbatch_dist(dist, rows).batch
+    return [dist.wsc(whole[i], spec, *rest) for i in range(microbatches)]
 
 
 def make_train_step(
@@ -48,11 +87,20 @@ def make_train_step(
     microbatches: int = 1,
     compress_grads: bool = False,
     loss_fn: Optional[Callable] = None,
+    dist: Optional[Dist] = None,
 ):
     """The step function (module docstring); ``step.grads_of(params,
-    batch)`` gives the (loss, gradients) it would apply, with no update."""
+    batch)`` gives the (loss, gradients) it would apply, with no update.
+    ``dist`` (default: no mesh) runs it over DTensors."""
     opt_cfg = opt_cfg or optim.for_model(cfg)
-    loss_fn = loss_fn or (lambda p, b: zoo.loss_fn(cfg, p, b))
+    meshed = dist is not None and dist.mesh is not None
+    if loss_fn is None and meshed:
+        def loss_fn(p, b):
+            rows = next(iter(b.values())).shape[0]
+            return zoo.loss_fn(cfg, p, b, microbatch_dist(dist, rows))
+    elif loss_fn is None:
+        def loss_fn(p, b):
+            return zoo.loss_fn(cfg, p, b)
     # Lion's sign-based update tolerates bf16 accumulation, as in the
     # reference.
     acc_dtype = torch.bfloat16 if opt_cfg.name == "lion" else torch.float32
@@ -66,15 +114,28 @@ def make_train_step(
             loss = loss_fn(alias, batch)
             grads = torch.autograd.grad(loss, optim.leaves(alias))
         it = iter(grads)
-        return loss.detach(), optim.tree_map(lambda _: next(it), alias)
+        grads = optim.tree_map(lambda _: next(it), alias)
+        if meshed:
+            grads = optim.tree_map(lambda p, g: g.redistribute(
+                p.device_mesh, p.placements), params, grads)
+        return loss.detach(), grads
+
+    def zeros(p):
+        if meshed:
+            return torch.zeros_like(p, dtype=acc_dtype)
+        return torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
 
     def grads_of(params, batch):
         if microbatches <= 1:
             return value_and_grad(params, batch)
-        mb = {k: x.reshape((microbatches, x.shape[0] // microbatches)
-                           + tuple(x.shape[1:])) for k, x in batch.items()}
-        acc = optim.tree_map(lambda p: torch.zeros(
-            p.shape, dtype=acc_dtype, device=p.device), params)
+        if meshed:
+            mb = {k: _split_placed(x, microbatches, dist)
+                  for k, x in batch.items()}
+        else:
+            mb = {k: x.reshape((microbatches, x.shape[0] // microbatches)
+                               + tuple(x.shape[1:]))
+                  for k, x in batch.items()}
+        acc = optim.tree_map(zeros, params)
         loss_acc = 0.0
         for i in range(microbatches):
             loss, grads = value_and_grad(params, {k: x[i]
@@ -101,3 +162,51 @@ def make_train_step(
     step.grads_of = grads_of
     return step
 
+
+def _place(x, spec, dist: Dist):
+    """``x`` laid out by ``spec`` over ``dist.mesh``: a DTensor is
+    redistributed, a whole tensor (the same on every process) split."""
+    from torch.distributed.tensor import distribute_tensor
+    pls = placements(spec, dist.mesh)
+    if hasattr(x, "placements"):
+        return x if list(x.placements) == pls else x.redistribute(
+            dist.mesh, pls)
+    return distribute_tensor(x, dist.mesh, pls, src_data_rank=None)
+
+
+def _place_tree(tree, specs, dist: Dist):
+    if tree is None:
+        return None
+    return optim.tree_map(lambda x, s: _place(x, s, dist), tree, specs)
+
+
+def jit_train_step(cfg: LMConfig, dist: Dist, param_spec_tree,
+                   opt_cfg: Optional[optim.OptConfig] = None,
+                   microbatches: int = 1, compress_grads: bool = False,
+                   batch_specs=None, loss_fn: Optional[Callable] = None):
+    """The reference's fully specified train step over ``dist.mesh``:
+    ``(params, opt_state, ef, batch) -> (params', opt_state', ef',
+    metrics)`` with params, the optimizer's moments and the error feedback
+    laid out by ``param_spec_tree`` (``optim.opt_state_specs``), the batch
+    by ``batch_specs``, and ``loss``, ``grad_norm`` and ``step``
+    replicated.  Inputs given whole or laid out otherwise are laid out
+    first.  Nothing is compiled: it is :func:`make_train_step` under
+    ``dist``, eager."""
+    opt_cfg = opt_cfg or optim.for_model(cfg)
+    step = make_train_step(cfg, opt_cfg, microbatches, compress_grads,
+                           loss_fn=loss_fn, dist=dist)
+    o_specs = optim.opt_state_specs(opt_cfg, param_spec_tree)
+
+    def run(params, opt_state, ef, batch):
+        params = _place_tree(params, param_spec_tree, dist)
+        opt_state = optim.OptState(
+            opt_state.step, _place_tree(opt_state.m, o_specs.m, dist),
+            opt_state.v if opt_cfg.name != "adamw"
+            else _place_tree(opt_state.v, o_specs.v, dist))
+        ef = _place_tree(ef, param_spec_tree, dist)
+        if batch_specs is not None:
+            batch = {k: _place(x, batch_specs[k], dist)
+                     for k, x in batch.items()}
+        return step(params, opt_state, ef, batch)
+
+    return run

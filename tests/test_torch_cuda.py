@@ -1272,3 +1272,121 @@ def test_serve_lm_twin_on_card_matches_cpu(dev, capsys):
     assert card["tokens"] == cpu["tokens"]
     assert (card["completed"], card["generated_tokens"]) == (12, 132)
     capsys.readouterr()
+
+
+# ----------------------------------------------------- the 1x1 mesh (NCCL)
+@pytest.fixture(scope="module")
+def mesh11():
+    """A one-process NCCL group and its 1x1 (data, model) mesh, destroyed
+    after this file's mesh tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import socket
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_debug_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                             rank=0, world_size=1)
+    yield make_debug_mesh(1, 1, device_type="cuda")
+    tdist.destroy_process_group()
+
+
+def _mesh_case(dev, mesh, arch="llama3.2-1b"):
+    from repro_torch.launch.mesh import shard_tree
+    from repro_torch.models.common import P, Dist
+    cfg = dataclasses.replace(get_smoke_config(arch), head_dim=64)
+    dist = Dist(mesh, batch_axes=("data",))
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 128), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    specs = lm.param_specs(cfg, dist)
+    return (cfg, dist, params, batch, shard_tree(params, specs, mesh),
+            {k: shard_tree(v, P("data", None), mesh)
+             for k, v in batch.items()})
+
+
+def test_mesh_forward_and_prefill_bit_equal_on_card(dev, mesh11):
+    """Under Dist on the 1x1 mesh the forward and the prefill equal the
+    mesh-free path's bit for bit, K2 once a layer on prefill_tc through
+    local_map."""
+    cfg, dist, params, batch, placed, pbatch = _mesh_case(dev, mesh11)
+    with torch.no_grad():
+        ref = lm.forward(cfg, params, batch)[0]
+        before = dict(flash_attention.launches_by_path)
+        got = lm.forward(cfg, placed, pbatch, dist)[0].to_local()
+        after = dict(flash_attention.launches_by_path)
+        assert torch.equal(got, ref)
+        assert after["prefill_tc"] - before["prefill_tc"] == cfg.n_layers
+        rl, rc = lm.prefill(cfg, params, {"tokens": batch["tokens"]}, 160)
+        gl, gc = lm.prefill(cfg, placed, {"tokens": pbatch["tokens"]}, 160,
+                            dist)
+        assert torch.equal(gl.to_local(), rl)
+        for key in ("k", "v", "len"):
+            assert torch.equal(gc[key].to_local(), rc[key]), key
+
+
+def test_mesh_train_step_bit_equal_on_card(dev, mesh11):
+    """jit_train_step on the 1x1 mesh: two steps' losses, parameters and
+    moments equal make_train_step's bit for bit."""
+    from repro_torch.launch.mesh import full_tree
+    from repro_torch.models.common import P
+    from repro_torch.train.step import jit_train_step
+    cfg, dist, params, batch, placed, _ = _mesh_case(dev, mesh11)
+    opt_cfg = optim.for_model(cfg)
+    rp = optim.tree_map(lambda t: t.clone(), params)
+    ro = init_opt_state(opt_cfg, rp)
+    step = make_train_step(cfg, opt_cfg)
+    mstep = jit_train_step(cfg, dist, lm.param_specs(cfg, dist), opt_cfg,
+                           batch_specs={k: P("data", None) for k in batch})
+    mo = init_opt_state(opt_cfg, placed)
+    for _ in range(2):
+        rp, ro, _, rm = step(rp, ro, None, batch)
+        placed, mo, _, mm = mstep(placed, mo, None, batch)
+        assert torch.equal(mm["loss"].to_local(), rm["loss"])
+    got = full_tree({"p": placed, "m": mo.m, "v": mo.v})
+    for a, b in zip(optim.leaves(got), optim.leaves(
+            {"p": rp, "m": ro.m, "v": ro.v})):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cf", [2.0, 0.5])
+def test_capacity_moe_on_card(dev, mesh11, cf):
+    """The expert-parallel moe_ffn on the card: its dropped set is the
+    capacity rule over the card's routing; with nothing dropped it is the
+    dropless path in another summation order."""
+    from repro_torch.launch.mesh import shard_tree
+    from repro_torch.models.common import P, Dist
+    cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
+                              capacity_factor=cf)
+    dist = Dist(mesh11, batch_axes=("data",))
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    lay, spec = params["layers"], lm.param_specs(cfg, dist)["layers"]
+    p = {"router": lay["router"][0], "w13": lay["moe_w13"][0],
+         "w2": lay["moe_w2"][0]}
+    sp = {k: shard_tree(v, P(*spec[key][1:]), mesh11) for (k, v), key in
+          zip(p.items(), ("router", "moe_w13", "moe_w2"))}
+    x = torch.randn((2, 512, cfg.d_model), device=dev,
+                    generator=torch.Generator(dev).manual_seed(2))
+    with torch.no_grad():
+        out, _, dropped = moe.moe_ffn(cfg, sp, shard_tree(
+            x, P("data", None, None), mesh11), mesh11, ("data",),
+            return_dropped=True)
+        ref = moe.moe_ffn(cfg, p, x)[0]
+        idx = moe.router_topk(x, p["router"], cfg.top_k)[0]
+    C = moe.capacity(cfg, x.shape[0] * x.shape[1])
+    flat, seen = idx.reshape(-1).cpu().numpy(), np.zeros(cfg.n_experts, int)
+    want = np.zeros(flat.shape, np.int32)
+    for a, e in enumerate(flat):
+        want[a] = seen[e] >= C
+        seen[e] += 1
+    np.testing.assert_array_equal(dropped.to_local().reshape(-1).cpu(), want)
+    if cf > 1:
+        assert want.sum() == 0
+        got = out.to_local()
+        assert float((got - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
+    else:
+        assert want.mean() >= 0.1
