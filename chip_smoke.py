@@ -116,6 +116,15 @@ published widths:
           then phase_patch's relayouts on the ranks' SIoT main plan (0
           rebuilds and bit-equal to a fresh plan's rank forward after the
           value-only one, 1 after growth);
+  kernels_decode_stats  K2's decode with stats (the mesh's
+          sequence-split decode) at llama3.2-1b's B = 8 over 2048
+          positions (bf16 and fp32) and deepseek-moe-16b's D = 128: the
+          cache cut into 1, 2, 4 and 16 slices (a row at kv_len 0, slices
+          wholly past kv_len), each slice with stats, merged, against the
+          whole-cache kernel and the plain version (fp32 2e-5, bf16 2e-2
+          max|ref|), bit-equal run to run, one slice the whole-cache
+          kernel's bits; the split-plus-merge's device time beside the
+          whole-cache kernel's; its rows go into K2's shapes;
   kernels flash_attention against its plain torch version at the LM path's
           prefill (L = 512, 1024: the bf16 tensor-core kernel) and decode
           (cache strides, ragged kv_len: the split-key kernel) shapes, and
@@ -277,11 +286,24 @@ published widths:
           path), about half at 0.5 (the dropped set equal to the rule on
           the host over the card's own routing), each batched GEMM's
           device time beside the grouped GEMM's;
-  dryrun  the dry-run (launch/dryrun.py: a fake group of 256 ranks on the
-          host, run beside the mesh phases) of llama3.2-1b train_4k and
-          deepseek-moe-16b prefill_32k on pod16x16: per-device argument
-          bytes equal to the reference dry-run's, memory, FLOPs, HBM and
-          collective bytes and the roofline in the H100's terms.
+  mesh_serve  llama3.2-1b at full width (16 layers, bf16) behind
+          ServeEngine(dist=the 1x1 mesh), lm_serve's 16 requests of 32
+          tokens: tokens and every tick's logits bit-equal to the mesh-free
+          engine's, K2 launched exactly once a layer a prefill
+          (prefill_tc) and a tick (decode), none with stats; tick host ms
+          and a decode step's device ms both ways;
+  mesh_families  zamba2-1.2b, xlstm-1.3b and seamless-m4t-medium at full
+          width (bf16) on the 1x1 mesh: forward, then prefill and 8 decode
+          steps, bit-equal to the mesh-free path; one jit_train_step each
+          (fp32 weights, AdamW; xlstm cut to 8 layers on 2 x 256 tokens)
+          bit-equal to make_train_step's;
+  dryrun  the dry-run (launch/dryrun.py: fake groups of 256 and 512 ranks
+          on the host, DRYRUN_WORKERS processes started before the build
+          and run beside every card phase) of every cell on pod16x16 and
+          pod2x16x16: 32 ok and 8 skipped a mesh, the pinned cells'
+          per-device argument bytes equal to the reference dry-run's, each
+          cell's FLOPs, peak and collective bytes by kind with the torch
+          version that counted them, the roofline in the H100's terms.
 
 Each phase prints JSON lines.  Any failed check exits non-zero.  Before
 the last line it prints the kernels summary and the ``nvidia-smi`` name and
@@ -343,9 +365,9 @@ from repro_torch.launch import (  # noqa: E402
 from repro_torch.launch.ranks import run_ranks  # noqa: E402
 from repro_torch.launch.serve import serve_config  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    aligned16, backward_path, decode_split, flash_attention,
-    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain,
-    kernel_path)
+    aligned16, backward_path, combine_decode_partials, decode_split,
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_plain, flash_decode_split_plain, kernel_path)
 from repro_torch.kernels.gnn_aggregate import (  # noqa: E402
     build_bsr, pack_bsr, spmm, spmm_packed, spmm_packed_plain, spmm_plain,
     transpose_packed)
@@ -499,10 +521,13 @@ MOE_TRAIN_LAYERS = 5
 # drop; 0.5: about half the assignments drop).  DRYRUN_PINNED: the dry-run
 # cells and their per-device argument bytes, the reference dry-run's.
 MESH_TRAIN_STEPS = 3
+# K2's decode with stats: the cache cut into these many slices.
+STATS_SLICES = (1, 2, 4, 16)
 MESH_MOE_TOKENS = 4096
 MESH_MOE_FACTORS = (2.0, 0.5)
 DRYRUN_PINNED = {"llama3.2-1b:train_4k": 243_949_572,
                  "deepseek-moe-16b:prefill_32k": 2_054_082_560}
+DRYRUN_WORKERS = 4         # dry-run processes, half a mesh
 TRAIN_FAMILY_STEPS = 10
 TRAIN_PARITY = {
     "moe_train": ("deepseek-moe-16b", {"n_layers": 2}, 128),
@@ -2238,6 +2263,116 @@ def _bhld_views(gen, dev, B, Hq, Hkv, Lq, Lk, D, dtype):
     k = torch.randn((B, Lk, Hkv, D), generator=gen, device=dev, dtype=dtype)
     v = torch.randn((B, Lk, Hkv, D), generator=gen, device=dev, dtype=dtype)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _stats_split(q, k, v, kv_len, n: int):
+    """K2's decode over the cache (B, Hkv, S, D) cut into ``n`` slices of
+    positions, each through ``flash_attention(..., return_stats=True)``
+    with ``kv_len`` clipped to it, merged by ``combine_decode_partials``:
+    what a decode step does across a cache split by sequence."""
+    w = k.shape[2] // n
+    parts = [flash_attention(q, k[:, :, i * w:(i + 1) * w],
+                             v[:, :, i * w:(i + 1) * w],
+                             (kv_len - i * w).clamp(0, w).to(torch.int32),
+                             causal=False, return_stats=True)
+             for i in range(n)]
+    return combine_decode_partials(*zip(*parts))
+
+
+def _stats_split_plain(q, k, v, kv_len, n: int):
+    """:func:`_stats_split` through the plain versions."""
+    w = k.shape[2] // n
+    split = decode_split(q.shape[-1], q.dtype)
+    parts = [flash_decode_split_plain(
+        q, k[:, :, i * w:(i + 1) * w], v[:, :, i * w:(i + 1) * w],
+        (kv_len - i * w).clamp(0, w).to(torch.int32), split, causal=False,
+        return_stats=True) for i in range(n)]
+    return combine_decode_partials(*zip(*parts))
+
+
+def phase_flash_stats(dev):
+    """K2's decode with stats (the mesh's sequence-split decode): at
+    llama3.2-1b's B = 8 over 2048 positions (bf16 and fp32) and at
+    deepseek-moe-16b's D = 128, the cache cut into STATS_SLICES slices, a
+    row at kv_len 0 and slices wholly past kv_len; each slice through the
+    kernel with stats, merged, against the whole-cache kernel and
+    flash_attention_plain (fp32 within 2e-5, bf16 within 2e-2 max|ref|),
+    bit-equal run to run, the kv_len = 0 row exactly 0, one slice equal to
+    the whole-cache kernel's bits; the split-plus-merge's device time
+    beside the whole-cache kernel's.  Returns (rows, worst error)."""
+    gen = torch.Generator(dev).manual_seed(SEED + 11)
+    rng = np.random.default_rng(SEED + 11)
+    cases = []
+    for name, arch, dtype in (("llama", "llama3.2-1b", torch.bfloat16),
+                              ("llama", "llama3.2-1b", torch.float32),
+                              ("deepseek", "deepseek-moe-16b",
+                               torch.bfloat16)):
+        cfg = get_config(arch)
+        q, k, v = _bhld_views(gen, dev, LLAMA_SLOTS, cfg.n_heads,
+                              cfg.n_kv_heads, 1, LLAMA_MAX_LEN, cfg.hd, dtype)
+        kv_len = rng.integers(64, 1057, size=LLAMA_SLOTS)
+        kv_len[0] = 0
+        cases.append((name, q, k, v, torch.from_numpy(kv_len).to(
+            dev, torch.int32)))
+    rows, worst = [], 0.0
+    for name, q, k, v, kl in cases:
+        dt = "bf16" if q.dtype == torch.bfloat16 else "fp32"
+        whole = flash_attention(q, k, v, kl, causal=False)
+        plain = flash_attention_plain(q, k, v, kl, False).float()
+        scale = float(plain.abs().max())
+        tol = 2e-5 if q.dtype == torch.float32 else 2e-2 * scale
+        whole_dev = device_ms(lambda: flash_attention(q, k, v, kl,
+                                                      causal=False),
+                              label=f"stats {name} {dt} whole")
+        ops, nbytes = _flash_work(q, k, kl, False)
+        for n in STATS_SLICES:
+            label = f"decode_stats_{name}_B{q.shape[0]}_S{k.shape[2]}_" \
+                    f"D{q.shape[3]}_{dt}_slices{n}"
+            before = flash_attention.stats_launches
+            got = _stats_split(q, k, v, kl, n)
+            again = _stats_split(q, k, v, kl, n)
+            torch.cuda.synchronize()
+            require(flash_attention.stats_launches == before + 2 * n,
+                    f"{label}: {flash_attention.stats_launches - before} "
+                    f"launches with stats, expected {2 * n}")
+            err = max(float((got - whole.float()).abs().max()),
+                      float((got - plain).abs().max()))
+            worst = max(worst, err)
+            require(err <= tol, f"{label}: max abs err {err} against the "
+                    f"whole-cache kernel and the plain version, tol {tol}")
+            require(torch.equal(got, again), f"{label}: not bit-equal run "
+                    "to run")
+            require(torch.equal(got[0], torch.zeros_like(got[0])),
+                    f"{label}: the kv_len = 0 row is not exactly 0")
+            if n == 1:
+                require(torch.equal(got.to(q.dtype), whole), f"{label}: one "
+                        "slice differs from the whole-cache kernel's bits")
+            part_bytes = 2 * n * q.shape[0] * q.shape[1] * (q.shape[3] + 2) * 4
+            t_bytes = (nbytes + part_bytes) / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / (BF16_OPS_PER_S if q.dtype == torch.bfloat16
+                           else FP32_OPS_PER_S) * 1e3
+            split = lambda: _stats_split(q, k, v, kl, n)  # noqa: E731
+            library = lambda: _sdpa(q, k, v, kl, False)  # noqa: E731
+            rows.append({
+                "shape": label, "dtype": dt, "path": "decode", "slices": n,
+                "max_abs_err": err, "tol": tol, "heads": [q.shape[1],
+                                                          k.shape[1]],
+                "head_dim": q.shape[3], "bitwise_equal": True,
+                "ms": time_ms(split), "device_ms": device_ms(
+                    split, label=label),
+                "whole_cache_device_ms": whole_dev,
+                "plain_ms": time_ms(
+                    lambda: _stats_split_plain(q, k, v, kl, n), reps=3,
+                    warmup=1),
+                "library_ms": time_ms(library),
+                "library_device_ms": device_ms(library,
+                                               label=label + " library"),
+                "bytes": nbytes + part_bytes, "ops": ops,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    emit({"phase": "kernels_decode_stats", "slices": list(STATS_SLICES),
+          "rows": rows, "max_abs_err": worst})
+    return rows, worst
 
 
 def phase_flash_kernels(dev):
@@ -4853,6 +4988,232 @@ def phase_mesh_train(dev, mesh):
     return fwd, bwd, by_path
 
 
+class _TickLogits:
+    """``models.decode_step`` wrapped to keep each call's logits (the
+    serving engine looks it up per tick)."""
+
+    def __init__(self):
+        self.logits = []
+        self.inner = lm.decode_step
+
+    def __enter__(self):
+        def logged(*args, **kw):
+            logits, cache = self.inner(*args, **kw)
+            self.logits.append(logits.full_tensor() if hasattr(
+                logits, "full_tensor") else logits)
+            return logits, cache
+        lm.decode_step = logged
+        return self
+
+    def __exit__(self, *exc):
+        lm.decode_step = self.inner
+
+
+def _mesh_serve_run(cfg, params, dev, dist):
+    """lm_serve's 16 requests through one ServeEngine (on ``dist``'s mesh
+    when given): the requests, the per-tick logits, the host seconds of the
+    ticks that only decoded, the engine's stats and K2's launches."""
+    kw = {} if dist is None else {"dist": dist}
+    engine = ServeEngine(cfg, params, slots=LLAMA_SLOTS,
+                         max_len=LLAMA_MAX_LEN, device=dev, **kw)
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, size=int(n)),
+                    max_new_tokens=32, eos_id=-1)
+            for i, n in enumerate(rng.integers(64, 1025, size=16))]
+    for r in reqs:
+        engine.submit(r)
+    before, stats0 = _counts(), flash_attention.stats_launches
+    with _TickLogits() as log, torch.no_grad():
+        decode_s, _ = _timed_ticks(engine)
+    launched = _counts_delta(before)[0]
+    return (engine, reqs, log.logits, decode_s, launched,
+            flash_attention.stats_launches - stats0)
+
+
+def phase_mesh_serve(dev, mesh):
+    """llama3.2-1b at full width (16 layers, bf16) behind
+    ServeEngine(dist=the 1x1 mesh) with lm_serve's 16 requests of 32
+    tokens: the tokens and every tick's logits bit-equal to the mesh-free
+    engine's, K2 launched once a layer a prefill on prefill_tc and once a
+    layer a tick on decode (no launch with stats: a 1-wide sequence axis
+    merges nothing); the ticks' host ms and a decode step's device ms both
+    ways.  Returns the meshed engine's K2 launches by kernel."""
+    _fresh_device()
+    cfg = get_config("llama3.2-1b")
+    dist = Dist(mesh, batch_axes=("data",))
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    ref = _mesh_serve_run(cfg, params, dev, None)
+    got = _mesh_serve_run(cfg, params, dev, dist)
+    del params
+    (r_eng, r_reqs, r_logits, r_s, _, _) = ref
+    (g_eng, g_reqs, g_logits, g_s, launched, stats) = got
+    s = g_eng.stats
+    tokens_equal = [r.out_tokens for r in r_reqs] == [r.out_tokens
+                                                       for r in g_reqs]
+    logits_equal = len(r_logits) == len(g_logits) and all(
+        torch.equal(a, b) for a, b in zip(r_logits, g_logits))
+    L = cfg.n_layers
+    want = {"prefill_tc": L * s.prefills, "decode": L * s.ticks}
+    require(all(r.done and len(r.out_tokens) == 32 for r in g_reqs),
+            "mesh_serve: a request did not finish its 32 tokens")
+    require(tokens_equal, "mesh_serve: the meshed engine's tokens differ "
+            "from the mesh-free engine's")
+    require(logits_equal, "mesh_serve: a tick's logits differ from the "
+            "mesh-free engine's")
+    require(launched == want and stats == 0, f"mesh_serve: K2 launched "
+            f"{launched} ({stats} with stats), expected {want}")
+    tok = torch.zeros((LLAMA_SLOTS, 1), dtype=torch.long, device=dev)
+    placed = shard_tree(tok, P("data", None), mesh)
+    with torch.no_grad():
+        step_ms = {
+            "mesh_free": device_ms(lambda: lm.decode_step(
+                cfg, r_eng.params, tok, r_eng.cache), reps=10,
+                label="mesh_serve decode step"),
+            "mesh": device_ms(lambda: lm.decode_step(
+                cfg, g_eng.params, placed, g_eng.cache, dist), reps=10,
+                label="mesh_serve meshed decode step")}
+    emit({"phase": "mesh_serve", "arch": cfg.name, "n_layers": L,
+          "dtype": "bfloat16", "mesh": [1, 1], "slots": LLAMA_SLOTS,
+          "max_len": LLAMA_MAX_LEN, "requests": len(g_reqs),
+          "prefills": s.prefills, "ticks": s.ticks,
+          "tokens_bit_equal": tokens_equal,
+          "tick_logits_bit_equal": logits_equal, "ticks_compared":
+          len(g_logits), "k2_launches": launched, "k2_stats_launches": stats,
+          "decode_tick_host_ms_median": {
+              "mesh_free": statistics.median(r_s) * 1e3,
+              "mesh": statistics.median(g_s) * 1e3},
+          "decode_step_device_ms": step_ms})
+    return launched
+
+
+# The three families of mesh_families at full width: B x L tokens, and the
+# train step's depth cut and tokens (xlstm-1.3b's: its sLSTM loop runs on
+# the host one step at a time, and 3.5 B fp32 parameters with AdamW's
+# moments, twice, would not fit beside the mesh-free run).
+MESH_FAMILY = {"zamba2-1.2b": ({}, 2, 512),
+               "xlstm-1.3b": ({"n_layers": 8}, 2, 256),
+               "seamless-m4t-medium": ({}, 2, 512)}
+MESH_FAMILY_DECODE = 8
+
+
+def _family_batch(cfg, B: int, L: int, dev, seed: int):
+    gen = torch.Generator(dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (B, L), generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, cfg.frontend_len, cfg.frontend_dim),
+                                      generator=gen, device=dev).to(cfg.dtype)
+    return batch
+
+
+def _family_serve(cfg, params, batch, steps, dev, dist=None):
+    """forward's logits, prefill's logits and cache, then ``steps`` decode
+    steps' logits and the cache after them (DTensors gathered)."""
+    kw = {} if dist is None else {"dist": dist}
+    whole = lambda t: t.full_tensor() if hasattr(  # noqa: E731
+        t, "full_tensor") else t
+    serve = {k: v for k, v in batch.items() if k != "labels"}
+    out = [whole(lm.forward(cfg, params, batch, **kw)[0])]
+    last, cache = lm.prefill(cfg, params, serve,
+                             batch["tokens"].shape[1] + steps, **kw)
+    out += [whole(last)] + [whole(cache[k]).clone() for k in sorted(cache)]
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    for _ in range(steps):
+        tok = torch.randint(0, cfg.vocab, (batch["tokens"].shape[0], 1),
+                            generator=gen, device=dev)
+        if dist is not None:
+            tok = shard_tree(tok, P("data", None), dist.mesh)
+        logits, cache = lm.decode_step(cfg, params, tok, cache, **kw)
+        out.append(whole(logits))
+    return out + [whole(cache[k]) for k in sorted(cache)]
+
+
+def phase_mesh_families(dev, mesh):
+    """zamba2-1.2b, xlstm-1.3b and seamless-m4t-medium at full width (bf16)
+    under Dist on the 1x1 mesh: forward, then prefill and
+    MESH_FAMILY_DECODE decode steps, bit-equal to the mesh-free path; one
+    jit_train_step (fp32 weights, AdamW) bit-equal to make_train_step's
+    (xlstm's depth cut, MESH_FAMILY).  Returns the meshed calls' K2
+    launches: forward by kernel, backward by kernel and by path."""
+    dist = Dist(mesh, batch_axes=("data",))
+    fwd, bwd, bwd_path, rec = {}, {}, {}, {}
+    for arch, (cut, B, L) in MESH_FAMILY.items():
+        _fresh_device()
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, param_dtype=full.dtype)
+        params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                                dev)
+        placed = shard_tree(params, lm.param_specs(cfg, dist), mesh)
+        batch = _family_batch(cfg, B, L, dev, SEED + 3)
+        pbatch = {k: shard_tree(v, P("data", *([None] * (v.dim() - 1))),
+                                mesh) for k, v in batch.items()}
+        with torch.no_grad():
+            ref = _family_serve(cfg, params, batch, MESH_FAMILY_DECODE, dev)
+            before = _counts()
+            got = _family_serve(cfg, placed, pbatch, MESH_FAMILY_DECODE, dev,
+                                dist)
+            torch.cuda.synchronize()
+            serve_launched = _counts_delta(before)[0]
+        serve_equal = len(ref) == len(got) and all(
+            torch.equal(a, b) for a, b in zip(ref, got))
+        del ref, got, params, placed
+        _fresh_device()
+        tcfg = dataclasses.replace(full, **cut)
+        params = lm.init_params(tcfg, torch.Generator(dev).manual_seed(SEED),
+                                dev)
+        tbatch = _family_batch(tcfg, B, L if not cut else 256, dev,
+                               SEED + 4)
+        specs = lm.param_specs(tcfg, dist)
+        opt_cfg = optim.for_model(tcfg)
+        bspecs = {k: P("data", *([None] * (v.dim() - 1)))
+                  for k, v in tbatch.items()}
+        start = optim.tree_map(lambda t: t.clone(), params)
+        state, m = make_train_step(tcfg, opt_cfg)(
+            start, init_opt_state(opt_cfg, start), None, tbatch)[::3]
+        ref_leaves = [t.clone() for t in optim.leaves(state)]
+        ref_loss = float(m["loss"])
+        del start, state
+        _fresh_device()
+        before = _counts()
+        step = jit_train_step(tcfg, dist, specs, opt_cfg, batch_specs=bspecs)
+        placed = shard_tree(params, specs, mesh)
+        gstate, _, _, gm = step(params, init_opt_state(opt_cfg, placed),
+                                None, tbatch)
+        torch.cuda.synchronize()
+        train_launched = _counts_delta(before)
+        got_leaves = optim.leaves(full_tree(gstate))
+        train_equal = (float(gm["loss"].to_local()) == ref_loss and all(
+            torch.equal(a, b) for a, b in zip(ref_leaves, got_leaves)))
+        del params, placed, gstate, ref_leaves, got_leaves
+        require(serve_equal, f"mesh_families {arch}: the meshed forward, "
+                "prefill or decode differs from the mesh-free path")
+        require(train_equal, f"mesh_families {arch}: jit_train_step on the "
+                "1x1 mesh is not bit-equal to make_train_step")
+        attention = cfg.family != "ssm"
+        require(bool(serve_launched) == attention, f"mesh_families {arch}: "
+                f"K2 launches {serve_launched}")
+        for key, n in serve_launched.items():
+            fwd[key] = fwd.get(key, 0) + n
+        for key, n in train_launched[0].items():
+            fwd[key] = fwd.get(key, 0) + n
+        for d, got in ((bwd, train_launched[1]), (bwd_path,
+                                                  train_launched[2])):
+            for key, n in got.items():
+                d[key] = d.get(key, 0) + n
+        rec[arch] = {"tokens": [B, L], "decode_steps": MESH_FAMILY_DECODE,
+                     "serve_bit_equal": serve_equal,
+                     "train_cut": cut, "train_tokens": list(
+                         tbatch["tokens"].shape), "train_loss": ref_loss,
+                     "train_bit_equal": train_equal,
+                     "k2_launches": {"serve": serve_launched,
+                                     "train": train_launched[:3]},
+                     "seconds": time.perf_counter() - t0}
+    emit({"phase": "mesh_families", "mesh": [1, 1], "dtype": "bfloat16",
+          "archs": rec})
+    return fwd, bwd, bwd_path
+
+
 def _host_drops(idx, C: int, E: int) -> torch.Tensor:
     """The capacity rule on the host: an assignment (t, j) is dropped when
     C earlier assignments (in flat order t*k + j) chose its expert."""
@@ -4983,48 +5344,83 @@ def _moe_gemm_rows(cfg, p, idx, C: int, dev) -> dict:
     return rows
 
 
+def _dryrun_cells():
+    """Every (arch, shape) cell of the registry, the skipped ones included
+    (the dry-run records them as skipped)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.common import SHAPES
+    return [f"{a}:{s}" for a in ARCHS for s in SHAPES]
+
+
 def _start_dryrun(out_dir):
-    """The dry-run of DRYRUN_PINNED's cells in a process of its own (CPU
-    only: a fake process group of 256 ranks), started now, read by
+    """The dry-run of every cell on both meshes (CPU only: a fake process
+    group of 256 or 512 ranks), started now in DRYRUN_WORKERS processes of
+    its own, a mesh's cells dealt round-robin among its workers; read by
     :func:`phase_dryrun`."""
     env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "src"), CUDA_VISIBLE_DEVICES="")
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
-         ",".join(DRYRUN_PINNED), "--out", out_dir], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        os.path.abspath(__file__)), "src"), CUDA_VISIBLE_DEVICES="",
+        OMP_NUM_THREADS="1")
+    cells = _dryrun_cells()
+    procs = []
+    for flag in ([], ["--multi-pod"]):
+        for w in range(DRYRUN_WORKERS // 2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--cells", ",".join(cells[w::DRYRUN_WORKERS // 2]),
+                 "--out", out_dir] + flag, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
 
 
-def phase_dryrun(proc, out_dir, t0):
-    """The dry-run's records: each pinned cell ok, its per-device argument
-    bytes the reference dry-run's, 0 < useful_ratio <= 1.5, the
-    bottleneck one of the three terms."""
+def phase_dryrun(procs, out_dir, t0):
+    """The dry-run's records, every cell on both meshes: 32 ok and 8
+    skipped a mesh; the pinned cells' per-device argument bytes the
+    reference dry-run's; every ok cell's roofline sane (0 < useful_ratio
+    <= 3, the bottleneck one of the three terms), its FLOPs, peak and
+    collective bytes by kind recorded with the torch version that counted
+    them."""
+    logs = []
     try:
-        log, _ = proc.communicate(timeout=600)
+        for proc in procs:
+            logs.append(proc.communicate(timeout=1200)[0])
     finally:
-        if proc.poll() is None:
-            proc.kill()
-    require(proc.returncode == 0 and "2 ok, 0 skipped, 0 failed" in log,
-            f"dryrun: the dry-run failed: {log[-3000:]}")
-    cells = {}
-    for cell, pinned in DRYRUN_PINNED.items():
-        arch, shape = cell.split(":")
-        with open(os.path.join(out_dir, "pod16x16",
-                               f"{arch}__{shape}.json")) as fh:
-            rec = json.load(fh)
-        rf, mem = rec["roofline"], rec["memory"]
-        require(rec["status"] == "ok" and mem["argument_bytes"] == pinned,
-                f"dryrun {cell}: argument bytes {mem['argument_bytes']}, "
-                f"pinned {pinned}")
-        require(0 < rf["useful_ratio"] <= 1.5 and rf["bottleneck"] in (
-            "compute", "memory", "collective"), f"dryrun {cell}: roofline "
-            f"{rf}")
-        cells[cell] = {"memory": mem, "roofline": rf,
-                       "collective_ops": rec["collective_ops"],
-                       "run_s": rec["run_s"]}
-    emit({"phase": "dryrun", "mesh": "pod16x16", "devices": 256,
-          "cells": cells, "hardware": rec["hardware"],
-          "wall_s": time.perf_counter() - t0})
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    require(all(p.returncode == 0 for p in procs), "dryrun: a worker "
+            f"failed: {[log[-2000:] for log in logs]}")
+    cells, counts, hardware = {}, {}, None
+    for mesh in ("pod16x16", "pod2x16x16"):
+        counts[mesh] = {"ok": 0, "skipped": 0}
+        for cell in _dryrun_cells():
+            arch, shape = cell.split(":")
+            with open(os.path.join(out_dir, mesh,
+                                   f"{arch}__{shape}.json")) as fh:
+                rec = json.load(fh)
+            require(rec["status"] in ("ok", "skipped"), f"dryrun {mesh} "
+                    f"{cell}: {rec.get('error')}")
+            counts[mesh][rec["status"]] += 1
+            if rec["status"] == "skipped":
+                continue
+            rf, mem, hardware = rec["roofline"], rec["memory"], rec["hardware"]
+            pinned = DRYRUN_PINNED.get(cell) if mesh == "pod16x16" else None
+            require(pinned is None or mem["argument_bytes"] == pinned,
+                    f"dryrun {cell}: argument bytes {mem['argument_bytes']},"
+                    f" pinned {pinned}")
+            require(0 < rf["useful_ratio"] <= 3 and rf["bottleneck"] in (
+                "compute", "memory", "collective"), f"dryrun {mesh} {cell}: "
+                f"roofline {rf}")
+            cells[f"{mesh}:{cell}"] = {
+                "flops": rf["flops_per_device"],
+                "peak_bytes": mem["peak_estimate_bytes"],
+                "argument_bytes": mem["argument_bytes"],
+                "collectives": rf["collectives"],
+                "bottleneck": rf["bottleneck"], "run_s": rec["run_s"]}
+    for mesh, got in counts.items():
+        require(got == {"ok": 32, "skipped": 8}, f"dryrun {mesh}: {got}")
+    emit({"phase": "dryrun", "meshes": {"pod16x16": 256, "pod2x16x16": 512},
+          "counts": counts, "torch": torch.__version__, "cells": cells,
+          "hardware": hardware, "wall_s": time.perf_counter() - t0})
 
 
 def _zero_counts() -> None:
@@ -5033,6 +5429,7 @@ def _zero_counts() -> None:
     flash_attention.launches = 0
     flash_attention.launches_by_path = dict.fromkeys(
         flash_attention.launches_by_path, 0)
+    flash_attention.stats_launches = 0
     flash_attention.backward_launches = dict.fromkeys(
         flash_attention.backward_launches, 0)
     flash_attention.backward_launches_by_path = dict.fromkeys(
@@ -5047,11 +5444,18 @@ def main() -> int:
     t_start = time.perf_counter()
     kind, smi_line = phase_device()
     dev = torch.device("cuda", 0)
+    # The dry-run runs on the host while the card runs every phase.
+    dry_dir = tempfile.mkdtemp(prefix="dryrun-")
+    t_dry = time.perf_counter()
+    dry = _start_dryrun(dry_dir)
     phase_build()
     siot = phase_layout("siot", dev)
     yelp = phase_layout("yelp", dev)
     kernel_rows, bwd_rows, worst = phase_kernels([siot, yelp], dev)
     flash_rows, flash_worst = phase_flash_kernels(dev)
+    stats_rows, stats_worst = phase_flash_stats(dev)
+    flash_rows += stats_rows
+    flash_worst = max(flash_worst, stats_worst)
     flash_bwd_rows, flash_bwd_worst = phase_flash_backward(dev)
     train_rows, train_worst, _ = phase_train_kernels(dev)
     flash_bwd_rows += train_rows
@@ -5124,26 +5528,35 @@ def main() -> int:
         phase_lm_train(dev))
     family_train = {name: phase_family_train(name, dev)
                     for name in TRAIN_MAIN}
-    # The mesh path: the dry-run runs on the host while the card runs the
-    # 1x1 mesh's phases.
-    dry_dir = tempfile.mkdtemp(prefix="dryrun-")
-    t_dry = time.perf_counter()
-    dry = _start_dryrun(dry_dir)
+    # The mesh path: a 1x1 NCCL mesh in this process.
     _fresh_device()
     with _one_rank_mesh(dev) as mesh:
         mesh_fwd = phase_mesh_parity(dev, mesh)
         mesh_train_fwd, mesh_train_bwd, mesh_train_by_path = (
             phase_mesh_train(dev, mesh))
         phase_mesh_moe(dev, mesh)
+        _zero_counts()                  # the meshed serving path starts here
+        mesh_serve_by_path = phase_mesh_serve(dev, mesh)
+        fam_fwd, fam_bwd, fam_bwd_by_path = phase_mesh_families(dev, mesh)
+        require(flash_attention.launches_by_path["decode"] > 0
+                and flash_attention.launches_by_path["prefill_tc"] > 0,
+                "the meshed serving path never launched K2's decode and "
+                "prefill kernels")
     require(spmm.launches == 0, "the mesh phases launched spmm_csr")
     phase_dryrun(dry, dry_dir, t_dry)
+    for key, n in fam_bwd_by_path.items():
+        mesh_train_by_path[key] = mesh_train_by_path.get(key, 0) + n
     train_fwd_phases = {"lm_train": train_by_path, **{
         name: {key: got[0].get(key, 0) for key in train_by_path}
         for name, got in family_train.items()},
-        "mesh_parity": mesh_fwd, "mesh_train": mesh_train_fwd}
+        "mesh_parity": mesh_fwd, "mesh_train": mesh_train_fwd,
+        "mesh_serve": {k: mesh_serve_by_path.get(k, 0)
+                       for k in train_by_path},
+        "mesh_families": {k: fam_fwd.get(k, 0) for k in train_by_path}}
     train_bwd_phases = {"lm_train": train_bwd, **{
         name: got[1] for name, got in family_train.items()},
-        "mesh_train": mesh_train_bwd}
+        "mesh_train": mesh_train_bwd,
+        "mesh_families": {k: fam_bwd.get(k, 0) for k in train_bwd}}
 
     head = kernel_rows[0]
     flash_head = next(r for r in flash_rows

@@ -132,7 +132,7 @@ def load_library() -> ctypes.CDLL:
              + [ctypes.c_float])
     lib.flash_attention_fwd.argtypes = flash + [i32, ptr]
     lib.flash_attention_prefill_bf16.argtypes = flash + [ptr]
-    lib.flash_attention_decode.argtypes = flash + [i32, i32, ptr, ptr, ptr]
+    lib.flash_attention_decode.argtypes = flash + [i32, i32] + [ptr] * 5
     # dq: q, k, v, out, dout, dq, lse, delta, kv_len; dkdv: q, k, v, dout,
     # dk, dv, lse, delta, kv_len; then both: strides (32), B, Hq, Hkv, Lq,
     # Lk, D, causal, scale, dtype, stream

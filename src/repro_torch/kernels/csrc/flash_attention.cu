@@ -627,7 +627,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const int32_t* __restrict__ kv_len, Strides st,
                           int Hq, int Hkv, int Lq, int Lk, int D, int causal,
                           float scale_log2, int Ks, float* __restrict__ part,
-                          int* __restrict__ counters) {
+                          int* __restrict__ counters,
+                          float* __restrict__ out32, float* __restrict__ ml) {
   constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
   const int C = D / EPC;
   const int group = Hq / Hkv;
@@ -668,10 +669,23 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return out + b * st.o[0] + (int64_t)(hk * group + r % group) * st.o[1] +
            (int64_t)(r / group) * st.o[2];
   };
+  // With stats: row r's fp32 output and its (M, L) at (b, head, position)
+  // in (B, Hq, Lq) order.
+  const int64_t nrows = (int64_t)gridDim.z * Hq * Lq;
+  auto stat_row = [&](int r) {
+    return ((int64_t)b * Hq + hk * group + r % group) * Lq + r / group;
+  };
   if (s >= n_live) {
-    if (s == 0)  // no live key at all: every row is exactly 0
-      for (int e = tid; e < R * D; e += kDecThreads)
+    if (s == 0) {  // no live key at all: every row is exactly 0
+      for (int e = tid; e < R * D; e += kDecThreads) {
         store_f(out_row(e / D) + (e % D) * st.o[3], 0.f);
+        if (out32 != nullptr) out32[stat_row(e / D) * D + e % D] = 0.f;
+      }
+      if (ml != nullptr && tid < R) {
+        ml[stat_row(tid)] = -INFINITY;
+        ml[nrows + stat_row(tid)] = 0.f;
+      }
+    }
     return;
   }
 
@@ -838,7 +852,15 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       acc = fmaf(at, w, acc * a);
       M = mn;
     }
-    store_f(out_row(r) + d * st.o[3], acc / fmaxf(L, 1e-30f));
+    const float o = acc / fmaxf(L, 1e-30f);
+    store_f(out_row(r) + d * st.o[3], o);
+    if (out32 != nullptr) {
+      out32[stat_row(r) * D + d] = o;
+      if (d == 0) {
+        ml[stat_row(r)] = M;
+        ml[nrows + stat_row(r)] = L;
+      }
+    }
   }
   if (tid == 0) counters[bh] = 0;  // ready for the next launch
 }
@@ -847,7 +869,8 @@ template <typename T, int DMAX>
 int launch_decode(const void* q, const void* k, const void* v, void* out,
                   const void* kv_len, const Strides& st, int B, int Hq,
                   int Hkv, int Lq, int Lk, int D, int causal, float scale,
-                  int Ks, void* part, void* counters, cudaStream_t stream) {
+                  int Ks, void* part, void* counters, void* out32, void* ml,
+                  cudaStream_t stream) {
   const int R = Lq * (Hq / Hkv);
   const size_t smem = decode_smem_bytes(R, D, Ks, sizeof(T));
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
@@ -861,7 +884,8 @@ int launch_decode(const void* q, const void* k, const void* v, void* out,
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<const int32_t*>(kv_len), st, Hq, Hkv, Lq, Lk, D, causal,
       scale * kLog2e, Ks, static_cast<float*>(part),
-      static_cast<int*>(counters));
+      static_cast<int*>(counters), static_cast<float*>(out32),
+      static_cast<float*>(ml));
   return (int)cudaGetLastError();
 }
 
@@ -869,15 +893,19 @@ template <typename T>
 int launch_decode_d(const void* q, const void* k, const void* v, void* out,
                     const void* kv_len, const Strides& st, int B, int Hq,
                     int Hkv, int Lq, int Lk, int D, int causal, float scale,
-                    int Ks, void* part, void* counters, cudaStream_t stream) {
+                    int Ks, void* part, void* counters, void* out32,
+                    void* ml, cudaStream_t stream) {
   if (D <= 64)
     return launch_decode<T, 64>(q, k, v, out, kv_len, st, B, Hq, Hkv, Lq, Lk,
-                                D, causal, scale, Ks, part, counters, stream);
+                                D, causal, scale, Ks, part, counters, out32,
+                                ml, stream);
   if (D <= 128)
     return launch_decode<T, 128>(q, k, v, out, kv_len, st, B, Hq, Hkv, Lq, Lk,
-                                 D, causal, scale, Ks, part, counters, stream);
+                                 D, causal, scale, Ks, part, counters, out32,
+                                 ml, stream);
   return launch_decode<T, 256>(q, k, v, out, kv_len, st, B, Hq, Hkv, Lq, Lk,
-                               D, causal, scale, Ks, part, counters, stream);
+                               D, causal, scale, Ks, part, counters, out32,
+                               ml, stream);
 }
 
 // ============================================= backward on the CUDA cores
@@ -1376,17 +1404,20 @@ extern "C" int flash_attention_prefill_bf16(
 // Split-key decode: Lq * (Hq / Hkv) <= 16, D a multiple of 16 bytes, rows
 // 16-byte aligned; `split` keys per CTA; `part` an fp32 scratch of
 // B * Hkv * ceil(Lk / split) * Lq * (Hq / Hkv) * (D + 2) floats; `counters`
-// B * Hkv zeroed ints, left zeroed.
+// B * Hkv zeroed ints, left zeroed.  `out32` and `ml` both null, or both
+// set: then the normalised output is also written in fp32 to `out32`
+// (B, Hq, Lq, D) contiguous, and each row's max M (log2 domain) and sum L to
+// `ml` (2, B, Hq, Lq); a row with no live key gets M = -inf, L = 0 and 0.
 extern "C" int flash_attention_decode(
     const void* q, const void* k, const void* v, void* out,
     const void* kv_len, const int64_t* strides, int B, int Hq, int Hkv, int Lq,
     int Lk, int D, int causal, float scale, int dtype, int split, void* part,
-    void* counters, void* stream) {
+    void* counters, void* out32, void* ml, void* stream) {
   const size_t esize = dtype == 0 ? 4 : 2;
   if (!valid_dims(B, Hq, Hkv, Lq, Lk, D) || strides == nullptr ||
       (dtype != 0 && dtype != 1) || Lq * (Hq / Hkv) > kDecMaxRows ||
       (D * esize) % 16 != 0 || split < 1 || split > kDecThreads ||
-      part == nullptr ||
+      part == nullptr || (out32 == nullptr) != (ml == nullptr) ||
       counters == nullptr || !aligned16(k, strides + 4, esize) ||
       !aligned16(v, strides + 8, esize) || strides[3] != 1) {
     return (int)cudaErrorInvalidValue;
@@ -1396,10 +1427,10 @@ extern "C" int flash_attention_decode(
   if (dtype == 0)
     return launch_decode_d<float>(q, k, v, out, kv_len, st, B, Hq, Hkv, Lq,
                                   Lk, D, causal, scale, split, part, counters,
-                                  s);
+                                  out32, ml, s);
   return launch_decode_d<__nv_bfloat16>(q, k, v, out, kv_len, st, B, Hq, Hkv,
                                         Lq, Lk, D, causal, scale, split, part,
-                                        counters, s);
+                                        counters, out32, ml, s);
 }
 
 // The backward: `strides` a host array of 32 (q, k, v, out, dout, dq, dk,

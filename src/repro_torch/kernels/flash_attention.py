@@ -78,6 +78,14 @@ kernel (``"dq"``, ``"dkdv"``), one each per backward, and
 ``flash_attention.backward_launches_by_path`` counts backwards by path
 (``"tc"``, ``"general"``), one per backward.
 
+Decode with stats.  ``flash_attention(..., return_stats=True)`` takes
+the decode kernel and also writes, per row, the normalised output in fp32
+and the row's max M (log2 domain) and sum L, so that attention over key
+slices held apart (a KV cache split by sequence over a mesh) merges in
+:func:`combine_decode_partials`; ``flash_attention.stats_launches``
+counts those launches (inside the ``decode`` count).  Without stats the
+kernel's output is the same bits as before.
+
 :func:`flash_decode_split_plain`, :func:`flash_prefill_tiles_plain` and
 :func:`flash_bwd_tc_tiles_plain` mirror the vector kernels' order of work
 (per-split partials combined in split order; 64-key tiles with P rounded to
@@ -238,11 +246,16 @@ def flash_attention_bwd_plain(q, k, v, out, dout,
 
 def flash_decode_split_plain(q, k, v, kv_len: Optional[torch.Tensor] = None,
                              split: int = 128, causal: bool = True,
-                             scale: Optional[float] = None):
+                             scale: Optional[float] = None,
+                             return_stats: bool = False):
     """The decode kernel's order of work in plain torch: the keys cut into
     splits of ``split``, a partial (row max m, sum l, fp32 sum of p v) per
     split, then the partials combined in split order with a running max.
-    Used by the tests only."""
+    With ``return_stats`` it returns what the kernel writes with stats:
+    (the normalised output in fp32 (B, Hq, Lq, D), each row's max M in the
+    log2 domain and its sum L, (B, Hq, Lq) each); a row with no live key
+    has M = -inf, L = 0 and output 0.  The CPU side of
+    ``flash_attention(..., return_stats=True)``."""
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -270,7 +283,38 @@ def flash_decode_split_plain(q, k, v, kv_len: Optional[torch.Tensor] = None,
         out = out * a[..., None] + acc[..., t, :] * w[..., None]
         M = mn
     out = out / L.clamp_min(1e-30)[..., None]
+    if return_stats:
+        return (out.reshape(B, Hq, Lq, D), M.reshape(B, Hq, Lq),
+                L.reshape(B, Hq, Lq))
     return out.reshape(B, Hq, Lq, D).to(q.dtype)
+
+
+def combine_decode_partials(outs, Ms, Ls):
+    """Attention over the union of disjoint key slices from each slice's
+    ``flash_attention(..., return_stats=True)``: ``outs`` the normalised
+    fp32 outputs (..., D), ``Ms``/``Ls`` the row maxima (log2 domain) and
+    sums (...).  The row's max and sum run over the slices in the given
+    (fixed) order with the kernel's running-max formula; then each
+    slice's output is weighted by its share of the sum, L_i 2^(M_i - M) /
+    L, and the weighted outputs add in the same order, so one slice comes
+    back unchanged.  A row that no slice sees stays exactly 0.  Returns
+    the fp32 output."""
+    M = torch.full_like(Ms[0], float("-inf"))
+    L = torch.zeros_like(Ls[0])
+    for mt, lt in zip(Ms, Ls):
+        live = mt != float("-inf")
+        mn = torch.where(live, torch.maximum(M, mt), M)
+        a = torch.where(live, torch.exp2(M - mn), torch.ones_like(M))
+        w = torch.where(live, torch.exp2(mt - mn), torch.zeros_like(M))
+        L = L * a + lt * w
+        M = mn
+    out = torch.zeros_like(outs[0])
+    for o, mt, lt in zip(outs, Ms, Ls):
+        live = mt != float("-inf")
+        share = torch.where(live, lt * torch.exp2(mt - M), 0.0) \
+            / L.clamp_min(1e-30)
+        out = out + o * share[..., None]
+    return out
 
 
 def flash_prefill_tiles_plain(q, k, v, kv_len: Optional[torch.Tensor] = None,
@@ -347,15 +391,25 @@ def flash_bwd_tc_tiles_plain(q, k, v, out, dout,
 
 
 def flash_attention(q, k, v, kv_len: Optional[torch.Tensor] = None, *,
-                    causal: bool = True, scale: Optional[float] = None):
+                    causal: bool = True, scale: Optional[float] = None,
+                    return_stats: bool = False):
     """Blockwise attention, (B, Hq, Lq, D) -> (B, Hq, Lq, D).  CPU tensors
     take :func:`flash_attention_plain`; CUDA tensors launch the kernel that
     :func:`kernel_path` names, or raise.  In grad mode, when q, k or v
     requires grad, the call is differentiable in all three: its backward is
     :func:`flash_attention_bwd` (the two backward kernels on CUDA
-    tensors)."""
+    tensors).
+
+    ``return_stats`` (the decode path only, no gradient) returns (out fp32
+    (B, Hq, Lq, D), M, L (B, Hq, Lq)): the normalised output and each
+    row's max (log2 domain) and sum, so that attention over several key
+    slices merges with :func:`combine_decode_partials`.  CPU tensors take
+    :func:`flash_decode_split_plain`; CUDA tensors launch the decode
+    kernel, which writes them beside its output, or raise."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if return_stats:
+        return _decode_stats(q, k, v, kv_len, causal, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, kv_len, causal, scale)
     return _forward(q, k, v, kv_len, causal, scale)
@@ -364,6 +418,7 @@ def flash_attention(q, k, v, kv_len: Optional[torch.Tensor] = None, *,
 flash_attention.launches = 0
 flash_attention.launches_by_path = {"decode": 0, "prefill_tc": 0,
                                     "general": 0}
+flash_attention.stats_launches = 0       # decode launches with stats
 flash_attention.backward_launches = {"dq": 0, "dkdv": 0}
 flash_attention.backward_launches_by_path = {"tc": 0, "general": 0}
 
@@ -385,6 +440,16 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, kv_len,
                                          ctx.causal, ctx.scale)
         return dq, dk, dv, None, None, None
+
+
+def _decode_stats(q, k, v, kv_len, causal: bool, scale):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention: return_stats has no gradient")
+    if q.device.type == "cpu":
+        return flash_decode_split_plain(
+            q, k, v, kv_len, decode_split(q.shape[-1], q.dtype), causal,
+            scale, return_stats=True)
+    return _flash_cuda(q, k, v, kv_len, causal, scale, stats=True)
 
 
 def _forward(q, k, v, kv_len, causal: bool, scale):
@@ -459,14 +524,23 @@ def _check_inputs(q, k, v, kv_len):
     return B, Hq, Hkv, Lq, Lk, D
 
 
-def _flash_cuda(q, k, v, kv_len, causal: bool, scale):
+def _flash_cuda(q, k, v, kv_len, causal: bool, scale, stats: bool = False):
     B, Hq, Hkv, Lq, Lk, D = _check_inputs(q, k, v, kv_len)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
     path = kernel_path(q.dtype, Hq, Hkv, Lq, D,
                        all(aligned16(t) for t in (q, k, v, out)))
+    out32 = ml = None
+    if stats:
+        if path != "decode":
+            raise ValueError(
+                f"flash_attention: return_stats needs the decode kernel; "
+                f"this call takes {path!r}")
+        out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        ml = torch.empty((2, B, Hq, Lq), dtype=torch.float32,
+                         device=q.device)
+    if out.numel() == 0:
+        return (out32, ml[0], ml[1]) if stats else out
     strides = (ctypes.c_int64 * 16)(*q.stride(), *k.stride(), *v.stride(),
                                     *out.stride())
     kl = None if kv_len is None else kv_len.data_ptr()
@@ -483,7 +557,9 @@ def _flash_cuda(q, k, v, kv_len, causal: bool, scale):
                                device=q.device)
             err = lib.flash_attention_decode(
                 *ptrs, _DTYPES[q.dtype], split, part.data_ptr(),
-                _counters(q.device, stream, B * Hkv).data_ptr(), stream)
+                _counters(q.device, stream, B * Hkv).data_ptr(),
+                None if out32 is None else out32.data_ptr(),
+                None if ml is None else ml.data_ptr(), stream)
         elif path == "prefill_tc":
             err = lib.flash_attention_prefill_bf16(*ptrs, stream)
         else:
@@ -491,6 +567,9 @@ def _flash_cuda(q, k, v, kv_len, causal: bool, scale):
     _build.check(lib, err, f"flash_attention launch ({path})")
     flash_attention.launches += 1
     flash_attention.launches_by_path[path] += 1
+    if stats:
+        flash_attention.stats_launches += 1
+        return out32, ml[0], ml[1]
     return out
 
 

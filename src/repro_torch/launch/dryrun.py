@@ -31,7 +31,10 @@ under a dispatch mode that sees each operation on rank 0's local shards:
     group size, through the reference's ring model (``hlo._wire_bytes``);
   * memory: the bytes of live storages, arguments included, and their
     peak (weakref finalizers on the storages; torch's ``MemTracker`` would
-    also count the propagation's global-shape tensors below).
+    also count the propagation's global-shape tensors below).  Argument
+    bytes and the peak count only the arguments an operation reads or the
+    program returns, as XLA's do (an unused argument is dropped): a
+    decode step reads no encoder weight.
 
 DTensor's sharding propagation runs some operations at the global shapes to
 learn the output's shape; those are not counted.  Attention counts the
@@ -46,8 +49,11 @@ A dimension split over several mesh axes is split in the mesh's order:
 kimi's FSDP over ("data", "pod") becomes pod-major, the reference's
 data-major; the shard sizes and the collectives' groups are the same.
 
-Cells of the decode kind, and the hybrid, xLSTM and enc-dec families, end
-in ``status: "error"`` (NotImplementedError naming ROADMAP.md's slice 16).
+A decode cell runs one ``decode_step`` against a cache filled to the
+shape's length (``configs.input_specs``), laid out by ``cache_specs``; the
+cell's arguments are the weights, the tokens and the cache.  Each record
+names the ``torch`` version that counted it (``torch``): DTensor chooses
+its redistributions by version.
 """
 from __future__ import annotations
 
@@ -149,6 +155,7 @@ class _Counter:
                 self.live = 0
                 self.peak = 0
                 self.seen = set()
+                self.read = set()      # storages an operation took in
                 self.meta_depth = 0
 
             def track(self, t):
@@ -183,6 +190,14 @@ class _Counter:
                 if self.meta_depth:
                     return out
                 name = func._schema.name
+                rets = func._schema.returns
+                view = rets and all(r.alias_info is not None
+                                    and not r.alias_info.is_write
+                                    for r in rets)
+                if not view and not name.startswith("prim::"):
+                    self.read.update(a.untyped_storage()._cdata
+                                     for a in flat
+                                     if isinstance(a, torch.Tensor))
                 if name.startswith("_c10d_functional::"):
                     self._collective(name.split("::")[1], func, args, out)
                     return out
@@ -194,10 +209,6 @@ class _Counter:
                 if pk in flop_registry:
                     self.flops += flop_registry[pk](*args, **kwargs,
                                                     out_val=out)
-                rets = func._schema.returns
-                view = rets and all(r.alias_info is not None
-                                    and not r.alias_info.is_write
-                                    for r in rets)
                 if not view and not name.startswith(("aten::empty",
                                                      "prim::")):
                     self.hbm += sum(t.numel() * t.element_size()
@@ -253,13 +264,22 @@ def _program(cfg, shape, dist):
         pspecs = optim.tree_map(strip_fsdp, pspecs)
     # Serving runs on bf16 weights (fp32 masters are a training concern).
     wdt = torch.bfloat16 if serving else None
-    meta = zoo.transformer.abstract_params(cfg)
+    if cfg.family in ("dense", "moe", "vlm"):
+        meta = zoo.transformer.abstract_params(cfg)
+    else:                  # drawn under the caller's fake mode: no storage
+        meta = zoo.init_params(cfg, device="meta")
     params = optim.tree_map(
         lambda m, s: _placed(m, s, mesh, wdt if m.dtype == torch.float32
                              else None), meta, pspecs)
     in_specs = input_sharding_specs(cfg, shape, dist)
-    batch = {k: _placed(v, in_specs[k], mesh)
-             for k, v in input_specs(cfg, shape).items()}
+    metas = input_specs(cfg, shape)
+    if shape.kind == "decode":
+        tokens = _placed(metas["tokens"], in_specs["tokens"], mesh)
+        cache = {k: _placed(v, in_specs["cache"][k], mesh)
+                 for k, v in metas["cache"].items()}
+        return (params, tokens, cache), [(1, lambda: zoo.decode_step(
+            cfg, params, tokens, cache, dist))]
+    batch = {k: _placed(v, in_specs[k], mesh) for k, v in metas.items()}
     if shape.kind == "train":
         opt, phases = _train_phases(cfg, shape, dist, params, batch)
         return (params, opt, batch), phases
@@ -314,17 +334,50 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _slstm_scan_at_once(cfg, pre, r, state=None):
+    """The dry-run's stand-in for ``xlstm._slstm_scan``: the recurrence's
+    products and shapes without its L sequential steps.  Under fake
+    tensors no value is computed, so the L steps' recurrent products
+    (h_t @ r, per head) are one einsum over L stand-in states, with the
+    same FLOPs, and the gates' elementwise work runs once over (B, L, H,
+    P).  L Python steps at a time on fake tensors took over 20 minutes for
+    xlstm-1.3b's ``train_4k`` (the reference corrects its scanned sLSTM
+    the same way, analytically: ``launch/analysis.py``)."""
+    Bz, L, d = pre.shape[0], pre.shape[1], pre.shape[2] // 4
+    H = cfg.n_heads
+    P = d // H
+    pre = pre.reshape(Bz, L, H, 4 * P)
+    hs = pre[..., :P]                       # L states, (B, L, H, P)
+    g = pre + torch.einsum("blhp,hpq->blhq", hs, r.float())
+    z_, i_, f_, o_ = g.chunk(4, dim=-1)
+    logf = torch.nn.functional.logsigmoid(f_)
+    m = torch.maximum(logf, i_)
+    c = torch.exp(logf - m) + torch.exp(i_ - m) * torch.tanh(z_)
+    n = torch.exp(logf - m) + torch.exp(i_ - m)
+    h = torch.sigmoid(o_) * c / torch.clamp(n, min=1e-6)
+    last = tuple(t[:, -1] for t in (h, c, n, m))
+    return h.reshape(Bz, L, d), last
+
+
 def measure(cfg, shape, mesh) -> dict:
     """Run the cell's program once on ``mesh`` (over the current process
     group) under fake tensors; returns the record's measured part."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
     dist = build_dist(mesh, cfg, shape)
     if _get_current_dispatch_mode_stack():
         raise RuntimeError("dry-run: another dispatch mode is active")
+    from repro_torch.models import xlstm
+    scan, xlstm._slstm_scan = xlstm._slstm_scan, _slstm_scan_at_once
+    try:
+        return _measure(cfg, shape, mesh, dist)
+    finally:
+        xlstm._slstm_scan = scan
+
+
+def _measure(cfg, shape, mesh, dist) -> dict:
+    from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode(allow_non_fake_inputs=True):
         args, phases = _program(cfg, shape, dist)
-        arg_bytes = _nbytes(_locals(args))
         counter = _Counter()
         try:
             for t in _locals(args):
@@ -340,6 +393,14 @@ def measure(cfg, shape, mesh) -> dict:
             run_s = time.time() - t0
         finally:
             counter.restore()
+        # The arguments the program reads or returns: XLA drops the others
+        # (jit's keep_unused=False; a decode step reads no encoder
+        # weight), and they stay live, untouched, for the whole run.
+        used = counter.read | {t.untyped_storage()._cdata
+                               for t in _locals(outputs)}
+        arg_bytes = _nbytes(t for t in _locals(args)
+                            if t.untyped_storage()._cdata in used)
+        unused = _nbytes(_locals(args)) - arg_bytes
         out_bytes = _nbytes(_locals(outputs))
         held = {t.untyped_storage()._cdata for t in _locals(args)}
         alias = _nbytes(t for t in _locals(outputs)
@@ -353,15 +414,17 @@ def measure(cfg, shape, mesh) -> dict:
         "memory": {
             "argument_bytes": arg_bytes,
             "output_bytes": out_bytes,
-            "temp_bytes": counter.peak - arg_bytes,
+            "temp_bytes": counter.peak - unused - arg_bytes,
             "alias_bytes": alias,
-            "peak_estimate_bytes": counter.peak,
+            "unused_argument_bytes": unused,
+            "peak_estimate_bytes": counter.peak - unused,
         },
         "cost": {"flops": float(counter.flops),
                  "bytes accessed": float(counter.hbm)},
         "collective_ops": _count_kinds(counter.colls),
         "roofline": rf.as_dict(),
         "hardware": HARDWARE,
+        "torch": torch.__version__,
         "notes": NOTES,
     }
 
@@ -382,13 +445,6 @@ def run_cell(arch: str, shape_name: str, mesh, mesh_name: str) -> dict:
     try:
         cfg = get_config(arch)
         shape = SHAPES[shape_name]
-        if cfg.family not in zoo.MESH_FAMILIES:
-            raise NotImplementedError(
-                f"{arch}: the {cfg.family} family under a mesh is "
-                f"ROADMAP.md slice 16")
-        if shape.kind == "decode":
-            raise NotImplementedError(
-                f"{shape_name}: decode under a mesh is ROADMAP.md slice 16")
         rec.update({"status": "ok", **measure(cfg, shape, mesh)})
     except Exception as e:                                 # noqa: BLE001
         rec.update({"status": "error", "error": f"{type(e).__name__}: {e}",

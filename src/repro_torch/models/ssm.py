@@ -18,9 +18,18 @@ layout the scan returns and decodes (the reference labels the axes (H, P,
 N), the same shape while P == N) -- ``conv`` (n_layers, B, K - 1, conv_ch),
 ``k``/``v`` (sites, B, max_len, Hkv, hd) and ``len``.  ``decode_step``
 updates the tensors of the cache it is given in place and returns them.
+
+Under a mesh (``dist``) every entry point runs: a Mamba2 block keeps the
+reference's two constraints (its in_proj output split over ``model``,
+then y before out_proj), and each shard runs its heads' part between the
+projections (:func:`_mamba_mesh`: its x and z columns, all of B and C, its
+state, split by heads as ``cache_specs`` lays the ``ssm`` cache); the
+shared block's attention is ``transformer._attn_mesh`` at prefill and
+``_attn_decode_mesh`` at decode.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -28,10 +37,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.common import (Dist, LMConfig, P, dense_init,
-                                       rms_norm, sharded_ce_loss)
-from repro_torch.models.transformer import (_attn, _embed, _ffn_dense,
-                                            _rope, _unembed, vocab_padded)
+from repro_torch.models.common import (NO_DIST, Dist, LMConfig, P,
+                                       dense_init, local_device, rms_norm,
+                                       sharded_ce_loss)
+from repro_torch.models.transformer import (_attn, _attn_decode_mesh,
+                                            _attn_mesh, _cache_layer, _embed,
+                                            _ffn_dense, _from_local, _rope,
+                                            _stack_layers, _unembed,
+                                            vocab_padded)
 
 SSD_CHUNK = 128
 
@@ -77,13 +90,15 @@ def _ssd_chunked(xbar, loga, Bm, Cm, state0=None, chunk: int = SSD_CHUNK):
 
 
 def _ssd_chunked_heads(xbar, loga, keys, queries, state0=None,
-                       chunk: int = SSD_CHUNK):
+                       chunk: int = SSD_CHUNK, qk=None):
     """Chunkwise SSD scan with per-head B and C (keys/queries (B, L, H,
     N)): quadratic inside each chunk of ``chunk`` steps, a recurrence over
     the chunks.  xbar (B, L, H, P), loga (B, L, H).  Returns (y (B, L, H,
     P), final state (B, H, N, P)).  The prompt is padded to whole chunks;
     a pad step has log decay 0 and zero input, so it carries the state
-    unchanged."""
+    unchanged.  ``qk`` is the chunks' (B, C, Q, S, H) query-key products
+    when the caller has them (:func:`chunk_qk`), else they are formed
+    here."""
     Bsz, L, H, Pd = xbar.shape
     N = keys.shape[-1]
     pad = (-L) % chunk
@@ -105,7 +120,8 @@ def _ssd_chunked_heads(xbar, loga, keys, queries, state0=None,
                                 device=xbar.device))
     dec = torch.exp(seg.masked_fill(~tri[None, None, :, :, None],
                                     float("-inf")))
-    qk = torch.einsum("bcqhn,bcshn->bcqsh", Qc, Kc)
+    if qk is None:
+        qk = torch.einsum("bcqhn,bcshn->bcqsh", Qc, Kc)
     y_intra = torch.einsum("bcqsh,bcshp->bcqhp", qk * dec, xb)
     # Chunk-local states: S_c = sum_s exp(total - cum[s]) k_s (x) xbar[s]
     w = torch.exp(total[:, :, None, :] - cum)                  # (B,C,Q,H)
@@ -125,16 +141,18 @@ def _ssd_chunked_heads(xbar, loga, keys, queries, state0=None,
     return y[:, :L], S
 
 
-def mamba_forward(cfg: LMConfig, p, x, state=None, conv_tail=None):
-    """One Mamba2 block.  x (B, L, d) -> (out, (ssm_state, conv_tail)).
-
-    With ``state`` (B, H, N, P) and L == 1, the recurrent step; otherwise
-    the chunked scan from ``state`` (zeros when None).  ``conv_tail`` (B,
-    K - 1, conv_ch) is the last K - 1 conv inputs before ``x``."""
-    Bsz, L, d = x.shape
+def _mamba_core(cfg: LMConfig, zxbcdt, conv_w, conv_b, A_log, Dw, dt_bias,
+                state=None, conv_tail=None, heads=None):
+    """A Mamba2 block between its two projections: ``zxbcdt`` (B, L,
+    2 din + 2N + H) the in_proj output, the conv and SSM weights as stored
+    (cast here as the reference casts them).  ``heads`` = (h0, hl) keeps
+    heads h0 .. h0 + hl - 1 only: their x and z columns, dt, decay, skip
+    and state, the conv over their x channels and all of B and C (a shard
+    of the mesh path); None keeps every head.  Returns (y (B, L, hl*P)
+    gated, final state (B, hl, N, P), the conv tail of every channel)."""
+    Bsz, L, _ = zxbcdt.shape
     din, H, N, conv_ch = _mamba_dims(cfg)
-    h = rms_norm(x, p["norm"].to(x.dtype), cfg.norm_eps)
-    zxbcdt = h @ p["in_proj"].to(h.dtype)
+    Pd = cfg.ssm_head_dim
     z, xin, Bm, Cm, dt = torch.split(zxbcdt, [din, din, N, N, H], dim=-1)
 
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)                 # (B,L,conv_ch)
@@ -143,20 +161,34 @@ def mamba_forward(cfg: LMConfig, p, x, state=None, conv_tail=None):
         ctx = torch.cat([conv_tail, conv_in], dim=1)
     else:
         ctx = F.pad(conv_in, (0, 0, K - 1, 0))
-    new_tail = ctx[:, -(K - 1):]
+    # A copy: a view would keep the whole padded context alive with the
+    # state (a prompt's (B, L + K - 1, conv_ch) in every layer).
+    new_tail = ctx[:, -(K - 1):].clone()
+    conv_w, conv_b = conv_w.to(zxbcdt.dtype), conv_b.to(zxbcdt.dtype)
+    A_log, Dw, dt_bias = A_log.float(), Dw.float(), dt_bias.float()
+    hl = H
+    if heads is not None and heads[1] < H:
+        h0, hl = heads
+        cols = slice(h0 * Pd, (h0 + hl) * Pd)
+        chans = torch.cat([torch.arange(cols.start, cols.stop),
+                           torch.arange(din, conv_ch)]).to(ctx.device)
+        ctx, conv_w, conv_b = ctx[..., chans], conv_w[:, chans], conv_b[chans]
+        z, dt = z[..., cols], dt[..., h0:h0 + hl]
+        A_log, Dw, dt_bias = (t[h0:h0 + hl] for t in (A_log, Dw, dt_bias))
+        if state is not None and state.shape[1] != hl:
+            state = state[:, h0:h0 + hl]
     # Depthwise causal conv: K shifted products summed in the reference's
     # order (Python's sum, from 0), then the bias.
-    conv_w = p["conv_w"].to(x.dtype)
     conv = ctx[:, 0:L] * conv_w[0][None, None]
     for k in range(1, K):
         conv = conv + ctx[:, k:k + L] * conv_w[k][None, None]
-    conv = F.silu(conv + p["conv_b"].to(x.dtype))
-    xin, Bm, Cm = torch.split(conv, [din, N, N], dim=-1)
+    conv = F.silu(conv + conv_b)
+    xin, Bm, Cm = torch.split(conv, [hl * Pd, N, N], dim=-1)
 
-    dt = F.softplus(dt.float() + p["dt_bias"].float())         # (B,L,H)
-    A = -torch.exp(p["A_log"].float())                         # (H,) < 0
+    dt = F.softplus(dt.float() + dt_bias)                      # (B,L,H)
+    A = -torch.exp(A_log)                                      # (H,) < 0
     loga = dt * A[None, None]                                  # (B,L,H)
-    xh = xin.reshape(Bsz, L, H, cfg.ssm_head_dim)
+    xh = xin.reshape(Bsz, L, hl, Pd)
     xbar = xh * dt[..., None].to(xh.dtype)
 
     if state is not None and L == 1:
@@ -169,10 +201,112 @@ def mamba_forward(cfg: LMConfig, p, x, state=None, conv_tail=None):
     else:
         y, S_final = _ssd_chunked(xbar.float(), loga, Bm.float(), Cm.float(),
                                   state0=state)
-    y = y + xh.float() * p["D"].float()[None, None, :, None]
-    y = y.reshape(Bsz, L, din).to(x.dtype)
-    y = y * F.silu(z)
+    y = y + xh.float() * Dw[None, None, :, None]
+    y = y.reshape(Bsz, L, hl * Pd).to(zxbcdt.dtype)
+    return y * F.silu(z), S_final, new_tail
+
+
+def chunk_qk(keys, queries, chunk: int = SSD_CHUNK):
+    """The query-key products :func:`_ssd_chunked_heads` forms inside each
+    chunk, (B, C, Q, S, H), from keys/queries (B, L, H, N): N may be a
+    part of the contraction, whose partial products then sum."""
+    Bsz, L, H, N = keys.shape
+    pad = (-L) % chunk
+    if pad:
+        keys, queries = (_pad_steps(t, pad) for t in (keys, queries))
+    C_ = keys.shape[1] // chunk
+    return torch.einsum("bcqhn,bcshn->bcqsh",
+                        queries.reshape(Bsz, C_, chunk, H, N),
+                        keys.reshape(Bsz, C_, chunk, H, N))
+
+
+def mamba_forward(cfg: LMConfig, p, x, state=None, conv_tail=None,
+                  dist: Dist = NO_DIST, site=None):
+    """One Mamba2 block.  x (B, L, d) -> (out, (ssm_state, conv_tail)).
+
+    With ``state`` (B, H, N, P) and L == 1, the recurrent step; otherwise
+    the chunked scan from ``state`` (zeros when None).  ``conv_tail`` (B,
+    K - 1, conv_ch) is the last K - 1 conv inputs before ``x``.  Under
+    ``dist.mesh``: :func:`_mamba_mesh` (``state``/``conv_tail`` then the
+    stacked caches and ``site`` the layer)."""
+    if dist.mesh is not None:
+        return _mamba_mesh(cfg, p, x, dist, state, conv_tail, site)
+    h = rms_norm(x, p["norm"].to(x.dtype), cfg.norm_eps)
+    zxbcdt = h @ p["in_proj"].to(h.dtype)
+    y, S_final, new_tail = _mamba_core(
+        cfg, zxbcdt, p["conv_w"], p["conv_b"], p["A_log"], p["D"],
+        p["dt_bias"], state, conv_tail)
     return x + y @ p["out_proj"].to(x.dtype), (S_final, new_tail)
+
+
+_SMALL = ("conv_w", "conv_b", "A_log", "D", "dt_bias")
+
+
+def _mamba_local(cfg: LMConfig, heads, layer, zx, conv_w, conv_b, A_log, Dw,
+                 dt_bias, state=None, tails=None):
+    """One shard's :func:`_mamba_core`.  With the stacked caches (``state``
+    this shard's (n, B, hl, N, P), ``tails`` (n, B, K - 1, conv_ch) whole
+    on ``model``), layer ``layer``'s state and tail are read and the new
+    ones written IN PLACE."""
+    if state is None:
+        return _mamba_core(cfg, zx, conv_w, conv_b, A_log, Dw, dt_bias,
+                           heads=heads)
+    y, S, tail = _mamba_core(cfg, zx, conv_w, conv_b, A_log, Dw, dt_bias,
+                             state[layer], tails[layer], heads)
+    state[layer] = S
+    tails[layer] = tail
+    return y
+
+
+def _mamba_mesh(cfg: LMConfig, p, x, dist: Dist, state=None, tails=None,
+                layer=None):
+    """A Mamba2 block under a mesh, the reference's two constraints
+    (``ssm.py:117``, ``:158``): in_proj TP over ``model`` (its output split
+    by columns), then gathered whole, and each shard runs its heads
+    (``model`` divides H; else every head) through :func:`_mamba_core` in
+    ``local_map``: its x and z columns, all of B and C, its state; y split
+    by heads over ``model`` into out_proj, whose rows are split the same
+    way, and the partial sums reduced.  Without caches returns (out,
+    (state, tail)) as DTensors: the state split by heads as
+    ``cache_specs`` lays it, the tail whole on ``model``.  With the
+    stacked caches (decode) they are updated in place and (out, None)
+    returned."""
+    from torch.distributed.tensor import Partial, Replicate
+    m, b = dist.model_axis, dist.batch
+    din, H, N, conv_ch = _mamba_dims(cfg)
+    msize = dist.size(m)
+    split = H % msize == 0 and msize > 1
+    heads = (dist.rank(m) * (H // msize), H // msize) if split else None
+    h = rms_norm(x, p["norm"].to(x.dtype), cfg.norm_eps)
+    zx = h @ dist.gathered(p["in_proj"]).to(h.dtype)
+    zx = dist.wsc(dist.wsc(zx, b, None, m), b, None, None)
+    rep = [Replicate()] * dist.mesh.ndim
+    small = [dist.gathered(p[k]).redistribute(dist.mesh, rep)
+             for k in _SMALL]
+    zx_pl = dist.placements(b, None, None)
+    y_pl = dist.placements(b, None, m if split else None)
+    # What a shard uses a part of gets a partial gradient over the axes
+    # whose shards use different parts.
+    zx_grad = dist.swap(zx_pl, (m,), Partial()) if split else zx_pl
+    small_grad = dist.batch_partial(rep)
+    if split:
+        small_grad = dist.swap(small_grad, (m,), Partial())
+    fn = functools.partial(_mamba_local, cfg, heads, layer)
+    if state is None:
+        s_pl = dist.placements(b, m if split else None, None, None)
+        y, S, tail = dist.local_map(
+            fn, out=(y_pl, s_pl, zx_pl), ins=[zx_pl] + [rep] * 5,
+            grads=[zx_grad] + [small_grad] * 5)(zx, *small)
+        kept = (S, tail)
+    else:
+        y = dist.local_map(
+            fn, out=y_pl, ins=[zx_pl] + [rep] * 5
+            + [list(state.placements), list(tails.placements)])(
+                zx, *small, state, tails)
+        kept = None
+    y = dist.wsc(y, b, None, m)
+    out = y @ dist.gathered(p["out_proj"]).to(x.dtype)
+    return x + dist.wsc(out, b, None, None), kept
 
 
 # --------------------------------------------------------------- zamba2 stack
@@ -251,12 +385,24 @@ def param_specs(cfg: LMConfig, dist: Dist) -> Dict:
 
 
 def _shared_block(cfg: LMConfig, sp, x, x0, cos, sin, cache=None,
-                  cache_at=None, kv_len=None):
+                  cache_at=None, kv_len=None, dist: Dist = NO_DIST):
     """Zamba2's shared attention + MLP on concat(hidden, embedding).  With
-    ``cache`` the site's KV cache is written in place (``transformer._attn``)."""
-    h = torch.cat([x, x0], dim=-1) @ sp["concat_proj"].to(x.dtype)
-    h, kv = _attn(cfg, sp, h, cos, sin, cache, cache_at, kv_len)
-    h = _ffn_dense(cfg, sp, h)
+    ``cache`` the site's KV cache is written in place (``transformer._attn``).
+    Under ``dist.mesh`` the attention is ``transformer._attn_mesh``, or in
+    decode (``cache`` = (stacked k, stacked v, site), ``cache_at`` the
+    positions) ``transformer._attn_decode_mesh``."""
+    h = torch.cat([x, x0], dim=-1) @ dist.gathered(
+        sp["concat_proj"]).to(x.dtype)
+    if dist.mesh is None:
+        h, kv = _attn(cfg, sp, h, cos, sin, cache, cache_at, kv_len)
+    else:
+        h = dist.wsc(h, dist.batch, None, None)
+        if cache is None:
+            h, kv = _attn_mesh(cfg, sp, h, cos, sin, dist)
+        else:
+            h, kv = _attn_decode_mesh(cfg, sp, h, *cache, cache_at,
+                                      dist), None
+    h = _ffn_dense(cfg, sp, h, dist)
     return x + h, kv
 
 
@@ -278,29 +424,32 @@ def _has_site(cfg: LMConfig, params, i: int) -> bool:
     return "shared" in params and (i + 1) % cfg.attn_every == 0
 
 
-def _mamba_out(cfg, p, x):
-    return mamba_forward(cfg, p, x)[0]
+def _mamba_out(cfg, p, x, dist=NO_DIST):
+    return mamba_forward(cfg, p, x, dist=dist)[0]
 
 
-def forward(cfg: LMConfig, params, batch: Dict):
+def forward(cfg: LMConfig, params, batch: Dict, dist: Dist = NO_DIST):
     """Teacher-forced logits (B, L, vocab_padded) and aux 0.0.  With
-    ``cfg.remat`` and grad on, each Mamba layer is checkpointed."""
-    x = _embed(cfg, params, batch["tokens"])
+    ``cfg.remat`` and grad on, each Mamba layer is checkpointed.  Under
+    ``dist.mesh`` params and batch are DTensors laid out by
+    :func:`param_specs` and ``launch.sharding``."""
+    x = _embed(cfg, params, batch["tokens"], dist)
     x0 = x
     L = x.shape[1]
-    cos, sin = _rope(cfg, torch.arange(L, device=x.device)[None, :])
+    cos, sin = _rope(cfg, torch.arange(L, device=local_device(x))[None, :])
     remat = cfg.remat and torch.is_grad_enabled()
     for i, p in enumerate(_layers(params, cfg.n_layers)):
-        x = (checkpoint(_mamba_out, cfg, p, x, use_reentrant=False) if remat
-             else _mamba_out(cfg, p, x))
+        x = (checkpoint(_mamba_out, cfg, p, x, dist, use_reentrant=False)
+             if remat else _mamba_out(cfg, p, x, dist))
         if _has_site(cfg, params, i):
-            x = _shared_block(cfg, params["shared"], x, x0, cos, sin)[0]
+            x = _shared_block(cfg, params["shared"], x, x0, cos, sin,
+                              dist=dist)[0]
     x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
-    return _unembed(cfg, params, x), 0.0
+    return _unembed(cfg, params, x, dist), 0.0
 
 
-def loss_fn(cfg: LMConfig, params, batch: Dict):
-    logits, _ = forward(cfg, params, batch)
+def loss_fn(cfg: LMConfig, params, batch: Dict, dist: Dist = NO_DIST):
+    logits, _ = forward(cfg, params, batch, dist)
     return sharded_ce_loss(logits, batch["labels"].long())
 
 
@@ -324,10 +473,13 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     return cache
 
 
-def decode_step(cfg: LMConfig, params, tokens, cache):
+def decode_step(cfg: LMConfig, params, tokens, cache, dist: Dist = NO_DIST):
     """tokens (B, 1) against the recurrent state and the shared block's KV
     caches -> (logits (B, 1, V), cache').  The cache's tensors are updated
-    in place; the returned cache holds them and ``len + 1``."""
+    in place; the returned cache holds them and ``len + 1``.  Under
+    ``dist.mesh``: :func:`_decode_mesh`."""
+    if dist.mesh is not None:
+        return _decode_mesh(cfg, params, tokens, cache, dist)
     x = _embed(cfg, params, tokens)
     x0 = x
     cur = cache["len"]                         # per-row offsets (ragged slots)
@@ -348,10 +500,39 @@ def decode_step(cfg: LMConfig, params, tokens, cache):
     return _unembed(cfg, params, x), {**cache, "len": cur + 1}
 
 
-def prefill(cfg: LMConfig, params, batch: Dict, max_len: int):
+def _decode_mesh(cfg: LMConfig, params, tokens, cache, dist: Dist):
+    """:func:`decode_step` under a mesh: the SSM state (split by heads) and
+    the shared block's KV caches updated in place shard by shard, the conv
+    tails through a copy whole on ``model`` (``cache_specs`` splits them by
+    channels, and a shard reads all of B's and C's), written back."""
+    x = _embed(cfg, params, tokens, dist)
+    x0 = x
+    cur = dist.wsc(cache["len"], dist.batch)
+    conv = cache["conv"]
+    tails = dist.wsc(conv, None, dist.batch, None, None)
+    site = 0
+    for i, p in enumerate(_layers(params, cfg.n_layers)):
+        x, _ = mamba_forward(cfg, p, x, cache["ssm"], tails, dist, i)
+        if _has_site(cfg, params, i):
+            x, _ = _shared_block(cfg, params["shared"], x, x0, None, None,
+                                 cache=(cache["k"], cache["v"], site),
+                                 cache_at=cur, dist=dist)
+            site += 1
+    conv.to_local().copy_(tails.redistribute(
+        dist.mesh, list(conv.placements)).to_local())
+    x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
+    return _unembed(cfg, params, x, dist), {**cache,
+                                            "len": cache["len"] + 1}
+
+
+def prefill(cfg: LMConfig, params, batch: Dict, max_len: int,
+            dist: Dist = NO_DIST):
     """The prompt at its exact length through the chunked scan -> (logits
     of its last position, decode-ready cache).  There is no ``lengths``:
-    a pad token would pass through the recurrent state."""
+    a pad token would pass through the recurrent state.  Under
+    ``dist.mesh``: :func:`_prefill_mesh`."""
+    if dist.mesh is not None:
+        return _prefill_mesh(cfg, params, batch, max_len, dist)
     tokens = batch["tokens"]
     x = _embed(cfg, params, tokens)
     x0 = x
@@ -372,3 +553,41 @@ def prefill(cfg: LMConfig, params, batch: Dict, max_len: int):
     x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
     cache["len"].fill_(L)
     return _unembed(cfg, params, x[:, -1:]), cache
+
+
+def _prefill_mesh(cfg: LMConfig, params, batch: Dict, max_len: int,
+                  dist: Dist):
+    """:func:`prefill` under a mesh: every cache key laid out by
+    ``launch.sharding.cache_specs`` for this batch and ``max_len``,
+    ``len`` replicated."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.launch.sharding import cache_specs
+    from repro_torch.models.common import ShapeCfg
+    x = _embed(cfg, params, batch["tokens"], dist)
+    x0 = x
+    B, L, _ = x.shape
+    max_len = max(max_len, L)
+    dev = local_device(x)
+    cos, sin = _rope(cfg, torch.arange(L, device=dev)[None, :])
+    specs = cache_specs(cfg, ShapeCfg("prefill", max_len, B, "prefill"),
+                        dist)
+    Ss, tails, ks, vs = [], [], [], []
+    for i, p in enumerate(_layers(params, cfg.n_layers)):
+        x, (S, tail) = mamba_forward(cfg, p, x, dist=dist)
+        Ss.append(S)
+        tails.append(tail)
+        if _has_site(cfg, params, i):
+            x, (k, v) = _shared_block(cfg, params["shared"], x, x0, cos, sin,
+                                      dist=dist)
+            ks.append(_cache_layer(k, max_len, specs["k"][1:], dist))
+            vs.append(_cache_layer(v, max_len, specs["v"][1:], dist))
+    cache = {"ssm": _stack_layers(dist, Ss, specs["ssm"]),
+             "conv": _stack_layers(dist, tails, specs["conv"]),
+             "len": _from_local(dist, torch.full((B,), L, dtype=torch.int32,
+                                                 device=dev), (B,),
+                                [Replicate()] * dist.mesh.ndim)}
+    if ks:
+        cache["k"] = _stack_layers(dist, ks, specs["k"])
+        cache["v"] = _stack_layers(dist, vs, specs["v"])
+    x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
+    return _unembed(cfg, params, x[:, -1:], dist), cache

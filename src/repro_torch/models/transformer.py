@@ -40,12 +40,17 @@ by :func:`param_specs` and ``launch.sharding``: the projections TP over
 gate/up weight relaid per shard), weights gathered over the other axes
 where used (ZeRO-3), K2 per shard through ``Dist.local_map``, the MoE
 layer expert parallel with its capacity (``moe``), the prefill's cache
-laid out by ``launch.sharding.cache_specs``.  ``decode_step`` takes no
-mesh yet (ROADMAP.md slice 16).
+laid out by ``launch.sharding.cache_specs``.  ``decode_step`` under a
+mesh writes the new token into the cache shard that holds its position;
+where the cache is split by sequence, each shard runs K2's decode with
+stats over its slice and the slices are merged in order
+(:func:`_attn_decode_mesh`).  Heads that do not divide ``model`` are cut
+into head groups (:func:`_attn_layout`).
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -286,7 +291,9 @@ def write_cache_rows(ck, cv, cache_at, k, v) -> None:
     A column at or past S is dropped, as the reference's functional
     ``.at[rows, cols].set`` drops it: an idle serving slot's ``len`` counts
     up every tick and passes the cache, and its write must neither fault
-    nor land anywhere.  The drop stays on the device (no host read, so a
+    nor land anywhere.  A negative column is dropped too: under a mesh a
+    shard holding a later slice of the positions is given offsets
+    relative to its slice.  The drop stays on the device (no host read, so a
     decode step can be captured in a CUDA graph): the column is clamped to
     S - 1 and the value already there is written back.  Callers write one
     token a row (decode, L = 1), so a clamped column is its own row's and
@@ -295,8 +302,8 @@ def write_cache_rows(ck, cv, cache_at, k, v) -> None:
     S = ck.shape[1]
     rows = torch.arange(B, device=k.device)[:, None]
     cols = cache_at.long()[:, None] + torch.arange(L, device=k.device)
-    keep = (cols < S)[:, :, None, None]
-    cols = cols.clamp(max=S - 1)
+    keep = ((cols >= 0) & (cols < S))[:, :, None, None]
+    cols = cols.clamp(0, S - 1)
     for cache, new in ((ck, k), (cv, v)):
         cache[rows, cols] = torch.where(keep, new.to(cache.dtype),
                                         cache[rows, cols])
@@ -345,17 +352,23 @@ def _attn(cfg: LMConfig, p, x, cos, sin, cache=None, cache_at=None,
     return x + out @ p["wo"].to(out.dtype), (knew, vnew)
 
 
-def _attn_local(cfg: LMConfig, cos, sin, kv_from, q, k, v):
-    """One shard's causal attention over its q heads: q (B, L, Hl*hd),
-    k/v (B, L, Hk*hd) -> (out (B, L, Hl*hd), k, v roped, (B, L, Hk, hd)).
-    ``kv_from`` is None when k/v hold exactly the KV heads of these q
-    heads; else the first q head's global index, and k/v hold every KV
-    head, of which the shard attends those its q heads read."""
+def _attn_local(cfg: LMConfig, cos, sin, kv_from, sel, q, k, v):
+    """One shard's causal attention over its q heads: q (B, L, Hq*hd),
+    k/v (B, L, Hk*hd) -> (out (B, L, Hl*hd) or its columns ``sel[2]``, k,
+    v roped, (B, L, Hk, hd)).  ``kv_from`` is None when k/v hold exactly
+    the KV heads of these q heads; else the first q head's global index,
+    and k/v hold every KV head, of which the shard attends those its q
+    heads read.  ``sel`` is None when q holds this shard's heads, else
+    (heads, cols): q holds every head, the shard attends ``heads`` (a
+    slice) and keeps the output columns ``cols`` (a slice)."""
     B, L, _ = q.shape
     hd = cfg.hd
-    Hl, Hk = q.shape[-1] // hd, k.shape[-1] // hd
-    q = apply_rope(q.reshape(B, L, Hl, hd), cos[:, :, None, :],
-                   sin[:, :, None, :])
+    Hq, Hk = q.shape[-1] // hd, k.shape[-1] // hd
+    q = q.reshape(B, L, Hq, hd)
+    if sel is not None:
+        q = q[:, :, sel[0]]
+    Hl = q.shape[2]
+    q = apply_rope(q, cos[:, :, None, :], sin[:, :, None, :])
     k = apply_rope(k.reshape(B, L, Hk, hd), cos[:, :, None, :],
                    sin[:, :, None, :])
     v = v.reshape(B, L, Hk, hd)
@@ -369,7 +382,10 @@ def _attn_local(cfg: LMConfig, cos, sin, kv_from, q, k, v):
                 f"{hi - lo} KV heads evenly")
         ka, va = k[:, :, lo:hi], v[:, :, lo:hi]
     out = attention_any(q, ka, va, causal=True, chunk=cfg.attn_chunk)
-    return out.reshape(B, L, Hl * hd), k, v
+    out = out.reshape(B, L, Hl * hd)
+    if sel is not None:
+        out = out[..., sel[1]]
+    return out, k, v
 
 
 def _attn_mesh(cfg: LMConfig, p, x, cos, sin, dist: Dist):
@@ -379,52 +395,67 @@ def _attn_mesh(cfg: LMConfig, p, x, cos, sin, dist: Dist):
     ``n_heads`` and whole KV heads when it also divides ``n_kv_heads``.
     Where the KV heads do not divide (llama3.2-1b's 8 on 16), k and v are
     all-gathered over ``model`` and each shard attends its q heads' KV
-    group; where the q heads do not divide either (qwen2.5-32b's 40 on 16),
-    every shard attends all heads and keeps its columns.  Either is the
-    function GSPMD computes.  Returns (x', (k, v)) with k, v (B, L, Hkv,
-    hd) roped, placed as ``_attn_layout`` says."""
+    group.  Where the q heads do not divide either (qwen2.5-32b's 40 on
+    16), q, k and v are all-gathered, the heads are cut into G = gcd(heads,
+    model) groups (8 of 5 heads), each group attended by model / G shards
+    (2), and each shard keeps the output columns ``wo``'s rows expect of
+    it, which lie in its group: GSPMD's layout of the reference's program,
+    a device's attention 1/G of the whole.  Returns (x', (k, v)) with k, v
+    (B, L, Hkv, hd) roped, placed as ``_attn_layout`` says."""
+    from torch.distributed.tensor import Partial
     m, b = dist.model_axis, dist.batch
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = h @ dist.gathered(p["wq"]).to(h.dtype)
-    k = h @ dist.gathered(p["wk"]).to(h.dtype)
-    v = h @ dist.gathered(p["wv"]).to(h.dtype)
-    if cfg.qkv_bias:
-        q = q + dist.gathered(p["bq"]).to(h.dtype)
-        k = k + dist.gathered(p["bk"]).to(h.dtype)
-        v = v + dist.gathered(p["bv"]).to(h.dtype)
+    q, k, v = _qkv_mesh(cfg, p, x, dist)
     q = dist.wsc(q, b, None, m)
-    q_axis, kv_axis, kv_from = _attn_layout(cfg, dist)
+    q_axis, kv_axis, kv_from, sel = _attn_layout(cfg, dist)
     q = dist.wsc(q, b, None, q_axis)
     k = dist.wsc(k, b, None, kv_axis)
     v = dist.wsc(v, b, None, kv_axis)
     q_pl = dist.placements(b, None, q_axis)
     kv_pl = dist.placements(b, None, kv_axis)
-    # A gathered k/v of which each shard reads a part: partial gradients.
-    kv_grad = kv_pl
-    if kv_from is not None:
-        from torch.distributed.tensor import Partial
-        kv_grad = dist.swap(kv_pl, (m,), Partial())
-    fn = functools.partial(_attn_local, cfg, cos, sin, kv_from)
+    out_pl = dist.placements(b, None, m if sel is not None else q_axis)
+    # An input of which each shard reads a part: partial gradients.
+    part = dist.swap(kv_pl, (m,), Partial())
+    q_grad = part if sel is not None else q_pl
+    kv_grad = part if kv_from is not None else kv_pl
+    fn = functools.partial(_attn_local, cfg, cos, sin, kv_from, sel)
     out, k, v = dist.local_map(
-        fn, out=(q_pl, kv_pl, kv_pl), ins=(q_pl, kv_pl, kv_pl),
-        grads=(q_pl, kv_grad, kv_grad))(q, k, v)
+        fn, out=(out_pl, kv_pl, kv_pl), ins=(q_pl, kv_pl, kv_pl),
+        grads=(q_grad, kv_grad, kv_grad))(q, k, v)
     out = dist.wsc(out, b, None, m)
     y = out @ dist.gathered(p["wo"]).to(out.dtype)
     return x + dist.wsc(y, b, None, None), (k, v)
 
 
+def _qkv_mesh(cfg: LMConfig, p, x, dist: Dist):
+    """The attention block's normed input through the q, k and v
+    projections (and biases), each weight gathered but over ``model``."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    out = [h @ dist.gathered(p[w]).to(h.dtype) for w in ("wq", "wk", "wv")]
+    if cfg.qkv_bias:
+        out = [t + dist.gathered(p[bias]).to(h.dtype)
+               for t, bias in zip(out, ("bq", "bk", "bv"))]
+    return out
+
+
 def _attn_layout(cfg: LMConfig, dist: Dist):
-    """(q's model axis, k/v's model axis, kv_from) for :func:`_attn_mesh`:
-    each None where that tensor is whole on ``model``; ``kv_from`` is the
-    index of this shard's first q head when k/v are gathered under sharded
-    q heads, else None."""
+    """(q's model axis, k/v's model axis, kv_from, sel) for
+    :func:`_attn_mesh`: each axis None where that tensor is whole on
+    ``model``; ``kv_from`` is the index of this shard's first q head when
+    k/v are gathered, else None; ``sel`` is None, or (heads, cols) when q
+    is whole and the shard attends one head group (:func:`_attn_local`)."""
     m = dist.model_axis
     msize = dist.size(m)
     if cfg.n_heads % msize:
-        return None, None, None
+        groups = math.gcd(cfg.n_heads, msize)
+        per, share = cfg.n_heads // groups, msize // groups
+        r = dist.rank(m)
+        lo = (r // share) * per
+        w = cfg.n_heads * cfg.hd // msize          # wo's rows on a shard
+        c0 = (r % share) * w
+        return None, None, lo, (slice(lo, lo + per), slice(c0, c0 + w))
     if cfg.n_kv_heads % msize:
-        return m, None, dist.rank(m) * (cfg.n_heads // msize)
-    return m, m, None
+        return m, None, dist.rank(m) * (cfg.n_heads // msize), None
+    return m, m, None, None
 
 
 def _gate_up_local(q: int, s: int, w):
@@ -636,6 +667,16 @@ def _from_local(dist: Dist, local, shape, pls):
                               shape=torch.Size(shape), stride=tuple(stride))
 
 
+def _stack_layers(dist: Dist, parts, spec):
+    """Per-layer DTensors ``parts`` (one layout) stacked on a new leading
+    axis and laid out by ``spec`` (its first entry None)."""
+    pls = [type(pl)(pl.dim + 1) if pl.is_shard() else pl
+           for pl in parts[0].placements]
+    stack = _from_local(dist, torch.stack([t.to_local() for t in parts]),
+                        (len(parts),) + tuple(parts[0].shape), pls)
+    return dist.wsc(stack, *spec)
+
+
 def _cache_layer(k, max_len: int, spec, dist: Dist):
     """One layer's (B, L, Hkv, hd) keys padded to ``max_len`` positions and
     laid out by ``spec``."""
@@ -672,10 +713,7 @@ def _prefill_mesh(cfg: LMConfig, params, batch: Dict, max_len: int,
         x, (k_l, v_l), _ = _one_layer(cfg, p, x, cos, sin, moe, dist=dist)
         ks.append(_cache_layer(k_l, max_len, spec[1:], dist))
         vs.append(_cache_layer(v_l, max_len, spec[1:], dist))
-    shape = (len(ks), B, max_len, cfg.n_kv_heads, cfg.hd)
-    pls = dist.placements(*spec)
-    k = _from_local(dist, torch.stack([t.to_local() for t in ks]), shape, pls)
-    v = _from_local(dist, torch.stack([t.to_local() for t in vs]), shape, pls)
+    k, v = _stack_layers(dist, ks, spec), _stack_layers(dist, vs, spec)
     x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
     rep = [Replicate()] * dist.mesh.ndim
     lengths = batch.get("lengths")
@@ -735,13 +773,16 @@ def prefill(cfg: LMConfig, params, batch: Dict, max_len: int,
     return logits, {"k": k, "v": v, "len": cache_len}
 
 
-def decode_step(cfg: LMConfig, params, tokens, cache):
+def decode_step(cfg: LMConfig, params, tokens, cache, dist: Dist = NO_DIST):
     """One token per sequence: tokens (B, 1) -> (logits (B, 1, V), cache').
 
     ``cache["k"]``/``cache["v"]`` are updated in place (the new token's
     keys and values at each row's ``len``); the returned cache holds the
-    same tensors and ``len + 1``."""
+    same tensors and ``len + 1``.  Under ``dist.mesh``:
+    :func:`_decode_mesh`."""
     check_family(cfg.name, cfg.family)
+    if dist.mesh is not None:
+        return _decode_mesh(cfg, params, tokens, cache, dist)
     x = _embed(cfg, params, tokens)
     cur = cache["len"]
     cos, sin = _rope(cfg, cur[:, None])
@@ -753,3 +794,138 @@ def decode_step(cfg: LMConfig, params, tokens, cache):
     x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
     logits = _unembed(cfg, params, x)
     return logits, {"k": cache["k"], "v": cache["v"], "len": cur + 1}
+
+
+# ------------------------------------------------------- decode under a mesh
+def cache_layout(cache_k, dist: Dist):
+    """(seq axes, head axis) of a stacked KV cache (n, B, S, Hkv, hd)
+    DTensor: the mesh axes that split its positions, in mesh order, and
+    ``model`` when it splits its KV heads (else None)."""
+    from torch.distributed.tensor import Shard
+    seq, head = [], None
+    for name, pl in zip(dist.mesh.mesh_dim_names, cache_k.placements):
+        if isinstance(pl, Shard) and pl.dim == 2:
+            seq.append(name)
+        elif isinstance(pl, Shard) and pl.dim == 3:
+            head = name
+    return tuple(seq), head
+
+
+def _seq_index(dist: Dist, axes) -> int:
+    """This shard's index among the slices of a dimension split over
+    ``axes`` (mesh order, major first): a cache's positions, a batch."""
+    idx = 0
+    for a in axes:
+        idx = idx * dist.size(a) + dist.rank(a)
+    return idx
+
+
+def _decode_local(cfg: LMConfig, layer: int, offset: int, split: bool,
+                  q, k, v, cur, ck, cv):
+    """One shard's decode attention: q (B, 1, Hl*hd), k/v (B, 1, Hk*hd) of
+    the new token, ``cur`` (B,) its position, ``ck``/``cv`` this shard's
+    stacked cache (n, B, S_loc, Hk, hd), which holds positions ``offset``
+    .. ``offset + S_loc - 1``.  The new keys and values are written IN
+    PLACE into layer ``layer`` where their position falls in this slice
+    (:func:`write_cache_rows`); attention runs over the slice masked to
+    ``cur + 1``.  Without ``split`` (the slice is the whole cache) it
+    returns the output (B, 1, Hl*hd); with it, K2's decode with stats:
+    (out fp32, M, L) with a leading slice axis of 1, (1, B, Hl, 1, hd) and
+    (1, B, Hl, 1)."""
+    B = q.shape[0]
+    hd = cfg.hd
+    cos, sin = _rope(cfg, cur[:, None])
+    q = apply_rope(q.reshape(B, 1, -1, hd), cos[:, :, None, :],
+                   sin[:, :, None, :])
+    k = apply_rope(k.reshape(B, 1, -1, hd), cos[:, :, None, :],
+                   sin[:, :, None, :])
+    v = v.reshape(B, 1, -1, hd)
+    ck, cv = ck[layer], cv[layer]
+    S = ck.shape[1]
+    write_cache_rows(ck, cv, cur - offset, k, v)
+    kv_len = torch.clamp(cur + 1 - offset, 0, S).to(torch.int32)
+    if not split:
+        out = attention_any(q, ck.to(q.dtype), cv.to(q.dtype), causal=False,
+                            chunk=S, kv_len=kv_len)
+        return out.reshape(B, 1, -1)
+    from repro_torch.kernels.flash_attention import flash_attention
+    o, M, L = flash_attention(q.transpose(1, 2), ck.to(q.dtype).transpose(1, 2),
+                              cv.to(q.dtype).transpose(1, 2), kv_len,
+                              causal=False, return_stats=True)
+    return o[None], M[None], L[None]
+
+
+def _combine_local(dtype, o, M, L):
+    """Merge the gathered slices (n, B, H, 1, hd) in slice order
+    (``flash_attention.combine_decode_partials``) -> (B, 1, H*hd)."""
+    from repro_torch.kernels.flash_attention import combine_decode_partials
+    out = combine_decode_partials(o.unbind(0), M.unbind(0), L.unbind(0))
+    B, H, _, hd = out.shape
+    return out.transpose(1, 2).reshape(B, 1, H * hd).to(dtype)
+
+
+def _attn_decode_mesh(cfg: LMConfig, p, x, cache_k, cache_v, layer: int,
+                      cur, dist: Dist):
+    """The attention block of one decode step under a mesh, against the
+    stacked cache laid out by ``launch.sharding.cache_specs``.  Where the
+    cache splits the KV heads over ``model``, each shard attends its heads
+    over its cache.  Where it splits the positions (over ``model`` when
+    the KV heads do not divide it, over ``data`` too when the batch does
+    not), q, k and v are whole on those axes; each shard writes the new
+    token into the slice that holds its position, runs K2's decode with
+    stats over its slice, and the (out, M, L) of every slice are
+    all-gathered and merged in slice order, so every shard holds the same
+    bits.  ``cur`` is the positions, placed by the batch."""
+    from torch.distributed.tensor import Replicate, Shard
+    m, b = dist.model_axis, dist.batch
+    seq, head = cache_layout(cache_k, dist)
+    q, k, v = _qkv_mesh(cfg, p, x, dist)
+    q = dist.wsc(q, b, None, head)
+    k = dist.wsc(k, b, None, head)
+    v = dist.wsc(v, b, None, head)
+    pl = dist.placements(b, None, head)
+    c_pl = list(cache_k.placements)
+    cur_pl = dist.placements(b)
+    slices = math.prod(dist.size(a) for a in seq)
+    split = slices > 1
+    offset = _seq_index(dist, seq) * (cache_k.shape[2] // slices)
+    fn = functools.partial(_decode_local, cfg, layer, offset, split)
+    ins = (pl, pl, pl, cur_pl, c_pl, c_pl)
+    if not split:
+        out = dist.local_map(fn, out=pl, ins=ins)(q, k, v, cur, cache_k,
+                                                  cache_v)
+    else:
+        # (slice, batch, head, ...): the slice axis split over the
+        # sequence axes, then gathered whole.
+        names = dist.mesh.mesh_dim_names
+        stat = [Shard(0) if a in seq else Shard(1) if a in dist.batch_axes
+                else Shard(2) if a == head else Replicate() for a in names]
+        o, M, L = dist.local_map(fn, out=(stat, stat, stat), ins=ins)(
+            q, k, v, cur, cache_k, cache_v)
+        whole = [Replicate() if a in seq else pl_
+                 for a, pl_ in zip(names, stat)]
+        o, M, L = (t.redistribute(dist.mesh, whole) for t in (o, M, L))
+        out = dist.local_map(functools.partial(_combine_local, q.dtype),
+                             out=pl, ins=(whole, whole, whole))(o, M, L)
+    out = dist.wsc(out, b, None, m)
+    y = out @ dist.gathered(p["wo"]).to(out.dtype)
+    return x + dist.wsc(y, b, None, None)
+
+
+def _decode_mesh(cfg: LMConfig, params, tokens, cache, dist: Dist):
+    """:func:`decode_step` under a mesh: tokens placed by the batch, the
+    cache laid out by ``launch.sharding.cache_specs`` (its k and v written
+    in place, shard by shard), ``len`` replicated."""
+    x = _embed(cfg, params, tokens, dist)
+    cur = dist.wsc(cache["len"], dist.batch)
+    for i, (p, moe) in enumerate(_layers(cfg, params)):
+        x = _attn_decode_mesh(cfg, p, x, cache["k"], cache["v"], i, cur,
+                              dist)
+        if moe:
+            x, _ = _ffn_moe(cfg, p, x, dist)
+        else:
+            x = _ffn_dense(cfg, p, x, dist)
+    x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
+    logits = _unembed(cfg, params, x, dist)
+    return logits, {"k": cache["k"], "v": cache["v"],
+                    "len": cache["len"] + 1}

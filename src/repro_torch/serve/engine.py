@@ -24,6 +24,17 @@ first prefill (enc-dec is served through ``models.prefill``/
 ``trace_counts`` counted ``jax.jit`` traces, which eager PyTorch has none
 of; it returns as a capture counter with CUDA graphs.
 
+Under a mesh (``dist``, the reference's argument) the engine serves
+through the zoo's meshed ``prefill`` and ``decode_step``: the weights laid
+out by ``param_specs`` (whole tensors are laid out, DTensors taken as they
+are), the batch cache by ``launch.sharding.cache_specs`` for ``slots``
+rows at ``max_len``, the slot's tokens placed by the batch.  A request's
+one-row prefill runs with the batch replicated (one row does not split
+over the batch axes); its cache is redistributed to the batch cache's
+layout but for the batch dimension, and each process splices the slot's
+row into its own shard when the slot lies in it.  ``len`` is replicated
+and set on every process.
+
 The engine runs on weights cast once to ``cfg.dtype``
 (``transformer.cast_params``: the values of the reference's per-use casts;
 the leaves the reference reads in fp32, and weights already in
@@ -43,8 +54,8 @@ import torch
 
 from repro_torch import models as zoo
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.common import LMConfig
-from repro_torch.models.transformer import cast_params
+from repro_torch.models.common import NO_DIST, Dist, LMConfig, P, ShapeCfg
+from repro_torch.models.transformer import _seq_index, cast_params
 
 
 @dataclasses.dataclass
@@ -66,11 +77,12 @@ class EngineStats:
 
 
 class ServeEngine:
-    """Continuous batching for every decoder-only family on one device.
-    ``params`` lie on ``device``."""
+    """Continuous batching for every decoder-only family on one device,
+    or under ``dist``'s mesh.  ``params`` lie on ``device``."""
 
     def __init__(self, cfg: LMConfig, params, slots: int = 4,
-                 max_len: int = 256, device: DeviceLike = "cuda"):
+                 max_len: int = 256, device: DeviceLike = "cuda",
+                 dist: Dist = NO_DIST):
         zoo.family_module(cfg)                  # raises for unknown families
         if cfg.family == "encdec":
             raise ValueError(
@@ -78,11 +90,22 @@ class ServeEngine:
                 "enc-dec prefill needs batch['frames'], which a Request "
                 "does not carry (use models.prefill/decode_step)")
         self.device = resolve_device(device)
-        self.cfg = cfg
-        self.params = cast_params(cfg, params)
+        self.cfg, self.dist = cfg, dist
         self.slots = slots
         self.max_len = max_len
         self.cache = zoo.init_cache(cfg, slots, max_len, device=self.device)
+        if dist.mesh is not None:
+            from repro_torch.launch.sharding import cache_specs
+            params = _laid_out(params, zoo.param_specs(cfg, dist), dist.mesh)
+            specs = cache_specs(cfg, ShapeCfg("serve", max_len, slots,
+                                              "decode"), dist)
+            self.cache = {k: _laid_out(t, specs[k], dist.mesh)
+                          for k, t in self.cache.items()}
+            # A one-row prefill: the batch replicated.
+            self._prefill_dist = Dist(
+                dist.mesh, batch_axes=(), model_axis=dist.model_axis,
+                data_axis=dist.data_axis, fsdp_axes=dist.fsdp_axes)
+        self.params = cast_params(cfg, params)
         # Only the KV-cache families take bucketed prompts (module docstring).
         self._bucketed = cfg.family in ("dense", "moe")
         self.live: List[Optional[Request]] = [None] * slots
@@ -117,8 +140,15 @@ class ServeEngine:
                                              device=self.device)}
         else:
             batch = {"tokens": tokens[None].to(self.device)}
-        logits, rcache = zoo.prefill(self.cfg, self.params, batch,
-                                     self.max_len)
+        if self.dist.mesh is not None:
+            batch = {k: _laid_out(t, P(*(None,) * t.dim()), self.dist.mesh)
+                     for k, t in batch.items()}
+            logits, rcache = zoo.prefill(self.cfg, self.params, batch,
+                                         self.max_len, self._prefill_dist)
+            logits = logits.full_tensor()
+        else:
+            logits, rcache = zoo.prefill(self.cfg, self.params, batch,
+                                         self.max_len)
         self.stats.prefills += 1
         tok = int(torch.argmax(logits[0, -1]))
         req.out_tokens.append(tok)
@@ -127,9 +157,13 @@ class ServeEngine:
             self.stats.completed += 1
             return False
         for key, t in rcache.items():
-            if key != "len":
+            if key == "len":
+                continue
+            if self.dist.mesh is None:
                 self.cache[key][:, slot] = t[:, 0]
-        self.cache["len"][slot] = L
+            else:
+                _splice(self.cache[key], t, slot, self.dist)
+        _local(self.cache["len"])[slot] = L
         self.live[slot] = req
         return True
 
@@ -150,12 +184,19 @@ class ServeEngine:
         for i, r in enumerate(self.live):
             if r is not None:
                 last[i, 0] = r.out_tokens[-1]
-        logits, self.cache = zoo.decode_step(
-            self.cfg, self.params, torch.from_numpy(last).to(self.device),
-            self.cache)
+        tokens = torch.from_numpy(last).to(self.device)
+        if self.dist.mesh is not None:
+            tokens = _laid_out(tokens, P(self.dist.batch, None),
+                               self.dist.mesh)
+            logits, self.cache = zoo.decode_step(
+                self.cfg, self.params, tokens, self.cache, self.dist)
+            logits = logits.full_tensor()
+        else:
+            logits, self.cache = zoo.decode_step(self.cfg, self.params,
+                                                 tokens, self.cache)
         nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         # One host transfer for all slot lengths per tick.
-        lens = self.cache["len"].cpu().numpy()
+        lens = _local(self.cache["len"]).cpu().numpy()
         self.stats.ticks += 1
 
         for i, r in enumerate(self.live):
@@ -168,7 +209,7 @@ class ServeEngine:
             if tok == r.eos_id or len(r.out_tokens) >= r.max_new_tokens or full:
                 r.done = True
                 self.live[i] = None
-                self.cache["len"][i] = 0
+                _local(self.cache["len"])[i] = 0
                 self.stats.completed += 1
 
     def run(self, max_ticks: int = 1000):
@@ -176,3 +217,37 @@ class ServeEngine:
                 and self.stats.ticks < max_ticks:
             self.tick()
         return self.stats
+
+
+def _local(t):
+    """A DTensor's local shard (for a replicated one, the whole tensor on
+    this process), or ``t``."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _laid_out(tree, specs, mesh):
+    """Whole tensors of ``tree`` laid out on ``mesh`` by ``specs``; DTensors
+    are kept as they are."""
+    from repro_torch.launch.mesh import shard_tree
+    if isinstance(tree, dict):
+        return {k: _laid_out(v, specs[k], mesh) for k, v in tree.items()}
+    return tree if hasattr(tree, "to_local") else shard_tree(tree, specs,
+                                                              mesh)
+
+
+def _splice(cache, row, slot: int, dist: Dist) -> None:
+    """Write the one-row cache ``row`` (n, 1, ...) into row ``slot`` of the
+    batch cache ``cache`` (n, slots, ...), both DTensors: ``row`` is laid
+    out as ``cache`` is but for its batch dimension (replicated), and the
+    process whose batch shard holds the slot writes it into its shard."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = dist.mesh.mesh_dim_names
+    batch_axes = [a for a, pl in zip(names, cache.placements)
+                  if isinstance(pl, Shard) and pl.dim == 1]
+    target = [Replicate() if a in batch_axes else pl
+              for a, pl in zip(names, cache.placements)]
+    local = cache.to_local()
+    part = row.redistribute(dist.mesh, target).to_local()
+    lo = _seq_index(dist, batch_axes) * local.shape[1]
+    if lo <= slot < lo + local.shape[1]:
+        local[:, slot - lo] = part[:, 0]

@@ -1390,3 +1390,159 @@ def test_capacity_moe_on_card(dev, mesh11, cf):
             ref.abs().max())
     else:
         assert want.mean() >= 0.1
+
+
+# ------------------------------------------------ K2's decode with stats
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,Lq,D,causal", [
+    (32, 8, 1, 64, False), (8, 8, 1, 64, False), (8, 4, 1, 128, False),
+    (8, 2, 4, 64, True), (4, 1, 2, 32, True),
+    (16, 16, 1, 128, False)])
+def test_flash_decode_stats_match_plain(dev, dtype, Hq, Hkv, Lq, D, causal):
+    """Every decode branch with stats: the fp32 output, M and L against
+    the kernel's plain mirror with stats; the output is the plain
+    kernel's call's in q's dtype bit for bit; a row with no live key has
+    M = -inf, L = 0 and output 0; two launches are bit-equal."""
+    from repro_torch.kernels.flash_attention import (
+        decode_split, flash_decode_split_plain)
+    B = len(SPLIT_KV_LENS)
+    q, k, v = _flash_inputs(dev, B, Hq, Hkv, Lq, 300, D, dtype, seed=Lq)
+    kl = torch.tensor(SPLIT_KV_LENS, dtype=torch.int32, device=dev)
+    before = (flash_attention.stats_launches,
+              flash_attention.launches_by_path["decode"])
+    got = flash_attention(q, k, v, kl, causal=causal, return_stats=True)
+    again = flash_attention(q, k, v, kl, causal=causal, return_stats=True)
+    torch.cuda.synchronize()
+    assert (flash_attention.stats_launches,
+            flash_attention.launches_by_path["decode"]) == (
+        before[0] + 2, before[1] + 2)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    o, M, L = got
+    assert o.dtype == M.dtype == L.dtype == torch.float32
+    ref = flash_decode_split_plain(q, k, v, kl, decode_split(D, dtype),
+                                   causal, return_stats=True)
+    tol = FLASH_TOL[dtype] if dtype == torch.float32 else 1e-5
+    for a, b in zip(got, (r.to(dev) for r in ref)):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+    assert torch.equal(o.to(dtype), flash_attention(q, k, v, kl,
+                                                    causal=causal))
+    assert torch.equal(o[0], torch.zeros_like(o[0]))
+    assert bool((M[0] == float("-inf")).all()) and bool((L[0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("slices", [1, 2, 4, 16])
+def test_flash_split_and_combine_match_whole_cache(dev, dtype, slices):
+    """llama's decode shapes (32/8 heads of 64, 8 rows over 2048 keys) cut
+    into slices, each through K2 with stats, merged: within the
+    reference's tolerance of the whole-cache kernel, bit-equal twice, one
+    slice the whole-cache kernel's bits."""
+    from repro_torch.kernels.flash_attention import combine_decode_partials
+    q, k, v = _flash_inputs(dev, 8, 32, 8, 1, 2048, 64, dtype, seed=3)
+    kl = torch.tensor([0, 1, 100, 127, 128, 1000, 1057, 2048],
+                      dtype=torch.int32, device=dev)
+    w = 2048 // slices
+
+    def split():
+        parts = [flash_attention(
+            q, k[:, :, i * w:(i + 1) * w], v[:, :, i * w:(i + 1) * w],
+            (kl - i * w).clamp(0, w).to(torch.int32), causal=False,
+            return_stats=True) for i in range(slices)]
+        return combine_decode_partials(*zip(*parts))
+    got, again = split(), split()
+    whole = flash_attention(q, k, v, kl, causal=False)
+    assert torch.equal(got, again)
+    scale = float(whole.float().abs().max())
+    tol = 2e-5 if dtype == torch.float32 else 2e-2 * scale
+    assert float((got - whole.float()).abs().max()) <= tol
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    if slices == 1:
+        assert torch.equal(got.to(dtype), whole)
+
+
+def _serve_prompts(vocab):
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, vocab, size=int(rng.integers(4, 40)))
+            for _ in range(6)]
+
+
+def test_mesh_decode_and_engine_bit_equal_on_card(dev, mesh11):
+    """On the 1x1 mesh a prefill then 4 decode steps, and ServeEngine with
+    ``dist``, equal the mesh-free path bit for bit (the decode kernel,
+    no launch with stats)."""
+    from repro_torch.launch.mesh import shard_tree
+    from repro_torch.models.common import P
+    cfg, dist, params, batch, placed, pbatch = _mesh_case(dev, mesh11)
+    stats = flash_attention.stats_launches
+    with torch.no_grad():
+        _, rc = lm.prefill(cfg, params, {"tokens": batch["tokens"]}, 160)
+        _, gc = lm.prefill(cfg, placed, {"tokens": pbatch["tokens"]}, 160,
+                           dist)
+        for i in range(4):
+            tok = batch["tokens"][:, i:i + 1]
+            rl, rc = lm.decode_step(cfg, params, tok, rc)
+            gl, gc = lm.decode_step(cfg, placed, shard_tree(
+                tok, P("data", None), mesh11), gc, dist)
+            assert torch.equal(gl.to_local(), rl)
+    for key in ("k", "v", "len"):
+        assert torch.equal(gc[key].to_local(), rc[key]), key
+    runs = []
+    for kw in ({}, {"dist": dist}):
+        eng = ServeEngine(cfg, params, slots=4, max_len=96, device=dev, **kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=8, eos_id=-1)
+                for i, p in enumerate(_serve_prompts(cfg.vocab))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        runs.append([r.out_tokens for r in reqs])
+    assert runs[0] == runs[1]
+    assert flash_attention.stats_launches == stats
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b",
+                                  "seamless-m4t-medium"])
+def test_mesh_family_step_bit_equal_on_card(dev, mesh11, arch):
+    """One step of each family on the 1x1 mesh at the smoke width (bf16):
+    the forward, a prefill and a decode step, and one jit_train_step
+    (loss and parameters) equal the mesh-free path bit for bit."""
+    from repro_torch.launch.mesh import full_tree, shard_tree
+    from repro_torch.models.common import P, Dist
+    from repro_torch.train.step import jit_train_step
+    cfg = dataclasses.replace(get_smoke_config(arch), head_dim=64)
+    dist = Dist(mesh11, batch_axes=("data",))
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    gen = torch.Generator(dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 160), device=dev, generator=gen)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (2, cfg.frontend_len, cfg.frontend_dim), device=dev,
+            generator=gen)
+    spec = {k: P("data", *([None] * (v.dim() - 1))) for k, v in batch.items()}
+    specs = lm.param_specs(cfg, dist)
+    placed = shard_tree(params, specs, mesh11)
+    pbatch = {k: shard_tree(v, spec[k], mesh11) for k, v in batch.items()}
+    serve = {k: v for k, v in batch.items() if k != "labels"}
+    pserve = {k: v for k, v in pbatch.items() if k != "labels"}
+    with torch.no_grad():
+        assert torch.equal(lm.forward(cfg, placed, pbatch, dist)[0]
+                           .to_local(), lm.forward(cfg, params, batch)[0])
+        _, rc = lm.prefill(cfg, params, serve, 176)
+        _, gc = lm.prefill(cfg, placed, pserve, 176, dist)
+        tok = tokens[:, :1]
+        rl, rc = lm.decode_step(cfg, params, tok, rc)
+        gl, gc = lm.decode_step(cfg, placed, shard_tree(
+            tok, P("data", None), mesh11), gc, dist)
+        assert torch.equal(gl.to_local(), rl)
+        for key in rc:
+            assert torch.equal(gc[key].to_local(), rc[key]), key
+    opt_cfg = optim.for_model(cfg)
+    rp = optim.tree_map(lambda t: t.clone(), params)
+    rp, _, _, rm = make_train_step(cfg, opt_cfg)(
+        rp, init_opt_state(opt_cfg, rp), None, batch)
+    step = jit_train_step(cfg, dist, specs, opt_cfg, batch_specs=spec)
+    gp, _, _, gm = step(placed, init_opt_state(opt_cfg, placed), None, batch)
+    assert torch.equal(gm["loss"].to_local(), rm["loss"])
+    for a, b in zip(optim.leaves(full_tree(gp)), optim.leaves(rp)):
+        assert torch.equal(a, b)

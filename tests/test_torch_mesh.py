@@ -257,10 +257,34 @@ def test_placements_of_specs():
     assert strip_fsdp(P(("data", "model"), None)) == P("model", None)
 
 
-def test_meshed_families_refuse_a_mesh():
-    """The hybrid, xLSTM and enc-dec families have their specs, and under a
-    mesh they refuse (slice 16) rather than run mesh-free."""
-    d = Dist(production_shape(False), batch_axes=("data",))
-    for arch in ("zamba2-1.2b", "xlstm-1.3b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="slice 16"):
-            zoo.forward(reg.get_smoke_config(arch), {}, {}, d)
+def test_meshed_families_run_under_a_mesh(tmp_path):
+    """The hybrid, xLSTM and enc-dec families under a stand-in mesh (a 1x1
+    gloo mesh in this process): each smoke forward runs and equals the
+    mesh-free forward bit for bit."""
+    import dataclasses
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_debug_mesh, shard_tree
+    tdist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                             rank=0, world_size=1)
+    try:
+        d = Dist(make_debug_mesh(1, 1, device_type="cpu"),
+                 batch_axes=("data",))
+        for arch in ("zamba2-1.2b", "xlstm-1.3b", "seamless-m4t-medium"):
+            cfg = dataclasses.replace(reg.get_smoke_config(arch),
+                                      dtype=torch.float32)
+            params = zoo.init_params(cfg, device="cpu")
+            gen = torch.Generator().manual_seed(0)
+            batch = {"tokens": torch.randint(0, cfg.vocab, (2, 24),
+                                             generator=gen)}
+            if cfg.family == "encdec":
+                batch["frames"] = torch.randn(
+                    (2, cfg.frontend_len, cfg.frontend_dim), generator=gen)
+            placed = shard_tree(params, zoo.param_specs(cfg, d), d.mesh)
+            pbatch = {k: shard_tree(v, P("data", *([None] * (v.dim() - 1))),
+                                    d.mesh) for k, v in batch.items()}
+            with torch.no_grad():
+                ref = zoo.forward(cfg, params, batch)[0]
+                got = zoo.forward(cfg, placed, pbatch, d)[0]
+            assert torch.equal(got.to_local(), ref), arch
+    finally:
+        tdist.destroy_process_group()

@@ -383,6 +383,7 @@ def keep_counts(monkeypatch):
     from repro_torch.models import moe as TMoE
     for fn, names in (
             (FA.flash_attention, ("launches", "launches_by_path",
+                                  "stats_launches",
                                   "backward_launches",
                                   "backward_launches_by_path")),
             (GA.spmm, ("launches", "launches_by_dir")),

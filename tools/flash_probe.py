@@ -23,12 +23,14 @@ kernel's device time per call (``torch.profiler``'s CUDA time over
 tree counts one) and, as the yardstick of that process, the same for
 ``scaled_dot_product_attention`` on the same inputs (at decode also over
 the cache cut to the longest live row; for the backward its autograd
-backward), with the card's name and power limit.  One JSON line per tree
-and shape.
+backward), with the card's name and power limit, and a SHA-256 of the
+forward's output bytes: the inputs come from one seed, so two trees whose
+digests agree give the same bits.  One JSON line per tree and shape.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -112,7 +114,10 @@ def probe(src: str, reps: int) -> None:
         out = flash_attention(q, k, v, kl, causal=causal)
         ref = flash_attention_plain(q, k, v, kl, causal)
         err = float((out.float() - ref.float()).abs().max())
+        digest = hashlib.sha256(out.contiguous().view(torch.uint8)
+                                .cpu().numpy().tobytes()).hexdigest()
         row = {"src": src, "shape": label, "max_abs_err": err,
+               "out_sha256": digest,
                "device_ms": _device_ms(
                    torch, lambda: flash_attention(q, k, v, kl, causal=causal),
                    reps),
