@@ -167,11 +167,17 @@ published widths:
           bucketed prompts and 8 greedy decode steps on the card (K2) and on
           the CPU (plain attention) agree, with n_layers launches per call;
   lm_serve   the full 16-layer bf16 llama3.2-1b behind ServeEngine (8 slots,
-          2048 positions) serves 16 requests of 32 tokens; K2 launches
-          16 x (prefills + ticks), every prefill's on the tensor-core
-          kernel and every tick's on the split decode; two requests are
-          re-scored by a teacher-forced forward; prefill and decode-tick
-          times;
+          2048 positions) serves 16 requests of 32 tokens; the engine as
+          users get it replays CUDA graphs (its decode step and one prefill
+          step per prompt bucket, captured once); K2 launches 16 x
+          (prefills + ticks), counted per replay, every prefill's on the
+          tensor-core kernel and every tick's on the split decode; two
+          requests are re-scored by a teacher-forced forward; prefill and
+          decode-tick times; then lm_serve_graphs: the same requests
+          through an eager engine (graphs=False) on the same weights,
+          tokens and every tick's logits bit-equal, trace_counts one
+          decode step and one prefill step per bucket, both ways' tick
+          host ms and tok/s, capture seconds and the graphs' pool MB;
   ex_serve_lm  the launch.serve_lm twin inside the LM path's K2 count:
           the example's reduced llama in fp32 (12 requests of 12 tokens,
           4 slots) with the card's tokens equal to the CPU's, then the
@@ -182,6 +188,9 @@ published widths:
   lm_profile  torch.profiler over 4 decode ticks with 8 live slots: the
           device's busy share, kernel time by name and by class (K2, grouped
           GEMM, other GEMMs, elementwise) and K2's device time per tick;
+          the ticks are graph replays, and the profile must show K2's
+          kernels in them, n_layers a tick (the same in every serve
+          phase's profile);
   moe_parity  deepseek-moe-16b at full width cut to 2 layers (the dense
           first layer and one MoE layer: 64 experts top-6, 2 shared), fp32,
           as lm_parity, and the router's expert sets equal on the card and
@@ -202,6 +211,14 @@ published widths:
           lm_profile; then moe_route_fp32: the same model in fp32 serves
           two of the prompts and an unforced teacher-forced forward agrees
           with serving's routes at all but 1% of (position, layer) pairs;
+          moe_serve's engine runs eagerly (graphs=False: its checks wrap
+          the router call by call); moe_serve_graphs then serves its
+          requests through the engine as users get it (CUDA graphs, bf16
+          on grouped_mm): tokens and every tick's logits bit-equal to the
+          eager run's, K2 and grouped GEMM launches exact per replay, both
+          kernels seen in a profiled window of replays (moe_graph_profile);
+          the fp32 engine resolves to eager (its grouped GEMM reads the
+          host);
   hybrid_parity, xlstm_parity  zamba2-1.2b cut to 6 layers (one
           shared-block site) and xlstm-1.3b cut to 8 (its one sLSTM layer)
           at full width, fp32: the teacher-forced forward over 300 tokens,
@@ -216,7 +233,9 @@ published widths:
           further from the fp32 model's than the forward's
           (REC_NOISE_RATIO), zamba2's tokens also to lm_serve's gate;
           prefill ms by length, tick times, a profiled window as
-          lm_profile;
+          lm_profile; the engine replays its decode step from a CUDA graph
+          (prefill stays eager at the exact length), held as lm_serve's
+          against an eager twin (xlstm's serves the 9 shortest prompts);
   recurrent_fp32  both full-depth models in fp32 serve two prompts (one
           past an SSD chunk), and each token's served logits agree with
           the teacher-forced forward's within 2e-3, tokens equal;
@@ -232,7 +251,8 @@ published widths:
           served token against a teacher-forced forward (lm_serve's gate);
           then 256 patches + a 512-token prompt and 16 decode steps through
           the zoo, each token against the forward with the patches; tick,
-          prefill and profile (vlm_profile) lines;
+          prefill and profile (vlm_profile) lines; its decode step replayed
+          from a CUDA graph, held as lm_serve's against an eager twin;
   encdec_serve  the full 12 + 12-layer bf16 seamless-m4t-medium: 8
           utterances of 1024 frames with 32-token prompts prefilled in one
           batch, 32 decode steps (the reference's form of enc-dec serving);
@@ -287,9 +307,9 @@ published widths:
           the host over the card's own routing), each batched GEMM's
           device time beside the grouped GEMM's;
   mesh_serve  llama3.2-1b at full width (16 layers, bf16) behind
-          ServeEngine(dist=the 1x1 mesh), lm_serve's 16 requests of 32
-          tokens: tokens and every tick's logits bit-equal to the mesh-free
-          engine's, K2 launched exactly once a layer a prefill
+          ServeEngine(dist=the 1x1 mesh, which stays eager), lm_serve's 16
+          requests of 32 tokens: tokens and every tick's logits bit-equal
+          to an eager mesh-free engine's, K2 launched exactly once a layer a prefill
           (prefill_tc) and a tick (decode), none with stats; tick host ms
           and a decode step's device ms both ways;
   mesh_families  zamba2-1.2b, xlstm-1.3b and seamless-m4t-medium at full
@@ -451,6 +471,11 @@ MOE_ROUTE_FLIP_CELL_SHARE = 0.5
 REC_SLOTS = 8
 REC_MAX_LEN = 2048
 REC_FP32_TOL = 2e-3
+# Each serve phase's graph engine is held against an eager twin serving the
+# same requests; xlstm-1.3b's twin serves the 9 shortest prompts (its
+# prefill is a host-bound sLSTM loop over the prompt), one more than the
+# slots, so a freed slot is taken again.
+XLSTM_EAGER_REQUESTS = 9
 # Serving's logits against the fp32 model over the same weights (the bf16
 # model's function without its activation rounding), beside the bf16
 # teacher-forced forward's: bf16 rounding alone moves both about as far
@@ -2989,7 +3014,9 @@ def phase_lm_parity(dev):
 
 
 def phase_lm_serve(dev, flash_rows):
-    """Main path: the full bf16 llama3.2-1b behind ServeEngine."""
+    """Main path: the full bf16 llama3.2-1b behind ServeEngine, which
+    replays its steps from CUDA graphs; then held against an eager twin
+    (:func:`_graph_check`)."""
     cfg = get_config("llama3.2-1b")
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
@@ -3012,10 +3039,12 @@ def phase_lm_serve(dev, flash_rows):
     flash_attention.launches_by_path = dict.fromkeys(
         flash_attention.launches_by_path, 0)
     t_run = time.perf_counter()
-    decode_s, admit_s = _timed_ticks(engine)
+    with _LogitLog(engine, reqs) as log:
+        decode_s, admit_s = _timed_ticks(engine)
     run_s = time.perf_counter() - t_run
     launches = flash_attention.launches       # ... and ends here
     by_path = dict(flash_attention.launches_by_path)
+    counts = dict(engine.trace_counts)
     s = engine.stats
     require(all(r.done and len(r.out_tokens) == 32 for r in reqs),
             f"lm_serve: token counts {[len(r.out_tokens) for r in reqs]}")
@@ -3045,16 +3074,18 @@ def phase_lm_serve(dev, flash_rows):
     require(max(gaps) <= SERVE_GAP_TOL, f"lm_serve: a served token is "
             f"{max(gaps)} below the teacher-forced top logit")
 
-    prefill_ms = {}
+    prefill_ms, replay_ms = {}, {}
     for L in sorted({ServeEngine._bucket(len(r.prompt)) for r in reqs}):
         batch = _bucketed(reqs[0].prompt[:1].repeat(L), dev)
         prefill_ms[L] = time_ms(lambda: lm.prefill(
             cfg, engine.params, batch, LLAMA_MAX_LEN), reps=5, warmup=1)
+        replay_ms[L] = time_ms(engine.steps[("prefill", L)], reps=5,
+                               warmup=1)
     tick_ms = statistics.median(decode_s) * 1e3
     decode_row = next(r for r in flash_rows if r["shape"].startswith("decode"))
     tokens = s.generated_tokens + s.prefills
     emit({"phase": "lm_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "dtype": "bfloat16", "slots": LLAMA_SLOTS,
+          "dtype": "bfloat16", "graphs": engine.graphs, "slots": LLAMA_SLOTS,
           "max_len": LLAMA_MAX_LEN, "requests": len(reqs),
           "prompt_lengths": [len(r.prompt) for r in reqs],
           "prefills": s.prefills, "ticks": s.ticks, "completed": s.completed,
@@ -3064,6 +3095,7 @@ def phase_lm_serve(dev, flash_rows):
           "decode_tick_ms_p90": float(np.percentile(decode_s, 90)) * 1e3,
           "admit_tick_ms_median": statistics.median(admit_s) * 1e3,
           "prefill_ms_by_bucket": prefill_ms,
+          "prefill_replay_ms_by_bucket": replay_ms,
           "flash_attention_launches_by_path": by_path,
           "k2_share_of_decode_tick": (
               cfg.n_layers * decode_row["device_ms"] / tick_ms
@@ -3072,7 +3104,10 @@ def phase_lm_serve(dev, flash_rows):
           "teacher_forced_exact": exact, "teacher_forced_checked": 64,
           "teacher_forced_max_gap": max(gaps), "gap_tol": SERVE_GAP_TOL,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    _profile_decode(engine, cfg, "lm_profile", LLAMA_SLOTS)
+    prof = _profile_decode(engine, cfg, "lm_profile", LLAMA_SLOTS,
+                           k2_per_tick=cfg.n_layers)
+    _graph_check("lm_serve", engine, (reqs, log, decode_s, admit_s), counts,
+                 prof, _eager_run(engine, reqs))
     return launches, by_path
 
 
@@ -3105,12 +3140,16 @@ def _kernel_kind(name: str) -> str:
     return "elementwise_and_other"
 
 
-def _profile_decode(engine, cfg, phase: str, slots: int, ticks: int = 4):
+def _profile_decode(engine, cfg, phase: str, slots: int, ticks: int = 4,
+                    k2_per_tick: int = 0, grouped: bool = False):
     """Where a decode tick's time goes: ``torch.profiler`` over a few ticks
     with all ``slots`` live, after the counted run.  Prints the device's
     busy share of the window, kernel time by name and by class
     (:func:`_kernel_kind`) and the launches per tick; "not measured" where
-    the trace holds no device time."""
+    the trace holds no device time.  Where the engine replays CUDA graphs
+    the window must show the kernels the graphs launch: ``k2_per_tick``
+    K2 kernels a tick and, with ``grouped``, the grouped GEMM's.  Returns
+    the printed record."""
     rng = np.random.default_rng(SEED + 3)
     for i in range(slots):
         engine.submit(Request(uid=100 + i, prompt=rng.integers(
@@ -3139,20 +3178,29 @@ def _profile_decode(engine, cfg, phase: str, slots: int, ticks: int = 4):
                          + e.self_device_time_total / 1e3 / ticks)
         launches_by_kind[kind] = launches_by_kind.get(kind, 0) + e.count / ticks
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    emit({"phase": phase, "ticks": ticks, "live_slots": slots,
-          "window_ms": wall_ms,
-          "device_busy_ms": busy_ms if kernels else "not measured",
-          "device_busy_share": busy_ms / wall_ms if kernels
-          else "not measured",
-          "kernel_launches_per_tick": sum(e.count for e in kernels) / ticks,
-          "k2_device_ms_per_tick": k2_ms if k2 else "not measured",
-          "k2_launches_per_tick": sum(e.count for e in k2) / ticks,
-          "device_ms_per_tick_by_kind": by_kind if kernels
-          else "not measured",
-          "launches_per_tick_by_kind": launches_by_kind,
-          "top_kernels_ms_per_tick": {
-              e.key[:80]: e.self_device_time_total / 1e3 / ticks
-              for e in top}})
+    k2_count = sum(e.count for e in k2) / ticks
+    if engine.graphs:
+        require(k2_count == k2_per_tick, f"{phase}: {k2_count} K2 kernels a "
+                f"replayed tick in the profile, expected {k2_per_tick}")
+        require(not grouped or launches_by_kind.get("grouped_gemm", 0) > 0,
+                f"{phase}: no grouped GEMM kernel in the replayed ticks")
+    record = {
+        "phase": phase, "ticks": ticks, "live_slots": slots,
+        "graphs": engine.graphs, "window_ms": wall_ms,
+        "device_busy_ms": busy_ms if kernels else "not measured",
+        "device_busy_share": busy_ms / wall_ms if kernels
+        else "not measured",
+        "kernel_launches_per_tick": sum(e.count for e in kernels) / ticks,
+        "k2_device_ms_per_tick": k2_ms if k2 else "not measured",
+        "k2_launches_per_tick": k2_count,
+        "device_ms_per_tick_by_kind": by_kind if kernels
+        else "not measured",
+        "launches_per_tick_by_kind": launches_by_kind,
+        "top_kernels_ms_per_tick": {
+            e.key[:80]: e.self_device_time_total / 1e3 / ticks
+            for e in top}}
+    emit(record)
+    return record
 
 
 # ------------------------------------------------------------- MoE serving
@@ -3331,32 +3379,37 @@ def _serve_watched(engine, reqs, n_moe):
     """Serve ``reqs`` to the end, recording the experts the first two were
     routed to (:func:`_serve_tick_routes`).  Each tick is timed alone, from
     its launch to the card's end of it; the bookkeeping of its routes runs
-    outside the clock.  Returns the decode ticks' and the admitting ticks'
-    seconds and the watched requests' records."""
+    outside the clock.  The router is watched call by call, so the engine
+    runs eagerly.  Returns the decode ticks' and the admitting ticks'
+    seconds, the watched requests' records and the served logits
+    (:class:`_LogitLog`)."""
+    require(not engine.graphs, "a watched engine must run eagerly")
     for r in reqs:
         engine.submit(r)
     watch = {r.uid: {"slot": None, "prompt": None, "decode": []}
              for r in reqs[:2]}
     decode_s, admit_s = [], []
-    while engine.queue or any(r is not None for r in engine.live):
-        queued = list(engine.queue)
-        live = [r for r in engine.live if r is not None]
-        prefills, ticks = engine.stats.prefills, engine.stats.ticks
-        with _RouteLog() as log:
-            t = time.perf_counter()
-            engine.tick()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t
-        (decode_s if engine.stats.prefills == prefills else admit_s).append(dt)
-        admitted = queued[:len(queued) - len(engine.queue)]
-        for r in admitted:
-            if r.uid in watch:
-                watch[r.uid]["slot"] = next(
-                    i for i, x in enumerate(engine.live) if x is r)
-        _serve_tick_routes(log.calls, watch, admitted,
-                           live + admitted if engine.stats.ticks > ticks
-                           else [], n_moe)
-    return decode_s, admit_s, watch
+    with _LogitLog(engine, reqs) as logits:
+        while engine.queue or any(r is not None for r in engine.live):
+            queued = list(engine.queue)
+            live = [r for r in engine.live if r is not None]
+            prefills, ticks = engine.stats.prefills, engine.stats.ticks
+            with _RouteLog() as log:
+                t = time.perf_counter()
+                engine.tick()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+            (decode_s if engine.stats.prefills == prefills
+             else admit_s).append(dt)
+            admitted = queued[:len(queued) - len(engine.queue)]
+            for r in admitted:
+                if r.uid in watch:
+                    watch[r.uid]["slot"] = next(
+                        i for i, x in enumerate(engine.live) if x is r)
+            _serve_tick_routes(log.calls, watch, admitted,
+                               live + admitted if engine.stats.ticks > ticks
+                               else [], n_moe)
+    return decode_s, admit_s, watch, logits
 
 
 def _rescore(cfg, params, reqs, watch, n_moe, dev, force: bool):
@@ -3447,7 +3500,7 @@ def _moe_route_fp32(dev, prompts):
     del params
     reqs = [Request(uid=i, prompt=p, max_new_tokens=32, eos_id=-1)
             for i, p in enumerate(prompts)]
-    _, _, watch = _serve_watched(engine, reqs, n_moe)
+    _, _, watch, _ = _serve_watched(engine, reqs, n_moe)
     require(all(r.done and len(r.out_tokens) == 32 for r in reqs),
             f"moe_route_fp32: token counts {[len(r.out_tokens) for r in reqs]}")
     check, token_gaps, agreed = _rescore(cfg, engine.params, reqs, watch,
@@ -3483,7 +3536,7 @@ def phase_moe_serve(dev, flash_rows):
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
     engine = ServeEngine(cfg, params, slots=MOE_SLOTS, max_len=MOE_MAX_LEN,
-                         device=dev)
+                         device=dev, graphs=False)
     require(engine.params["layers"]["moe_w13"] is params["layers"]["moe_w13"],
             "moe_serve: the engine copied weights already in bf16")
     del params
@@ -3498,7 +3551,7 @@ def phase_moe_serve(dev, flash_rows):
             for i, n in enumerate(rng.integers(64, 1025, size=16))]
 
     _zero_counts()                            # the main path starts here
-    decode_s, admit_s, watch = _serve_watched(engine, reqs, n_moe)
+    decode_s, admit_s, watch, log = _serve_watched(engine, reqs, n_moe)
     run_s = sum(decode_s) + sum(admit_s)      # the ticks alone
     launches = flash_attention.launches       # ... and ends here
     by_path = dict(flash_attention.launches_by_path)
@@ -3571,9 +3624,52 @@ def phase_moe_serve(dev, flash_rows):
           **route_check,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     _profile_decode(engine, cfg, "moe_profile", MOE_SLOTS)
-    del engine
+    _moe_graphs(engine, (reqs, log, decode_s, admit_s), dev)
+    del engine, log
     _moe_route_fp32(dev, [r.prompt for r in reqs[:2]])
     return launches, by_path
+
+
+def _moe_graphs(eager, eager_run, dev):
+    """moe_serve's requests through the engine as users get it: the same
+    weights behind a ServeEngine that resolves to CUDA graphs (bf16, the
+    grouped_mm route), held against the eager, router-watched run
+    ``eager_run`` by :func:`_graph_check`; K2 and the grouped GEMM counted
+    per replay, exactly by kernel and route, and both seen in a profiled
+    window of replayed ticks."""
+    cfg = eager.cfg
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    engine = ServeEngine(cfg, eager.params, slots=MOE_SLOTS,
+                         max_len=MOE_MAX_LEN, device=dev)
+    reqs = _copies(eager_run[0])
+    for r in reqs:
+        engine.submit(r)
+    before = _counts()
+    routes = dict(moe.grouped_gemm.launches_by_route)
+    with _LogitLog(engine, reqs) as log:
+        decode_s, admit_s = _timed_ticks(engine)
+    launched = _counts_delta(before)[0]
+    routes = {k: moe.grouped_gemm.launches_by_route[k] - routes[k]
+              for k in routes}
+    counts = dict(engine.trace_counts)
+    prefills, ticks = engine.stats.prefills, engine.stats.ticks
+    calls = prefills + ticks
+    require(launched == {"prefill_tc": cfg.n_layers * prefills,
+                         "decode": cfg.n_layers * ticks},
+            f"moe_serve graphs: K2 launched {launched}")
+    require(routes == {"grouped_mm": 2 * n_moe * calls, "loop": 0},
+            f"moe_serve graphs: grouped GEMM calls by route {routes}")
+    prof = _profile_decode(engine, cfg, "moe_graph_profile", MOE_SLOTS,
+                           k2_per_tick=cfg.n_layers, grouped=True)
+    row = _graph_check("moe_serve", engine, (reqs, log, decode_s, admit_s),
+                       counts, prof, eager_run)
+    emit({"phase": "moe_serve_graph_launches", "k2": launched,
+          "grouped_gemm": routes, "prefills": prefills, "ticks": ticks,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "pool_mb": row["pool_mb"]})
+    del engine, log
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------ recurrent families
@@ -3686,7 +3782,8 @@ def _rescore_recurrent(cfg, params, reqs, served, dev):
     return torch.cat(gaps), torch.cat(d_served), torch.cat(d_forward), exact
 
 
-def _recurrent_serve(phase: str, arch: str, dev, gap_gate: bool):
+def _recurrent_serve(phase: str, arch: str, dev, gap_gate: bool,
+                     eager_requests: int = 16):
     """Main path: the full-depth bf16 model behind ServeEngine with
     lm_serve's traffic, every prompt prefilled at its exact length.  K2
     launches once per shared-block site per prefill (prefill_tc) and per
@@ -3695,7 +3792,9 @@ def _recurrent_serve(phase: str, arch: str, dev, gap_gate: bool):
     the fp32 model's than the bf16 teacher-forced forward's are
     (REC_NOISE_RATIO, at the median and at the largest position), and with
     ``gap_gate`` each token is the bf16 forward's top or within
-    SERVE_GAP_TOL of it (lm_serve's gate)."""
+    SERVE_GAP_TOL of it (lm_serve's gate).  The engine replays CUDA
+    graphs (:func:`_graph_check`); its eager twin serves the
+    ``eager_requests`` shortest prompts, in order."""
     _fresh_device()
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)  # the CLI's rule
@@ -3726,6 +3825,7 @@ def _recurrent_serve(phase: str, arch: str, dev, gap_gate: bool):
     run_s = sum(decode_s) + sum(admit_s)      # the ticks alone
     launches = flash_attention.launches       # ... and ends here
     by_path = dict(flash_attention.launches_by_path)
+    counts = dict(engine.trace_counts)
     s = engine.stats
     require(all(r.done and len(r.out_tokens) == 32 for r in reqs),
             f"{phase}: token counts {[len(r.out_tokens) for r in reqs]}")
@@ -3750,7 +3850,7 @@ def _recurrent_serve(phase: str, arch: str, dev, gap_gate: bool):
         reps=2, warmup=1) for L in (64, 256, 1024)}
     tokens = s.generated_tokens + s.prefills
     emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
-          "dtype": "bfloat16", "params": n_params,
+          "dtype": "bfloat16", "graphs": engine.graphs, "params": n_params,
           "params_count": cfg.params_count(), "weights_gb": weights_gb,
           "cache_gb": cache_gb, "resident_gb": resident_gb,
           "k2_sites": sites, "slots": REC_SLOTS, "max_len": REC_MAX_LEN,
@@ -3780,7 +3880,12 @@ def _recurrent_serve(phase: str, arch: str, dev, gap_gate: bool):
     require(not gap_gate or float(gaps.max()) <= SERVE_GAP_TOL,
             f"{phase}: a served token is {float(gaps.max())} below the "
             "teacher-forced top logit")
-    _profile_decode(engine, cfg, phase.replace("serve", "profile"), REC_SLOTS)
+    prof = _profile_decode(engine, cfg, phase.replace("serve", "profile"),
+                           REC_SLOTS, k2_per_tick=sites)
+    shortest = sorted(sorted(reqs, key=lambda r: len(r.prompt))
+                      [:eager_requests], key=lambda r: r.uid)
+    _graph_check(phase, engine, (reqs, log, decode_s, admit_s), counts,
+                 prof, _eager_run(engine, shortest))
     return launches, by_path
 
 
@@ -3791,41 +3896,146 @@ def phase_hybrid_serve(dev):
 
 def phase_xlstm_serve(dev):
     """xlstm-1.3b's served tokens are not held to SERVE_GAP_TOL: bf16
-    rounding alone moves its logits by far more (REC_NOISE_RATIO)."""
+    rounding alone moves its logits by far more (REC_NOISE_RATIO).  Its
+    eager twin serves XLSTM_EAGER_REQUESTS of the requests (its prefill is
+    host-bound)."""
     return _recurrent_serve("xlstm_serve", "xlstm-1.3b", dev,
-                            gap_gate=False)
+                            gap_gate=False,
+                            eager_requests=XLSTM_EAGER_REQUESTS)
 
 
 class _LogitLog:
     """Records, per request, the logits serving computed for each of its
-    tokens while it is entered: it wraps the zoo's ``prefill`` and
-    ``decode_step``, which the engine looks up at each call, and puts them
-    back on exit.  A prefill's logits go to the request admitted next (in
-    ``order``), a tick's row ``i`` to the request live in slot ``i``."""
+    tokens while it is entered: it wraps the engine's own prefill and
+    decode calls (``_run_prefill``, ``_run_decode``, which the engine looks
+    up on itself at each call; a replayed step's outputs are those of its
+    graph) and takes them off on exit.  A prefill's logits go to the
+    request admitted next (in ``order``), a tick's row ``i`` to the request
+    live in slot ``i``.  Each call's logits are copied once (a replay
+    rewrites them); ``ticks`` holds each tick's whole (slots, 1, V)
+    copy."""
 
     def __init__(self, engine, order):
         self.engine, self.order = engine, iter(order)
-        self.logits = {}
+        self.logits, self.ticks = {}, []
 
     def __enter__(self):
-        self.prefill, self.decode = lm.prefill, lm.decode_step
+        engine = self.engine
+        run_prefill, run_decode = engine._run_prefill, engine._run_decode
 
-        def prefill(*args):
-            lg, cache = self.prefill(*args)
-            self.logits[next(self.order).uid] = [lg[0, -1]]
+        def prefill(prompt):
+            lg, cache = run_prefill(prompt)
+            self.logits[next(self.order).uid] = [lg[0, -1].clone()]
             return lg, cache
 
-        def decode(*args):
-            lg, cache = self.decode(*args)
-            for i, r in enumerate(self.engine.live):
+        def decode(last):
+            lg, nxt = run_decode(last)
+            lg = lg.clone()
+            self.ticks.append(lg)
+            for i, r in enumerate(engine.live):
                 if r is not None:
                     self.logits[r.uid].append(lg[i, 0])
-            return lg, cache
-        lm.prefill, lm.decode_step = prefill, decode
+            return lg, nxt
+        engine._run_prefill, engine._run_decode = prefill, decode
         return self
 
     def __exit__(self, *exc):
-        lm.prefill, lm.decode_step = self.prefill, self.decode
+        del self.engine._run_prefill, self.engine._run_decode
+
+
+def _copies(reqs):
+    """Fresh requests with the prompts and budgets of ``reqs``."""
+    return [Request(uid=r.uid, prompt=r.prompt,
+                    max_new_tokens=r.max_new_tokens, eos_id=r.eos_id)
+            for r in reqs]
+
+
+def _eager_run(engine, reqs):
+    """``reqs`` served anew by an eager engine (``graphs=False``) on
+    ``engine``'s weights and engine shape: (the served copies, their
+    :class:`_LogitLog`, the decode and admitting ticks' host seconds)."""
+    twin = ServeEngine(engine.cfg, engine.params, slots=engine.slots,
+                       max_len=engine.max_len, device=engine.device,
+                       graphs=False)
+    copies = _copies(reqs)
+    for r in copies:
+        twin.submit(r)
+    with _LogitLog(twin, copies) as log:
+        decode_s, admit_s = _timed_ticks(twin)
+    return copies, log, decode_s, admit_s
+
+
+def _graph_check(phase, engine, run, counts, prof, eager):
+    """The graph engine ``engine`` against an eager engine on the same
+    weights.  ``run`` is the graph engine's run (its requests, their
+    :class:`_LogitLog`, its decode and admitting ticks' host seconds),
+    ``counts`` its ``trace_counts`` after it, ``prof`` the record of a
+    profiled window of its replayed ticks, ``eager`` the eager engine's
+    run (:func:`_eager_run`) of those requests or of a subset of them in
+    order.  Every request's tokens and every served token's logits must be
+    bit-equal, and, over the same requests, every tick's logits;
+    ``trace_counts`` one decode step and one prefill step per distinct
+    bucket (0 for the exact-length families).  Prints the
+    ``<phase>_graphs`` line: both ways' decode-tick host ms and tok/s, the
+    replayed ticks' device ms, capture seconds and pool MB."""
+    on_card = engine.device.type == "cuda"
+    require(engine.graphs is on_card, f"{phase}: the engine on "
+            f"{engine.device} resolved graphs to {engine.graphs}")
+    reqs, log, decode_s, admit_s = run
+    e_reqs, e_log, e_decode, e_admit = eager
+    by_uid = {r.uid: r for r in reqs}
+    buckets = {min(ServeEngine._bucket(len(r.prompt)), engine.max_len)
+               for r in reqs} if engine._bucketed else set()
+    want = {"prefill": len(buckets), "decode": 1}
+    tokens_equal = all(by_uid[r.uid].out_tokens == r.out_tokens
+                       for r in e_reqs)
+    logits_equal = all(
+        len(log.logits[r.uid]) == len(e_log.logits[r.uid]) and all(
+            torch.equal(a, b) for a, b in zip(log.logits[r.uid],
+                                              e_log.logits[r.uid]))
+        for r in e_reqs)
+    same = len(e_reqs) == len(reqs)
+    if same:
+        logits_equal &= len(log.ticks) == len(e_log.ticks) and all(
+            torch.equal(a, b) for a, b in zip(log.ticks, e_log.ticks))
+    steps = engine.steps.values()
+    tokens = [sum(len(r.out_tokens) for r in rs) for rs in (reqs, e_reqs)]
+
+    def ms(secs):
+        return {"median": statistics.median(secs) * 1e3,
+                "p90": float(np.percentile(secs, 90)) * 1e3}
+    busy = prof["device_busy_ms"]
+    row = {"phase": f"{phase}_graphs", "arch": engine.cfg.name,
+           "graphs": engine.graphs, "trace_counts": counts,
+           "trace_counts_want": want, "requests": len(reqs),
+           "eager_requests": [r.uid for r in e_reqs],
+           "tokens_bit_equal": tokens_equal,
+           "logits_bit_equal": logits_equal,
+           "tokens_compared": tokens[1],
+           "ticks_compared": len(e_log.ticks) if same else 0,
+           "capture_s": sum(st.capture_s for st in steps),
+           "pool_mb": sum(st.pool_bytes for st in steps) / 1e6,
+           "decode_tick_host_ms": {"graph": ms(decode_s),
+                                   "eager": ms(e_decode)},
+           "tok_per_s": {
+               "graph": tokens[0] / (sum(decode_s) + sum(admit_s)),
+               "graph_without_capture": tokens[0] / (
+                   sum(decode_s) + sum(admit_s)
+                   - sum(st.capture_s for st in steps)),
+               "eager": tokens[1] / (sum(e_decode) + sum(e_admit))},
+           "replayed_tick_device_ms": (busy / prof["ticks"]
+                                       if isinstance(busy, float)
+                                       else "not measured"),
+           "replayed_tick_window_ms": prof["window_ms"] / prof["ticks"],
+           "replayed_tick_busy_share": prof["device_busy_share"]}
+    emit(row)
+    require(tokens_equal, f"{phase}: the graph engine's tokens differ from "
+            "the eager engine's")
+    require(logits_equal, f"{phase}: a served token's logits differ between "
+            "the graph engine and the eager engine")
+    require(counts == want, f"{phase}: trace_counts {counts}, expected "
+            f"{want}")
+    return row
 
 
 def phase_recurrent_fp32(dev):
@@ -4054,10 +4264,12 @@ def phase_vlm_serve(dev):
         engine.submit(r)
 
     _zero_counts()                            # the main path starts here
-    decode_s, admit_s = _timed_ticks(engine)
+    with _LogitLog(engine, reqs) as log:
+        decode_s, admit_s = _timed_ticks(engine)
     run_s = sum(decode_s) + sum(admit_s)
     launches = flash_attention.launches       # ... and ends here
     by_path = dict(flash_attention.launches_by_path)
+    counts = dict(engine.trace_counts)
     s = engine.stats
     n = cfg.n_layers
     require(all(r.done and len(r.out_tokens) == 32 for r in reqs),
@@ -4108,7 +4320,8 @@ def phase_vlm_serve(dev):
         cfg, engine.params, batch, VLM_MAX_LEN), reps=3, warmup=1)
     tokens = s.generated_tokens + s.prefills
     emit({"phase": "vlm_serve", "arch": cfg.name, "n_layers": n,
-          "dtype": "bfloat16", "weights_gb": weights_gb,
+          "dtype": "bfloat16", "graphs": engine.graphs,
+          "weights_gb": weights_gb,
           "slots": VLM_SLOTS, "max_len": VLM_MAX_LEN, "requests": len(reqs),
           "prompt_lengths": [len(r.prompt) for r in reqs],
           "prefills": s.prefills, "ticks": s.ticks, "completed": s.completed,
@@ -4127,7 +4340,10 @@ def phase_vlm_serve(dev):
           "patch_exact": pexact, "patch_checked": int(pgaps.numel()),
           "patch_max_gap": float(pgaps.max()), "gap_tol": SERVE_GAP_TOL,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    _profile_decode(engine, cfg, "vlm_profile", VLM_SLOTS)
+    prof = _profile_decode(engine, cfg, "vlm_profile", VLM_SLOTS,
+                           k2_per_tick=n)
+    _graph_check("vlm_serve", engine, (reqs, log, decode_s, admit_s), counts,
+                 prof, _eager_run(engine, reqs))
     return launches, by_path
 
 
@@ -4988,32 +5204,12 @@ def phase_mesh_train(dev, mesh):
     return fwd, bwd, by_path
 
 
-class _TickLogits:
-    """``models.decode_step`` wrapped to keep each call's logits (the
-    serving engine looks it up per tick)."""
-
-    def __init__(self):
-        self.logits = []
-        self.inner = lm.decode_step
-
-    def __enter__(self):
-        def logged(*args, **kw):
-            logits, cache = self.inner(*args, **kw)
-            self.logits.append(logits.full_tensor() if hasattr(
-                logits, "full_tensor") else logits)
-            return logits, cache
-        lm.decode_step = logged
-        return self
-
-    def __exit__(self, *exc):
-        lm.decode_step = self.inner
-
-
 def _mesh_serve_run(cfg, params, dev, dist):
     """lm_serve's 16 requests through one ServeEngine (on ``dist``'s mesh
-    when given): the requests, the per-tick logits, the host seconds of the
-    ticks that only decoded, the engine's stats and K2's launches."""
-    kw = {} if dist is None else {"dist": dist}
+    when given, else mesh-free and eager): the requests, the per-tick
+    logits, the host seconds of the ticks that only decoded, the engine's
+    stats and K2's launches."""
+    kw = {"graphs": False} if dist is None else {"dist": dist}
     engine = ServeEngine(cfg, params, slots=LLAMA_SLOTS,
                          max_len=LLAMA_MAX_LEN, device=dev, **kw)
     rng = np.random.default_rng(SEED)
@@ -5023,18 +5219,18 @@ def _mesh_serve_run(cfg, params, dev, dist):
     for r in reqs:
         engine.submit(r)
     before, stats0 = _counts(), flash_attention.stats_launches
-    with _TickLogits() as log, torch.no_grad():
+    with _LogitLog(engine, reqs) as log, torch.no_grad():
         decode_s, _ = _timed_ticks(engine)
     launched = _counts_delta(before)[0]
-    return (engine, reqs, log.logits, decode_s, launched,
+    return (engine, reqs, log.ticks, decode_s, launched,
             flash_attention.stats_launches - stats0)
 
 
 def phase_mesh_serve(dev, mesh):
     """llama3.2-1b at full width (16 layers, bf16) behind
     ServeEngine(dist=the 1x1 mesh) with lm_serve's 16 requests of 32
-    tokens: the tokens and every tick's logits bit-equal to the mesh-free
-    engine's, K2 launched once a layer a prefill on prefill_tc and once a
+    tokens: the tokens and every tick's logits bit-equal to an eager
+    mesh-free engine's, K2 launched once a layer a prefill on prefill_tc and once a
     layer a tick on decode (no launch with stats: a 1-wide sequence axis
     merges nothing); the ticks' host ms and a decode step's device ms both
     ways.  Returns the meshed engine's K2 launches by kernel."""

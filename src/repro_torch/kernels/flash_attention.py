@@ -476,11 +476,18 @@ def flash_attention_bwd(q, k, v, out, dout,
 # The decode path's (batch, kv head) arrival counters, one buffer per
 # (device, stream), zeroed once on that stream; each launch leaves them at
 # 0.  Launches in one stream run in order, so they never share a counter;
-# launches on two streams get two buffers.
+# launches on two streams get two buffers.  A launch captured into a CUDA
+# graph gets a buffer of its own instead, allocated from the graph's pool
+# and zeroed by a memset captured with it: every replay starts it at 0,
+# and no two graphs (which share the capture stream) share one, whatever
+# streams they are replayed on.  The per-call ``part`` buffer is the
+# graph's own allocation in the same way.
 _COUNTERS: dict = {}
 
 
 def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(max(n, 64), dtype=torch.int32, device=device)
     buf = _COUNTERS.get((device, stream))
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)

@@ -110,6 +110,21 @@ def grouped_gemm_route(x: torch.Tensor, w: torch.Tensor) -> str:
     return "grouped_mm" if x.is_cuda and aligned else "loop"
 
 
+def reads_host(cfg: LMConfig, device: torch.device) -> bool:
+    """Whether ``cfg``'s mesh-free ``moe_ffn`` on ``device`` reads the host
+    (so a CUDA graph cannot capture it): the loop route reads the group
+    ends (``ends.tolist()``), and ``torch._grouped_mm`` syncs on its
+    per-group fallback outside bf16.  Only bf16 on the grouped_mm route
+    stays on the device."""
+    if not cfg.n_experts:
+        return False
+    x = torch.empty((0, cfg.d_model), dtype=cfg.dtype, device=device)
+    f = cfg.expert_d_ff
+    routes = {grouped_gemm_route(x, x.new_empty((0, k, n)))
+              for k, n in ((cfg.d_model, 2 * f), (f, cfg.d_model))}
+    return routes != {"grouped_mm"} or cfg.dtype != torch.bfloat16
+
+
 def _product(route: str, x, w, ends):
     """Rows ``ends[e-1]:ends[e]`` of ``x (m, k)`` times ``w[e] (k, n)`` on
     ``route``; rows past ``ends[-1]`` are left unspecified on grouped_mm

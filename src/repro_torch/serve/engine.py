@@ -20,9 +20,32 @@ refused at construction: its prefill needs ``batch["frames"]``, which a
 ``Request`` does not carry, so the reference's engine fails on it at the
 first prefill (enc-dec is served through ``models.prefill``/
 ``decode_step``).  A slot receives every key of the request's cache but
-``len`` (KV, SSM and conv state, mLSTM and sLSTM state).  The reference's
-``trace_counts`` counted ``jax.jit`` traces, which eager PyTorch has none
-of; it returns as a capture counter with CUDA graphs.
+``len`` (KV, SSM and conv state, mLSTM and sLSTM state).
+
+The compiled steps.  The reference wraps ``decode_step`` and ``prefill`` in
+``jax.jit``; the port builds a :class:`~repro_torch.serve.step.Step` per
+key: one decode step per engine, and one prefill step per bucket for the
+bucketed families.  ``trace_counts = {"prefill": n, "decode": m}`` counts
+the steps built, as the reference counts its traces.  The exact-length
+families (hybrid, xLSTM, VLM) prefill eagerly: each prompt has its own
+length, so a graph would be captured for one use; they count 0 prefill
+builds where the reference retraces once per distinct length.  With
+``graphs`` each step is captured into a CUDA graph after its first call
+(run eagerly, its results used) and replayed from then on; all of one
+engine's graphs share one memory pool.  The decode step reads the slots'
+tokens from a static ``(slots, 1)`` buffer, updates the cache in place
+(``len + 1`` written back into the one ``cache["len"]`` tensor) and takes
+the argmax on the device; a tick reads the tokens and lengths to the host
+once, as the reference does.  A prefill step's outputs are spliced into
+the slot before any other step runs.  Without ``graphs`` the steps run
+eagerly on the same buffers.
+
+``graphs=None`` resolves to True on a CUDA device without a mesh, unless
+a step would read the host: the MoE family off the bf16 grouped_mm route
+(``moe.reads_host``: fp32 syncs).  ``graphs=True`` raises on the CPU,
+under a mesh (DTensor dispatch and NCCL collectives are not captured; the
+meshed engine stays eager) and on a host-reading route, and a capture that
+fails raises: nothing falls back to eager running.
 
 Under a mesh (``dist``, the reference's argument) the engine serves
 through the zoo's meshed ``prefill`` and ``decode_step``: the weights laid
@@ -54,8 +77,10 @@ import torch
 
 from repro_torch import models as zoo
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.models import moe
 from repro_torch.models.common import NO_DIST, Dist, LMConfig, P, ShapeCfg
 from repro_torch.models.transformer import _seq_index, cast_params
+from repro_torch.serve.step import Step
 
 
 @dataclasses.dataclass
@@ -78,11 +103,13 @@ class EngineStats:
 
 class ServeEngine:
     """Continuous batching for every decoder-only family on one device,
-    or under ``dist``'s mesh.  ``params`` lie on ``device``."""
+    or under ``dist``'s mesh.  ``params`` lie on ``device``.  ``graphs``:
+    capture the steps into CUDA graphs (None: where they can be; module
+    docstring); ``engine.graphs`` holds the resolved value."""
 
     def __init__(self, cfg: LMConfig, params, slots: int = 4,
                  max_len: int = 256, device: DeviceLike = "cuda",
-                 dist: Dist = NO_DIST):
+                 dist: Dist = NO_DIST, graphs: Optional[bool] = None):
         zoo.family_module(cfg)                  # raises for unknown families
         if cfg.family == "encdec":
             raise ValueError(
@@ -91,6 +118,11 @@ class ServeEngine:
                 "does not carry (use models.prefill/decode_step)")
         self.device = resolve_device(device)
         self.cfg, self.dist = cfg, dist
+        eager_why = self._eager_reason()
+        if graphs and eager_why:
+            raise ValueError(f"{cfg.name}: ServeEngine(graphs=True) "
+                             f"{eager_why}")
+        self.graphs = eager_why is None if graphs is None else bool(graphs)
         self.slots = slots
         self.max_len = max_len
         self.cache = zoo.init_cache(cfg, slots, max_len, device=self.device)
@@ -111,6 +143,97 @@ class ServeEngine:
         self.live: List[Optional[Request]] = [None] * slots
         self.queue: deque[Request] = deque()
         self.stats = EngineStats()
+        # Steps built, by key ("decode", or ("prefill", bucket)).
+        self.steps = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
+
+    @property
+    def trace_counts(self):
+        """The steps built: ``{"prefill": n, "decode": m}``, the
+        reference's count of its ``jax.jit`` traces."""
+        decode = int("decode" in self.steps)
+        return {"prefill": len(self.steps) - decode, "decode": decode}
+
+    def _eager_reason(self) -> Optional[str]:
+        """Why this engine's steps cannot be captured, or None."""
+        if self.dist.mesh is not None:
+            return ("runs under a mesh, whose DTensor dispatch and NCCL "
+                    "collectives are not captured")
+        if self.device.type != "cuda":
+            return f"needs a CUDA device; the engine runs on {self.device}"
+        if moe.reads_host(self.cfg, self.device):
+            return (f"serves the MoE family in {self.cfg.dtype}, whose "
+                    "grouped GEMM reads the host")
+        return None
+
+    def _step(self, key, fn, shapes) -> Step:
+        """The step of ``key``, built at its first use: ``fn`` over static
+        input buffers of ``shapes`` (name: (shape, dtype))."""
+        step = self.steps.get(key)
+        if step is None:
+            inputs = {name: torch.zeros(shape, dtype=dtype,
+                                        device=self.device)
+                      for name, (shape, dtype) in shapes.items()}
+            step = self.steps[key] = Step(f"{self.cfg.name} {key}", fn,
+                                          inputs, self._pool)
+        return step
+
+    # ----------------------------------------------------------- the steps
+    def _prefill(self, tokens, lengths=None):
+        """``zoo.prefill`` of one request: (logits, its cache)."""
+        batch = {"tokens": tokens}
+        if lengths is not None:
+            batch["lengths"] = lengths
+        if self.dist.mesh is None:
+            return zoo.prefill(self.cfg, self.params, batch, self.max_len)
+        batch = {k: _laid_out(t, P(*(None,) * t.dim()), self.dist.mesh)
+                 for k, t in batch.items()}
+        logits, rcache = zoo.prefill(self.cfg, self.params, batch,
+                                     self.max_len, self._prefill_dist)
+        return logits.full_tensor(), rcache
+
+    def _decode(self, tokens):
+        """``zoo.decode_step`` of every slot on the batch cache, updated in
+        place: (logits (slots, 1, V), the next tokens (slots,))."""
+        if self.dist.mesh is not None:
+            tokens = _laid_out(tokens, P(self.dist.batch, None),
+                               self.dist.mesh)
+        logits, cache = zoo.decode_step(self.cfg, self.params, tokens,
+                                        self.cache, self.dist)
+        if self.dist.mesh is not None:
+            logits = logits.full_tensor()
+        for key, t in cache.items():
+            if key != "len" and t is not self.cache[key]:
+                raise RuntimeError(f"{self.cfg.name}: decode_step returned "
+                                   f"a new cache[{key!r}]; the engine's "
+                                   "steps need it updated in place")
+        _local(self.cache["len"]).copy_(_local(cache["len"]))
+        return logits, torch.argmax(logits[:, 0], dim=-1)
+
+    def _run_prefill(self, prompt: np.ndarray):
+        """One request's prefill: through its bucket's step for the
+        bucketed families, eagerly at the exact length for the rest."""
+        L = len(prompt)
+        tokens = torch.as_tensor(np.asarray(prompt), dtype=torch.long)
+        if not self._bucketed:
+            return self._prefill(tokens[None].to(self.device))
+        bucket = min(self._bucket(L), self.max_len)
+        step = self._step(("prefill", bucket), self._prefill, {
+            "tokens": ((1, bucket), torch.long),
+            "lengths": ((1,), torch.int32)})
+        padded = torch.zeros((1, bucket), dtype=torch.long)
+        padded[0, :L] = tokens
+        step.inputs["tokens"].copy_(padded)
+        step.inputs["lengths"].fill_(L)
+        return step()
+
+    def _run_decode(self, last: np.ndarray):
+        """One decode step of every slot, ``last`` (slots, 1) the tokens
+        fed to it: (logits, next tokens), read before any other step."""
+        step = self._step("decode", self._decode,
+                          {"tokens": ((self.slots, 1), torch.long)})
+        step.inputs["tokens"].copy_(torch.from_numpy(last))
+        return step()
 
     # ----------------------------------------------------------------- admin
     def submit(self, req: Request):
@@ -130,25 +253,7 @@ class ServeEngine:
         EOS, or a one-token budget), it completes here and the slot stays
         free — returns True iff the slot was occupied."""
         L = len(req.prompt)
-        tokens = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long)
-        if self._bucketed:
-            bucket = min(self._bucket(L), self.max_len)
-            prompt = torch.zeros((1, bucket), dtype=torch.long)
-            prompt[0, :L] = tokens
-            batch = {"tokens": prompt.to(self.device),
-                     "lengths": torch.tensor([L], dtype=torch.int32,
-                                             device=self.device)}
-        else:
-            batch = {"tokens": tokens[None].to(self.device)}
-        if self.dist.mesh is not None:
-            batch = {k: _laid_out(t, P(*(None,) * t.dim()), self.dist.mesh)
-                     for k, t in batch.items()}
-            logits, rcache = zoo.prefill(self.cfg, self.params, batch,
-                                         self.max_len, self._prefill_dist)
-            logits = logits.full_tensor()
-        else:
-            logits, rcache = zoo.prefill(self.cfg, self.params, batch,
-                                         self.max_len)
+        logits, rcache = self._run_prefill(req.prompt)
         self.stats.prefills += 1
         tok = int(torch.argmax(logits[0, -1]))
         req.out_tokens.append(tok)
@@ -184,17 +289,8 @@ class ServeEngine:
         for i, r in enumerate(self.live):
             if r is not None:
                 last[i, 0] = r.out_tokens[-1]
-        tokens = torch.from_numpy(last).to(self.device)
-        if self.dist.mesh is not None:
-            tokens = _laid_out(tokens, P(self.dist.batch, None),
-                               self.dist.mesh)
-            logits, self.cache = zoo.decode_step(
-                self.cfg, self.params, tokens, self.cache, self.dist)
-            logits = logits.full_tensor()
-        else:
-            logits, self.cache = zoo.decode_step(self.cfg, self.params,
-                                                 tokens, self.cache)
-        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        _, nxt = self._run_decode(last)
+        nxt = nxt.cpu().numpy()
         # One host transfer for all slot lengths per tick.
         lens = _local(self.cache["len"]).cpu().numpy()
         self.stats.ticks += 1

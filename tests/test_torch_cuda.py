@@ -1546,3 +1546,134 @@ def test_mesh_family_step_bit_equal_on_card(dev, mesh11, arch):
     assert torch.equal(gm["loss"].to_local(), rm["loss"])
     for a, b in zip(optim.leaves(full_tree(gp)), optim.leaves(rp)):
         assert torch.equal(a, b)
+
+
+# ------------------------------------- the serving engine's CUDA graphs
+GRAPH_ARCHS = ["llama3.2-1b", "deepseek-moe-16b", "zamba2-1.2b",
+               "xlstm-1.3b", "internvl2-2b"]
+
+
+def _graph_serve(cfg, params, dev, graphs):
+    """The smoke traffic of the serving tests (5 prompts over 2 slots, a
+    freed slot taken again) through one engine: (engine, tokens, each
+    tick's logits copied, K2 and grouped GEMM launches)."""
+    eng = ServeEngine(cfg, params, slots=2, max_len=64, device=dev,
+                      graphs=graphs)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(1, 400, size=n), eos_id=-1,
+                    max_new_tokens=6) for i, n in enumerate((20, 17, 30, 25,
+                                                             40))]
+    for r in reqs:
+        eng.submit(r)
+    k2 = dict(flash_attention.launches_by_path)
+    routes = dict(moe.grouped_gemm.launches_by_route)
+    logits = []
+    while eng.queue or any(r is not None for r in eng.live):
+        ticks = eng.stats.ticks
+        eng.tick()
+        if eng.stats.ticks > ticks:
+            logits.append(eng.steps["decode"].out[0].clone())
+    torch.cuda.synchronize()
+    launched = ({k: flash_attention.launches_by_path[k] - k2[k] for k in k2},
+                {k: moe.grouped_gemm.launches_by_route[k] - routes[k]
+                 for k in routes})
+    return eng, [r.out_tokens for r in reqs], logits, launched
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graph_engine_bit_equal_to_eager_engine(dev, arch):
+    """Each decoder-only family at the smoke width in bf16 (head dim 64
+    where it attends):
+    the engine as users get it resolves to CUDA graphs, and its tokens and
+    every tick's logits are bit-equal to the eager engine's on the same
+    weights; one decode step and one prefill step per bucket built (none
+    for the exact-length families); K2 and the grouped GEMM counted per
+    replay exactly as the eager engine counts its launches."""
+    cfg = get_smoke_config(arch)
+    if cfg.family != "ssm":
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    graph = _graph_serve(cfg, params, dev, None)
+    eager = _graph_serve(cfg, params, dev, False)
+    assert graph[0].graphs is True and eager[0].graphs is False
+    assert graph[1] == eager[1]
+    assert len(graph[2]) == len(eager[2]) == graph[0].stats.ticks
+    assert all(torch.equal(a, b) for a, b in zip(graph[2], eager[2]))
+    bucketed = cfg.family in ("dense", "moe")
+    buckets = {ServeEngine._bucket(n) for n in (20, 17, 30, 25, 40)}
+    assert graph[0].trace_counts == eager[0].trace_counts == {
+        "prefill": len(buckets) if bucketed else 0, "decode": 1}
+    assert graph[3] == eager[3]
+    assert all(s.graph is not None for s in graph[0].steps.values())
+    assert sum(s.pool_bytes for s in graph[0].steps.values()) > 0
+
+
+def test_flash_decode_and_grouped_gemm_captured_alone(dev):
+    """K2's decode (8 slots over a 2048-position cache, ragged kv_len) and
+    the bf16 grouped GEMM, each captured alone in a Step and replayed
+    twice with new inputs copied into its buffers: bit-equal to eager
+    calls, and each replay adds the launches the capture recorded (the
+    capture itself adds none)."""
+    from repro_torch.serve.step import Step
+    q, k, v = _flash_inputs(dev, 8, 32, 8, 1, 2048, 64, torch.bfloat16)
+    kl = torch.tensor([64, 1056, 300, 1, 777, 2048, 129, 500],
+                      dtype=torch.int32, device=dev)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((96, 64), generator=gen).to(dev, torch.bfloat16)
+    w = torch.randn((4, 64, 48), generator=gen).to(dev, torch.bfloat16)
+    sizes = torch.tensor([30, 0, 41, 20], device=dev)
+    cases = [
+        (lambda q, kl: flash_attention(q, k, v, kl, causal=False),
+         {"q": q.clone(), "kl": kl.clone()},
+         lambda: flash_attention.launches_by_path["decode"]),
+        (lambda x, sizes: moe.grouped_gemm(x, w, sizes),
+         {"x": x.clone(), "sizes": sizes.clone()},
+         lambda: moe.grouped_gemm.launches_by_route["grouped_mm"])]
+    for fn, inputs, count in cases:
+        base = {key: t.clone() for key, t in inputs.items()}
+        step = Step("alone", fn, inputs, torch.cuda.graph_pool_handle())
+        n = count()
+        first = step().clone()                  # eager, then the capture
+        assert step.graph is not None and count() == n + 1
+        for scale in (0.5, 2.0):
+            new = {key: (t * scale).to(t.dtype) if t.is_floating_point()
+                   else t for key, t in base.items()}
+            for key, t in new.items():
+                step.inputs[key].copy_(t)
+            n = count()
+            out = step().clone()
+            assert count() == n + 1
+            torch.cuda.synchronize()
+            assert torch.equal(out, fn(**new))
+        assert not torch.equal(first, out)
+
+
+def test_failed_capture_raises(dev):
+    """A step that reads the card's values to the host cannot be captured:
+    its first call runs, then the capture raises; nothing falls back."""
+    from repro_torch.serve.step import Step
+    step = Step("reads", lambda t: t * int(t.sum()),
+                {"t": torch.ones(4, device=dev)},
+                torch.cuda.graph_pool_handle())
+    with pytest.raises(RuntimeError, match="capture failed"):
+        step()
+    assert step.graph is None
+
+
+def test_fp32_moe_engine_stays_eager(dev, mesh11):
+    """The fp32 MoE's grouped GEMM reads the host: its engine resolves to
+    eager and graphs=True raises; so does graphs=True under a mesh."""
+    from repro_torch.models.common import Dist
+    cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    assert ServeEngine(cfg, params, slots=2, max_len=32,
+                       device=dev).graphs is False
+    with pytest.raises(ValueError, match="reads the host"):
+        ServeEngine(cfg, params, slots=2, max_len=32, device=dev,
+                    graphs=True)
+    cfg = get_smoke_config("llama3.2-1b")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    with pytest.raises(ValueError, match="under a mesh"):
+        ServeEngine(cfg, params, slots=2, max_len=32, device=dev,
+                    dist=Dist(mesh11, batch_axes=("data",)), graphs=True)

@@ -68,7 +68,8 @@ def phase_faults(dev):
             params = cs.lm.init_params(
                 cfg, cs.torch.Generator(dev).manual_seed(cs.SEED), dev)
             engine = cs.ServeEngine(cfg, params, slots=cs.REC_SLOTS,
-                                    max_len=cs.REC_MAX_LEN, device=dev)
+                                    max_len=cs.REC_MAX_LEN, device=dev,
+                                    graphs=False)
             del params
             engine._bucketed = fault == "bucketed"
             rng = cs.np.random.default_rng(cs.SEED)
