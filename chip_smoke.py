@@ -50,6 +50,10 @@ published widths:
           backward launches per step, 20 steps lowering the loss, the
           trained parameters through a checkpoint bit for bit, a value-only
           patch (the step bit-equal to a fresh plan's, 0 rebuilds); the
+          step is captured (one CUDA graph, replayed): 20 steps bit-equal
+          to 20 eager ones, also replayed after the patch, the eager step
+          free of host reads, host ms (enqueue, call) and device ms both
+          ways, capture s, pool MB; the
           path's launches are counted apart from the forward path's; then
           K2 differentiating through q, k or v alone (each gradient
           against the plain backward's);
@@ -57,10 +61,16 @@ published widths:
           SIoT and Yelp over each of the three plans, held against the
           whole-graph forward on the card and on the CPU; counts the
           kernel's launches per forward, the resident plan tensors and the
-          forward's peak device memory;
+          forward's peak device memory; the forward is captured, and each
+          case's bsp_graph line holds a replay bit-equal to the eager
+          forward, 1 trace and 1 build, K1 a replay, host ms (enqueue,
+          call) and device ms both ways, capture s and pool MB;
   serve   256 Zipf requests through the ego-serving engine over each plan,
           held against the BSP forward's rows; the Random plan fetches
-          remote rows;
+          remote rows; the serve_graph line: the stream through the graph
+          engine (one CUDA graph a bucket) and an eager engine, twice
+          each, answers bit-equal, traces equal, req/s and p50/p99 both
+          ways for both passes;
   replicate  replicate_for_stream on serve's stream over SIoT's Random and
           main plans, set_replication, and the replicated forward (GCN,
           SAGE, GAT) bit-equal to the unreplicated one with fewer layer-0
@@ -71,7 +81,9 @@ published widths:
           relayout back to it, patched in place (0 rebuilds, output
           bit-equal to a fresh plan's; the host time of each model's first
           forward after it: GCN's repacks the plan, SAGE's shares that
-          pack), then a capacity overflow (exactly 1 rebuild);
+          pack), then a capacity overflow (exactly 1 rebuild); the
+          forwards are captured: new traces = rebuilds at every patch,
+          each replay bit-equal to a fresh plan's eager forward;
   evolve  the paper's dynamic path on SIoT over the main fleet: three slots
           of sample_delta / apply_delta, GLAD-E relayouts and patch_plan
           with the structural dirty set, on the main layout compiled
@@ -325,8 +337,9 @@ published widths:
           cell's FLOPs, peak and collective bytes by kind with the torch
           version that counted them, the roofline in the H100's terms.
 
-Each phase prints JSON lines.  Any failed check exits non-zero.  Before
-the last line it prints the kernels summary and the ``nvidia-smi`` name and
+Each phase prints JSON lines; a phase_seconds line splits the run's host
+seconds by phase before the done line.  Any failed check exits non-zero.
+Before the last line it prints the kernels summary and the ``nvidia-smi`` name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The
 kernel summary's ``launches`` are the main paths' (train, then the GNN
 forward path from bsp to evolve and the example twins (K1's ``gnn`` and
@@ -597,6 +610,52 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 20, warmup: int = 3) -> dict:
+    """Host-clock medians over ``reps`` calls of ``fn``, each started on an
+    idle card: ``enqueue`` (until ``fn`` returns) and ``call`` (until the
+    card has finished it, a ``synchronize`` after)."""
+    for _ in range(warmup):
+        fn()
+    enqueue, call = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        enqueue.append((t1 - t0) * 1e3)
+        call.append((t2 - t0) * 1e3)
+    return {"enqueue": statistics.median(enqueue),
+            "call": statistics.median(call)}
+
+
+def _no_host_reads(fn) -> bool:
+    """Whether ``fn`` runs with the card's sync debug mode at "error"
+    (an op that reads the device from the host raises; the mode is a
+    prototype and may miss some).  Off the card: True."""
+    if not torch.cuda.is_available():
+        fn()
+        return True
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError:
+        return False
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return True
+
+
+def _captured(steps) -> dict:
+    """The count, capture seconds and pool MB of the captured graphs among
+    ``steps`` (Steps, or None for signatures only run eagerly)."""
+    done = [s for s in steps if s is not None and s.graph is not None]
+    return {"graphs": len(done), "capture_s": sum(s.capture_s for s in done),
+            "pool_mb": sum(s.pool_bytes for s in done) / 1e6}
 
 
 # Windows whose kernels' counts were not whole multiples of the calls, with
@@ -1007,7 +1066,9 @@ def phase_kernels(datasets, dev):
 
 def phase_bsp(datasets, dev):
     """Main path: the BSP forward at paper width over each plan, both
-    exchanges, against the whole-graph forward on the card and the CPU."""
+    exchanges, against the whole-graph forward on the card and the CPU.
+    The forward is the default one, captured (one CUDA graph, replayed);
+    each case's ``bsp_graph`` line holds it against the eager forward."""
     params_of = {}
     for ds in datasets:
         g = ds["graph"]
@@ -1030,6 +1091,9 @@ def phase_bsp(datasets, dev):
                     label = f"{ds['name']} {layout} {model} {exchange}"
                     fwd = make_bsp_forward(cfg, plan, exchange=exchange,
                                            device=dev)
+                    require(fwd.graphs is (dev.type == "cuda"),
+                            f"{label}: the forward on {dev} resolved graphs "
+                            f"to {fwd.graphs}")
                     torch.cuda.synchronize()
                     base = torch.cuda.memory_allocated()
                     torch.cuda.reset_peak_memory_stats()
@@ -1064,7 +1128,53 @@ def phase_bsp(datasets, dev):
                               t.numel() * t.element_size()
                               for t in resident.values()) / 1e6,
                           "forward_peak_mb": peak_mb})
+                    _bsp_graph(fwd, cfg, plan, params, blocks, out, want,
+                               label, {"dataset": ds["name"],
+                                       "layout": layout, "model": model,
+                                       "exchange": exchange}, dev)
     return params_of
+
+
+def _bsp_graph(fwd, cfg, plan, params, blocks, out, want, label, key, dev):
+    """The captured forward ``fwd`` (already called once: run eagerly,
+    then captured) against an eager forward over the same plan: a replay
+    and the first call bit-equal to it, one trace and one build, ``want``
+    K1 launches a replay; host ms both ways, device ms, capture seconds
+    and pool MB."""
+    eager = make_bsp_forward(cfg, plan, exchange=key["exchange"],
+                             device=dev, graphs=False)
+    expect = eager(params, blocks)
+    before = spmm.launches
+    replay = fwd(params, blocks)
+    torch.cuda.synchronize()
+    per_replay = spmm.launches - before
+    equal = torch.equal(replay, expect) and torch.equal(out, expect)
+    quiet = _no_host_reads(lambda: eager.eager(params, blocks))
+    row = {"phase": "bsp_graph", **key, "aggregate": fwd.mode,
+           "bit_equal_to_eager": equal, "eager_no_host_reads": quiet,
+           "traces": fwd.stats["traces"],
+           "builds": fwd.stats["builds"],
+           "spmm_launches_per_replay": per_replay,
+           "host_ms": {"graph": host_ms(lambda: fwd(params, blocks),
+                                        reps=10, warmup=1),
+                       "eager": host_ms(lambda: eager(params, blocks),
+                                        reps=10, warmup=1)},
+           "device_ms": {
+               "graph": device_ms(lambda: fwd(params, blocks), reps=5,
+                                  warmup=1, label=f"{label} graph"),
+               "eager": device_ms(lambda: eager(params, blocks), reps=5,
+                                  warmup=1, label=f"{label} eager")},
+           **_captured(fwd.steps.values())}
+    emit(row)
+    require(equal, f"{label}: the captured forward != the eager forward, "
+            "bit for bit")
+    require(quiet, f"{label}: the eager forward reads the card from the "
+            "host")
+    require(fwd.stats["traces"] == fwd.stats["builds"] == 1,
+            f"{label}: {fwd.stats['traces']} traces, "
+            f"{fwd.stats['builds']} builds")
+    require(per_replay == want, f"{label}: {per_replay} spmm_csr launches "
+            f"a replay, expected {want}")
 
 
 def _grad_excess(grads, ref):
@@ -1122,6 +1232,14 @@ def phase_train(datasets, dev):
                                            aggregate=agg, device=dev)
                     step = make_distributed_train_step(
                         cfg, fwd, labels_b, mask_b, lr=TRAIN_LR)
+                    eager = make_distributed_train_step(
+                        cfg, make_bsp_forward(cfg, plan, exchange=exchange,
+                                              aggregate=agg, device=dev,
+                                              graphs=False),
+                        labels_b, mask_b, lr=TRAIN_LR)
+                    require(step.graphs is (dev.type == "cuda")
+                            and not eager.graphs, f"{label}: the step on "
+                            f"{dev} resolved graphs to {step.graphs}")
                     before = dict(spmm.launches_by_dir)
                     loss, grads = step.loss_and_grads(params, blocks)
                     loss2, grads2 = step.loss_and_grads(params, blocks)
@@ -1144,6 +1262,7 @@ def phase_train(datasets, dev):
                             f"{label}: not bitwise equal run to run")
                     excess, err = _grad_excess(grads, ref)
                     loss_err = abs(float(loss) - float(ref_loss))
+                    eager(params, blocks)     # its plan tensors, uploaded
                     require(excess <= 0 and loss_err
                             <= FWD_TOL * abs(float(ref_loss)),
                             f"{label}: gradients vs the CPU whole-graph "
@@ -1154,11 +1273,24 @@ def phase_train(datasets, dev):
                            "loss_err": loss_err, "grad_max_abs_err": err,
                            "grad_excess": excess, "bitwise_equal": True,
                            "spmm_launches_4_steps": got,
+                           "eager_step_no_host_reads": _no_host_reads(
+                               lambda: eager(params, blocks)),
                            "step_ms": time_ms(lambda: step(params, blocks),
                                               reps=10, warmup=2),
+                           "step_host_ms": {
+                               "graph": host_ms(lambda: step(params, blocks),
+                                                reps=10, warmup=1),
+                               "eager": host_ms(
+                                   lambda: eager(params, blocks), reps=10,
+                                   warmup=1)},
                            "step_device_ms": device_ms(
                                lambda: step(params, blocks), reps=5,
                                warmup=1, label=label),
+                           "eager_step_device_ms": device_ms(
+                               lambda: eager(params, blocks), reps=5,
+                               warmup=1, label=f"{label} eager"),
+                           **{f"step_{k}": v for k, v in _captured(
+                               step.steps.values()).items()},
                            "forward_ms": time_ms(
                                lambda: fwd(params, blocks), reps=10,
                                warmup=2),
@@ -1167,23 +1299,39 @@ def phase_train(datasets, dev):
                         row["step_device_ms"] / row["step_ms"]
                         if isinstance(row["step_device_ms"], float)
                         else "not measured")
+                    require(row["eager_step_no_host_reads"],
+                            f"{label}: the eager step reads the card from "
+                            "the host")
                     if agg == "auto":
                         row.update(_train_and_checkpoint(step, params,
-                                                         blocks, label))
+                                                         blocks, label,
+                                                         eager))
                     rows[(ds["name"], model, exchange, fwd.mode)] = row
                     emit(row)
     _train_patch(datasets[0], dev)
     return rows
 
 
-def _train_and_checkpoint(step, params, blocks, label):
-    """TRAIN_STEPS steps at TRAIN_LR lower the loss; the trained
-    parameters survive a checkpoint (async write) bit for bit, on the
-    card."""
-    losses, p = [], params
-    for _ in range(TRAIN_STEPS):
+def _steps_equal(step, eager, params, blocks, n: int = TRAIN_STEPS):
+    """``n`` steps of the captured ``step`` and of ``eager`` from
+    ``params``: whether every loss and the last parameters are bit-equal,
+    the captured run's losses and last parameters."""
+    losses, p, q, same = [], params, params, True
+    for _ in range(n):
         p, loss = step(p, blocks)
+        q, want = eager(q, blocks)
+        same &= bool(torch.equal(loss, want))
         losses.append(float(loss))
+    return same and _equal_trees(p, q), losses, p
+
+
+def _train_and_checkpoint(step, params, blocks, label, eager):
+    """TRAIN_STEPS captured steps at TRAIN_LR lower the loss and are
+    bit-equal to TRAIN_STEPS eager ones; the trained parameters survive a
+    checkpoint (async write) bit for bit, on the card."""
+    same, losses, p = _steps_equal(step, eager, params, blocks)
+    require(same, f"{label}: {TRAIN_STEPS} captured steps != "
+            f"{TRAIN_STEPS} eager steps, bit for bit")
     require(np.isfinite(losses).all() and losses[-1] < losses[0],
             f"{label}: {TRAIN_STEPS} steps at lr {TRAIN_LR} did not lower "
             f"the loss: {losses[0]} -> {losses[-1]}")
@@ -1198,16 +1346,20 @@ def _train_and_checkpoint(step, params, blocks, label):
                     for v in x.values()),
             f"{label}: checkpoint round trip not bit-equal on the card")
     return {"train_losses": [losses[0], losses[-1]],
+            "steps_bit_equal_to_eager": TRAIN_STEPS,
             "checkpoint_bit_equal": True}
 
 
 def _train_patch(siot, dev):
-    """A value-only patch of a copy of SIoT's main plan: the train step
-    (GCN and SAGE on K1 both ways, GAT on the segment path) refreshes the
-    resident plan tensors and the transposed operand in place, with 0
-    rebuilds, and its loss, gradients and updated parameters equal a fresh
-    plan's bit for bit.  As in ``patch``: 2% of the vertices moved off the
-    plan (which grows it), then back (value-only)."""
+    """A value-only patch of a copy of SIoT's main plan under captured
+    train steps (GCN and SAGE on K1 both ways, GAT on the segment path):
+    each step, captured before the patch, replays after it (the same
+    graph, its targets moved by ``set_targets``) and reads the resident
+    plan tensors and the transposed operand, refreshed in place with 0
+    rebuilds; its loss and gradients equal a fresh plan's bit for bit, and
+    TRAIN_STEPS replays equal TRAIN_STEPS eager steps over the fresh plan.
+    As in ``patch``: 2% of the vertices moved off the plan (which grows
+    it), then back (value-only)."""
     g, main = siot["graph"], siot["layouts"]["glad_s_mu2"]["plan"]
     plan = recompile_like(main, g, main.assign)
     rng = np.random.default_rng(SEED + 1)
@@ -1223,9 +1375,10 @@ def _train_patch(siot, dev):
         params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
         fwd = make_bsp_forward(cfg, plan, device=dev)
         blocks, labels_b, mask_b = _train_setup(plan, g, dev)
-        make_distributed_train_step(cfg, fwd, labels_b, mask_b,
-                                    lr=TRAIN_LR)(params, blocks)
-        models[model] = (cfg, params, fwd)
+        step = make_distributed_train_step(cfg, fwd, labels_b, mask_b,
+                                           lr=TRAIN_LR)
+        step(params, blocks)                  # run, then captured
+        models[model] = (cfg, params, fwd, step)
     t0 = time.perf_counter()
     delta = patch_plan(plan, g, home)
     patch_s = time.perf_counter() - t0
@@ -1233,24 +1386,36 @@ def _train_patch(siot, dev):
             f"train: the relayout back overflowed the plan: {delta.grew}")
     fresh = recompile_like(plan, g, home)
     out = {}
-    for model, (cfg, params, fwd) in models.items():
+    for model, (cfg, params, fwd, step) in models.items():
         ops = fwd.stats["ops"]
-        steps = []
-        for p, f in ((plan, fwd), (fresh, make_bsp_forward(cfg, fresh,
-                                                           device=dev))):
-            blocks, labels_b, mask_b = _train_setup(p, g, dev)
-            step = make_distributed_train_step(cfg, f, labels_b, mask_b,
-                                               lr=TRAIN_LR)
-            loss, grads = step.loss_and_grads(params, blocks)
-            steps.append((loss, grads, step(params, blocks)[0]))
-        (la, ga, pa), (lb, gb, pb) = steps
+        graph = list(step.steps.values())
+        blocks, labels_b, mask_b = _train_setup(plan, g, dev)
+        step.set_targets(labels_b, mask_b)
+        f_blocks, f_labels, f_mask = _train_setup(fresh, g, dev)
+        ref = make_distributed_train_step(
+            cfg, make_bsp_forward(cfg, fresh, device=dev, graphs=False),
+            f_labels, f_mask, lr=TRAIN_LR)
+        la, ga = step.loss_and_grads(params, blocks)
+        lb, gb = ref.loss_and_grads(params, f_blocks)
+        pa, pb = step(params, blocks)[0], ref(params, f_blocks)[0]
         require(fwd.stats["builds"] == 1 and fwd.stats["ops"] is ops,
                 f"train patch {model}: {fwd.stats['builds']} builds")
+        require(list(step.steps.values()) == graph
+                and len(graph) == int(dev.type == "cuda")
+                and all(st.graph is not None for st in graph),
+                f"train patch {model}: the step was captured again after "
+                "a value-only patch")
         require(torch.equal(la, lb) and _equal_trees(ga, gb)
                 and _equal_trees(pa, pb),
                 f"train patch {model}: the patched plan's step != a fresh "
                 "plan's, bit for bit")
-        out[model] = {"aggregate": fwd.mode, "builds": fwd.stats["builds"]}
+        same, _, _ = _steps_equal(step, ref, params, blocks)
+        require(same, f"train patch {model}: {TRAIN_STEPS} replays over "
+                f"the patched plan != {TRAIN_STEPS} eager steps over a "
+                "fresh plan's, bit for bit")
+        out[model] = {"aggregate": fwd.mode, "builds": fwd.stats["builds"],
+                      "traces": fwd.stats["traces"],
+                      "steps_bit_equal_to_fresh_eager": TRAIN_STEPS}
     emit({"phase": "train_patch", "moved": int(len(delta.moved)),
           "host_patch_s": patch_s, "models": out, "bit_equal_to_fresh": True})
 
@@ -1285,11 +1450,13 @@ def _k2_differentiates(dev):
 
 
 def _relayout(plan, g, new, fwds, params_of, dev, label):
-    """Patch ``plan`` to ``new`` in place and run each forward over it:
-    patched == fresh compile, rebuilds exactly as ``retrace_expected``
-    says, and each output bit-equal to a fresh plan's forward.  Returns the
-    delta, the host patch seconds and each model's first-forward seconds."""
+    """Patch ``plan`` to ``new`` in place and run each captured forward
+    over it twice: patched == fresh compile, rebuilds and new traces
+    exactly as ``retrace_expected`` says, and both outputs (the second a
+    replay) bit-equal to a fresh plan's eager forward.  Returns the delta,
+    the host patch seconds and each model's first-forward seconds."""
     builds = {m: f.stats["builds"] for m, f in fwds.items()}
+    traces = {m: f.stats["traces"] for m, f in fwds.items()}
     t0 = time.perf_counter()
     delta = patch_plan(plan, g, new)
     patch_s = time.perf_counter() - t0
@@ -1304,13 +1471,16 @@ def _relayout(plan, g, new, fwds, params_of, dev, label):
         out = fwd(params, blocks)     # refreshes; the first one repacks
         torch.cuda.synchronize()
         refresh_s[m] = time.perf_counter() - t0
+        replay = fwd(params, blocks)
         rebuilt = fwd.stats["builds"] - builds[m]
-        require(rebuilt == int(delta.retrace_expected),
-                f"{label} {m}: {rebuilt} rebuilds, retrace_expected "
-                f"{delta.retrace_expected} ({delta.grew})")
+        traced = fwd.stats["traces"] - traces[m]
+        require(rebuilt == traced == int(delta.retrace_expected),
+                f"{label} {m}: {rebuilt} rebuilds and {traced} traces, "
+                f"retrace_expected {delta.retrace_expected} ({delta.grew})")
         fresh_fwd = make_bsp_forward(cfg, fresh, exchange="ppermute",
-                                     device=dev)
-        require(torch.equal(out, fresh_fwd(params, blocks)),
+                                     device=dev, graphs=False)
+        want = fresh_fwd(params, blocks)
+        require(torch.equal(out, want) and torch.equal(replay, want),
                 f"{label} {m}: patched forward != fresh plan's forward, "
                 "bit for bit")
     return delta, patch_s, refresh_s
@@ -1350,8 +1520,10 @@ def phase_patch(siot, params_of, dev):
           "dirty_parts": int(len(delta.dirty_parts)), "host_patch_s": patch_s,
           "refresh_s": refresh_s,
           "builds_after_patch": {m: f.stats["builds"] for m, f in fwds.items()},
+          "traces_after_patch": {m: f.stats["traces"] for m, f in fwds.items()},
           "bit_equal_to_fresh": True})
     builds = {m: f.stats["builds"] for m, f in fwds.items()}
+    traces = {m: f.stats["traces"] for m, f in fwds.items()}
     grow = home.copy()
     grow[: g.n // 2] = 0                      # stampede into partition 0
     delta = patch_plan(plan, g, grow)
@@ -1360,31 +1532,59 @@ def phase_patch(siot, params_of, dev):
     for m, fwd in fwds.items():
         cfg, params = gnn_paper.ALL[("siot", m)], params_of[("siot", m)]
         out = fwd(params, blocks)
-        require(fwd.stats["builds"] == builds[m] + 1,
+        require(torch.equal(fwd(params, blocks), out),
+                f"{m}: the forward captured after growth != its first run")
+        require(fwd.stats["builds"] == builds[m] + 1
+                and fwd.stats["traces"] == traces[m] + 1,
                 f"{m}: growth gave {fwd.stats['builds'] - builds[m]} "
-                "rebuilds, not 1")
+                f"rebuilds and {fwd.stats['traces'] - traces[m]} traces, "
+                "not 1")
         ref = forward(cfg, params, siot["feats"], siot["sd"]).cpu()
         full = torch.from_numpy(gather_outputs(plan, out.cpu().numpy(), g.n))
         err = allclose_err(full, ref, FWD_TOL)
         require(err <= FWD_TOL, f"{m}: forward after growth: {err}")
     emit({"phase": "patch_growth", "grew": list(delta.grew), "cap": plan.cap,
-          "builds": {m: f.stats["builds"] for m, f in fwds.items()}})
+          "builds": {m: f.stats["builds"] for m, f in fwds.items()},
+          "traces": {m: f.stats["traces"] for m, f in fwds.items()},
+          **_captured([s for f in fwds.values()
+                       for s in f.steps.values()])})
+
+
+def _serve_pass(engine, targets):
+    """Serve ``targets`` to the end; the answers, and the pass's req/s and
+    p50/p99 ms from the engine's ledger."""
+    done, secs, lats = (engine.stats.requests, engine.stats.wall_time_s,
+                        len(engine.latencies))
+    out = engine.serve(targets)
+    arr = np.asarray(engine.latencies[lats:])
+    return out, {"req_per_s": (engine.stats.requests - done)
+                 / (engine.stats.wall_time_s - secs),
+                 "p50_ms": float(np.percentile(arr, 50)) * 1e3,
+                 "p99_ms": float(np.percentile(arr, 99)) * 1e3}
 
 
 def phase_serve(siot, params_of, dev):
     """256 Zipf requests through the ego-serving engine over each of SIoT's
-    plans, against the BSP forward's rows."""
+    plans, against the BSP forward's rows.  The engine captures one CUDA
+    graph a bucket; an eager engine serves the same stream: every answer
+    bit-equal, the same traces.  Each engine serves the stream twice: the
+    first pass captures (or, eager, meets) every bucket, the second
+    replays; the ``serve_graph`` line holds req/s and p50/p99 both ways
+    for both passes, the captures and their seconds and pool MB."""
     g = siot["graph"]
     cfg, params = gnn_paper.SIOT_GCN, params_of[("siot", "gcn")]
     targets = zipf_requests(g.n, 256, s=1.1, seed=SEED)
     for layout in LAYOUTS:
         plan = siot["layouts"][layout]["plan"]
-        fwd = make_bsp_forward(cfg, plan, device=dev)
+        fwd = make_bsp_forward(cfg, plan, device=dev, graphs=False)
         bsp = gather_outputs(plan, fwd(params, torch.from_numpy(
             scatter_features(plan, g.features)).to(dev)).cpu().numpy(), g.n)
         engine = GNNServeEngine(cfg, params, g, plan, hops=2, batch=16,
                                 device=dev)
-        out = engine.serve(targets)
+        on_card = dev.type == "cuda"
+        require(engine.fwd.graphs is on_card, f"serve over {layout}: the "
+                f"engine on {dev} resolved graphs to {engine.fwd.graphs}")
+        out, cold = _serve_pass(engine, targets)
         err = allclose_err(torch.from_numpy(out),
                            torch.from_numpy(bsp[targets]), FWD_TOL)
         require(out.shape == (256, cfg.layer_dims[-1])
@@ -1405,6 +1605,26 @@ def phase_serve(siot, params_of, dev):
               "req_per_s": s.throughput_rps, "p50_ms": lat["p50"] * 1e3,
               "p99_ms": lat["p99"] * 1e3, "allclose_excess": err,
               "cache": engine.cache_stats()})
+        eager = GNNServeEngine(cfg, params, g, plan, hops=2, batch=16,
+                               device=dev, graphs=False)
+        e_out, e_cold = _serve_pass(eager, targets)
+        again, warm = _serve_pass(engine, targets)
+        e_again, e_warm = _serve_pass(eager, targets)
+        equal = (np.array_equal(out, e_out) and np.array_equal(again, out)
+                 and np.array_equal(e_again, e_out))
+        traces = (engine.fwd.stats["traces"], eager.fwd.stats["traces"])
+        emit({"phase": "serve_graph", "layout": layout,
+              "requests_per_pass": len(targets),
+              "answers_bit_equal": equal, "traces": traces[0],
+              "eager_traces": traces[1], "captures": engine.fwd.captures(),
+              **_captured(engine.fwd.steps.values()),
+              "first_pass": {"graph": cold, "eager": e_cold},
+              "second_pass": {"graph": warm, "eager": e_warm}})
+        require(equal, f"serve over {layout}: the graph engine's answers "
+                "!= the eager engine's, bit for bit")
+        require(traces[0] == traces[1] and engine.fwd.captures() == (
+            traces[0] if on_card else 0), f"serve over {layout}: traces "
+            f"{traces}, captures {engine.fwd.captures()}")
 
 
 def phase_evolve(siot, params_of, dev):
@@ -1445,20 +1665,24 @@ def phase_evolve(siot, params_of, dev):
                 f"evolve slot {t}: {pd.new_vertices} new vertices reported")
         blocks = torch.from_numpy(scatter_features(plan, g_new.features)
                                   ).to(dev)
-        builds = fwd.stats["builds"]
+        builds, traces = fwd.stats["builds"], fwd.stats["traces"]
         before = spmm.launches
         out = fwd(params, blocks)
+        replay = fwd(params, blocks)
         torch.cuda.synchronize()
-        require(spmm.launches - before == cfg.num_layers,
-                f"evolve slot {t}: {spmm.launches - before} spmm_csr launches")
+        require(spmm.launches - before == 2 * cfg.num_layers,
+                f"evolve slot {t}: {spmm.launches - before} spmm_csr launches "
+                "over two forwards")
         rebuilt = fwd.stats["builds"] - builds
-        require(rebuilt == int(pd.retrace_expected),
-                f"evolve slot {t}: {rebuilt} rebuilds, retrace_expected "
-                f"{pd.retrace_expected} ({pd.grew})")
+        traced = fwd.stats["traces"] - traces
+        require(rebuilt == traced == int(pd.retrace_expected),
+                f"evolve slot {t}: {rebuilt} rebuilds and {traced} traces, "
+                f"retrace_expected {pd.retrace_expected} ({pd.grew})")
         fresh_out = make_bsp_forward(cfg, fresh, exchange="ppermute",
-                                     device=dev)(params, blocks)
-        require(torch.equal(out, fresh_out), f"evolve slot {t}: forward "
-                "over the patched plan != fresh plan's, bit for bit")
+                                     device=dev, graphs=False)(params, blocks)
+        require(torch.equal(out, fresh_out) and torch.equal(replay, fresh_out),
+                f"evolve slot {t}: forward over the patched plan != fresh "
+                "plan's, bit for bit")
         sd = torch.from_numpy(directed_edges(g_new.edges)).to(dev)
         ref = forward(cfg, params, torch.from_numpy(g_new.features).to(dev),
                       sd).cpu()
@@ -1478,7 +1702,8 @@ def phase_evolve(siot, params_of, dev):
               "glad_e_moved": int(len(res.moved)), "glad_e_cost": res.cost,
               "glad_e_host_s": glad_e_s, "host_patch_s": patch_s,
               "grew": list(pd.grew), "retrace_expected": pd.retrace_expected,
-              "builds": fwd.stats["builds"], "e_cap": plan.e_cap,
+              "builds": fwd.stats["builds"], "traces": fwd.stats["traces"],
+              "graph_replayed": True, "e_cap": plan.e_cap,
               "e_cap_growth_after_insertion": hit, "allclose_excess": err,
               "bit_equal_to_fresh": True})
         g, assign = g_new, res.assign
@@ -5619,6 +5844,14 @@ def phase_dryrun(procs, out_dir, t0):
           "hardware": hardware, "wall_s": time.perf_counter() - t0})
 
 
+# (phase, host clock when it ended), for the phase_seconds line.
+MARKS: list = []
+
+
+def _mark(name: str) -> None:
+    MARKS.append((name, time.perf_counter()))
+
+
 def _zero_counts() -> None:
     spmm.launches = 0
     spmm.launches_by_dir = {"fwd": 0, "bwd": 0}
@@ -5645,15 +5878,19 @@ def main() -> int:
     t_dry = time.perf_counter()
     dry = _start_dryrun(dry_dir)
     phase_build()
+    _mark("build")
     siot = phase_layout("siot", dev)
     yelp = phase_layout("yelp", dev)
     kernel_rows, bwd_rows, worst = phase_kernels([siot, yelp], dev)
+    _mark("layout_and_kernels")
     flash_rows, flash_worst = phase_flash_kernels(dev)
     stats_rows, stats_worst = phase_flash_stats(dev)
     flash_rows += stats_rows
     flash_worst = max(flash_worst, stats_worst)
     flash_bwd_rows, flash_bwd_worst = phase_flash_backward(dev)
+    _mark("flash_kernels")
     train_rows, train_worst, _ = phase_train_kernels(dev)
+    _mark("train_kernels")
     flash_bwd_rows += train_rows
     flash_bwd_worst = max(flash_bwd_worst, train_worst)
     emit({"phase": "profiler_windows", "off_windows": len(LOST_WINDOWS),
@@ -5661,23 +5898,34 @@ def main() -> int:
 
     _zero_counts()                            # the train path starts here
     phase_train([siot, yelp], dev)
+    _mark("train")
     train_launches = dict(spmm.launches_by_dir)       # ... and ends here
     require(train_launches["bwd"] > 0,
             "the train path never launched spmm_csr's backward")
     require(flash_attention.launches == 0, "the train path launched K2")
     _k2_differentiates(dev)
+    _mark("k2_grad")
 
     _zero_counts()                            # the GNN path starts here
     params_of = phase_bsp([siot, yelp], dev)
+    _mark("bsp")
     phase_serve(siot, params_of, dev)
+    _mark("serve")
     phase_replicate(siot, params_of, dev)
+    _mark("replicate")
     phase_patch(siot, params_of, dev)
+    _mark("patch")
     phase_evolve(siot, params_of, dev)
+    _mark("evolve")
     gnn_launches = spmm.launches              # the example twins from here
     phase_ex_quickstart(dev)
+    _mark("ex_quickstart")
     phase_ex_relayout(dev)
+    _mark("ex_relayout")
     phase_ex_serve_gnn(dev)
+    _mark("ex_serve_gnn")
     phase_ex_experts(dev)
+    _mark("ex_experts")
     launches = spmm.launches                  # ... and ends here
     require(launches > gnn_launches,
             "the example twins never launched spmm_csr")
@@ -5688,14 +5936,18 @@ def main() -> int:
     # The ranks path: its launches are counted in the ranks, each from 0;
     # the comparison forwards here come after the GNN path's count.
     rank_launches = phase_ranks([siot, yelp], dev)
+    _mark("ranks")
     require(rank_launches["fwd"] > 0 and rank_launches["bwd"] > 0,
             f"the ranks never launched spmm_csr both ways: {rank_launches}")
     del siot, yelp
 
     phase_lm_parity(dev)
+    _mark("lm_parity")
     flash_launches, flash_by_path = phase_lm_serve(dev, flash_rows)
+    _mark("lm_serve")
     require(flash_launches > 0, "the LM path never launched flash_attention")
     ex_by_path = phase_ex_serve_lm(dev)       # inside the LM path's count
+    _mark("ex_serve_lm")
     require(sum(ex_by_path.values()) > 0,
             "the LM example twin never launched flash_attention")
     flash_launches += sum(ex_by_path.values())
@@ -5703,27 +5955,35 @@ def main() -> int:
                      for k in flash_by_path}
     phase_moe_parity(dev)
     moe_launches, moe_by_path = phase_moe_serve(dev, flash_rows)
+    _mark("moe_serve")
     require(moe_launches > 0, "the MoE path never launched flash_attention")
     phase_hybrid_parity(dev)
     hybrid_launches, hybrid_by_path = phase_hybrid_serve(dev)
+    _mark("hybrid_serve")
     require(hybrid_launches > 0,
             "the hybrid path never launched flash_attention")
     phase_xlstm_parity(dev)
     xlstm_launches, _ = phase_xlstm_serve(dev)
+    _mark("xlstm_serve")
     require(xlstm_launches == 0, "the xLSTM path launched flash_attention")
     phase_recurrent_fp32(dev)
     phase_vlm_parity(dev)
     vlm_launches, vlm_by_path = phase_vlm_serve(dev)
+    _mark("vlm_serve")
     require(vlm_launches > 0, "the VLM path never launched flash_attention")
     phase_encdec_parity(dev)
     encdec_launches, encdec_by_path = phase_encdec_serve(dev)
+    _mark("encdec_serve")
     require(encdec_launches > 0,
             "the enc-dec path never launched flash_attention")
     phase_zoo_fp32(dev)
+    _mark("zoo_fp32")
     train_launches_k2, train_by_path, train_bwd, train_bwd_by_path = (
         phase_lm_train(dev))
+    _mark("lm_train")
     family_train = {name: phase_family_train(name, dev)
                     for name in TRAIN_MAIN}
+    _mark("family_train")
     # The mesh path: a 1x1 NCCL mesh in this process.
     _fresh_device()
     with _one_rank_mesh(dev) as mesh:
@@ -5739,7 +5999,9 @@ def main() -> int:
                 "the meshed serving path never launched K2's decode and "
                 "prefill kernels")
     require(spmm.launches == 0, "the mesh phases launched spmm_csr")
+    _mark("mesh")
     phase_dryrun(dry, dry_dir, t_dry)
+    _mark("dryrun")
     for key, n in fam_bwd_by_path.items():
         mesh_train_by_path[key] = mesh_train_by_path.get(key, 0) + n
     train_fwd_phases = {"lm_train": train_by_path, **{
@@ -5758,6 +6020,9 @@ def main() -> int:
     flash_head = next(r for r in flash_rows
                       if r["shape"].startswith("decode"))
     bwd_head = flash_bwd_rows[0]                 # the train shape, L = 1024
+    ends = [("start", t_start)] + MARKS
+    emit({"phase": "phase_seconds", "seconds": {
+        name: t - was for (_, was), (name, t) in zip(ends, ends[1:])}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "spmm_bsr", "route": "cuda",

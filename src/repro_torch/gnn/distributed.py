@@ -38,10 +38,20 @@ and shared by every forward over the plan.  When ``plan.version`` moves
 the forward is rebuilt, re-allocating them, only when the reference's
 signature changes (a capacity grew, a ppermute round appeared, or the
 ppermute forward's replicas were switched on or off).
-``fwd.stats['builds']`` counts those rebuilds.
+``fwd.stats['builds']`` counts those rebuilds.  The segment path's sums
+read their order from the plan tensors too (:func:`segment_order` of the
+edge table's destinations), refreshed with them.
 
-Gradients.  The forward is differentiable in the parameters and the
-blocks, and deterministic on the card: every gather whose indices can
+Compiled forward.  The reference jits its forward and counts its traces;
+here ``fwd.stats['traces']`` counts the same, and on the card each trace
+is one CUDA graph (:class:`repro_torch.step.Step`), captured at its first
+call and replayed after: nothing on the path reads the device from the
+host, K1 runs inside the graph, and a value-only patch rewrites the
+tensors the graph reads, in place.
+
+Gradients.  The eager forward (``fwd.eager``) is differentiable in the
+parameters and the blocks, and deterministic on the card: every gather
+whose indices can
 repeat goes through :func:`gather_rows` (a sorted segment sum backward),
 the exchange's roll transposes to the opposite roll, and K1's backward is
 the kernel over the transposed operand.  The halo writes have gather-shaped
@@ -58,6 +68,7 @@ collectives between processes.
 """
 from __future__ import annotations
 
+import functools
 import weakref
 from typing import Optional
 
@@ -67,12 +78,13 @@ import torch.nn.functional as F
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.gnn.models import (
-    GNNConfig, gather_rows, segment_max, segment_sum)
+    GNNConfig, gather_rows, segment_max, segment_order, segment_sum)
 from repro_torch.gnn.plan import (
     ShardPlan, build_plan_bsr, gather_outputs, scatter_features,
     scatter_replica_halo)
 from repro_torch.kernels.gnn_aggregate import (
     PackedBSR, pack_bsr, spmm_packed, transpose_packed)
+from repro_torch.step import Step, resolve_graphs, spec, static_inputs
 
 EXCHANGES = ("ppermute", "allgather")
 
@@ -154,7 +166,10 @@ class _PlanTensors:
     Allocated at the plan's current shapes; :meth:`refresh` overwrites them
     in place from the host plan, so the tensors (and their addresses)
     outlive value-only patches.  With ``part=q`` they hold partition q's
-    rows only, as P = 1 tables (one rank's share)."""
+    rows only, as P = 1 tables (one rank's share).  In mode 'segment' they
+    also hold the order of the segment sums over the edge table's
+    destinations (:func:`segment_order` of the flat ``dst``, in
+    ``segments``), which the plan alone fixes."""
 
     def __init__(self, plan: ShardPlan, mode: str, exchange: str,
                  device: torch.device, part: Optional[int] = None):
@@ -186,12 +201,19 @@ class _PlanTensors:
             self.packed_t = PackedBSR(
                 self.t["bsr_t_row_ptr"], self.t["bsr_t_col"],
                 self.t["bsr_t_w"], src_rows=n_rows, n_rows=self.table_rows)
+        self.segments = ((self.t["seg_order"], self.t["seg_lengths"])
+                         if mode == "segment" else None)
 
     def _host(self, plan: ShardPlan) -> dict:
         q = (slice(None) if self.part is None
              else slice(self.part, self.part + 1))
         arrs = {"edges_src": plan.edges_src[q], "edges_dst": plan.edges_dst[q],
                 "deg": plan.deg[q], "halo_slot": plan.halo_slot[q]}
+        if self.mode == "segment":
+            ed = arrs["edges_dst"].astype(np.int64)
+            dst = ed + np.arange(len(ed))[:, None] * (self.cap + 1)
+            arrs["seg_order"], arrs["seg_lengths"] = segment_order(
+                dst, len(ed) * (self.cap + 1))
         if self.mode == "bsr":
             packs = (_plan_pack(plan) if self.part is None
                      else _part_pack(plan, self.part))
@@ -289,10 +311,12 @@ def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
     table[:, cap:cap + halo_cap] = halo
     nseg = P * (cap + 1)
 
+    def dst_sum(msgs):
+        return segment_sum(msgs, idx["dst_flat"], nseg, ops.segments)
+
     def neighbour_sum(x_flat):
         msgs = gather_rows(x_flat, idx["src_flat"])
-        return segment_sum(msgs, idx["dst_flat"], nseg).reshape(
-            P, cap + 1, -1)[:, :cap]
+        return dst_sum(msgs).reshape(P, cap + 1, -1)[:, :cap]
 
     if cfg.model in ("gcn", "sage"):
         if ops.mode == "bsr":
@@ -328,12 +352,10 @@ def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
                          torch.exp(logits - per_arc(seg_max, "dst_mod_flat")))
         ex_self = torch.exp(self_logit - seg_max)
         ex_flat = ex.reshape(-1, 1)
-        denom = segment_sum(ex_flat, idx["dst_flat"], nseg).reshape(
-            P, cap + 1)[:, :cap] + ex_self
+        denom = dst_sum(ex_flat).reshape(P, cap + 1)[:, :cap] + ex_self
         wh_flat = wh.reshape(P * rows, -1)
         msgs = ex_flat * gather_rows(wh_flat, idx["src_flat"])
-        num = segment_sum(msgs, idx["dst_flat"], nseg).reshape(
-            P, cap + 1, -1)[:, :cap]
+        num = dst_sum(msgs).reshape(P, cap + 1, -1)[:, :cap]
         num = num + ex_self[..., None] * wh[:, :cap]
         out = num / torch.clamp(denom, min=1e-16)[..., None]
     else:
@@ -397,20 +419,69 @@ def _sync_ops(state: dict, plan: ShardPlan, mode: str, exchange: str,
         state["version"] = plan.version
 
 
-def _halo0(plan: ShardPlan, exchange: str, replica0, h: torch.Tensor):
-    """The layer-0 halo with the replica-resident rows, (P, halo_cap + 1,
-    d) with the dump row last, on a plan whose ppermute forward has
-    replicas; None otherwise."""
+def _replica0_used(plan: ShardPlan, exchange: str, replica0) -> bool:
+    """Whether the forward reads ``replica0``: on a plan whose ppermute
+    forward has replicas, where it may not be missing."""
     if not _use_replicas(plan, exchange):
-        return None
+        return False
     if replica0 is None:
         raise ValueError(
             "plan has replicas: pass replica0="
             "scatter_replica_halo(plan, features) so layer 0 can "
             "serve replica-resident halo slots locally")
+    return True
+
+
+def _halo0(plan: ShardPlan, exchange: str, replica0, h: torch.Tensor):
+    """The layer-0 halo with the replica-resident rows, (P, halo_cap + 1,
+    d) with the dump row last, on a plan whose ppermute forward has
+    replicas; None otherwise."""
+    if not _replica0_used(plan, exchange, replica0):
+        return None
     r0 = torch.as_tensor(replica0, device=h.device).to(h.dtype)
     return torch.cat([r0, r0.new_zeros((r0.shape[0], 1, r0.shape[-1]))],
                      dim=1)
+
+
+def input_signature(params, blocks, replica0=None) -> tuple:
+    """What fixes a trace of the reference's jitted forward besides the
+    plan: every parameter's shape and dtype, the blocks', and replica0's
+    where the forward reads it (None otherwise)."""
+    return (tuple(tuple((k, spec(v)) for k, v in p.items())
+                  for p in params), spec(blocks),
+            None if replica0 is None else spec(replica0))
+
+
+def _leaves(params) -> dict:
+    return {f"p{k}.{name}": v for k, p in enumerate(params)
+            for name, v in p.items()}
+
+
+def call_captured(steps: dict, key, name: str, fn, pool, device, params,
+                  blocks, replica0=None):
+    """``fn(params, blocks, replica0)`` through the :class:`Step` of
+    ``key`` in ``steps`` (made at its first use, over static buffers of
+    the parameters, the blocks and ``replica0`` when given): the inputs
+    written into the buffers, then the step run (eagerly and captured the
+    first time, replayed after).  Returns the step's outputs, which its
+    next call rewrites."""
+    step = steps.get(key)
+    if step is None:
+        extra = {} if replica0 is None else {"replica0": replica0}
+        inputs = static_inputs(device, **_leaves(params), blocks=blocks,
+                               **extra)
+
+        def body(blocks, replica0=None, _like=params, **leaves):
+            return fn([{k: leaves[f"p{i}.{k}"] for k in p}
+                       for i, p in enumerate(_like)], blocks, replica0)
+
+        step = steps[key] = Step(name, body, inputs, pool)
+    for k, v in _leaves(params).items():
+        step.write(k, v)
+    step.write("blocks", blocks)
+    if replica0 is not None:
+        step.write("replica0", replica0)
+    return step()
 
 
 def make_bsp_forward(
@@ -419,6 +490,7 @@ def make_bsp_forward(
     exchange: str = "ppermute",
     aggregate: str = "auto",
     device: DeviceLike = "cuda",
+    graphs: Optional[bool] = None,
 ):
     """Build the BSP forward: (params, blocks (P, cap, d)) -> (P, cap, d').
 
@@ -427,9 +499,27 @@ def make_bsp_forward(
     tensors in place, with zero rebuilds; capacity growth or a new ppermute
     round changes the signature and rebuilds exactly once, as does turning
     the ppermute forward's replicas on or off (growth of ``r_cap`` alone is
-    value-only).  ``fwd.stats`` exposes ``{'builds': ...}``.  ``exchange``
-    and ``aggregate`` pick the halo exchange and the neighbour sum (see
-    :func:`resolve_aggregate`).
+    value-only).  ``exchange`` and ``aggregate`` pick the halo exchange and
+    the neighbour sum (see :func:`resolve_aggregate`).
+
+    ``fwd.stats`` holds ``builds``, the rebuilds, and ``traces``, what the
+    reference's jitted forward counts as traces: one for each distinct pair
+    of the plan's signature and :func:`input_signature` (a rebuild forgets
+    the signatures seen), counted on the CPU too.
+
+    ``graphs`` (None: on a CUDA device; True elsewhere raises) captures the
+    forward: one CUDA graph for each trace, made at its first call (which
+    runs eagerly) and replayed by later calls over the same tensors, so a
+    value-only patch replays with no new trace and a rebuild captures
+    anew.  The parameters, ``blocks`` and ``replica0`` are copied into the
+    graph's static input buffers (:meth:`repro_torch.step.Step.write`:
+    not when the caller passes a buffer itself, or the tensor it wrote
+    last, unchanged), and every call returns a new tensor.  A captured
+    forward is not differentiable: under grad with parameters that require
+    it, it raises (the train step differentiates ``fwd.eager``).  A capture
+    that fails raises.  ``fwd.steps`` maps each input signature of the
+    current build to its :class:`repro_torch.step.Step` (None for one only
+    run eagerly), with its capture seconds and pool bytes.
 
     On a plan with replicas the ppermute forward takes
     ``replica0=scatter_replica_halo(plan, features)``, (P, halo_cap, d): the
@@ -439,21 +529,68 @@ def make_bsp_forward(
     if exchange not in EXCHANGES:
         raise ValueError(f"unknown exchange {exchange!r}")
     dev = resolve_device(device)
+    graphs = resolve_graphs(graphs, dev, "make_bsp_forward")
     mode = resolve_aggregate(cfg, aggregate, dev)
     if mode == "bsr" and plan.bsr is None:
         build_plan_bsr(plan)
-    state = {"sig": None, "version": -1, "ops": None, "builds": 0}
+    state = {"sig": None, "version": -1, "ops": None, "builds": 0,
+             "traces": 0}
+    steps = {}                  # input signature -> Step (or None), a build's
+    pool = torch.cuda.graph_pool_handle() if graphs else None
 
-    def forward(params, blocks, replica0=None):
+    def sync():
+        """Bring the plan tensors up to the plan; a rebuild drops the
+        build's traces and graphs."""
+        builds = state["builds"]
         _sync_ops(state, plan, mode, exchange, dev)
+        if state["builds"] != builds:
+            steps.clear()
+
+    def trace(params, blocks, replica0):
+        used = _replica0_used(plan, exchange, replica0)
+        key = input_signature(params, blocks, replica0 if used else None)
+        if key not in steps:
+            steps[key] = None
+            state["traces"] += 1
+        return key, used
+
+    def body(params, blocks, replica0=None):
         h = torch.as_tensor(blocks, device=dev).to(cfg.dtype)
         return _bsp_forward(cfg, params, h, state["ops"],
                             _halo0(plan, exchange, replica0, h))
 
+    def eager(params, blocks, replica0=None):
+        """The forward run eagerly over the plan tensors: differentiable,
+        never captured."""
+        sync()
+        trace(params, blocks, replica0)
+        return body(params, blocks, replica0)
+
+    def forward(params, blocks, replica0=None):
+        if not graphs:
+            return eager(params, blocks, replica0)
+        if torch.is_grad_enabled() and any(
+                v.requires_grad for p in params for v in p.values()
+                if isinstance(v, torch.Tensor)):
+            raise ValueError("a captured BSP forward is not differentiable: "
+                             "build it with graphs=False, or differentiate "
+                             "fwd.eager")
+        sync()
+        key, used = trace(params, blocks, replica0)
+        return call_captured(steps, key, f"bsp {cfg.model} {exchange} {mode}",
+                             torch.no_grad()(body), pool, dev, params,
+                             blocks, replica0 if used else None).clone()
+
     forward.stats = state
+    forward.steps = steps
     forward.plan = plan
     forward.mode = mode
     forward.device = dev
+    forward.graphs = graphs
+    forward.eager = eager
+    forward.reads_replica0 = functools.partial(_replica0_used, plan,
+                                               exchange)
+    forward.sync = sync
     return forward
 
 
@@ -462,10 +599,11 @@ def simulate_bsp_forward(cfg: GNNConfig, params, plan: ShardPlan,
                          aggregate: str = "auto",
                          device: DeviceLike = "cuda") -> np.ndarray:
     """Whole-graph convenience: scatter ``features`` (n, s_0) over the plan,
-    run the BSP forward once (with the replica halo, on a plan that has
-    replicas), gather (n, s_K) back as numpy."""
+    run the BSP forward once, eagerly (a graph captured for one call only
+    costs time), with the replica halo on a plan that has replicas, and
+    gather (n, s_K) back as numpy."""
     fwd = make_bsp_forward(cfg, plan, exchange=exchange, aggregate=aggregate,
-                           device=device)
+                           device=device, graphs=False)
     features = np.asarray(features)
     replica0 = (torch.from_numpy(scatter_replica_halo(plan, features))
                 if plan.has_replicas else None)

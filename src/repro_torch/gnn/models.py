@@ -27,31 +27,61 @@ Aggregate = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 # (messages (E, d), dst_ids (E,), num_nodes) -> (n, d) summed per dst.
 
 
-def segment_sum(messages: torch.Tensor, dst: torch.Tensor,
-                n: int) -> torch.Tensor:
+def segment_order(dst: np.ndarray, n: int):
+    """The order of a segment sum over ``dst`` fixed on the host, for
+    :func:`segment_sum`'s ``segments``: (the stable argsort of ``dst``, the
+    count of each of its ``n`` ids), int64 arrays.  Made wherever ``dst``
+    is known before the call (a plan's edge table, a batch's arcs), so the
+    sum on the card reads nothing back to the host."""
+    dst = np.asarray(dst).astype(np.int64).reshape(-1)
+    return (np.argsort(dst, kind="stable"),
+            np.bincount(dst, minlength=n).astype(np.int64))
+
+
+def segment_sum(messages: torch.Tensor, dst: torch.Tensor, n: int,
+                segments=None) -> torch.Tensor:
     """Sum the rows of ``messages`` per destination id: (E, ...) -> (n, ...).
 
     On the CPU this is ``index_add_``, which adds in edge order.  On the card
     ``index_add_`` uses float atomics whose order changes from run to run, so
     the sum goes through :func:`sorted_segment_sum` instead: deterministic,
-    bit for bit, from one run to the next."""
+    bit for bit, from one run to the next.  ``segments`` (the tensors of
+    :func:`segment_order` for this ``dst``) saves it the sort."""
     if messages.device.type == "cpu":
         out = messages.new_zeros((n,) + tuple(messages.shape[1:]))
         return out.index_add_(0, dst, messages)
-    return sorted_segment_sum(messages, dst, n)
+    return sorted_segment_sum(messages, dst, n, segments)
 
 
-def sorted_segment_sum(messages: torch.Tensor, dst: torch.Tensor,
-                       n: int) -> torch.Tensor:
-    """Destination-sorted segment sum: a stable sort by ``dst`` followed by
-    ``segment_reduce``, which sums each segment in order.  Each destination
-    therefore sums its messages in edge order, as ``index_add_`` does on the
-    CPU, and the result does not depend on scheduling."""
-    dst = dst.long()
-    order = torch.argsort(dst, stable=True)
-    lengths = torch.bincount(dst, minlength=n)
-    return torch.segment_reduce(messages[order], "sum", lengths=lengths,
-                                axis=0)
+def sorted_segment_sum(messages: torch.Tensor, dst: torch.Tensor, n: int,
+                       segments=None) -> torch.Tensor:
+    """Destination-sorted segment sum: the messages in stable ``dst``
+    order, then ``segment_reduce``, which sums each segment in order.  Each
+    destination therefore sums its messages in edge order, as
+    ``index_add_`` does on the CPU, and the result does not depend on
+    scheduling.
+
+    Nothing is read back to the host, so the sum can be captured into a
+    CUDA graph: the order and the segment lengths are ``segments`` (made
+    on the host by :func:`segment_order`) or, without them, a stable sort
+    on the device and an integer ``scatter_add_`` (exact in any order);
+    ``segment_reduce`` runs with ``unsafe=True``, which skips the two
+    checks of its lengths that read them to the host (the lengths sum to
+    E by construction)."""
+    if segments is None:
+        dst = dst.long()
+        order = torch.argsort(dst, stable=True)
+        lengths = torch.zeros(n, dtype=torch.long, device=dst.device)
+        lengths.scatter_add_(0, dst, torch.ones_like(dst))
+    else:
+        order, lengths = segments
+        if order.shape[0] != messages.shape[0] or lengths.shape[0] != n:
+            raise ValueError(
+                f"segment order of {order.shape[0]} messages into "
+                f"{lengths.shape[0]} segments, given {messages.shape[0]} "
+                f"into {n}")
+    return torch.segment_reduce(messages.index_select(0, order), "sum",
+                                lengths=lengths, axis=0, unsafe=True)
 
 
 def segment_max(values: torch.Tensor, dst: torch.Tensor,
@@ -72,7 +102,8 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Autograd's own backward of a row gather is a scatter-add, which on the
     card uses float atomics wherever an index repeats.  This one sums each
     row's gradient with :func:`segment_sum`: ``index_add_`` on the CPU,
-    :func:`sorted_segment_sum` on the card.  Both add a row's
+    :func:`sorted_segment_sum` on the card (its order found on the device,
+    so the backward can be captured).  Both add a row's
     contributions in index order, so card gradients are bit-equal run to
     run and differ from the CPU's only in rounding."""
     return _GatherRows.apply(x, idx)

@@ -264,9 +264,13 @@ def make_rank_bsp_forward(
     exchange: str = "ppermute",
     aggregate: str = "auto",
     device: DeviceLike = "cuda",
+    graphs: Optional[bool] = None,
 ):
     """Build this rank's BSP forward: (params, its block (cap, d) or
-    (1, cap, d)) -> its output block of the same rank.
+    (1, cap, d)) -> its output block of the same rank.  It runs eagerly:
+    ``graphs=True`` raises (its gloo collectives, staged through the host,
+    cannot be captured into a CUDA graph), and so does a train step over
+    it that asks for graphs.
 
     ``group`` is a gloo process group of ``plan.num_parts`` ranks (None:
     the default group); rank q serves partition q.  Every rank calls the
@@ -290,6 +294,9 @@ def make_rank_bsp_forward(
     :class:`RankGroup`."""
     if exchange not in EXCHANGES:
         raise ValueError(f"unknown exchange {exchange!r}")
+    if graphs:
+        raise ValueError("make_rank_bsp_forward(graphs=True): the rank "
+                         "forward's gloo collectives are not captured")
     dev = resolve_device(device)
     comm = RankGroup(group, dev)
     if plan.num_parts != comm.world:
@@ -326,6 +333,7 @@ def make_rank_bsp_forward(
     forward.mode = mode
     forward.device = dev
     forward.comm = comm
+    forward.graphs = False
     return forward
 
 

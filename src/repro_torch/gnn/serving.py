@@ -9,8 +9,10 @@ touching only the small k-hop ego subgraph of its target vertex:
     buckets; copied line for line from the reference.
   * :func:`make_ego_forward` — the batched ego inference on the device,
     running the port's unmodified layer functions over the flattened union
-    graph with the deterministic :func:`segment_sum`.  With full fanout the
-    target rows reproduce the whole-graph forward.
+    graph with the deterministic :func:`segment_sum` (its order made on
+    the host by :func:`ego_segments`), as one CUDA graph a bucket on the
+    card.  With full fanout the target rows reproduce the whole-graph
+    forward.
   * :class:`FeatureCache` — per-server cache of remote feature rows with
     TinyLFU-lite admission; copied from the reference.
   * :class:`GNNServeEngine` — queue -> batch -> extract -> forward ticks
@@ -25,6 +27,7 @@ touching only the small k-hop ego subgraph of its target vertex:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional
@@ -33,9 +36,11 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.gnn.models import _LAYERS, GNNConfig, segment_sum
+from repro_torch.gnn.models import (
+    _LAYERS, GNNConfig, segment_order, segment_sum)
 from repro_torch.gnn.plan import ShardPlan
 from repro_torch.graphs.datagraph import DataGraph, csr_multirange
+from repro_torch.step import Step, resolve_graphs, spec, static_inputs
 
 
 def _pow2(x: int) -> int:
@@ -248,43 +253,99 @@ def ego_tables(ego: EgoBatch, features: np.ndarray, degrees: np.ndarray):
     return flat, deg, tgt_rows
 
 
+def ego_segments(ego: EgoBatch, model: str):
+    """The order of the ego forward's segment sums, made on the host from
+    the batch's arcs beside :func:`ego_tables`: :func:`segment_order` of
+    the destinations the model's layer sums over (the arcs' destinations;
+    for GAT followed by one self loop per row), into ``dummy + 1``
+    segments.  With it the forward on the card reads nothing back."""
+    return _ego_order(ego.arcs, ego.dummy + 1, model)
+
+
+def _ego_order(arcs: np.ndarray, n: int, model: str):
+    dst = np.asarray(arcs)[:, 1].astype(np.int64)
+    if model == "gat":
+        dst = np.concatenate([dst, np.arange(n)])
+    return segment_order(dst, n)
+
+
 # -------------------------------------------------------------- ego inference
-def make_ego_forward(cfg: GNNConfig, params, device: DeviceLike = "cuda"):
+def make_ego_forward(cfg: GNNConfig, params, device: DeviceLike = "cuda",
+                     graphs: Optional[bool] = None):
     """Batched ego forward on ``device``: (feats (dummy+1, s_0), arcs, deg,
     tgt_rows) -> (B, s_K) embeddings at the targets.
 
     Runs the UNMODIFIED layer functions of :mod:`repro_torch.gnn.models`
     over the flattened union graph with :func:`segment_sum`, so semantics
     match the whole-graph forward at the target rows.  Inputs may be numpy
-    arrays or tensors; ``params`` must already live on ``device``.
+    arrays or tensors; ``params`` must already live on ``device``.  The
+    optional ``segments`` (:func:`ego_segments` of the batch, arrays) fix
+    the segment sums' order; on the card without them it is found on the
+    device (eagerly) or from the arcs on the host (captured).
 
     ``fwd.stats['traces']`` counts the distinct (shape, dtype) signatures
     of the four inputs the forward has seen: what the reference's jitted
-    forward counts as traces over the same batches, and the number of
-    shapes a captured (CUDA-graph) forward would need.  Bucketed shapes
-    bound it by O(log) per dimension."""
+    forward counts as traces over the same batches.  Bucketed shapes bound
+    it by O(log) per dimension.  ``graphs`` (None: on a CUDA device; True
+    elsewhere raises) captures one CUDA graph for each signature, a
+    bucket, at its first call (run eagerly), and replays it after: each
+    call writes its tables into the bucket's static input buffers
+    (:class:`repro_torch.step.Step`) and gets a new tensor back.
+    ``fwd.steps`` maps each signature to its Step (None when eager), with
+    its capture seconds and pool bytes, and ``fwd.captures()`` counts the
+    graphs; ``stats`` keeps the reference's key alone."""
     dev = resolve_device(device)
+    graphs = resolve_graphs(graphs, dev, "make_ego_forward")
     layer_fn = _LAYERS[cfg.model]
     K = cfg.num_layers
     state = {"traces": 0}
-    seen = set()
+    steps = {}
+    pool = torch.cuda.graph_pool_handle() if graphs else None
 
-    def fwd(feats, arcs, deg, tgt_rows):
-        args = [torch.as_tensor(a, device=dev)
-                for a in (feats, arcs, deg, tgt_rows)]
-        sig = tuple((tuple(a.shape), a.dtype) for a in args)
-        if sig not in seen:
-            seen.add(sig)
-            state["traces"] += 1
-        feats, arcs, deg, tgt_rows = args
+    def run(feats, arcs, deg, tgt_rows, order=None, lengths=None):
         arcs, tgt_rows = arcs.long(), tgt_rows.long()
         n = feats.shape[0]
+        agg = (segment_sum if order is None else
+               functools.partial(segment_sum, segments=(order, lengths)))
         h = feats.to(cfg.dtype)
         for k, p in enumerate(params):
-            h = layer_fn(p, h, arcs, deg, n, k == K - 1, segment_sum)
+            h = layer_fn(p, h, arcs, deg, n, k == K - 1, agg)
         return h[tgt_rows]
 
+    def fwd(feats, arcs, deg, tgt_rows, segments=None):
+        tables = {"feats": feats, "arcs": arcs, "deg": deg,
+                  "tgt_rows": tgt_rows}
+        sig = tuple(spec(a) for a in tables.values())
+        rows = sig[0][0][0]
+        if sig not in steps:
+            steps[sig] = None
+            state["traces"] += 1
+        if not graphs:
+            args = {k: torch.as_tensor(a, device=dev)
+                    for k, a in tables.items()}
+            if segments is not None and dev.type != "cpu":
+                args["order"], args["lengths"] = (
+                    torch.as_tensor(a, device=dev) for a in segments)
+            return run(**args)
+        if segments is None:
+            host = (arcs.cpu().numpy() if isinstance(arcs, torch.Tensor)
+                    else arcs)
+            segments = _ego_order(host, rows, cfg.model)
+        tables["order"], tables["lengths"] = segments
+        step = steps[sig]
+        if step is None:
+            step = steps[sig] = Step(f"ego {cfg.model} {rows}",
+                                     torch.no_grad()(run),
+                                     static_inputs(dev, **tables), pool)
+        for k, a in tables.items():
+            step.write(k, a)
+        return step().clone()
+
     fwd.stats = state
+    fwd.steps = steps
+    fwd.graphs = graphs
+    fwd.captures = lambda: sum(s is not None and s.graph is not None
+                               for s in steps.values())
     return fwd
 
 
@@ -403,13 +464,16 @@ class GNNServeEngine:
     plan's rows — the ledger before this snapshot silently mixed plans),
     and ``epoch_history`` keeps the closed epochs.  ``hops`` defaults to
     the model depth (exact receptive field); ``fanout`` bounds per-hop
-    neighbors (None = exact)."""
+    neighbors (None = exact).  ``graphs`` (None: on a CUDA device) runs the
+    ego forward as one CUDA graph a bucket (:func:`make_ego_forward`): a
+    tick writes the batch's host tables into its bucket's static buffers
+    and replays."""
 
     def __init__(self, cfg: GNNConfig, params, graph: DataGraph,
                  plan: ShardPlan, features: Optional[np.ndarray] = None,
                  hops: Optional[int] = None, fanout: Optional[int] = None,
                  batch: int = 8, cache_bytes: int = 1 << 20, net=None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", graphs: Optional[bool] = None):
         self.cfg, self.params = cfg, params
         self.device = resolve_device(device)
         self.graph = graph
@@ -431,7 +495,7 @@ class GNNServeEngine:
         self.epoch_stats = ServeStats()
         self.epoch_latencies: List[float] = []
         self.epoch_history: List[dict] = []
-        self.fwd = make_ego_forward(cfg, params, self.device)
+        self.fwd = make_ego_forward(cfg, params, self.device, graphs)
         self._degrees = graph.degrees.astype(np.float32)
         self._caches: Dict[int, FeatureCache] = {}
         self._replica_mask: Dict[int, np.ndarray] = {}
@@ -539,7 +603,8 @@ class GNNServeEngine:
                                 batch=self.batch)
         self._account(ego, targets)
         feats, deg, tgt_rows = ego_tables(ego, self.features, self._degrees)
-        out = self.fwd(feats, ego.arcs, deg, tgt_rows).cpu().numpy()
+        seg = ego_segments(ego, self.cfg.model) if self.fwd.graphs else None
+        out = self.fwd(feats, ego.arcs, deg, tgt_rows, seg).cpu().numpy()
         now = time.perf_counter()
         for st in (self.stats, self.epoch_stats):
             st.wall_time_s += now - t0

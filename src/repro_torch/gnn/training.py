@@ -22,13 +22,15 @@ same bits and the replicas of the parameters stay equal.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.gnn.distributed import call_captured, input_signature
 from repro_torch.gnn.models import GNNConfig, forward, loss_fn
+from repro_torch.step import resolve_graphs
 
 
 def sgd_step(params, grads, lr: float):
@@ -114,7 +116,7 @@ def accuracy(cfg: GNNConfig, params, features, src_dst, labels,
 
 def make_distributed_train_step(
     cfg: GNNConfig, bsp_forward: Callable, labels_blocks, mask_blocks,
-    lr: float = 0.05,
+    lr: float = 0.05, graphs: Optional[bool] = None,
 ):
     """Distributed train step over the BSP engine.
 
@@ -129,17 +131,52 @@ def make_distributed_train_step(
     over ranks (building the step is a collective: it sums the mask).
     Returns ``step(params, blocks, replica0=None) -> (new params, loss)``;
     ``step.loss_and_grads`` gives the loss and the gradients without the
-    update."""
+    update (eagerly).  ``step.set_targets(labels_blocks, mask_blocks)``
+    rewrites the labels and the mask in place (a relayout moves them), so
+    a captured step replays over new targets too.
+
+    ``graphs`` (None: as the forward's ``graphs``) captures the step, as
+    the reference jits it: the forward, ``torch.autograd.grad`` through
+    K1's backward and the segment sums', and the SGD update, as one CUDA
+    graph per input signature (:class:`repro_torch.step.Step`; its first
+    call runs eagerly).  The parameters, ``blocks`` and ``replica0`` go
+    into its static input buffers, and each call returns new tensors.  The
+    forward's plan is synced before each call: a value-only patch is read
+    by the next replay, a rebuild captures anew.  True raises on the CPU
+    and over ranks, whose gloo collectives are not captured.
+    ``step.steps`` maps each input signature of the current build to its
+    Step."""
     dev = bsp_forward.device
     comm = getattr(bsp_forward, "comm", None)
-    labels = _on(labels_blocks, dev, torch.long)
-    mask = _on(mask_blocks, dev, torch.float32)
-    total = mask.sum() if comm is None else comm.sum_over_ranks(
-        mask.sum().reshape(1))[0]
-    count = torch.clamp(total, min=1.0)
+    if graphs is None:
+        graphs = getattr(bsp_forward, "graphs", False)
+    elif graphs and comm is not None:
+        raise ValueError("make_distributed_train_step(graphs=True): the "
+                         "rank forward's gloo collectives are not captured")
+    graphs = resolve_graphs(graphs, dev, "make_distributed_train_step")
+    run = getattr(bsp_forward, "eager", bsp_forward)
+    labels = _on(labels_blocks, dev, torch.long).clone()
+    mask = _on(mask_blocks, dev, torch.float32).clone()
+    count = torch.ones((), device=dev)
+
+    def set_targets(labels_blocks, mask_blocks):
+        for name, t, new in (("labels", labels, _on(labels_blocks, dev,
+                                                     torch.long)),
+                             ("mask", mask, _on(mask_blocks, dev,
+                                                torch.float32))):
+            if new.shape != t.shape:
+                raise ValueError(f"{name} blocks of shape "
+                                 f"{tuple(new.shape)}, the step's are "
+                                 f"{tuple(t.shape)}")
+            t.copy_(new)
+        total = mask.sum() if comm is None else comm.sum_over_ranks(
+            mask.sum().reshape(1))[0]
+        count.copy_(torch.clamp(total, min=1.0))
+
+    set_targets(labels, mask)
 
     def loss_of(params, blocks, replica0):
-        out = bsp_forward(params, blocks, replica0=replica0)
+        out = run(params, blocks, replica0=replica0)
         logp = torch.log_softmax(out, dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
         nll = nll * mask
@@ -151,11 +188,33 @@ def make_distributed_train_step(
             loss, grads = _summed_over_ranks(comm, loss, grads)
         return loss, grads
 
-    def step(params, blocks, replica0=None):
+    def eager_step(params, blocks, replica0=None):
         loss, grads = loss_and_grads(params, blocks, replica0)
         return sgd_step(params, grads, lr), loss
 
+    steps = {}                  # input signature -> Step, a build's
+    built = [None]
+
+    def step(params, blocks, replica0=None):
+        if not graphs:
+            return eager_step(params, blocks, replica0)
+        bsp_forward.sync()
+        if built[0] != bsp_forward.stats["builds"]:
+            steps.clear()
+            built[0] = bsp_forward.stats["builds"]
+        r0 = replica0 if bsp_forward.reads_replica0(replica0) else None
+        new, loss = call_captured(
+            steps, input_signature(params, blocks, r0),
+            f"train {cfg.model} {bsp_forward.mode}", eager_step, pool, dev,
+            params, blocks, r0)
+        return ([{k: v.clone() for k, v in p.items()} for p in new],
+                loss.clone())
+
+    pool = torch.cuda.graph_pool_handle() if graphs else None
     step.loss_and_grads = loss_and_grads
+    step.set_targets = set_targets
+    step.graphs = graphs
+    step.steps = steps
     return step
 
 

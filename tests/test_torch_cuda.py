@@ -5,7 +5,9 @@ backward, LM prefill, decode and train step, the LM training CLI, the MoE
 FFN and its grouped GEMM's routes, MoE serving, the recurrent families'
 prefill, decode and serving, the VLM and enc-dec families' prefill and
 decode, an idle serving slot past the cache, the example twins) against
-its CPU paths.
+its CPU paths, and the captured steps (the serving engine's, and the GNN
+path's BSP forward, train step and ego forward) against their eager
+twins.
 Without a card every test here skips.  The file imports neither ``jax``
 nor ``repro``, so it runs on a machine with the card and the port alone:
 
@@ -1677,3 +1679,206 @@ def test_fp32_moe_engine_stays_eager(dev, mesh11):
     with pytest.raises(ValueError, match="under a mesh"):
         ServeEngine(cfg, params, slots=2, max_len=32, device=dev,
                     dist=Dist(mesh11, batch_axes=("data",)), graphs=True)
+
+
+# ------------------------------------------- the GNN path's compiled steps
+def _gnn_graph_plan(seed=0, n=600, links=2500, P=4, slack=0.5):
+    g = synthetic_siot(n=n, target_links=links)
+    plan = compile_plan(g, partition_from_assign(
+        g, random_layout(_cost_model(g, P), seed=seed), P, {}), slack=slack)
+    return g, plan
+
+
+def _no_sync(fn, *args, **kw):
+    """``fn`` run with the card's sync debug mode at "error": any op that
+    reads the device from the host raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("replicas", [False, True])
+@pytest.mark.parametrize("exchange", ["ppermute", "allgather"])
+@pytest.mark.parametrize("model", ["gcn", "sage", "gat"])
+def test_gnn_bsp_forward_graph_equals_eager(dev, model, exchange, replicas):
+    """The captured BSP forward (one trace, one build) bit-equal to the
+    eager forward over two inputs, the first result surviving the second
+    replay, K1 launched num_layers times a replay for GCN/SAGE (0 for
+    GAT), and the eager forward free of host reads."""
+    g, plan = _gnn_graph_plan()
+    if replicas:
+        TP.set_replication(plan, {0: np.arange(40, 90), 2: np.arange(100,
+                                                                     160)})
+    cfg = GNNConfig(model, (52, 16, 2))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    graph = make_bsp_forward(cfg, plan, exchange=exchange, device=dev)
+    eager = make_bsp_forward(cfg, plan, exchange=exchange, device=dev,
+                             graphs=False)
+    assert graph.graphs is True and eager.graphs is False
+    feats = [g.features, g.features * 0.5 + 0.25]
+    blocks = [torch.from_numpy(TP.scatter_features(plan, f)).to(dev)
+              for f in feats]
+    r0 = [torch.from_numpy(TP.scatter_replica_halo(plan, f)).to(dev)
+          if replicas else None for f in feats]
+    want = [eager(params, b, replica0=r) for b, r in zip(blocks, r0)]
+    first = graph(params, blocks[0], replica0=r0[0])     # eager, captured
+    per = cfg.num_layers if model != "gat" else 0
+    outs = []
+    for b, r in zip(blocks, r0):
+        n = spmm.launches
+        outs.append(graph(params, b, replica0=r))
+        torch.cuda.synchronize()
+        assert spmm.launches - n == per
+    assert torch.equal(first, want[0])
+    assert torch.equal(outs[0], want[0]) and torch.equal(outs[1], want[1])
+    assert not torch.equal(outs[0], outs[1])
+    assert graph.stats["traces"] == graph.stats["builds"] == 1
+    step, = graph.steps.values()
+    assert step.graph is not None and step.capture_s > 0
+    assert torch.equal(_no_sync(eager.eager, params, blocks[1],
+                                replica0=r0[1]), want[1])
+
+
+def test_gnn_bsp_graph_over_patches(dev):
+    """Value-only patches replay with 0 new traces and read the refreshed
+    plan (bit-equal to a fresh plan's eager forward); a capacity overflow
+    rebuilds and captures once (1 build, 1 trace); on both aggregates."""
+    g, plan = _gnn_graph_plan(slack=0.3)
+    for model, agg in (("gcn", "bsr"), ("sage", "segment"),
+                       ("gat", "segment")):
+        work = TP.recompile_like(plan, g, plan.assign)
+        cfg = GNNConfig(model, (52, 16, 2))
+        params = init_params(cfg, torch.Generator().manual_seed(1),
+                             device=dev)
+        fwd = make_bsp_forward(cfg, work, aggregate=agg, device=dev)
+        blocks = torch.from_numpy(TP.scatter_features(work, g.features)).to(
+            dev)
+        fwd(params, blocks)
+        rng = np.random.default_rng(3)
+        for k in range(4):
+            new = work.assign.copy()
+            if k == 3:
+                new[: g.n // 2] = 0                 # capacities grow
+            else:
+                movers = rng.choice(g.n, size=3, replace=False)
+                new[movers] = (new[movers] + 1) % work.num_parts
+            delta = TP.patch_plan(work, g, new)
+            traces, builds = fwd.stats["traces"], fwd.stats["builds"]
+            blocks = torch.from_numpy(TP.scatter_features(work, g.features)
+                                      ).to(dev)
+            out = fwd(params, blocks)
+            out2 = fwd(params, blocks)
+            grew = int(delta.retrace_expected)
+            assert fwd.stats["traces"] - traces == grew, (model, k)
+            assert fwd.stats["builds"] - builds == grew, (model, k)
+            fresh = TP.recompile_like(work, g, new)
+            want = make_bsp_forward(cfg, fresh, aggregate=agg, device=dev,
+                                    graphs=False)(params, blocks)
+            assert torch.equal(out, want) and torch.equal(out2, want)
+        assert grew == 1
+
+
+@pytest.mark.parametrize("model", ["gcn", "sage", "gat"])
+def test_gnn_train_step_graph_equals_eager(dev, model):
+    """Five captured train steps bit-equal to five eager ones, K1's
+    launches a replay exact both ways, the eager step free of host reads,
+    and after a value-only patch (the targets moved by ``set_targets``)
+    the same graph's replay reads the new plan: bit-equal to a fresh
+    plan's eager step."""
+    g, cfg, params, fwd, step, blocks = _train_case(dev, model, "ppermute")
+    eager_fwd = make_bsp_forward(cfg, fwd.plan, device=dev, graphs=False)
+    labels = TP.scatter_ints(fwd.plan, g.labels)
+    mask = TP.scatter_ints(fwd.plan, np.ones(g.n, np.float32))
+    eager = make_distributed_train_step(cfg, eager_fwd, labels, mask, lr=0.1)
+    assert step.graphs is True and eager.graphs is False
+    p, q = params, params
+    for _ in range(5):
+        before = dict(spmm.launches_by_dir)
+        p, loss = step(p, blocks)
+        torch.cuda.synchronize()
+        got = {k: spmm.launches_by_dir[k] - before[k] for k in before}
+        q, want = eager(q, blocks)
+        assert torch.equal(loss, want)
+        assert got == ({"fwd": 2, "bwd": 1} if model != "gat"
+                       else {"fwd": 0, "bwd": 0})
+    for a, b in zip(p, q):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    _no_sync(eager, q, blocks)
+    new = fwd.plan.assign.copy()
+    movers = np.random.default_rng(5).choice(g.n, size=3, replace=False)
+    new[movers] = (new[movers] + 1) % fwd.plan.num_parts
+    captured, = step.steps.values()
+    assert not TP.patch_plan(fwd.plan, g, new).retrace_expected
+    blocks = torch.from_numpy(TP.scatter_features(fwd.plan, g.features)).to(
+        dev)
+    step.set_targets(TP.scatter_ints(fwd.plan, g.labels),
+                     TP.scatter_ints(fwd.plan, np.ones(g.n, np.float32)))
+    fresh = TP.recompile_like(fwd.plan, g, new)
+    ref = make_distributed_train_step(
+        cfg, make_bsp_forward(cfg, fresh, device=dev, graphs=False),
+        TP.scatter_ints(fresh, g.labels),
+        TP.scatter_ints(fresh, np.ones(g.n, np.float32)), lr=0.1)
+    a, la = step(p, blocks)
+    b, lb = ref(p, blocks)
+    assert torch.equal(la, lb)
+    for x, y in zip(a, b):
+        for k in x:
+            assert torch.equal(x[k], y[k]), k
+    assert fwd.stats["builds"] == 1
+    assert list(step.steps.values()) == [captured]      # replayed
+
+
+@pytest.mark.parametrize("model", ["gcn", "sage", "gat"])
+def test_gnn_ego_forward_graph_equals_eager(dev, model):
+    """The serving engine with one CUDA graph a bucket against the eager
+    engine: every answer bit-equal, the same traces, one capture a trace;
+    and the eager ego forward free of host reads given its segments."""
+    from repro_torch.gnn.serving import (
+        GNNServeEngine, ego_segments, ego_tables, extract_ego_batch,
+        zipf_requests)
+    g, plan = _gnn_graph_plan()
+    cfg = GNNConfig(model, (52, 16, 2))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    targets = zipf_requests(g.n, 100, s=1.1, seed=0)
+    outs = {}
+    for graphs in (True, False):
+        eng = GNNServeEngine(cfg, params, g, plan, hops=2, batch=16,
+                             device=dev, graphs=graphs)
+        assert eng.fwd.graphs is graphs
+        outs[graphs] = (eng.serve(targets), eng.fwd.stats["traces"],
+                        eng.fwd.captures())
+    assert np.array_equal(outs[True][0], outs[False][0])
+    assert outs[True][1] == outs[False][1] == outs[True][2] > 1
+    assert outs[False][2] == 0
+    ego = extract_ego_batch(g, targets[:16], 2, batch=16)
+    feats, deg, rows = ego_tables(ego, g.features,
+                                  g.degrees.astype(np.float32))
+    args = [torch.from_numpy(a).to(dev) for a in (feats, ego.arcs, deg,
+                                                  rows)]
+    seg = [torch.from_numpy(a).to(dev) for a in ego_segments(ego, model)]
+    eng.fwd(*args, segments=seg)
+    _no_sync(eng.fwd, *args, segments=seg)
+
+
+def test_gnn_failed_capture_raises(dev, monkeypatch):
+    """A BSP forward whose body reads the card to the host: its first
+    call runs, the capture raises, and so does the next call; nothing
+    falls back to eager running."""
+    from repro_torch.gnn import distributed as TD
+    g, plan = _gnn_graph_plan()
+    cfg = GNNConfig("gcn", (52, 16, 2))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    real = TD._bsp_forward
+    monkeypatch.setattr(TD, "_bsp_forward", lambda *a, **kw: real(
+        *a, **kw) * float(a[2].sum() > -1))
+    fwd = make_bsp_forward(cfg, plan, device=dev)
+    blocks = torch.from_numpy(TP.scatter_features(plan, g.features)).to(dev)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture failed"):
+            fwd(params, blocks)
+    step, = fwd.steps.values()
+    assert step.graph is None

@@ -93,10 +93,11 @@ def test_bsp_forward_matches_reference(model, exchange, agg):
 @pytest.mark.parametrize("model,exchange", [("gcn", "ppermute"),
                                             ("sage", "allgather")])
 def test_builds_track_reference_retrace_over_patches(model, exchange):
-    """Value-only patches refresh the resident tensors in place (0 builds);
-    a grown capacity or a new round rebuilds exactly once — precisely when
-    the reference's PlanDelta.retrace_expected says so.  Every patched
-    forward stays bit-equal to a fresh plan's and close to the reference."""
+    """Value-only patches refresh the resident tensors in place (0 builds,
+    0 traces); a grown capacity or a new round rebuilds and traces exactly
+    once — precisely when the reference's PlanDelta.retrace_expected says
+    so.  Every patched forward stays bit-equal to a fresh plan's and close
+    to the reference."""
     rng = np.random.default_rng(7)
     g = random_graph(rng, 60, 60)
     P = 4
@@ -113,7 +114,7 @@ def test_builds_track_reference_retrace_over_patches(model, exchange):
     fwd = TD.make_bsp_forward(tcfg, plan, exchange=exchange, aggregate="bsr",
                               device="cpu")
     fwd(tp, TP.scatter_features(plan, g.features))
-    assert fwd.stats["builds"] == 1
+    assert fwd.stats["builds"] == fwd.stats["traces"] == 1
     tensors = fwd.stats["ops"]
     saw = set()
     for step in range(8):
@@ -126,11 +127,12 @@ def test_builds_track_reference_retrace_over_patches(model, exchange):
             new[movers] = rng.integers(0, P, size=k)
         jd = JD.patch_plan(jplan, g, new)
         TP.patch_plan(plan, tg, new)
-        before = fwd.stats["builds"]
+        before, traced = fwd.stats["builds"], fwd.stats["traces"]
         blocks = TP.scatter_features(plan, g.features)
         out = fwd(tp, blocks)
         rebuilt = fwd.stats["builds"] - before
         assert rebuilt == int(jd.retrace_expected), (step, jd)
+        assert fwd.stats["traces"] - traced == rebuilt, (step, jd)
         saw.add(bool(rebuilt))
         if not rebuilt:
             assert fwd.stats["ops"] is tensors     # refreshed in place
@@ -378,7 +380,8 @@ def test_builds_track_reference_traces_over_replication():
     """Replicas on, a value-only patch of the replicated plan, r_cap growth,
     replicas off and on again: the port rebuilds exactly where the
     reference's jitted forward retraces (its ``stats['traces']``, counted in
-    a 4-device subprocess)."""
+    a 4-device subprocess), and its own ``stats['traces']`` equals the
+    reference's."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath("src"))
     env.pop("XLA_FLAGS", None)
     r = subprocess.run([sys.executable, "-c", _REF_HEAD + _REPL_SEQUENCE],
@@ -387,6 +390,7 @@ def test_builds_track_reference_traces_over_replication():
     traces = json.loads(r.stdout.split("COUNTS")[1])
     tcfg = TM.GNNConfig("gcn", (52, 8, 2))
     tp = TM.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    port_traces = []
 
     class Forward:
         def __init__(self, plan):
@@ -396,6 +400,7 @@ def test_builds_track_reference_traces_over_replication():
             return self.f(tp, blocks, replica0)
 
         def count(self):
+            port_traces.append(self.f.stats["traces"])
             return self.f.stats["builds"]
 
     scope = {"synthetic_siot": synthetic_siot, "compile_plan": TP.compile_plan,
@@ -407,6 +412,7 @@ def test_builds_track_reference_traces_over_replication():
     exec(_REPL_SEQUENCE.replace('print("COUNTS", json.dumps(counts))', ""),
          scope)
     assert scope["counts"] == traces == [1, 2, 2, 2, 3, 4]
+    assert port_traces == traces
 
 
 @pytest.mark.parametrize("agg", ["segment", "bsr"])
