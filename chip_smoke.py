@@ -57,6 +57,14 @@ published widths:
           path's launches are counted apart from the forward path's; then
           K2 differentiating through q, k or v alone (each gradient
           against the plain backward's);
+  whole_graph  the whole-graph train_step and predict (the reference's
+          jitted ones, on the segment sum) over the six paper configs on
+          the full graphs: 20 steps from a CUDA graph bit-equal to 20 eager
+          ones, the loss falling, a replay over a permuted edge list
+          bit-equal to the eager step over it, predict from a graph equal
+          to eager predict, one build a signature, the eager step free of
+          host reads; host ms (enqueue, call) and device ms both ways,
+          capture s, pool MB;
   bsp     the batched BSP forward (GCN, SAGE, GAT x ppermute, allgather) on
           SIoT and Yelp over each of the three plans, held against the
           whole-graph forward on the card and on the CPU; counts the
@@ -281,14 +289,20 @@ published widths:
   lm_train  the full 16-layer llama3.2-1b (bf16 compute, fp32 weights,
           AdamW at lr 1e-3) on 4 x 1024 tokens through make_train_step:
           step 0's loss equals a no-grad forward's, 2 microbatches equal 1,
-          10 steps on one batch lower the loss, a compressed (int8 + error
-          feedback) step is finite, the trained weights and optimizer state
-          go through a checkpoint bit for bit, K2 launches n_layers
-          forwards and n_layers of each backward kernel per microbatch,
-          every backward on the tensor-core pair (the fp32 parity pass's
-          on the CUDA-core pair);
-          step ms, tokens/s, peak memory, one profiled step (busy share,
-          K2's device time), and whether the same step repeats bit for bit;
+          10 steps on one batch from a CUDA graph (captured at the first,
+          replayed after) bit-equal to 10 eager ones from the same seeded
+          state (loss, grad norm and a digest of every parameter and moment
+          at every step; the eager step free of host reads) and lowering
+          the loss, 3 compressed (int8 + error feedback) steps of 2
+          microbatches from a graph bit-equal to eager ones and finite, the
+          trained weights and optimizer state through a checkpoint bit for
+          bit, K2 launches n_layers forwards and n_layers of each backward
+          kernel per microbatch (a replay counts as a step), every
+          backward on the tensor-core pair (the fp32 parity pass's on the
+          CUDA-core pair); host-clocked step ms and tokens/s from the graph
+          and eager, capture s, pool GB, peak memory each way, two
+          profiled replays (busy share, device time by class), and whether
+          the same step repeats bit for bit;
   moe_train, hybrid_train, vlm_train, encdec_train, xlstm_train  each of
           deepseek-moe-16b (cut to 1 dense + MOE_TRAIN_LAYERS MoE layers by
           memory), zamba2-1.2b, internvl2-2b (256 stub patches a row),
@@ -299,11 +313,13 @@ published widths:
           sets, launches), then its main path (bf16 compute, fp32
           weights, AdamW, every layer checkpointed as the configs say, 4 x
           1024 tokens): step 0's loss equals a no-grad forward's, grads_of
-          twice from one state bit-equal, 10 steps each finite with the
-          last below the first, two profiled steps (busy share, device
+          twice from one state bit-equal, 10 steps from a CUDA graph
+          bit-equal to 10 eager ones (as lm_train's), each finite with the
+          last below the first, two profiled replays (busy share, device
           time by class: K2 and the grouped GEMM each way, cuBLAS,
           elementwise), K2 and grouped GEMM launches exactly by kernel,
-          path and route; step ms, tokens/s, peak memory;
+          path and route; step ms and tokens/s graph and eager, capture s,
+          pool GB, peak memory each way;
   mesh_parity  the mesh path (Dist over a 1x1 DeviceMesh, NCCL at world
           size 1; the reference's make_debug_mesh on one device):
           llama3.2-1b at full width, bf16, its weights laid out by
@@ -390,6 +406,9 @@ from repro_torch.gnn import (  # noqa: E402
     patch_plan, plans_equal, recompile_like, replicate_for_stream,
     scatter_features, scatter_ints, scatter_replica_halo, serving_cost,
     set_replication, zipf_requests)
+from repro_torch.gnn.models import predict  # noqa: E402
+from repro_torch.gnn.training import (  # noqa: E402
+    train_step as whole_train_step)
 from repro_torch.graphs import (  # noqa: E402
     DataGraph, build_edge_network, synthetic_siot, synthetic_yelp)
 from repro_torch.kernels import _build  # noqa: E402
@@ -1310,6 +1329,90 @@ def phase_train(datasets, dev):
                     emit(row)
     _train_patch(datasets[0], dev)
     return rows
+
+
+def phase_whole_graph(datasets, dev):
+    """The whole-graph GNN ``train_step`` and ``predict`` (the reference's
+    jitted ones) over the six paper configs on the full graphs: TRAIN_STEPS
+    steps at TRAIN_LR from a CUDA graph bit-equal to TRAIN_STEPS eager
+    ones (``graphs=False``) and lowering the loss; a replay over a
+    permuted edge list (same shape) bit-equal to the eager step over it;
+    ``predict`` from a graph equal to eager ``predict`` on both lists; one
+    build a signature; the eager step free of host reads.  Host ms
+    (enqueue, call) and device ms both ways, capture s, pool MB."""
+    for ds in datasets:
+        g, feats, sd = ds["graph"], ds["feats"], ds["sd"].long()
+        labels = torch.from_numpy(g.labels).to(dev).long()
+        perm = sd[torch.randperm(sd.shape[0], generator=torch.Generator(
+            ).manual_seed(SEED)).to(dev)]
+        for model in ("gcn", "sage", "gat"):
+            cfg = gnn_paper.ALL[(ds["name"], model)]
+            label = f"whole_graph {ds['name']} {model}"
+            params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+            whole_train_step.steps.clear()
+            predict.steps.clear()
+
+            def run(p, edges=sd, graphs=None):
+                return whole_train_step(cfg, p, feats, edges, labels,
+                                        TRAIN_LR, device=dev, graphs=graphs)
+
+            p, q, losses, same = params, params, [], True
+            for _ in range(TRAIN_STEPS):
+                p, loss = run(p)
+                q, want = run(q, graphs=False)
+                same &= bool(torch.equal(loss, want)) and _equal_trees(p, q)
+                losses.append(float(loss))
+            require(same, f"{label}: {TRAIN_STEPS} steps from a graph != "
+                    f"{TRAIN_STEPS} eager steps, bit for bit")
+            require(np.isfinite(losses).all() and losses[-1] < losses[0],
+                    f"{label}: {TRAIN_STEPS} steps at lr {TRAIN_LR} did not "
+                    f"lower the loss: {losses[0]} -> {losses[-1]}")
+            (p2, lp), (q2, lq) = run(p, perm), run(q, perm, False)
+            require(torch.equal(lp, lq) and _equal_trees(p2, q2),
+                    f"{label}: the replay over a permuted edge list != the "
+                    "eager step over it")
+            for edges in (sd, perm):
+                require(torch.equal(predict(cfg, p, feats, edges),
+                                    predict(cfg, p, feats, edges,
+                                            graphs=False)),
+                        f"{label}: predict from a graph != eager predict")
+            built = {name: _captured(f.steps.values()) for name, f in (
+                ("train_step", whole_train_step), ("predict", predict))}
+            require(all(b["graphs"] == int(dev.type == "cuda")
+                        for b in built.values())
+                    and len(whole_train_step.steps) == len(predict.steps)
+                    == 1 + (dev.type == "cuda"),
+                    f"{label}: not one build a signature: {built}")
+            row = {"phase": "whole_graph", "dataset": ds["name"],
+                   "model": model, "n": g.n, "arcs": int(sd.shape[0]),
+                   "train_losses": [losses[0], losses[-1]],
+                   "steps_bit_equal_to_eager": TRAIN_STEPS,
+                   "permuted_edges_bit_equal": True,
+                   "predict_equal_to_eager": True,
+                   "eager_step_no_host_reads": _no_host_reads(
+                       lambda: run(q, graphs=False)),
+                   "step_host_ms": {
+                       "graph": host_ms(lambda: run(p), reps=10, warmup=1),
+                       "eager": host_ms(lambda: run(q, graphs=False),
+                                        reps=10, warmup=1)},
+                   "step_device_ms": device_ms(lambda: run(p), reps=5,
+                                               warmup=1, label=label),
+                   "eager_step_device_ms": device_ms(
+                       lambda: run(q, graphs=False), reps=5, warmup=1,
+                       label=f"{label} eager"),
+                   "predict_host_ms": {
+                       "graph": host_ms(lambda: predict(cfg, p, feats, sd),
+                                        reps=10, warmup=1),
+                       "eager": host_ms(lambda: predict(
+                           cfg, p, feats, sd, graphs=False), reps=10,
+                           warmup=1)},
+                   **{f"{name}_{k}": v for name, b in built.items()
+                      for k, v in b.items()}}
+            require(row["eager_step_no_host_reads"],
+                    f"{label}: the eager step reads the card from the host")
+            emit(row)
+    whole_train_step.steps.clear()
+    predict.steps.clear()
 
 
 def _steps_equal(step, eager, params, blocks, n: int = TRAIN_STEPS):
@@ -3373,26 +3476,38 @@ def _profile_decode(engine, cfg, phase: str, slots: int, ticks: int = 4,
     (:func:`_kernel_kind`) and the launches per tick; "not measured" where
     the trace holds no device time.  Where the engine replays CUDA graphs
     the window must show the kernels the graphs launch: ``k2_per_tick``
-    K2 kernels a tick and, with ``grouped``, the grouped GEMM's.  Returns
-    the printed record."""
+    K2 kernels a tick and, with ``grouped``, the grouped GEMM's.  The
+    ticks are the active step of a schedule after one traced warm-up tick
+    (a window's first call loses events: :func:`device_ms`).  Returns the
+    printed record."""
     rng = np.random.default_rng(SEED + 3)
     for i in range(slots):
         engine.submit(Request(uid=100 + i, prompt=rng.integers(
-            1, cfg.vocab, size=512), max_new_tokens=ticks + 2, eos_id=-1))
+            1, cfg.vocab, size=512), max_new_tokens=ticks + 3, eos_id=-1))
     engine.tick()                             # admit all, one decode
     torch.cuda.synchronize()
     require(all(r is not None for r in engine.live),
             f"{phase}: not every slot is live in the profiled window")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    traced = []
+    with torch.profiler.profile(
+            activities=acts,
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=lambda p: traced.append(p.key_averages())
+    ) as prof:
+        engine.tick()
+        torch.cuda.synchronize()
+        prof.step()                            # the warm-up tick ends
         t = time.perf_counter()
         for _ in range(ticks):
             engine.tick()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        prof.step()                            # the active step ends
+    kernels = [e for e in (traced[0] if traced else [])
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     k2 = [e for e in kernels if "flash_" in e.key]
     k2_ms = sum(e.self_device_time_total for e in k2) / 1e3 / ticks
@@ -4783,48 +4898,124 @@ def _lm_train_parity(dev):
           "cpu_grad_s": cpu_s})
 
 
-def _profile_step(step, state, batch):
-    """One train step under torch.profiler, after a traced warm-up step
-    (the first call of a window loses events): the device's busy share of
-    the step's wall time and K2's device time by kernel."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    traced, wall = [], []
-    with torch.profiler.profile(
-            activities=acts,
-            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
-            on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            state = step(*state, batch)[:3]
-            torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t) * 1e3)
-            prof.step()
-    dev = [e for e in (traced[0] if traced else [])
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.key.startswith("ProfilerStep")]
-    busy = sum(e.self_device_time_total for e in dev) / 1e3
-    k2 = {name: sum(e.self_device_time_total for e in dev if tag in e.key)
-          / 1e3 for name, tag in (("forward", "flash_prefill_bf16"),
-                                  ("bwd_dq", "flash_bwd_dq"),
-                                  ("bwd_dkdv", "flash_bwd_dkdv"))}
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
-    return state, {
-        "profiled_step_ms": wall[1],
-        "device_busy_ms": busy if dev else "not measured",
-        "device_busy_share": busy / wall[1] if dev else "not measured",
-        "k2_device_ms_per_step": k2 if dev else "not measured",
-        "kernel_launches_per_step": sum(e.count for e in dev),
-        "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                           for e in top}}
+_DIGEST_W: dict = {}
+
+
+def _leaf_digest(t: torch.Tensor) -> torch.Tensor:
+    """A digest of a tensor's bits, on its device: the sum, mod 2^64, of
+    each element's bits (an integer of its width) times an odd weight of
+    its position mod 2^24 (a product mod 2^32, or 2^64 for 8-byte
+    elements), in chunks of 2^24 elements.  Equal tensors give equal
+    digests; an element that differs moves the product (an odd weight is
+    a bijection mod 2^32)."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    bits = t.detach().reshape(-1).view(ints[t.element_size()])
+    w = _DIGEST_W.get(t.device)
+    if w is None:
+        odd = torch.randint(0, 1 << 30, (1 << 24,),
+                            generator=torch.Generator().manual_seed(SEED))
+        w = _DIGEST_W[t.device] = (2 * odd + 1).to(torch.int32).to(t.device)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for chunk in bits.split(1 << 24):
+        total += torch.sum(chunk * w[:chunk.numel()], dtype=torch.int64)
+    return total
+
+
+def _state_digest(params, opt_state, ef) -> torch.Tensor:
+    """:func:`_leaf_digest` of every parameter, moment, step and
+    error-feedback leaf, stacked."""
+    leaves = (optim.leaves(params) + optim.leaves(opt_state.m)
+              + optim.leaves(opt_state.v) + [opt_state.step]
+              + (optim.leaves(ef) if ef is not None else []))
+    return torch.stack([_leaf_digest(t) for t in leaves])
+
+
+def _init_train_state(cfg, opt_cfg, dev, compress: bool):
+    """The seeded weights (SEED), zero moments and, when compressing, zero
+    error feedback."""
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    return (params, init_opt_state(opt_cfg, params),
+            init_error_feedback(params) if compress else None)
+
+
+def _run_steps(step, state, batch, n: int, label: str,
+               check_reads: bool = False):
+    """``n`` steps from ``state``: each step's host ms to a finished card,
+    its loss and grad norm (copies) and the state's digest after it.  With
+    ``check_reads`` the first step runs under the sync debug mode "error"
+    (:func:`_no_host_reads`)."""
+    rec = {"ms": [], "loss": [], "grad_norm": [], "digest": []}
+    for i in range(n):
+        out = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if check_reads and i == 0:
+            require(_no_host_reads(lambda: out.append(step(*state, batch))),
+                    f"{label}: the eager step reads the card from the host")
+        else:
+            out.append(step(*state, batch))
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t) * 1e3)
+        params, opt_state, ef, m = out[0]
+        rec["loss"].append(m["loss"].clone())
+        rec["grad_norm"].append(m["grad_norm"].clone())
+        rec["digest"].append(_state_digest(params, opt_state, ef))
+        state = (params, opt_state, ef)
+    return state, rec
+
+
+def _graph_twin(label: str, cfg, opt_cfg, batch, n: int, dev, **kw):
+    """``n`` steps of ``make_train_step(..., graphs=False, **kw)`` (the
+    eager twin, its first step free of host reads) from the seeded state;
+    then, that state freed and drawn again, ``n`` steps of the step as
+    users get it (captured at its first call, replayed after).  Every
+    step's loss, grad norm and state digest (every parameter, moment,
+    step and error-feedback leaf) must be bit-equal, and one graph built.
+    Returns the graph step, its state and the figures: host ms a step each
+    way, capture s, pool GB, peak GB each way, the losses."""
+    compress = kw.get("compress_grads", False)
+    _fresh_device()
+    eager = make_train_step(cfg, opt_cfg, graphs=False, **kw)
+    state, want = _run_steps(
+        eager, _init_train_state(cfg, opt_cfg, dev, compress), batch, n,
+        label, check_reads=True)
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    _fresh_device()
+    step = make_train_step(cfg, opt_cfg, **kw)
+    state, got = _run_steps(step, _init_train_state(cfg, opt_cfg, dev,
+                                                    compress), batch, n,
+                            label)
+    require(step.graphs is (dev.type == "cuda"), f"{label}: the step on "
+            f"{dev} resolved graphs to {step.graphs}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    differ = [i for i in range(n) if not all(
+        torch.equal(got[k][i], want[k][i])
+        for k in ("loss", "grad_norm", "digest"))]
+    require(not differ, f"{label}: graph steps {differ} of {n} differ from "
+            "the eager twin's (loss, grad norm or a state leaf's bits)")
+    cap = _captured(step.steps.values())
+    require(len(step.steps) == cap["graphs"] == int(step.graphs),
+            f"{label}: {len(step.steps)} steps built, {cap['graphs']} "
+            "captured")
+    return step, state, {
+        "graph_steps_bit_equal_to_eager": n,
+        "step_ms_graph": got["ms"], "step_ms_eager": want["ms"],
+        "step_ms_median_graph": statistics.median(got["ms"][1:]),
+        "step_ms_median_eager": statistics.median(want["ms"][1:]),
+        "capture_s": cap["capture_s"], "pool_gb": cap["pool_mb"] / 1e3,
+        "peak_gb_graph": peak, "peak_gb_eager": eager_peak,
+        "losses": [float(x) for x in got["loss"]],
+        "grad_norms": [float(x) for x in got["grad_norm"]]}
 
 
 def _lm_train_full(dev):
     """The full 16-layer llama3.2-1b at its published width: bf16 compute,
     fp32 parameters, AdamW from optim.for_model at lr 1e-3 (the CLI's
     default), 4 x 1024 tokens from the data pipeline through
-    make_train_step."""
+    make_train_step: the reports run eagerly, the steps from a CUDA graph
+    against their eager twin (:func:`_graph_twin`), also 3 compressed
+    steps of 2 microbatches."""
     cfg = get_config("llama3.2-1b")
     L, n = cfg.n_layers, 4 * 1024
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
@@ -4863,7 +5054,8 @@ def _lm_train_full(dev):
     for mb in (1, 2):
         state = init_opt_state(zero, params)
         before = _counts()
-        _, state, _, m = make_train_step(cfg, zero, microbatches=mb)(
+        _, state, _, m = make_train_step(cfg, zero, microbatches=mb,
+                                         graphs=False)(
             params, state, None, batch)
         torch.cuda.synchronize()
         require(_counts_delta(before)[:2] == per_mb(mb), f"lm_train: K2 "
@@ -4883,44 +5075,23 @@ def _lm_train_full(dev):
             f"(excess {m_excess[MB_M_RTOL]})")
     del moments
 
-    # Ten steps on the fixed batch: step 0's loss is the forward's, the
-    # loss falls; step times by CUDA events, peak memory.
-    step = make_train_step(cfg, opt_cfg)
-    state = (params, init_opt_state(opt_cfg, params), None)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_ms = [], []
-    for _ in range(TRAIN_LM_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        params, opt_state, ef, m = step(*state, batch)
-        end.record()
-        end.synchronize()
-        state = (params, opt_state, ef)
-        step_ms.append(start.elapsed_time(end))
-        losses.append(float(m["loss"]))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # Ten steps on the fixed batch from the seeded state, eagerly and from
+    # a graph: bit-equal; step 0's loss is the forward's, the loss falls.
+    n_params = sum(t.numel() for t in optim.leaves(params))
+    del params
+    step, state, twin = _graph_twin("lm_train", cfg, opt_cfg, batch,
+                                    TRAIN_LM_STEPS, dev)
+    losses = twin["losses"]
     require(np.isfinite(losses).all() and losses[-1] < losses[0],
             f"lm_train: {TRAIN_LM_STEPS} steps did not lower the loss: "
             f"{losses}")
     step0_rel = abs(losses[0] - fwd_loss) / abs(fwd_loss)
     require(step0_rel <= 1e-3, f"lm_train: step 0's loss {losses[0]} vs the "
             f"no-grad forward's {fwd_loss}")
-    state, prof = _profile_step(step, state, batch)
-
-    # One int8 error-feedback step from here.
-    params, opt_state, _ = state
-    comp = make_train_step(cfg, opt_cfg, compress_grads=True)
-    params, opt_state, ef, m = comp(params, opt_state,
-                                    init_error_feedback(params), batch)
-    finite = (bool(np.isfinite(float(m["loss"])))
-              and all(bool(torch.isfinite(t).all())
-                      for t in optim.leaves(params) + optim.leaves(ef)))
-    require(finite, "lm_train: the compressed step is not finite")
-    del ef
+    state, prof = _profile_train(step, state, batch)
 
     # The trained parameters and optimizer state through a checkpoint.
+    params, opt_state, _ = state
     tree = {"p": params, "o": opt_state}
     with tempfile.TemporaryDirectory() as d:
         ck = CheckpointManager(d, keep=1, async_write=False)
@@ -4936,25 +5107,40 @@ def _lm_train_full(dev):
         optim.leaves(params) + optim.leaves(opt_state.m)
         + optim.leaves(opt_state.v) + [opt_state.step]))
     require(equal, "lm_train: the checkpoint round trip is not bit-equal")
-    del back
+    del back, tree, params, opt_state, state, step
 
-    med = statistics.median(step_ms[1:])
+    # Three int8 error-feedback steps of 2 microbatches, eagerly and from a
+    # graph: bit-equal (the error feedback too) and finite.
+    _, state, comp = _graph_twin("lm_train compressed", cfg, opt_cfg, batch,
+                                 3, dev, microbatches=2,
+                                 compress_grads=True)
+    finite = (bool(np.isfinite(comp["losses"]).all())
+              and all(bool(torch.isfinite(t).all())
+                      for t in optim.leaves(state[0])
+                      + optim.leaves(state[2])))
+    require(finite, "lm_train: the compressed steps are not finite")
+    del state
+
+    med = twin["step_ms_median_graph"]
     emit({"phase": "lm_train", "arch": cfg.name, "n_layers": L,
-          "d_model": cfg.d_model, "vocab": cfg.vocab,
-          "params": sum(t.numel() for t in optim.leaves(params)),
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "params": n_params,
           "dtype": "bfloat16", "param_dtype": "float32",
           "optimizer": opt_cfg.name, "lr": opt_cfg.lr, "batch": [4, 1024],
           "no_grad_loss": fwd_loss, "step0_loss": losses[0],
-          "step0_rel_err": step0_rel, "losses": losses,
-          "microbatch_loss": mb_loss, "microbatch_loss_rel": mb_rel,
+          "step0_rel_err": step0_rel, "microbatch_loss": mb_loss,
+          "microbatch_loss_rel": mb_rel,
           "microbatch_m_excess": m_excess[MB_M_RTOL],
           "microbatch_m_rtol_atol": [MB_M_RTOL, MB_M_ATOL],
           "microbatch_m_excess_reference_rtol": m_excess[MB_M_REF_RTOL],
-          "k2_launches_per_microbatch": per_mb(1),
-          "step_ms": step_ms, "step_ms_median": med,
-          "tokens_per_s": n / (med / 1e3), "peak_mem_gb": peak_gb,
-          **prof, "compressed_step_loss": float(m["loss"]),
-          "compressed_step_finite": True,
+          "k2_launches_per_microbatch": per_mb(1), **twin,
+          "tokens_per_s": n / (med / 1e3),
+          "tokens_per_s_eager": n / (twin["step_ms_median_eager"] / 1e3),
+          **prof, "compressed_steps": {
+              key: comp[key] for key in (
+                  "graph_steps_bit_equal_to_eager", "step_ms_median_graph",
+                  "step_ms_median_eager", "capture_s", "pool_gb",
+                  "peak_gb_graph", "losses")},
+          "compressed_microbatches": 2, "compressed_steps_finite": True,
           "checkpoint_bit_equal": True, "checkpoint_save_s": save_s,
           "checkpoint_restore_s": restore_s,
           "checkpoint_leaves": len(manifest["leaves"]),
@@ -4964,10 +5150,11 @@ def _lm_train_full(dev):
 def phase_lm_train(dev):
     """LM training on the card: the 2-layer parity check, then the main
     path, whose counts start from 0 just before it.  The main path takes
-    gradients of 18 microbatches (two repeat runs, 1 + 2 microbatches, the
-    steps, two profiled steps, the compressed step) and one no-grad
-    forward, all forwards on prefill_tc and all backwards on the
-    tensor-core pair."""
+    gradients of 40 microbatches (two repeat runs, 1 + 2 microbatches, the
+    steps eagerly and from a graph, three profiled replays, three
+    compressed steps of 2 microbatches each way) and one no-grad forward,
+    all forwards on prefill_tc and all backwards on the tensor-core pair;
+    a replay counts its launches as the eager step would."""
     gc.collect()
     torch.cuda.empty_cache()
     _lm_train_parity(dev)
@@ -4977,7 +5164,7 @@ def phase_lm_train(dev):
     bwd = dict(flash_attention.backward_launches)
     by_path = dict(flash_attention.backward_launches_by_path)
     n_layers = get_config("llama3.2-1b").n_layers
-    grad_mbs = 2 + 3 + TRAIN_LM_STEPS + 2 + 1
+    grad_mbs = 2 + 3 + 2 * TRAIN_LM_STEPS + 3 + 2 * 3 * 2
     require(fwd == {**dict.fromkeys(fwd, 0),
                     "prefill_tc": (grad_mbs + 1) * n_layers}
             and bwd == {"dq": grad_mbs * n_layers,
@@ -5102,18 +5289,17 @@ def _train_class(name: str) -> str:
         _kernel_kind(name), "elementwise")
 
 
-def _profile_train(step, state, batch, tree: bool, steps: int = 2):
-    """Two train steps under torch.profiler after a traced warm-up step (a
-    window's first call loses events): each step's wall time, the device's
-    busy share and the device time per step by class
-    (:func:`_train_class`).  With ``tree`` (the MoE family) the trace
-    holds the CPU ops too, and the grouped GEMM's time is split into its
-    backward (kernels launched under ``GroupedMmBackward0``) and its
-    forward (the rest, a remat backward's recompute included); without it
-    only the device is traced (xlstm's sLSTM loop launches ~150k kernels
-    a step, and tracing their CPU side costs minutes)."""
-    acts = [torch.profiler.ProfilerActivity.CUDA] + (
-        [torch.profiler.ProfilerActivity.CPU] if tree else [])
+def _profile_train(step, state, batch, steps: int = 2):
+    """Two train steps, replays of a captured step, under torch.profiler
+    after a traced warm-up step (a window's first call loses events): each
+    step's wall time, the device's busy share and the device time per step
+    by class (:func:`_train_class`: K2 forward and backward, the grouped
+    GEMM both ways, cuBLAS, elementwise).  A replay runs no CPU op, so the
+    trace costs little even for xlstm's ~150k kernels a step, and it
+    cannot tell a grouped GEMM's backward from its forward (an eager
+    step's profile can, by the autograd node that launched a kernel)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
     traced, wall = [], []
     with torch.profiler.profile(
             activities=acts,
@@ -5139,23 +5325,6 @@ def _profile_train(step, state, batch, tree: bool, steps: int = 2):
         ms = e.time_range.elapsed_us() / 1e3
         by_class[kind] = by_class.get(kind, 0.0) + ms
         launches[kind] = launches.get(kind, 0) + 1
-    if tree and "grouped_gemm" in by_class:
-        bwd_ms, bwd_n = 0.0, 0
-        for e in events:
-            up, under = e, False
-            while up is not None and not under:
-                under = "GroupedMmBackward" in up.name
-                up = up.cpu_parent
-            for kern in e.kernels if under else ():
-                # A CPU op may list itself with its own name; only device
-                # kernels count.
-                if kern.name != e.name and _train_class(
-                        kern.name) == "grouped_gemm":
-                    bwd_ms += kern.duration / 1e3
-                    bwd_n += 1
-        for d, bwd in ((by_class, bwd_ms), (launches, bwd_n)):
-            d["grouped_gemm_forward"] = d.pop("grouped_gemm") - bwd
-            d["grouped_gemm_backward"] = bwd
     wall_ms = sum(wall)
     per = lambda d: {k: v / steps for k, v in d.items()}  # noqa: E731
     return state, {
@@ -5173,16 +5342,18 @@ def _train_main(phase: str, arch: str, cut: dict, seq: int, steps: int,
                 lr: float, dev):
     """``arch`` at full width (depth cut by ``cut``): bf16 compute, fp32
     parameters, AdamW from optim.for_model at ``lr``, 4 x ``seq`` tokens
-    from the data pipeline through make_train_step:
-    step 0's loss within 1e-3 of a no-grad forward's, ``grads_of`` twice
-    from the same state bit-equal, ``steps`` steps each finite with the
-    last below the first, then two profiled steps; K2 and grouped GEMM
-    launches exactly at each part.  Returns the microbatches under grad
-    and the no-grad forwards it ran."""
+    from the data pipeline through make_train_step: ``grads_of`` twice
+    from the same state bit-equal; ``steps`` steps eagerly and from a CUDA
+    graph, bit-equal (:func:`_graph_twin`), each finite with the last
+    below the first and step 0's loss within 1e-3 of a no-grad forward's;
+    then two profiled replays; K2 and grouped GEMM launches exactly at
+    each part.  Returns the microbatches under grad and the no-grad
+    forwards it ran."""
     _fresh_device()
     cfg = _family_cfg(arch, cut)
     n = 4 * seq
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    n_params = sum(t.numel() for t in optim.leaves(params))
     opt_cfg = dataclasses.replace(optim.for_model(cfg), lr=lr)
     batch = _on(batch_at_step(cfg, ShapeCfg(phase, seq, 4, "train"), 0), dev)
     on_card = ("prefill_tc", "tc")
@@ -5192,7 +5363,7 @@ def _train_main(phase: str, arch: str, cut: dict, seq: int, steps: int,
         require(_counts_delta(before) == _expected(cfg, 0, 1, *on_card),
                 f"{phase}: the no-grad loss launched {_counts_delta(before)}")
 
-    grads_of = make_train_step(cfg, opt_cfg).grads_of
+    grads_of = make_train_step(cfg, opt_cfg, graphs=False).grads_of
     before = _counts()
     loss_a, grads_a = grads_of(params, batch)
     torch.cuda.synchronize()
@@ -5208,46 +5379,36 @@ def _train_main(phase: str, arch: str, cut: dict, seq: int, steps: int,
             f"{float(loss_a)} / {float(loss_b)}; leaves {differ})")
     finite = all(bool(torch.isfinite(g).all()) for g in optim.leaves(grads_a))
     require(finite, f"{phase}: a gradient is not finite")
-    del grads_a, grads_b
+    del grads_a, grads_b, params
 
-    step = make_train_step(cfg, opt_cfg)
-    state = (params, init_opt_state(opt_cfg, params), None)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_ms = [], []
-    for _ in range(steps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        params, opt_state, _, m = step(*state, batch)
-        end.record()
-        end.synchronize()
-        state = (params, opt_state, None)
-        step_ms.append(start.elapsed_time(end))
-        losses.append(float(m["loss"]))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    before = _counts()
+    step, state, twin = _graph_twin(phase, cfg, opt_cfg, batch, steps, dev)
+    want = _expected(cfg, 2 * steps, 0, *on_card)
+    require(_counts_delta(before) == want, f"{phase}: {steps} steps each "
+            f"way launched {_counts_delta(before)}, expected {want}")
+    losses = twin["losses"]
     require(np.isfinite(losses).all() and losses[-1] < losses[0],
             f"{phase}: {steps} steps did not lower the loss: {losses}")
     step0_rel = abs(losses[0] - fwd_loss) / abs(fwd_loss)
     require(step0_rel <= 1e-3, f"{phase}: step 0's loss {losses[0]} vs the "
             f"no-grad forward's {fwd_loss}")
-    state, prof = _profile_train(step, state, batch, cfg.family == "moe")
-    med = statistics.median(step_ms[1:])
+    state, prof = _profile_train(step, state, batch)
+    del state, step
+    med = twin["step_ms_median_graph"]
     sites, again = _train_k2_sites(cfg)
     emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
           "cut": cut, "d_model": cfg.d_model, "vocab": cfg.vocab,
-          "params": sum(t.numel() for t in optim.leaves(params)),
-          "dtype": "bfloat16", "param_dtype": "float32", "remat": cfg.remat,
-          "optimizer": opt_cfg.name, "lr": opt_cfg.lr, "batch": [4, seq],
-          "no_grad_loss": fwd_loss, "step0_loss": losses[0],
-          "step0_rel_err": step0_rel, "losses": losses,
+          "params": n_params, "dtype": "bfloat16", "param_dtype": "float32",
+          "remat": cfg.remat, "optimizer": opt_cfg.name, "lr": opt_cfg.lr,
+          "batch": [4, seq], "no_grad_loss": fwd_loss,
+          "step0_loss": losses[0], "step0_rel_err": step0_rel,
           "grads_bit_equal_twice": True,
           "k2_sites_per_microbatch": sites, "k2_sites_recomputed": again,
           "grouped_gemm_calls_per_microbatch": _train_gg_calls(cfg),
-          "step_ms": step_ms, "step_ms_median": med,
-          "tokens_per_s": n / (med / 1e3), "peak_mem_gb": peak_gb,
+          **twin, "tokens_per_s": n / (med / 1e3),
+          "tokens_per_s_eager": n / (twin["step_ms_median_eager"] / 1e3),
           "card_mem_gb": torch.cuda.mem_get_info(dev)[1] / 1e9, **prof})
-    return 2 + steps + 1 + prof["profiled_steps"], 1
+    return 2 + 2 * steps + 1 + prof["profiled_steps"], 1
 
 
 def phase_family_train(phase: str, dev):
@@ -5358,7 +5519,7 @@ def _mesh_train_run(cfg, dist, specs, params, batch, bspecs, opt_cfg):
     mesh.  Returns (losses, the final params and moments, whole)."""
     start = optim.tree_map(lambda t: t.clone(), params)
     if dist is None:
-        step, state = make_train_step(cfg, opt_cfg), start
+        step, state = make_train_step(cfg, opt_cfg, graphs=False), start
         opt = init_opt_state(opt_cfg, state)
     else:
         step = jit_train_step(cfg, dist, specs, opt_cfg, batch_specs=bspecs)
@@ -5590,7 +5751,7 @@ def phase_mesh_families(dev, mesh):
         bspecs = {k: P("data", *([None] * (v.dim() - 1)))
                   for k, v in tbatch.items()}
         start = optim.tree_map(lambda t: t.clone(), params)
-        state, m = make_train_step(tcfg, opt_cfg)(
+        state, m = make_train_step(tcfg, opt_cfg, graphs=False)(
             start, init_opt_state(opt_cfg, start), None, tbatch)[::3]
         ref_leaves = [t.clone() for t in optim.leaves(state)]
         ref_loss = float(m["loss"])
@@ -5903,6 +6064,11 @@ def main() -> int:
     require(train_launches["bwd"] > 0,
             "the train path never launched spmm_csr's backward")
     require(flash_attention.launches == 0, "the train path launched K2")
+    phase_whole_graph([siot, yelp], dev)
+    _mark("whole_graph")
+    require(spmm.launches_by_dir == train_launches
+            and flash_attention.launches == 0,
+            "the whole-graph steps launched a kernel of the reference's")
     _k2_differentiates(dev)
     _mark("k2_grad")
 

@@ -78,13 +78,14 @@ import torch.nn.functional as F
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.gnn.models import (
-    GNNConfig, gather_rows, segment_max, segment_order, segment_sum)
+    GNNConfig, gather_rows, param_leaves, params_from_leaves, segment_max,
+    segment_order, segment_sum)
 from repro_torch.gnn.plan import (
     ShardPlan, build_plan_bsr, gather_outputs, scatter_features,
     scatter_replica_halo)
 from repro_torch.kernels.gnn_aggregate import (
     PackedBSR, pack_bsr, spmm_packed, transpose_packed)
-from repro_torch.step import Step, resolve_graphs, spec, static_inputs
+from repro_torch.step import cached_step, resolve_graphs, spec
 
 EXCHANGES = ("ppermute", "allgather")
 
@@ -452,36 +453,21 @@ def input_signature(params, blocks, replica0=None) -> tuple:
             None if replica0 is None else spec(replica0))
 
 
-def _leaves(params) -> dict:
-    return {f"p{k}.{name}": v for k, p in enumerate(params)
-            for name, v in p.items()}
-
-
 def call_captured(steps: dict, key, name: str, fn, pool, device, params,
                   blocks, replica0=None):
     """``fn(params, blocks, replica0)`` through the :class:`Step` of
-    ``key`` in ``steps`` (made at its first use, over static buffers of
-    the parameters, the blocks and ``replica0`` when given): the inputs
-    written into the buffers, then the step run (eagerly and captured the
-    first time, replayed after).  Returns the step's outputs, which its
-    next call rewrites."""
-    step = steps.get(key)
-    if step is None:
-        extra = {} if replica0 is None else {"replica0": replica0}
-        inputs = static_inputs(device, **_leaves(params), blocks=blocks,
-                               **extra)
+    ``key`` in ``steps`` (:func:`repro_torch.step.cached_step`: made at
+    its first use, over static buffers of the parameters, the blocks and
+    ``replica0`` when given; run eagerly and captured the first time,
+    replayed after).  Returns the step's outputs, which its next call
+    rewrites."""
+    extra = {} if replica0 is None else {"replica0": replica0}
 
-        def body(blocks, replica0=None, _like=params, **leaves):
-            return fn([{k: leaves[f"p{i}.{k}"] for k in p}
-                       for i, p in enumerate(_like)], blocks, replica0)
+    def body(blocks, replica0=None, **leaves):
+        return fn(params_from_leaves(params, leaves), blocks, replica0)
 
-        step = steps[key] = Step(name, body, inputs, pool)
-    for k, v in _leaves(params).items():
-        step.write(k, v)
-    step.write("blocks", blocks)
-    if replica0 is not None:
-        step.write("replica0", replica0)
-    return step()
+    return cached_step(steps, key, name, body, pool, device,
+                       **param_leaves(params), blocks=blocks, **extra)
 
 
 def make_bsp_forward(

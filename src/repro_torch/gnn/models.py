@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.step import cached_step, resolve_graphs, spec
 
 Aggregate = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 # (messages (E, d), dst_ids (E,), num_nodes) -> (n, d) summed per dst.
@@ -134,8 +135,13 @@ def directed_edges(edges: np.ndarray) -> np.ndarray:
 
 
 def degrees_from_directed(src_dst: torch.Tensor, n: int) -> torch.Tensor:
-    """In-degree per vertex as float32 (exact integer counts)."""
-    return torch.bincount(src_dst[:, 1].long(), minlength=n).to(torch.float32)
+    """In-degree per vertex as float32 (exact integer counts).  An integer
+    ``scatter_add_`` of ones (exact in any order), where ``bincount``
+    would read its size to the host: the whole-graph forward can be
+    captured."""
+    dst = src_dst[:, 1].long()
+    deg = torch.zeros(n, dtype=torch.long, device=dst.device)
+    return deg.scatter_add_(0, dst, torch.ones_like(dst)).to(torch.float32)
 
 
 # ---------------------------------------------------------------- parameters
@@ -199,6 +205,19 @@ def params_or_init(cfg: GNNConfig, params=None, device: DeviceLike = "cuda"):
     dev = resolve_device(device)
     return [{k: torch.as_tensor(v).to(dev) for k, v in layer.items()}
             for layer in params]
+
+
+def param_leaves(params) -> dict:
+    """The parameter list's tensors by name, ``p{layer}.{key}``."""
+    return {f"p{k}.{name}": v for k, p in enumerate(params)
+            for name, v in p.items()}
+
+
+def params_from_leaves(like, leaves: dict):
+    """A parameter list shaped as ``like`` over the tensors of
+    :func:`param_leaves`' names in ``leaves``."""
+    return [{k: leaves[f"p{i}.{k}"] for k in p} for i, p in enumerate(like)]
+
 
 def params_from_jax(params_np, device: DeviceLike = "cuda"):
     """The reference's parameter list (``[{"w", "att_src", "att_dst"}, ...]``
@@ -286,6 +305,43 @@ def loss_fn(cfg: GNNConfig, params, features, src_dst, labels, mask=None,
     return nll.mean()
 
 
-@torch.no_grad()
-def predict(cfg: GNNConfig, params, features, src_dst):
-    return torch.argmax(forward(cfg, params, features, src_dst), dim=-1)
+def predict(cfg: GNNConfig, params, features, src_dst,
+            graphs: Optional[bool] = None) -> torch.Tensor:
+    """The argmax class of every vertex, on the device of ``features``.
+
+    The counterpart of the reference's jitted ``predict``: one step for
+    each static ``cfg`` and each device and shape and dtype of the
+    parameters, the features and ``src_dst`` (``predict.steps``; clear it
+    to drop them).  ``graphs`` (None: on a CUDA device; True elsewhere
+    raises) captures each step into a CUDA graph at its first call, which
+    runs eagerly (:class:`repro_torch.step.Step`), and replays it after;
+    the parameters, features and edges are inputs written into its
+    buffers at every call, not constants.  Returns a new tensor."""
+    dev = features.device
+    graphs = resolve_graphs(graphs, dev, "predict")
+    src_dst = torch.as_tensor(src_dst, device=dev).long()
+    leaves = param_leaves(params)
+    key = (cfg, dev, graphs, tuple((k, spec(v)) for k, v in leaves.items()),
+           spec(features), spec(src_dst))
+
+    @torch.no_grad()
+    def body(features, src_dst, **leaves):
+        return torch.argmax(forward(cfg, params_from_leaves(params, leaves),
+                                    features, src_dst), dim=-1)
+
+    return cached_step(predict.steps, key, f"predict {cfg.model}", body,
+                       graph_pool(dev) if graphs else None, dev,
+                       features=features, src_dst=src_dst, **leaves).clone()
+
+
+predict.steps = {}
+_POOLS: dict = {}
+
+
+def graph_pool(dev: torch.device):
+    """The graph pool the whole-graph steps on ``dev`` share (``predict``
+    and ``training.train_step``): each call clones its outputs before
+    another step of the pool runs."""
+    if dev not in _POOLS:
+        _POOLS[dev] = torch.cuda.graph_pool_handle()
+    return _POOLS[dev]

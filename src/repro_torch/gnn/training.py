@@ -1,7 +1,8 @@
 """GNN training (node classification, the paper's SIoT/Yelp tasks).
 
 The counterpart of ``repro.gnn.training``: whole-graph full-batch training
-and the distributed train step over the BSP forward.  Gradients come from
+(its jitted ``train_step`` a cached step, captured on the card) and the
+distributed train step over the BSP forward.  Gradients come from
 ``torch.autograd.grad`` where the reference uses ``jax.value_and_grad``;
 parameters stay the port's list of per-layer dicts, and a step returns new
 tensors, ``p - lr * g``, as the reference's ``sgd_step`` does.
@@ -29,8 +30,10 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.gnn.distributed import call_captured, input_signature
-from repro_torch.gnn.models import GNNConfig, forward, loss_fn
-from repro_torch.step import resolve_graphs
+from repro_torch.gnn.models import (
+    GNNConfig, forward, graph_pool, loss_fn, param_leaves,
+    params_from_leaves)
+from repro_torch.step import cached_step, resolve_graphs, spec
 
 
 def sgd_step(params, grads, lr: float):
@@ -75,26 +78,63 @@ def loss_and_grads(cfg: GNNConfig, params, features, src_dst, labels,
 
 
 def train_step(cfg: GNNConfig, params, features, src_dst, labels, lr: float,
-               mask=None, device: DeviceLike = "cuda"):
-    """One full-batch SGD step: returns (new params, loss)."""
+               mask=None, device: DeviceLike = "cuda",
+               graphs: Optional[bool] = None):
+    """One full-batch SGD step: returns (new params, loss), new tensors.
+
+    The counterpart of the reference's jitted ``train_step``: one step
+    (:func:`repro_torch.step.cached_step`) for each static ``cfg`` and
+    ``lr``, device, whether ``mask`` is given, and shapes and dtypes of
+    the parameters, features, ``src_dst``, labels and mask, kept in
+    ``train_step.steps`` (clear it to drop them).  ``graphs`` (None: on a
+    CUDA device; True elsewhere raises) captures each step into a CUDA
+    graph at its first call, which runs eagerly, and replays it after.
+    Every input is written into the step's buffers at each call (not when
+    it is the tensor written last, unchanged), so a call with another edge
+    list of the same shape runs over that list: the degrees and the
+    segment order are computed inside the step, on the device."""
     dev = resolve_device(device)
-    params = [{k: _on(v, dev) for k, v in p.items()} for p in params]
-    loss, grads = loss_and_grads(cfg, params, features, src_dst, labels,
-                                 mask, dev)
-    return sgd_step(params, grads, lr), loss
+    graphs = resolve_graphs(graphs, dev, "train_step")
+    inputs = {"features": _on(features, dev, cfg.dtype),
+              "src_dst": _on(src_dst, dev, torch.long),
+              "labels": _on(labels, dev, torch.long)}
+    if mask is not None:
+        inputs["mask"] = _on(mask, dev, cfg.dtype)
+    inputs.update(param_leaves([{k: _on(v, dev) for k, v in p.items()}
+                                for p in params]))
+    key = (cfg, lr, dev, graphs,
+           tuple((k, spec(v)) for k, v in inputs.items()))
+
+    def body(features, src_dst, labels, mask=None, **leaves):
+        p = params_from_leaves(params, leaves)
+        loss, grads = _value_and_grad(lambda q: loss_fn(
+            cfg, q, features, src_dst, labels, mask), p)
+        return sgd_step(p, grads, lr), loss
+
+    new, loss = cached_step(train_step.steps, key,
+                            f"train_step {cfg.model}", body,
+                            graph_pool(dev) if graphs else None, dev,
+                            **inputs)
+    return [{k: v.clone() for k, v in p.items()} for p in new], loss.clone()
+
+
+train_step.steps = {}
 
 
 def fit(cfg: GNNConfig, params, features, src_dst, labels, steps: int = 100,
         lr: float = 0.05, mask=None, log_every: int = 0,
-        device: DeviceLike = "cuda"):
-    """Full-batch training loop; returns (params, losses)."""
+        device: DeviceLike = "cuda", graphs: Optional[bool] = None):
+    """Full-batch training loop over :func:`train_step`; returns (params,
+    losses)."""
     dev = resolve_device(device)
     feats = _on(features, dev, cfg.dtype)
     sd = _on(src_dst, dev, torch.long)
     lab = _on(labels, dev, torch.long)
+    m = None if mask is None else _on(mask, dev, cfg.dtype)
     losses = []
     for s in range(steps):
-        params, loss = train_step(cfg, params, feats, sd, lab, lr, mask, dev)
+        params, loss = train_step(cfg, params, feats, sd, lab, lr, m, dev,
+                                  graphs)
         losses.append(float(loss))
         if log_every and s % log_every == 0:
             print(f"step {s:4d} loss {float(loss):.4f}")

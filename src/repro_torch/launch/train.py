@@ -9,7 +9,11 @@ arch's reduced config in fp32, as the reference does.  The weights are
 random, drawn from seed 0 on the device; the optimizer is the arch's
 (``optim.for_model``) at ``--lr``.  Checkpoints are atomic step
 directories in the reference's layout; ``--resume`` restores the latest
-and replays the deterministic data stream from that step.
+and replays the deterministic data stream from that step.  On the card the
+step is captured into a CUDA graph at its first call and replayed after
+(``make_train_step``'s ``graphs``, the reference's ``jax.jit``): each
+step writes its batch into the graph's buffers, and the parameters and
+optimizer state live in the tensors the step returns.
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
@@ -307,6 +308,15 @@ SHAPES = {
 
 
 # ------------------------------------------------------------- building blocks
+def checkpointed(fn, *args):
+    """``fn(*args)`` checkpointed (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``): run again in the backward.  The
+    models draw no random numbers, so the RNG state is not saved: saving
+    it reads the CUDA generator, which a CUDA graph's capture refuses."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def rms_norm(x, g, eps: float):
     var = x.float().square().mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * g.to(x.dtype)

@@ -42,10 +42,10 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models.common import (NO_DIST, Dist, LMConfig, P,
+                                       checkpointed,
                                        apply_rope, attention_any,
                                        check_family, dense_init, local_device,
                                        rms_norm, sharded_ce_loss)
@@ -264,8 +264,7 @@ def encode(cfg: LMConfig, params, frames, dist: Dist = NO_DIST):
     remat = cfg.remat and torch.is_grad_enabled()
     for p in unstack(params["encoder"]):
         if remat:
-            x = checkpoint(_enc_layer, cfg, p, x, cos, sin, dist,
-                           use_reentrant=False)
+            x = checkpointed(_enc_layer, cfg, p, x, cos, sin, dist)
         else:
             x = _enc_layer(cfg, p, x, cos, sin, dist)
     return rms_norm(x, params["enc_norm"].to(cfg.dtype), cfg.norm_eps)
@@ -323,8 +322,7 @@ def _decoder_stack(cfg: LMConfig, params, x, memory, cos, sin, keep_kv: bool,
     kvs = []
     for p in unstack(params["decoder"]):
         if remat:
-            x = checkpoint(_dec_out, cfg, p, x, memory, cos, sin, dist,
-                           use_reentrant=False)
+            x = checkpointed(_dec_out, cfg, p, x, memory, cos, sin, dist)
         else:
             x, kv, xkv = _dec_layer(cfg, p, x, memory, cos, sin, dist=dist)
             if keep_kv:

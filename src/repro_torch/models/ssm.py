@@ -34,10 +34,10 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models.common import (NO_DIST, Dist, LMConfig, P,
+                                       checkpointed,
                                        dense_init, local_device, rms_norm,
                                        sharded_ce_loss)
 from repro_torch.models.transformer import (_attn, _attn_decode_mesh,
@@ -439,8 +439,8 @@ def forward(cfg: LMConfig, params, batch: Dict, dist: Dist = NO_DIST):
     cos, sin = _rope(cfg, torch.arange(L, device=local_device(x))[None, :])
     remat = cfg.remat and torch.is_grad_enabled()
     for i, p in enumerate(_layers(params, cfg.n_layers)):
-        x = (checkpoint(_mamba_out, cfg, p, x, dist, use_reentrant=False)
-             if remat else _mamba_out(cfg, p, x, dist))
+        x = (checkpointed(_mamba_out, cfg, p, x, dist) if remat
+             else _mamba_out(cfg, p, x, dist))
         if _has_site(cfg, params, i):
             x = _shared_block(cfg, params["shared"], x, x0, cos, sin,
                               dist=dist)[0]

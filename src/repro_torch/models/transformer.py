@@ -56,11 +56,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (NO_DIST, Dist, LMConfig, P,
+                                       checkpointed,
                                        apply_rope, attention_any,
                                        check_family, dense_init, local_device,
                                        rms_norm, rope_tables, sharded_ce_loss)
@@ -616,8 +616,7 @@ def forward(cfg: LMConfig, params, batch: Dict, dist: Dist = NO_DIST):
     aux = 0.0
     for p, moe in _layers(cfg, params):
         if remat:
-            x, a = checkpoint(_layer_out, cfg, p, x, cos, sin, moe, dist,
-                              use_reentrant=False)
+            x, a = checkpointed(_layer_out, cfg, p, x, cos, sin, moe, dist)
         else:
             x, a = _layer_out(cfg, p, x, cos, sin, moe, dist)
         aux = aux + a

@@ -39,10 +39,10 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models.common import (NO_DIST, Dist, LMConfig, P,
+                                       checkpointed,
                                        _dtype_scale, dense_init, local_device,
                                        rms_norm, sharded_ce_loss)
 from repro_torch.models.ssm import _ssd_chunked_heads, chunk_qk
@@ -286,9 +286,8 @@ def forward(cfg: LMConfig, params, batch: Dict, dist: Dist = NO_DIST):
     x = _embed(cfg, params, batch["tokens"], dist)
     remat = cfg.remat and torch.is_grad_enabled()
     for kind, _, p in _layers(cfg, params):
-        x = (checkpoint(_layer_out, cfg, kind, p, x, dist,
-                        use_reentrant=False)
-             if remat else _layer_out(cfg, kind, p, x, dist))
+        x = (checkpointed(_layer_out, cfg, kind, p, x, dist) if remat
+             else _layer_out(cfg, kind, p, x, dist))
     x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
     return _unembed(cfg, params, x, dist), 0.0
 

@@ -1,8 +1,9 @@
 """A step compiled once and replayed: the port's counterpart of a function
 under ``jax.jit``.  The serving engine's steps (``serve/engine.py``), the
-BSP forward and the distributed train step (``gnn/distributed.py``,
-``gnn/training.py``) and the ego forward (``gnn/serving.py``) are such
-steps.
+BSP forward, the distributed and the whole-graph train steps and
+``predict`` (``gnn/distributed.py``, ``gnn/training.py``,
+``gnn/models.py``), the ego forward (``gnn/serving.py``) and the LM train
+step (``train/step.py``) are such steps.
 
 A :class:`Step` holds a function and the static input buffers it reads
 (:func:`static_inputs`).  The caller writes each call's inputs into those
@@ -27,6 +28,12 @@ so the counters count what ran.
 Steps that share a pool may reuse each other's memory: they must not run
 concurrently, and one step's outputs are read before another step of the
 pool is replayed.
+
+:func:`cached_step` keeps one step per input signature, as the jit keeps
+one trace per signature.  State that a step updates in place (a train
+step's parameters and moments) can be the caller's own tensors rather than
+copies: the step adopts them as its buffers, so while the caller passes
+back what it was given, nothing is copied.
 """
 from __future__ import annotations
 
@@ -102,6 +109,26 @@ def _add_counts(delta, sign: int) -> None:
                 counts[k] = counts.get(k, 0) + sign * n
         else:
             setattr(obj, attr, getattr(obj, attr) + sign * d)
+
+
+def cached_step(steps: dict, key, name: str, fn: Callable, pool, device,
+                own=(), **inputs):
+    """``fn(**buffers)`` through the :class:`Step` of ``key`` in ``steps``,
+    made at its first use over zeroed buffers of ``inputs`` on ``device``
+    (:func:`static_inputs`), but for the names in ``own``, whose buffers
+    are the tensors given (adopted: the step updates them in place), and
+    over ``pool`` (None: run eagerly).  Each call writes ``inputs`` into
+    the buffers (:meth:`Step.write`) and runs the step; returns its
+    outputs, which its next call rewrites."""
+    step = steps.get(key)
+    if step is None:
+        bufs = static_inputs(device, **{k: v for k, v in inputs.items()
+                                        if k not in own})
+        bufs.update((k, inputs[k]) for k in own)
+        step = steps[key] = Step(name, fn, bufs, pool)
+    for k, v in inputs.items():
+        step.write(k, v)
+    return step()
 
 
 class Step:

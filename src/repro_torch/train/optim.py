@@ -5,9 +5,10 @@ States mirror the parameter tree leaf for leaf (an ``OptState`` of
 of one restores in the other).  Lion keeps a single momentum, in bf16 as in
 the reference (``for_model``), and a tree of fp32 zero scalars for ``v``.
 
-The update is IN PLACE: :func:`apply_updates` writes the new parameters
-and moments into the tensors it is given, under ``torch.no_grad()``, and
-returns them with a new ``step``.  The reference's update is functional; at
+The update is IN PLACE: :func:`apply_updates` writes the new parameters,
+moments and ``step`` into the tensors it is given, under
+``torch.no_grad()``, and returns them, so a train step captured into a CUDA
+graph reads at its next replay what it returned.  The reference's update is functional; at
 llama3.2-1b's 1.24 B parameters a functional copy of parameters and both
 moments would hold another 20 GB of device memory.  Each leaf computes the
 reference's formulas in fp32 in the reference's order and casts the
@@ -143,16 +144,16 @@ def _chunks(p, g, *moments):
 @torch.no_grad()
 def apply_updates(cfg: OptConfig, params, grads, state: OptState):
     """One clipped AdamW or Lion step, in place.  Returns (params,
-    OptState(step + 1, m, v), grad_norm): the same parameter and moment
-    tensors, updated.  DTensor gradients are first laid out as their
-    parameters."""
+    OptState(step, m, v), grad_norm): the same parameter, moment and step
+    tensors, updated (``step`` + 1).  DTensor gradients are first laid out
+    as their parameters."""
     if _is_dtensor(leaves(params)[0]):
         grads = tree_map(lambda p, g: g.redistribute(p.device_mesh,
                                                      p.placements),
                          params, grads)
     gn = _global_norm(grads)
     scale = _local(_clip_scale(gn, cfg.grad_clip))
-    step = state.step + 1
+    step = state.step.add_(1)
     if cfg.name == "adamw":
         t = step.float()
         bc1 = 1.0 - cfg.b1 ** t

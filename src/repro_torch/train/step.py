@@ -7,14 +7,14 @@ returns a function
 
     (params, opt_state, ef, batch) -> (params', opt_state', ef', metrics)
 
-that updates ``params`` and the optimizer's moments in place
-(:func:`optim.apply_updates`).  Microbatching splits the batch on its
-leading axis and accumulates gradients in a Python loop (the reference's
-``lax.scan``) with the reference's formula: ``acc + g / M`` in fp32, kept
-in bf16 under Lion, and ``loss / M``.  Gradient compression quantizes each
-leaf to int8 (per-leaf absmax scale) with an error-feedback residual
-carried across steps (``torch.round`` rounds half to even, as
-``jnp.round``).
+that updates ``params``, the optimizer's moments and step and the error
+feedback in place (:func:`optim.apply_updates`) and returns them.
+Microbatching splits the batch on its leading axis and accumulates
+gradients in a Python loop (the reference's ``lax.scan``) with the
+reference's formula: ``acc + g / M`` in fp32, kept in bf16 under Lion,
+and ``loss / M``.  Gradient compression quantizes each leaf to int8
+(per-leaf absmax scale) with an error-feedback residual carried across
+steps (``torch.round`` rounds half to even, as ``jnp.round``).
 
 Under a mesh (``dist``) the step runs over DTensors: ``loss_fn`` is the
 zoo's under ``dist``, each gradient is laid out as its parameter, the
@@ -23,6 +23,16 @@ reference's reshape) and re-states the batch placement, and the update
 runs on the local shards (``optim``).  :func:`jit_train_step` is the
 reference's name for the step with every input and output laid out by the
 specs; nothing is compiled.
+
+Without a mesh, on the card, the step is the reference's ``jax.jit`` of it
+(``launch/train.py``): one :class:`repro_torch.step.Step` for each input
+signature (the shapes and dtypes of the parameters, moments, step, error
+feedback and batch), run eagerly at its first call, then captured into a
+CUDA graph and replayed.  The step adopts the state tensors of that first
+call as its buffers: it updates them in place and returns them, so the
+next call, given them back, copies nothing but the batch; other state
+tensors (a restored checkpoint's) are copied in once.  ``loss`` and
+``grad_norm`` are the graph's outputs, rewritten by its next replay.
 """
 from __future__ import annotations
 
@@ -32,17 +42,20 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import models as zoo
+from repro_torch.models import moe
 from repro_torch.models.common import Dist, LMConfig, placements
+from repro_torch.step import cached_step, resolve_graphs, spec
 from repro_torch.train import optim
 
 
 def _quantize_int8(g, ef):
-    """Error-feedback int8 quantization: returns (dequantized, new_ef)."""
+    """Error-feedback int8 quantization: returns (dequantized, ef), the
+    new residual written into ``ef``."""
     g32 = g.float() + ef
     scale = g32.abs().max() / 127.0 + 1e-12
     q = torch.clamp(torch.round(g32 / scale), -127, 127)
     deq = q * scale
-    return deq.to(g.dtype), g32 - deq
+    return deq.to(g.dtype), ef.copy_(g32 - deq)
 
 
 def init_error_feedback(params):
@@ -88,12 +101,25 @@ def make_train_step(
     compress_grads: bool = False,
     loss_fn: Optional[Callable] = None,
     dist: Optional[Dist] = None,
+    graphs: Optional[bool] = None,
 ):
     """The step function (module docstring); ``step.grads_of(params,
-    batch)`` gives the (loss, gradients) it would apply, with no update.
-    ``dist`` (default: no mesh) runs it over DTensors."""
+    batch)`` gives the (loss, gradients) it would apply, with no update,
+    eagerly.  ``dist`` (default: no mesh) runs it over DTensors.
+
+    ``graphs`` captures the step into CUDA graphs (module docstring).
+    None resolves to True on a CUDA device without a mesh, unless the
+    model's MoE reads the host there (``moe.reads_host``: fp32, the loop
+    route); True raises on the CPU, under a mesh and on such a route.
+    ``graphs`` is resolved for the device of each call's parameters (so
+    True raises at the first call on the CPU); ``step.graphs`` holds the
+    value last resolved (None before the first call), ``step.steps`` the
+    steps built, one for each device and input signature."""
     opt_cfg = opt_cfg or optim.for_model(cfg)
     meshed = dist is not None and dist.mesh is not None
+    if meshed and graphs:
+        raise ValueError("make_train_step(graphs=True): the step under a "
+                         "mesh runs eagerly")
     if loss_fn is None and meshed:
         def loss_fn(p, b):
             rows = next(iter(b.values())).shape[0]
@@ -147,8 +173,7 @@ def make_train_step(
             loss_acc = loss_acc + loss / microbatches
         return loss_acc, acc
 
-    def step(params, opt_state, ef, batch):
-        """``ef`` is the error-feedback tree when compressing, else None."""
+    def eager_step(params, opt_state, ef, batch):
         loss, grads = grads_of(params, batch)
         if compress_grads:
             out = optim.tree_map(_quantize_int8, grads, ef)
@@ -159,8 +184,75 @@ def make_train_step(
         metrics = {"loss": loss, "grad_norm": gn, "step": opt_state.step}
         return params, opt_state, ef, metrics
 
+    def resolve(dev: torch.device) -> bool:
+        if meshed:
+            return False
+        captured = resolve_graphs(graphs, dev, "make_train_step")
+        if captured and moe.reads_host(cfg, dev):
+            if graphs:
+                raise ValueError(f"{cfg.name}: make_train_step(graphs=True)"
+                                 f": its MoE reads the host on {dev}")
+            return False
+        return captured
+
+    def graphs_on(dev: torch.device) -> bool:
+        if dev not in resolved:
+            resolved[dev] = resolve(dev)
+        step.graphs = resolved[dev]
+        return step.graphs
+
+    def step(params, opt_state, ef, batch):
+        """``ef`` is the error-feedback tree when compressing, else None."""
+        dev = optim.leaves(params)[0].device
+        if not graphs_on(dev):
+            return eager_step(params, opt_state, ef, batch)
+        state = _state_leaves(params, opt_state, ef)
+        inputs = {**state, **{f"batch/{k}": x for k, x in batch.items()}}
+        key = (dev,) + tuple((k, spec(x)) for k, x in inputs.items())
+        if key not in steps and pool[0] is None:
+            pool[0] = torch.cuda.graph_pool_handle()
+
+        def body(**bufs):
+            p, o, e = _state_from_leaves((params, opt_state, ef), bufs)
+            return eager_step(p, o, e, {k: bufs[f"batch/{k}"]
+                                        for k in batch})
+
+        return cached_step(steps, key, f"train {cfg.name}", body, pool[0],
+                           dev, own=state, **inputs)
+
+    steps, pool, resolved = {}, [None], {}
+    step.graphs = None
+    step.steps = steps
     step.grads_of = grads_of
     return step
+
+
+def _state_leaves(params, opt_state, ef) -> dict:
+    """The train state's tensors by name: parameters, moments, step and
+    error feedback (when given)."""
+    trees = {"p": params, "m": opt_state.m, "v": opt_state.v}
+    if ef is not None:
+        trees["ef"] = ef
+    out = {f"{t}/{name}": x for t, tree in trees.items()
+           for name, x in optim.named_leaves(tree)}
+    out["step"] = opt_state.step
+    return out
+
+
+def _state_from_leaves(like, leaves: dict):
+    """(params, opt_state, ef) shaped as ``like`` over the tensors of
+    :func:`_state_leaves`' names in ``leaves``."""
+    params, opt_state, ef = like
+
+    def tree(t, like_tree):
+        names = iter(name for name, _ in optim.named_leaves(like_tree))
+        return optim.tree_map(lambda _: leaves[f"{t}/{next(names)}"],
+                              like_tree)
+
+    return (tree("p", params),
+            optim.OptState(leaves["step"], tree("m", opt_state.m),
+                           tree("v", opt_state.v)),
+            None if ef is None else tree("ef", ef))
 
 
 def _place(x, spec, dist: Dist):

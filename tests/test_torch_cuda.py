@@ -5,9 +5,9 @@ backward, LM prefill, decode and train step, the LM training CLI, the MoE
 FFN and its grouped GEMM's routes, MoE serving, the recurrent families'
 prefill, decode and serving, the VLM and enc-dec families' prefill and
 decode, an idle serving slot past the cache, the example twins) against
-its CPU paths, and the captured steps (the serving engine's, and the GNN
-path's BSP forward, train step and ego forward) against their eager
-twins.
+its CPU paths, and the captured steps (the serving engine's, the GNN
+path's BSP forward, train steps, ``predict`` and ego forward, and the LM
+train step) against their eager twins.
 Without a card every test here skips.  The file imports neither ``jax``
 nor ``repro``, so it runs on a machine with the card and the port alone:
 
@@ -1882,3 +1882,179 @@ def test_gnn_failed_capture_raises(dev, monkeypatch):
             fwd(params, blocks)
     step, = fwd.steps.values()
     assert step.graph is None
+
+
+# --------------------------- the LM train step and the whole-graph GNN steps
+def _train_graph_case(dev, arch):
+    """A 2-layer bf16 model with head dim 64 (K2 on ``prefill_tc`` and the
+    ``tc`` backward), every layer checkpointed: llama, or deepseek's
+    dense layer and one MoE layer (its grouped GEMMs on ``grouped_mm``)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=2,
+                              head_dim=64, remat=True)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at_step(
+        cfg, ShapeCfg("t", 128, 4, "train"), 0).items()}
+    return cfg, batch
+
+
+def _train_state(cfg, opt, dev, compress):
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    ef = (optim.tree_map(torch.zeros_like, params) if compress else None)
+    return params, init_opt_state(opt, params), ef
+
+
+def _state_tensors(p, o, e):
+    return (optim.leaves(p) + optim.leaves(o.m) + optim.leaves(o.v)
+            + [o.step] + (optim.leaves(e) if e is not None else []))
+
+
+def _launches():
+    return (dict(flash_attention.launches_by_path),
+            dict(flash_attention.backward_launches_by_path),
+            dict(moe.grouped_gemm.launches_by_route),
+            dict(moe.grouped_gemm.backward_launches_by_route))
+
+
+def _since(before):
+    return [{k: d[k] - b.get(k, 0) for k in d if d[k] - b.get(k, 0)}
+            for d, b in zip(_launches(), before)]
+
+
+@pytest.mark.parametrize("arch,mbs,compress", [
+    ("llama3.2-1b", 1, False), ("llama3.2-1b", 2, True),
+    ("deepseek-moe-16b", 1, False), ("deepseek-moe-16b", 2, True)])
+def test_lm_train_graph_equals_eager(dev, arch, mbs, compress):
+    """Three steps of the captured train step bit-equal to three eager
+    ones (``graphs=False``) from the same state: loss, grad norm and every
+    parameter, moment, step and error-feedback leaf; the step returns the
+    tensors it was given; K2's and the grouped GEMM's launches per replay
+    equal the eager step's; one step built; and the eager step free of
+    host reads."""
+    cfg, batch = _train_graph_case(dev, arch)
+    opt = OptConfig(lr=1e-3)
+    runs = {}
+    for graphs in (False, True):
+        step = make_train_step(cfg, opt, microbatches=mbs,
+                               compress_grads=compress, graphs=graphs)
+        state = _train_state(cfg, opt, dev, compress)
+        ids = [id(t) for t in _state_tensors(*state)]
+        seen = []
+        for _ in range(3):
+            before = _launches()
+            p, o, e, m = step(*state, batch)
+            torch.cuda.synchronize()
+            seen.append((m["loss"].clone(), m["grad_norm"].clone(),
+                         [t.clone() for t in _state_tensors(p, o, e)],
+                         _since(before)))
+            assert [id(t) for t in _state_tensors(p, o, e)] == ids
+            state = (p, o, e)
+        assert step.graphs is graphs
+        runs[graphs] = seen, step, state
+    (eager, _, state), (graph, step, _) = runs[False], runs[True]
+    for (la, ga, ta, ca), (lb, gb, tb, cb) in zip(eager, graph):
+        assert torch.equal(la, lb) and torch.equal(ga, gb)
+        assert all(torch.equal(a, b) for a, b in zip(ta, tb))
+        assert ca == cb and ca[0].get("prefill_tc") and ca[1].get("tc")
+        if arch == "deepseek-moe-16b":
+            assert ca[2].get("grouped_mm") and ca[3].get("grouped_mm")
+    captured, = step.steps.values()
+    assert captured.graph is not None and captured.pool_bytes > 0
+    _no_sync(runs[False][1], *state, batch)
+
+
+def test_lm_train_graph_resume_copies_state_in(dev):
+    """A captured step called with other state tensors (a restored
+    checkpoint's) copies them into its buffers once and returns its own
+    tensors, updated as the eager step updates the given ones; the same
+    graph replays."""
+    cfg, batch = _train_graph_case(dev, "llama3.2-1b")
+    opt = OptConfig(lr=1e-3)
+    step = make_train_step(cfg, opt)
+    state = _train_state(cfg, opt, dev, False)
+    for _ in range(2):
+        state = step(*state, batch)[:3]
+    captured, = step.steps.values()
+    restored = optim.tree_map(torch.clone, state[0]), optim.OptState(
+        state[1].step.clone(), optim.tree_map(torch.clone, state[1].m),
+        optim.tree_map(torch.clone, state[1].v)), None
+    want = make_train_step(cfg, opt, graphs=False)(
+        *(optim.tree_map(torch.clone, restored[0]), optim.OptState(
+            restored[1].step.clone(), optim.tree_map(torch.clone,
+                                                     restored[1].m),
+            optim.tree_map(torch.clone, restored[1].v)), None), batch)
+    got = step(*restored, batch)
+    assert list(step.steps.values()) == [captured]
+    assert all(a is b for a, b in zip(_state_tensors(*got[:3]),
+                                       _state_tensors(*state)))
+    assert torch.equal(got[3]["loss"], want[3]["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(
+        _state_tensors(*got[:3]), _state_tensors(*want[:3])))
+
+
+def test_lm_train_failed_capture_raises(dev):
+    """A train step whose loss reads the card to the host: its first call
+    runs, the capture raises, and so does the next call; nothing falls
+    back to eager running."""
+    cfg, batch = _train_graph_case(dev, "llama3.2-1b")
+
+    def loss_fn(p, b):
+        loss = lm.loss_fn(cfg, p, b)
+        return loss * float(loss > -1)
+
+    step = make_train_step(cfg, loss_fn=loss_fn)
+    state = _train_state(cfg, OptConfig(), dev, False)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture failed"):
+            step(*state, batch)
+    captured, = step.steps.values()
+    assert captured.graph is None
+
+
+def test_lm_train_graphs_refused_where_the_moe_reads_the_host(dev):
+    """The fp32 MoE's grouped GEMM reads the host on the card: the train
+    step resolves to eager, and graphs=True raises."""
+    cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
+                              dtype=torch.float32)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at_step(
+        cfg, ShapeCfg("t", 32, 2, "train"), 0).items()}
+    step = make_train_step(cfg)
+    step(*_train_state(cfg, OptConfig(), dev, False), batch)
+    assert step.graphs is False and step.steps == {}
+    with pytest.raises(ValueError, match="reads the host"):
+        make_train_step(cfg, graphs=True)(
+            *_train_state(cfg, OptConfig(), dev, False), batch)
+
+
+@pytest.mark.parametrize("model", ["gcn", "sage", "gat"])
+def test_gnn_whole_graph_train_graph_equals_eager(dev, model):
+    """The whole-graph ``train_step`` from a CUDA graph bit-equal to the
+    eager one over 5 steps, then over a permuted edge list of the same
+    shape (the same graph replayed); ``predict`` from a graph equal to
+    eager ``predict`` on both lists; one step a signature; the eager step
+    free of host reads."""
+    from repro_torch.gnn.models import predict
+    from repro_torch.gnn.training import train_step
+    g = synthetic_siot(n=600, target_links=2500)
+    cfg = GNNConfig(model, (52, 16, 2))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    feats = torch.from_numpy(g.features).to(dev)
+    labels = torch.from_numpy(g.labels).to(dev).long()
+    sd = torch.from_numpy(directed_edges(g.edges)).to(dev).long()
+    perm = sd[torch.randperm(sd.shape[0], generator=torch.Generator(
+        ).manual_seed(1)).to(dev)]
+    train_step.steps.clear()
+    predict.steps.clear()
+    p, q = params, params
+    for edges in [sd] * 5 + [perm]:
+        p, loss = train_step(cfg, p, feats, edges, labels, 0.1, device=dev)
+        q, want = train_step(cfg, q, feats, edges, labels, 0.1, device=dev,
+                             graphs=False)
+        assert torch.equal(loss, want)
+        assert all(torch.equal(a[k], b[k]) for a, b in zip(p, q) for k in a)
+        assert torch.equal(predict(cfg, p, feats, edges),
+                           predict(cfg, p, feats, edges, graphs=False))
+    assert len(train_step.steps) == len(predict.steps) == 2
+    assert sum(s.graph is not None for s in train_step.steps.values()) == 1
+    _no_sync(train_step, cfg, q, feats, sd, labels, 0.1, device=dev,
+             graphs=False)
+    train_step.steps.clear()
+    predict.steps.clear()

@@ -569,26 +569,38 @@ def test_chip_smoke_lm_train_phases_run_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(cs, "time_ms", lambda fn, reps=25, warmup=3:
                         (fn(), 0.0)[1])
     monkeypatch.setattr(cs, "device_ms", device_ms)
+    monkeypatch.setattr(cs, "TRAIN_LM_STEPS", 4)
 
     dev = torch.device("cpu")
     rows, worst = cs.phase_flash_backward(dev)
     assert [r["shape"] for r in rows] == ["train_B4_L1024_bwd",
                                           "train_B4_L512_bwd"]
     assert all(r["path"] == "tc" for r in rows)
-    launches, fwd, bwd, by_path = cs.phase_lm_train(dev)
+    # One intra-op thread: the steps then repeat bit for bit (the
+    # embedding's index accumulation), as the graph-vs-eager gate needs.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, fwd, bwd, by_path = cs.phase_lm_train(dev)
+    finally:
+        torch.set_num_threads(threads)
     # The counts are the main path's alone (the parity pass runs before
     # they start), per layer: the full model's no-grad loss, 2 x grads_of,
-    # 1 + 2 microbatches, 10 steps, 2 profiled steps and 1 compressed step
-    # on "prefill_tc", all but the first with a backward on "tc".
-    n = small.n_layers
-    assert fwd == {"decode": 0, "prefill_tc": 19 * n, "general": 0}
-    assert bwd == {"dq": 18 * n, "dkdv": 18 * n} and launches == 19 * n
-    assert by_path == {"tc": 18 * n, "general": 0}
+    # 1 + 2 microbatches, the 4 steps eagerly and from the graph step, 3
+    # profiled steps and 3 compressed steps of 2 microbatches each way on
+    # "prefill_tc", all but the first with a backward on "tc".
+    n, mbs = small.n_layers, 2 + 3 + 2 * 4 + 3 + 2 * 3 * 2
+    assert fwd == {"decode": 0, "prefill_tc": (mbs + 1) * n, "general": 0}
+    assert bwd == {"dq": mbs * n, "dkdv": mbs * n}
+    assert launches == (mbs + 1) * n
+    assert by_path == {"tc": mbs * n, "general": 0}
     out = [json.loads(line) for line in capsys.readouterr().out.splitlines()
            if line.startswith("{")]
     train = next(r for r in out if r.get("phase") == "lm_train")
     assert train["step0_rel_err"] == 0.0
     assert train["losses"][-1] < train["losses"][0]
+    assert train["graph_steps_bit_equal_to_eager"] == len(train["losses"])
+    assert train["compressed_steps"]["graph_steps_bit_equal_to_eager"] == 3
     assert train["checkpoint_bit_equal"]
     # A report, not a gate: on the CPU the embedding gather's backward
     # need not repeat bit for bit.

@@ -306,9 +306,6 @@ def _train_rehearsal(monkeypatch):
     monkeypatch.setattr(cs, "flash_attention_bwd", backward)
     monkeypatch.setattr(TM, "grouped_gemm_route", lambda x, w: "grouped_mm")
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (0, 0))
-    profile = cs._profile_train          # the CPU's profiler traces the CPU
-    monkeypatch.setattr(cs, "_profile_train", lambda step, state, batch, tree:
-                        profile(step, state, batch, True))
     for phase, (arch, cut, _, _, lr) in cs.TRAIN_MAIN.items():
         monkeypatch.setitem(cs.TRAIN_MAIN, phase, (arch, cut, 160, 4, lr))
     return cs, configs
@@ -333,7 +330,8 @@ def test_chip_smoke_train_phases_run_on_cpu(monkeypatch, capsys, phase):
     arch, cut, seq, steps, lr = cs.TRAIN_MAIN[phase]
     cfg = dataclasses.replace(configs[arch], **cut)
     sites, again = cs._train_k2_sites(cfg)
-    mbs = 2 + steps + 1 + main["profiled_steps"]   # twice, steps, profile
+    # grads_of twice, the steps eagerly and from the graph step, profile
+    mbs = 2 + 2 * steps + 1 + main["profiled_steps"]
     assert main["lr"] == lr and main["profiled_steps"] == 2
     assert fwd == {"decode": 0, "general": 0,
                    "prefill_tc": sites + mbs * (sites + again)}

@@ -26,10 +26,11 @@ order (default: ``support,memory``):
            lr 1e-3, fp32 compute at lr 1e-3 and bf16 compute at lr 3e-4
            (``OptConfig``'s default): each step's loss and gradient norm,
            to tell bf16 rounding from the optimisation's own course;
-  train_kernels, moe_train, hybrid_train, vlm_train, encdec_train,
-  xlstm_train
+  train_kernels, lm_train, moe_train, hybrid_train, vlm_train,
+  encdec_train, xlstm_train
            ``chip_smoke.py``'s phases of those names (their gates hold;
-           each train phase counts from 0 as the script's main path does).
+           each train phase counts from 0 as the script's main path does;
+           lm_train with its 2-layer parity pass first).
 
 Prints the card's name and power limit last.  Weights are random from
 seed 0.
@@ -54,8 +55,8 @@ from repro_torch.models.common import ShapeCfg  # noqa: E402
 from repro_torch.train import (batch_at_step, init_opt_state,  # noqa: E402
                                make_train_step, optim)
 
-CHIP_PHASES = ("train_kernels", "moe_train", "hybrid_train", "vlm_train",
-               "encdec_train", "xlstm_train")
+CHIP_PHASES = ("train_kernels", "lm_train", "moe_train", "hybrid_train",
+               "vlm_train", "encdec_train", "xlstm_train")
 PHASES = ("support", "memory", "sweep") + CHIP_PHASES
 SWEEP_ARCH = "zamba2-1.2b"
 
@@ -117,7 +118,7 @@ def _memory(dev, cfg, seq: int):
             cfg, ShapeCfg("probe", seq, 4, "train"), 0).items()}
         row["params"] = sum(t.numel() for t in optim.leaves(params))
         row["state_gb"] = torch.cuda.memory_allocated() / 1e9
-        step = make_train_step(cfg, opt_cfg)
+        step = make_train_step(cfg, opt_cfg, graphs=False)
         times = []
         torch.cuda.reset_peak_memory_stats()
         for _ in range(2):
@@ -146,7 +147,7 @@ def _sweep(dev, steps: int = 10):
         state = init_opt_state(opt_cfg, params)
         batch = {k: torch.from_numpy(x).to(dev) for k, x in batch_at_step(
             cfg, ShapeCfg("hybrid_train", 1024, 4, "train"), 0).items()}
-        step = make_train_step(cfg, opt_cfg)
+        step = make_train_step(cfg, opt_cfg, graphs=False)
         losses, norms = [], []
         for _ in range(steps):
             params, state, _, m = step(params, state, None, batch)
@@ -189,6 +190,8 @@ def main(argv=None) -> int:
             cs.emit(_memory(dev, get_config("xlstm-1.3b"), 256))
         elif name == "train_kernels":
             cs.phase_train_kernels(dev)
+        elif name == "lm_train":
+            cs.phase_lm_train(dev)
         else:
             cs.phase_family_train(name, dev)
         cs.emit({"phase": f"{name}_seconds",
