@@ -326,8 +326,12 @@ published widths:
           param_specs, forward and prefill bit-equal to the mesh-free
           path, K2 once a layer a pass on prefill_tc through local_map;
   mesh_train  llama3.2-1b through jit_train_step on that mesh, 3 steps on
-          4 x 1024 tokens, twice, each run's losses, parameters and
-          moments bit-equal to make_train_step's; K2 both ways counted;
+          4 x 1024 tokens, twice from a CUDA graph (the first step eager,
+          then captured over DTensors and replayed) and once eagerly,
+          each run's losses, parameters and moments bit-equal to
+          make_train_step's; K2 both ways counted, exact per replay; step
+          ms graph / meshed eager / mesh-free, capture s, pool and peak
+          GB, the NCCL kernels and busy share of a profiled replay;
   mesh_moe  deepseek-moe-16b's expert-parallel moe_ffn with its capacity
           at full width (64 experts, top-6, bf16, 4096 tokens): nothing
           dropped at capacity factor 2.0 (the output against the dropless
@@ -335,16 +339,21 @@ published widths:
           the host over the card's own routing), each batched GEMM's
           device time beside the grouped GEMM's;
   mesh_serve  llama3.2-1b at full width (16 layers, bf16) behind
-          ServeEngine(dist=the 1x1 mesh, which stays eager), lm_serve's 16
-          requests of 32 tokens: tokens and every tick's logits bit-equal
-          to an eager mesh-free engine's, K2 launched exactly once a layer a prefill
-          (prefill_tc) and a tick (decode), none with stats; tick host ms
-          and a decode step's device ms both ways;
+          ServeEngine(dist=the 1x1 mesh), its decode step and a prefill
+          step a bucket captured into CUDA graphs, lm_serve's 16 requests
+          of 32 tokens: tokens and every tick's logits bit-equal to an
+          eager mesh-free engine's and, for the first 4 requests, to a
+          meshed eager engine's; trace_counts; K2 launched exactly once a
+          layer a prefill (prefill_tc) and a tick (decode), per replay,
+          none with stats; tick host ms three ways, a replayed and an
+          eager decode step's device ms, capture s, pool GB, the NCCL
+          kernels and busy share of a profiled replay;
   mesh_families  zamba2-1.2b, xlstm-1.3b and seamless-m4t-medium at full
           width (bf16) on the 1x1 mesh: forward, then prefill and 8 decode
-          steps, bit-equal to the mesh-free path; one jit_train_step each
-          (fp32 weights, AdamW; xlstm cut to 8 layers on 2 x 256 tokens)
-          bit-equal to make_train_step's;
+          steps, bit-equal to the mesh-free path; two jit_train_steps each
+          (fp32 weights, AdamW; xlstm cut to 8 layers on 2 x 256 tokens),
+          the second replayed from a CUDA graph, bit-equal to
+          make_train_step's, K2 exact per replay;
   dryrun  the dry-run (launch/dryrun.py: fake groups of 256 and 512 ranks
           on the host, DRYRUN_WORKERS processes started before the build
           and run beside every card phase) of every cell on pod16x16 and
@@ -364,7 +373,9 @@ forward path from bsp to evolve and the example twins (K1's ``gnn`` and
 serving, VLM serving, enc-dec serving, then LM training, the five
 families' training and the mesh phases), each counted from 0; K2's
 ``launches_by_path`` counts by kernel and its ``examples_launches`` the
-part of them that ex_serve_lm made (also in ``launches_by_phase``); its
+part of them that ex_serve_lm made (also in ``launches_by_phase``), its
+``launches_from_replays_by_phase`` the part of the mesh phases' that
+their CUDA graphs' replays made; its
 ``flash_attention_bwd_tc`` entry
 is K2's tensor-core backward (both kernels' launches on the training
 paths, by phase).
@@ -578,6 +589,9 @@ MOE_TRAIN_LAYERS = 5
 # drop; 0.5: about half the assignments drop).  DRYRUN_PINNED: the dry-run
 # cells and their per-device argument bytes, the reference dry-run's.
 MESH_TRAIN_STEPS = 3
+# mesh_serve's meshed eager engine serves the first few of its requests
+# (its ticks are host-bound).
+MESH_EAGER_REQUESTS = 4
 # K2's decode with stats: the cache cut into these many slices.
 STATS_SLICES = (1, 2, 4, 16)
 MESH_MOE_TOKENS = 4096
@@ -4021,8 +4035,9 @@ def _k2_sites(cfg) -> int:
 
 def _fresh_device():
     gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
 
 
 def _recurrent_parity(phase: str, arch: str, n_layers: int, dev):
@@ -5513,74 +5528,171 @@ def phase_mesh_parity(dev, mesh):
             for k in flash_attention.launches_by_path}
 
 
-def _mesh_train_run(cfg, dist, specs, params, batch, bspecs, opt_cfg):
-    """MESH_TRAIN_STEPS steps from a copy of ``params``: mesh-free
+def _replay_profile(fn, label: str, dev) -> dict:
+    """One call of ``fn`` (a replayed step) under torch.profiler, after a
+    traced warm-up call (a window's first call loses events:
+    :func:`device_ms`): the NCCL kernels it ran, by name and count, its
+    kernels in all, the device's busy ms and busy share of the call's host
+    time; "not measured" off the card or where the trace holds no device
+    time."""
+    if dev.type != "cuda":
+        return {"label": label, "nccl_kernels": "not measured",
+                "device_busy_share": "not measured"}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    traced = []
+    with torch.profiler.profile(
+            activities=acts,
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=lambda p: traced.append(p.key_averages())
+    ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()                            # the warm-up call ends
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        prof.step()                            # the active call ends
+    kernels = [e for e in (traced[0] if traced else [])
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    nccl = {e.key[:80]: e.count for e in kernels if "nccl" in e.key.lower()}
+    return {"label": label, "host_ms": wall_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "nccl_kernels": nccl if kernels else "not measured",
+            "device_busy_ms": busy if kernels else "not measured",
+            "device_busy_share": busy / wall_ms if kernels
+            else "not measured"}
+
+
+# K2's launches that the mesh phases' graphs made by replaying, by phase:
+# forward by kernel and backward by path (the kernels summary line).
+REPLAYED: dict = {}
+
+
+def _count_replays(phase: str, per: tuple, replays: int) -> None:
+    """Adds ``replays`` replays of a step launching ``per`` (forward by
+    kernel, backward by path: :func:`_k2_per_replay`) to ``REPLAYED``."""
+    got = REPLAYED.setdefault(phase, ({}, {}))
+    for into, each in zip(got, per):
+        for key, n in each.items():
+            into[key] = into.get(key, 0) + n * replays
+
+
+def _k2_per_replay(step) -> tuple:
+    """K2's launches (forward by kernel, backward by path) that each replay
+    of ``step`` (a captured Step) adds, without the kernels it never
+    launched."""
+    return tuple({k: n for k, n in step.per_replay[f"flash_attention.{c}"]
+                  .items() if n}
+                 for c in ("launches_by_path", "backward_launches_by_path"))
+
+
+def _mesh_train_run(cfg, dist, specs, params, batch, bspecs, opt_cfg,
+                    graphs=False):
+    """MESH_TRAIN_STEPS steps from a copy of ``params``: mesh-free and eager
     (make_train_step) when ``dist`` is None, else jit_train_step on its
-    mesh.  Returns (losses, the final params and moments, whole)."""
+    mesh with ``graphs`` (None: from a CUDA graph on the card, its first
+    step eager, then captured).  Returns (losses, the final params and
+    moments whole, each step's host ms, the meshed step's Step or None,
+    a function that runs one more step)."""
     start = optim.tree_map(lambda t: t.clone(), params)
     if dist is None:
         step, state = make_train_step(cfg, opt_cfg, graphs=False), start
         opt = init_opt_state(opt_cfg, state)
     else:
-        step = jit_train_step(cfg, dist, specs, opt_cfg, batch_specs=bspecs)
+        step = jit_train_step(cfg, dist, specs, opt_cfg, batch_specs=bspecs,
+                              graphs=graphs)
         state = shard_tree(start, specs, dist.mesh)
         opt = init_opt_state(opt_cfg, state)
     del start
-    losses = []
+    _fresh_device()                  # cached blocks released before capture
+    losses, ms = [], []
     for _ in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         state, opt, _, m = step(state, opt, None, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
         loss = m["loss"]
         losses.append(float(loss.to_local() if hasattr(loss, "to_local")
                             else loss))
-    return losses, full_tree({"p": state, "m": opt.m, "v": opt.v})
+    steps = {} if dist is None else step.step.steps
+    captured = next((s for s in steps.values() if s.graph is not None), None)
+    return (losses, full_tree({"p": state, "m": opt.m, "v": opt.v}), ms,
+            captured, lambda: step(state, opt, None, batch))
 
 
 def phase_mesh_train(dev, mesh):
     """llama3.2-1b at full width through jit_train_step on the 1x1 mesh,
-    MESH_TRAIN_STEPS steps on 4 x 1024 tokens, twice, each run's losses,
-    parameters and moments bit-equal to the mesh-free make_train_step's.
-    Returns the meshed runs' K2 launches (forward by kernel, backward by
-    kernel and by path)."""
+    MESH_TRAIN_STEPS steps on 4 x 1024 tokens: twice from a CUDA graph (on
+    the card; the first step eager, then captured and replayed) and once
+    eagerly (``graphs=False``, the host-time twin), each run's losses,
+    parameters and moments bit-equal to the mesh-free make_train_step's;
+    K2 both ways exact per replay; step ms graph, meshed eager and
+    mesh-free, capture s, pool and peak GB, and the NCCL kernels in one
+    profiled replay.  Returns the graph runs' K2 launches (forward by
+    kernel, backward by kernel and by path)."""
     cfg, dist, params, batch, _, _, bspecs = _mesh_llama(dev, mesh)
     specs = lm.param_specs(cfg, dist)
     opt_cfg = dataclasses.replace(optim.for_model(cfg), lr=1e-3)
-    ref_losses, ref = _mesh_train_run(cfg, None, specs, params, batch,
-                                      bspecs, opt_cfg)
-    runs, launched, step_s = [], [], []
-    for _ in range(2):
-        before = _counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses, got = _mesh_train_run(cfg, dist, specs, params, batch,
-                                      bspecs, opt_cfg)
-        torch.cuda.synchronize()
-        step_s.append((time.perf_counter() - t0) / MESH_TRAIN_STEPS)
-        launched.append(_counts_delta(before)[:3])
-        differ = [name for (name, a), b in zip(optim.named_leaves(got),
-                                               optim.leaves(ref))
-                  if not torch.equal(a, b)]
-        runs.append({"losses": losses, "losses_equal": losses == ref_losses,
-                     "leaves_differing": differ[:8],
-                     "n_leaves_differing": len(differ)})
-        del got
+    ref_losses, ref, ref_ms, _, _ = _mesh_train_run(
+        cfg, None, specs, params, batch, bspecs, opt_cfg)
     L, n = cfg.n_layers, MESH_TRAIN_STEPS
     want = ({"prefill_tc": n * L}, {"dq": n * L, "dkdv": n * L},
             {"tc": n * L})
-    for got in launched:
-        require(got == want, f"mesh_train: a run launched K2 {got}, "
+    on_card = dev.type == "cuda"
+    runs, launched, graph = [], [], {}
+    for graphs in (None, None, False):
+        before = _counts()
+        losses, got, ms, captured, more = _mesh_train_run(
+            cfg, dist, specs, params, batch, bspecs, opt_cfg, graphs)
+        count = _counts_delta(before)[:3]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        differ = [name for (name, a), b in zip(optim.named_leaves(got),
+                                               optim.leaves(ref))
+                  if not torch.equal(a, b)]
+        run = {"graphs": graphs is None and on_card, "losses": losses,
+               "losses_equal": losses == ref_losses,
+               "leaves_differing": differ[:8],
+               "n_leaves_differing": len(differ), "step_ms": ms,
+               "peak_gb": peak, "k2_launches": count}
+        require(count == want, f"mesh_train: a run launched K2 {count}, "
                 f"expected {want}")
-    for run in runs:
-        require(run["losses_equal"] and not run["n_leaves_differing"],
-                f"mesh_train: jit_train_step on the 1x1 mesh is not "
-                f"bit-equal to make_train_step: {run}")
+        require(run["losses_equal"] and not differ, f"mesh_train: "
+                f"jit_train_step on the 1x1 mesh is not bit-equal to "
+                f"make_train_step: {run}")
+        require((captured is not None) == run["graphs"], f"mesh_train: a "
+                f"run with graphs={graphs} captured {captured}")
+        if captured is not None:
+            per = _k2_per_replay(captured)
+            require(per == ({"prefill_tc": L}, {"tc": L}), f"mesh_train: "
+                    f"a replay launches K2 {per}, expected {L} a layer")
+            _count_replays("mesh_train", per, captured.replays)
+            run.update(capture_s=captured.capture_s,
+                       pool_gb=captured.pool_bytes / 1e9,
+                       replays=captured.replays, k2_per_replay=per)
+            if not graph:
+                graph = _replay_profile(more, "mesh_train replay", dev)
+        if graphs is None:
+            launched.append(count)
+        runs.append(run)
+        del got, captured, more
     require(ref_losses[-1] < ref_losses[0], f"mesh_train: {n} steps did "
             f"not lower the loss: {ref_losses}")
+    med = lambda ms: statistics.median(ms[1:])  # noqa: E731
     emit({"phase": "mesh_train", "arch": cfg.name, "n_layers": L,
           "dtype": "bfloat16", "param_dtype": "float32", "mesh": [1, 1],
           "optimizer": opt_cfg.name, "lr": opt_cfg.lr, "batch": [4, 1024],
           "steps": n, "losses": ref_losses, "runs": runs,
           "bit_equal_to_mesh_free": True, "bit_equal_twice": True,
-          "mesh_step_s": step_s, "k2_launches_per_run": launched[0]})
+          "step_ms_median": {"graph": [med(r["step_ms"]) for r in runs[:2]],
+                             "mesh_eager": med(runs[2]["step_ms"]),
+                             "mesh_free_eager": med(ref_ms)},
+          "mesh_free_step_ms": ref_ms, "replay_profile": graph,
+          "k2_launches_per_run": launched[0]})
     fwd = {k: sum(g[0].get(k, 0) for g in launched)
            for k in flash_attention.launches_by_path}
     bwd = {k: sum(g[1].get(k, 0) for g in launched)
@@ -5590,81 +5702,128 @@ def phase_mesh_train(dev, mesh):
     return fwd, bwd, by_path
 
 
-def _mesh_serve_run(cfg, params, dev, dist):
-    """lm_serve's 16 requests through one ServeEngine (on ``dist``'s mesh
-    when given, else mesh-free and eager): the requests, the per-tick
-    logits, the host seconds of the ticks that only decoded, the engine's
-    stats and K2's launches."""
-    kw = {"graphs": False} if dist is None else {"dist": dist}
+def _mesh_serve_run(cfg, params, dev, dist, graphs, requests: int = 16):
+    """lm_serve's 16 requests (the first ``requests`` of them) through one
+    ServeEngine with ``graphs``, on ``dist``'s mesh when given, else
+    mesh-free: the engine, the requests, their :class:`_LogitLog`, the
+    host seconds of the ticks that only decoded, K2's launches by kernel
+    and those with stats."""
+    kw = {} if dist is None else {"dist": dist}
     engine = ServeEngine(cfg, params, slots=LLAMA_SLOTS,
-                         max_len=LLAMA_MAX_LEN, device=dev, **kw)
+                         max_len=LLAMA_MAX_LEN, device=dev, graphs=graphs,
+                         **kw)
     rng = np.random.default_rng(SEED)
     reqs = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, size=int(n)),
                     max_new_tokens=32, eos_id=-1)
             for i, n in enumerate(rng.integers(64, 1025, size=16))]
-    for r in reqs:
+    for r in reqs[:requests]:
         engine.submit(r)
     before, stats0 = _counts(), flash_attention.stats_launches
-    with _LogitLog(engine, reqs) as log, torch.no_grad():
+    with _LogitLog(engine, reqs[:requests]) as log, torch.no_grad():
         decode_s, _ = _timed_ticks(engine)
     launched = _counts_delta(before)[0]
-    return (engine, reqs, log.ticks, decode_s, launched,
+    return (engine, reqs[:requests], log, decode_s, launched,
             flash_attention.stats_launches - stats0)
 
 
 def phase_mesh_serve(dev, mesh):
     """llama3.2-1b at full width (16 layers, bf16) behind
-    ServeEngine(dist=the 1x1 mesh) with lm_serve's 16 requests of 32
-    tokens: the tokens and every tick's logits bit-equal to an eager
-    mesh-free engine's, K2 launched once a layer a prefill on prefill_tc and once a
-    layer a tick on decode (no launch with stats: a 1-wide sequence axis
-    merges nothing); the ticks' host ms and a decode step's device ms both
-    ways.  Returns the meshed engine's K2 launches by kernel."""
+    ServeEngine(dist=the 1x1 mesh) as users get it (on the card its decode
+    step and a prefill step a bucket captured into CUDA graphs and
+    replayed) with lm_serve's 16 requests of 32 tokens: the tokens and
+    every tick's logits bit-equal to an eager mesh-free engine's, and the
+    first MESH_EAGER_REQUESTS requests' tokens and logits to a meshed
+    eager engine's (``graphs=False``); trace_counts one decode step and a
+    prefill step a bucket; K2 launched once a layer a prefill on
+    prefill_tc and once a layer a tick on decode, exactly per replay (no
+    launch with stats: a 1-wide sequence axis merges nothing); the
+    decode ticks' host ms three ways, the replayed and the mesh-free eager
+    decode step's device ms, capture s, pool GB, and the NCCL kernels in
+    one profiled replay.  Returns the meshed engine's K2 launches by
+    kernel."""
     _fresh_device()
     cfg = get_config("llama3.2-1b")
     dist = Dist(mesh, batch_axes=("data",))
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
-    ref = _mesh_serve_run(cfg, params, dev, None)
-    got = _mesh_serve_run(cfg, params, dev, dist)
+    ref = _mesh_serve_run(cfg, params, dev, None, False)
+    got = _mesh_serve_run(cfg, params, dev, dist, None)
+    twin = _mesh_serve_run(cfg, params, dev, dist, False,
+                           MESH_EAGER_REQUESTS)
     del params
-    (r_eng, r_reqs, r_logits, r_s, _, _) = ref
-    (g_eng, g_reqs, g_logits, g_s, launched, stats) = got
+    (r_eng, r_reqs, r_log, r_s, _, _) = ref
+    (g_eng, g_reqs, g_log, g_s, launched, stats) = got
+    (e_eng, e_reqs, e_log, e_s, e_launched, _) = twin
     s = g_eng.stats
+    on_card = dev.type == "cuda"
     tokens_equal = [r.out_tokens for r in r_reqs] == [r.out_tokens
                                                        for r in g_reqs]
-    logits_equal = len(r_logits) == len(g_logits) and all(
-        torch.equal(a, b) for a, b in zip(r_logits, g_logits))
+    logits_equal = len(r_log.ticks) == len(g_log.ticks) and all(
+        torch.equal(a, b) for a, b in zip(r_log.ticks, g_log.ticks))
+    eager_equal = all(
+        r.out_tokens == g.out_tokens and len(e_log.logits[r.uid]) == len(
+            g_log.logits[r.uid]) and all(torch.equal(a, b) for a, b in zip(
+                e_log.logits[r.uid], g_log.logits[r.uid]))
+        for r, g in zip(e_reqs, g_reqs))
+    buckets = {min(ServeEngine._bucket(len(r.prompt)), LLAMA_MAX_LEN)
+               for r in g_reqs}
+    counts = g_eng.trace_counts
     L = cfg.n_layers
     want = {"prefill_tc": L * s.prefills, "decode": L * s.ticks}
+    require(g_eng.graphs is on_card and e_eng.graphs is False, f"mesh_serve:"
+            f" the meshed engines resolved graphs to {g_eng.graphs} and "
+            f"{e_eng.graphs} on {dev}")
     require(all(r.done and len(r.out_tokens) == 32 for r in g_reqs),
             "mesh_serve: a request did not finish its 32 tokens")
     require(tokens_equal, "mesh_serve: the meshed engine's tokens differ "
             "from the mesh-free engine's")
     require(logits_equal, "mesh_serve: a tick's logits differ from the "
             "mesh-free engine's")
+    require(eager_equal, "mesh_serve: the meshed graph engine's tokens or "
+            "logits differ from the meshed eager engine's")
+    require(counts == {"prefill": len(buckets), "decode": 1}, f"mesh_serve:"
+            f" trace_counts {counts} for {len(buckets)} buckets")
     require(launched == want and stats == 0, f"mesh_serve: K2 launched "
             f"{launched} ({stats} with stats), expected {want}")
+    steps = list(g_eng.steps.values())
+    per_replay = {}
+    if on_card:
+        require(all(st.graph is not None for st in steps),
+                "mesh_serve: a step of the meshed engine was not captured")
+        for key, st in g_eng.steps.items():
+            per = _k2_per_replay(st)
+            per_replay[str(key)] = per[0]
+            require(per == ({"decode" if key == "decode" else "prefill_tc":
+                             L}, {}), f"mesh_serve: a replay of {key} "
+                    f"launches K2 {per}, expected {L}")
+            _count_replays("mesh_serve", per, st.replays)
     tok = torch.zeros((LLAMA_SLOTS, 1), dtype=torch.long, device=dev)
-    placed = shard_tree(tok, P("data", None), mesh)
+    decode = g_eng.steps["decode"]
     with torch.no_grad():
         step_ms = {
-            "mesh_free": device_ms(lambda: lm.decode_step(
+            "mesh_free_eager": device_ms(lambda: lm.decode_step(
                 cfg, r_eng.params, tok, r_eng.cache), reps=10,
                 label="mesh_serve decode step"),
-            "mesh": device_ms(lambda: lm.decode_step(
-                cfg, g_eng.params, placed, g_eng.cache, dist), reps=10,
-                label="mesh_serve meshed decode step")}
+            "mesh_replayed": device_ms(decode, reps=10,
+                                       label="mesh_serve replayed tick")}
+        profile = _replay_profile(decode, "mesh_serve decode replay", dev)
     emit({"phase": "mesh_serve", "arch": cfg.name, "n_layers": L,
           "dtype": "bfloat16", "mesh": [1, 1], "slots": LLAMA_SLOTS,
           "max_len": LLAMA_MAX_LEN, "requests": len(g_reqs),
-          "prefills": s.prefills, "ticks": s.ticks,
-          "tokens_bit_equal": tokens_equal,
+          "prefills": s.prefills, "ticks": s.ticks, "graphs": g_eng.graphs,
+          "trace_counts": counts, "tokens_bit_equal": tokens_equal,
           "tick_logits_bit_equal": logits_equal, "ticks_compared":
-          len(g_logits), "k2_launches": launched, "k2_stats_launches": stats,
+          len(g_log.ticks), "eager_requests": len(e_reqs),
+          "bit_equal_to_mesh_eager": eager_equal,
+          "k2_launches": launched, "k2_stats_launches": stats,
+          "k2_launches_mesh_eager": e_launched,
+          "k2_per_replay": per_replay,
+          "capture_s": sum(st.capture_s for st in steps),
+          "pool_gb": sum(st.pool_bytes for st in steps) / 1e9,
           "decode_tick_host_ms_median": {
-              "mesh_free": statistics.median(r_s) * 1e3,
-              "mesh": statistics.median(g_s) * 1e3},
-          "decode_step_device_ms": step_ms})
+              "graph": statistics.median(g_s) * 1e3,
+              "mesh_eager": statistics.median(e_s) * 1e3,
+              "mesh_free_eager": statistics.median(r_s) * 1e3},
+          "decode_step_device_ms": step_ms, "replay_profile": profile})
     return launched
 
 
@@ -5676,6 +5835,9 @@ MESH_FAMILY = {"zamba2-1.2b": ({}, 2, 512),
                "xlstm-1.3b": ({"n_layers": 8}, 2, 256),
                "seamless-m4t-medium": ({}, 2, 512)}
 MESH_FAMILY_DECODE = 8
+# jit_train_step's steps in mesh_families: the first eager, the second
+# replayed from the graph captured after it.
+MESH_FAMILY_STEPS = 2
 
 
 def _family_batch(cfg, B: int, L: int, dev, seed: int):
@@ -5713,9 +5875,11 @@ def _family_serve(cfg, params, batch, steps, dev, dist=None):
 def phase_mesh_families(dev, mesh):
     """zamba2-1.2b, xlstm-1.3b and seamless-m4t-medium at full width (bf16)
     under Dist on the 1x1 mesh: forward, then prefill and
-    MESH_FAMILY_DECODE decode steps, bit-equal to the mesh-free path; one
-    jit_train_step (fp32 weights, AdamW) bit-equal to make_train_step's
-    (xlstm's depth cut, MESH_FAMILY).  Returns the meshed calls' K2
+    MESH_FAMILY_DECODE decode steps, bit-equal to the mesh-free path;
+    MESH_FAMILY_STEPS steps of jit_train_step as users get it (fp32
+    weights, AdamW; on the card the first eager, then captured, the
+    second replayed) bit-equal to make_train_step's (xlstm's depth cut,
+    MESH_FAMILY), K2 exact per replay.  Returns the meshed calls' K2
     launches: forward by kernel, backward by kernel and by path."""
     dist = Dist(mesh, batch_axes=("data",))
     fwd, bwd, bwd_path, rec = {}, {}, {}, {}
@@ -5751,27 +5915,56 @@ def phase_mesh_families(dev, mesh):
         bspecs = {k: P("data", *([None] * (v.dim() - 1)))
                   for k, v in tbatch.items()}
         start = optim.tree_map(lambda t: t.clone(), params)
-        state, m = make_train_step(tcfg, opt_cfg, graphs=False)(
-            start, init_opt_state(opt_cfg, start), None, tbatch)[::3]
-        ref_leaves = [t.clone() for t in optim.leaves(state)]
-        ref_loss = float(m["loss"])
-        del start, state
+        step = make_train_step(tcfg, opt_cfg, graphs=False)
+        state = (start, init_opt_state(opt_cfg, start), None)
+        ref_loss = []
+        for _ in range(MESH_FAMILY_STEPS):
+            *state, m = step(*state, tbatch)
+            ref_loss.append(float(m["loss"]))
+        ref_leaves = [t.clone() for t in optim.leaves(state[0])]
+        del start, state, step
+        # jit_train_step as users get it: its first step eager, then
+        # captured, its second a replay (on the card).
         _fresh_device()
-        before = _counts()
         step = jit_train_step(tcfg, dist, specs, opt_cfg, batch_specs=bspecs)
         placed = shard_tree(params, specs, mesh)
-        gstate, _, _, gm = step(params, init_opt_state(opt_cfg, placed),
-                                None, tbatch)
-        torch.cuda.synchronize()
-        train_launched = _counts_delta(before)
-        got_leaves = optim.leaves(full_tree(gstate))
-        train_equal = (float(gm["loss"].to_local()) == ref_loss and all(
+        state, loss, train_launched = (placed, init_opt_state(
+            opt_cfg, placed), None), [], []
+        for _ in range(MESH_FAMILY_STEPS):
+            before = _counts()
+            *state, gm = step(*state, tbatch)
+            loss.append(float(gm["loss"].to_local()))
+            torch.cuda.synchronize()
+            train_launched.append(_counts_delta(before))
+        captured = next(iter(step.step.steps.values()), None)
+        got_leaves = optim.leaves(full_tree(state[0]))
+        train_equal = (loss == ref_loss and all(
             torch.equal(a, b) for a, b in zip(ref_leaves, got_leaves)))
-        del params, placed, gstate, ref_leaves, got_leaves
+        per_replay = None
+        if dev.type == "cuda":
+            require(step.step.graphs and captured.graph is not None
+                    and captured.replays == MESH_FAMILY_STEPS - 1,
+                    f"mesh_families {arch}: jit_train_step did not replay "
+                    "a CUDA graph")
+            per_replay = _k2_per_replay(captured)
+            eager = tuple({k: n for k, n in d.items() if n} for d in (
+                train_launched[0][0], train_launched[0][2]))
+            require(per_replay == eager, f"mesh_families {arch}: a replay "
+                    f"launches K2 {per_replay}, the eager step {eager}")
+            _count_replays("mesh_families", per_replay, captured.replays)
+        train_launched = tuple(
+            {k: sum(d[i].get(k, 0) for d in train_launched)
+             for k in set().union(*(d[i] for d in train_launched))}
+            for i in range(len(train_launched[0])))
+        capture = ({} if captured is None or captured.graph is None else {
+            "capture_s": captured.capture_s,
+            "pool_gb": captured.pool_bytes / 1e9})
+        del params, placed, state, ref_leaves, got_leaves, step, captured
         require(serve_equal, f"mesh_families {arch}: the meshed forward, "
                 "prefill or decode differs from the mesh-free path")
         require(train_equal, f"mesh_families {arch}: jit_train_step on the "
-                "1x1 mesh is not bit-equal to make_train_step")
+                f"1x1 mesh is not bit-equal to make_train_step: {loss} vs "
+                f"{ref_loss}")
         attention = cfg.family != "ssm"
         require(bool(serve_launched) == attention, f"mesh_families {arch}: "
                 f"K2 launches {serve_launched}")
@@ -5787,7 +5980,10 @@ def phase_mesh_families(dev, mesh):
                      "serve_bit_equal": serve_equal,
                      "train_cut": cut, "train_tokens": list(
                          tbatch["tokens"].shape), "train_loss": ref_loss,
+                     "train_steps": MESH_FAMILY_STEPS,
                      "train_bit_equal": train_equal,
+                     "train_graphs": bool(capture),
+                     "train_k2_per_replay": per_replay, **capture,
                      "k2_launches": {"serve": serve_launched,
                                      "train": train_launched[:3]},
                      "seconds": time.perf_counter() - t0}
@@ -6231,6 +6427,8 @@ def main() -> int:
                              + sum(d[key] for d in train_fwd_phases.values())
                              for key in flash_by_path},
         "examples_launches": sum(ex_by_path.values()),
+        "launches_from_replays_by_phase": {
+            phase: got[0] for phase, got in REPLAYED.items()},
         "launches_by_phase": {"lm_serve": {k: flash_by_path[k]
                                            - ex_by_path[k]
                                            for k in flash_by_path},
@@ -6274,6 +6472,8 @@ def main() -> int:
                                         for d in train_bwd_phases.values())
                                for key in train_bwd},
         "launches_by_phase": train_bwd_phases,
+        "launches_from_replays_by_phase": {
+            phase: got[1] for phase, got in REPLAYED.items() if got[1]},
         "backward_launches_by_path": {key: train_bwd_by_path[key] + sum(
             got[2].get(key, 0) for got in family_train.values())
             + mesh_train_by_path.get(key, 0) for key in train_bwd_by_path},

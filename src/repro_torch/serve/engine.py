@@ -23,29 +23,32 @@ first prefill (enc-dec is served through ``models.prefill``/
 ``len`` (KV, SSM and conv state, mLSTM and sLSTM state).
 
 The compiled steps.  The reference wraps ``decode_step`` and ``prefill`` in
-``jax.jit``; the port builds a :class:`~repro_torch.serve.step.Step` per
-key: one decode step per engine, and one prefill step per bucket for the
-bucketed families.  ``trace_counts = {"prefill": n, "decode": m}`` counts
-the steps built, as the reference counts its traces.  The exact-length
-families (hybrid, xLSTM, VLM) prefill eagerly: each prompt has its own
-length, so a graph would be captured for one use; they count 0 prefill
-builds where the reference retraces once per distinct length.  With
-``graphs`` each step is captured into a CUDA graph after its first call
-(run eagerly, its results used) and replayed from then on; all of one
-engine's graphs share one memory pool.  The decode step reads the slots'
-tokens from a static ``(slots, 1)`` buffer, updates the cache in place
-(``len + 1`` written back into the one ``cache["len"]`` tensor) and takes
-the argmax on the device; a tick reads the tokens and lengths to the host
-once, as the reference does.  A prefill step's outputs are spliced into
-the slot before any other step runs.  Without ``graphs`` the steps run
-eagerly on the same buffers.
+``jax.jit``, with or without its ``dist``; the port builds a
+:class:`~repro_torch.serve.step.Step` per key: one decode step per engine,
+and one prefill step per bucket for the bucketed families.
+``trace_counts = {"prefill": n, "decode": m}`` counts the steps built, as
+the reference counts its traces.  The exact-length families (hybrid,
+xLSTM, VLM) prefill eagerly: each prompt has its own length, so a graph
+would be captured for one use; they count 0 prefill builds where the
+reference retraces once per distinct length.  With ``graphs`` each step is
+captured into a CUDA graph after its first call (run eagerly, its results
+used) and replayed from then on; all of one engine's graphs share one
+memory pool.  The decode step reads the slots' tokens from a static
+``(slots, 1)`` buffer, updates the cache in place (``len + 1`` written back
+into the one ``cache["len"]`` tensor) and takes the argmax on the device; a
+tick reads the tokens and lengths to the host once, as the reference does.
+A prefill step's outputs are spliced into the slot before any other step
+runs.  Without ``graphs`` the steps run eagerly on the same buffers.
 
-``graphs=None`` resolves to True on a CUDA device without a mesh, unless
-a step would read the host: the MoE family off the bf16 grouped_mm route
-(``moe.reads_host``: fp32 syncs).  ``graphs=True`` raises on the CPU,
-under a mesh (DTensor dispatch and NCCL collectives are not captured; the
-meshed engine stays eager) and on a host-reading route, and a capture that
-fails raises: nothing falls back to eager running.
+``graphs=None`` resolves to True on a CUDA device, and under a mesh of
+CUDA devices, unless a step would read the host: the MoE family off the
+bf16 grouped_mm route (``moe.reads_host``: fp32 syncs).  ``graphs=True``
+raises on the CPU, under a mesh of CPU devices (gloo) and on a
+host-reading route, and a capture that fails raises: nothing falls back to
+eager running.  Under a mesh the steps' buffers are DTensors (the decode
+step's tokens laid out by the batch, a prefill step's tokens and lengths
+replicated) and so are the cache and the prefill step's cache; a replay
+runs the kernels that the captured call's DTensor dispatch launched.
 
 Under a mesh (``dist``, the reference's argument) the engine serves
 through the zoo's meshed ``prefill`` and ``decode_step``: the weights laid
@@ -81,6 +84,7 @@ from repro_torch.models import moe
 from repro_torch.models.common import NO_DIST, Dist, LMConfig, P, ShapeCfg
 from repro_torch.models.transformer import _seq_index, cast_params
 from repro_torch.serve.step import Step
+from repro_torch.step import capture_refusal
 
 
 @dataclasses.dataclass
@@ -156,31 +160,31 @@ class ServeEngine:
 
     def _eager_reason(self) -> Optional[str]:
         """Why this engine's steps cannot be captured, or None."""
-        if self.dist.mesh is not None:
-            return ("runs under a mesh, whose DTensor dispatch and NCCL "
-                    "collectives are not captured")
-        if self.device.type != "cuda":
-            return f"needs a CUDA device; the engine runs on {self.device}"
-        if moe.reads_host(self.cfg, self.device):
-            return (f"serves the MoE family in {self.cfg.dtype}, whose "
-                    "grouped GEMM reads the host")
-        return None
+        why = capture_refusal(self.device, self.dist.mesh)
+        if why is None and moe.reads_host(self.cfg, self.device):
+            why = (f"serves the MoE family in {self.cfg.dtype}, whose "
+                   "grouped GEMM reads the host")
+        return why
 
     def _step(self, key, fn, shapes) -> Step:
         """The step of ``key``, built at its first use: ``fn`` over static
-        input buffers of ``shapes`` (name: (shape, dtype))."""
+        input buffers of ``shapes`` (name: (shape, dtype, spec)), laid out
+        by ``spec`` under a mesh."""
         step = self.steps.get(key)
         if step is None:
-            inputs = {name: torch.zeros(shape, dtype=dtype,
-                                        device=self.device)
-                      for name, (shape, dtype) in shapes.items()}
+            inputs = {}
+            for name, (shape, dtype, spec) in shapes.items():
+                buf = torch.zeros(shape, dtype=dtype, device=self.device)
+                inputs[name] = (buf if self.dist.mesh is None
+                                else _laid_out(buf, spec, self.dist.mesh))
             step = self.steps[key] = Step(f"{self.cfg.name} {key}", fn,
                                           inputs, self._pool)
         return step
 
     # ----------------------------------------------------------- the steps
     def _prefill(self, tokens, lengths=None):
-        """``zoo.prefill`` of one request: (logits, its cache)."""
+        """``zoo.prefill`` of one request: (logits, its cache).  Under a
+        mesh whole inputs (the exact-length prefill's) are replicated."""
         batch = {"tokens": tokens}
         if lengths is not None:
             batch["lengths"] = lengths
@@ -195,9 +199,6 @@ class ServeEngine:
     def _decode(self, tokens):
         """``zoo.decode_step`` of every slot on the batch cache, updated in
         place: (logits (slots, 1, V), the next tokens (slots,))."""
-        if self.dist.mesh is not None:
-            tokens = _laid_out(tokens, P(self.dist.batch, None),
-                               self.dist.mesh)
         logits, cache = zoo.decode_step(self.cfg, self.params, tokens,
                                         self.cache, self.dist)
         if self.dist.mesh is not None:
@@ -219,20 +220,21 @@ class ServeEngine:
             return self._prefill(tokens[None].to(self.device))
         bucket = min(self._bucket(L), self.max_len)
         step = self._step(("prefill", bucket), self._prefill, {
-            "tokens": ((1, bucket), torch.long),
-            "lengths": ((1,), torch.int32)})
-        padded = torch.zeros((1, bucket), dtype=torch.long)
-        padded[0, :L] = tokens
-        step.inputs["tokens"].copy_(padded)
-        step.inputs["lengths"].fill_(L)
+            "tokens": ((1, bucket), torch.long, P(None, None)),
+            "lengths": ((1,), torch.int32, P(None))})
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :L] = prompt
+        step.write("tokens", padded)
+        step.write("lengths", np.array([L], np.int32))
         return step()
 
     def _run_decode(self, last: np.ndarray):
         """One decode step of every slot, ``last`` (slots, 1) the tokens
         fed to it: (logits, next tokens), read before any other step."""
-        step = self._step("decode", self._decode,
-                          {"tokens": ((self.slots, 1), torch.long)})
-        step.inputs["tokens"].copy_(torch.from_numpy(last))
+        step = self._step("decode", self._decode, {
+            "tokens": ((self.slots, 1), torch.long, P(self.dist.batch,
+                                                       None))})
+        step.write("tokens", last)
         return step()
 
     # ----------------------------------------------------------------- admin

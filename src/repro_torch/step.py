@@ -3,7 +3,7 @@ under ``jax.jit``.  The serving engine's steps (``serve/engine.py``), the
 BSP forward, the distributed and the whole-graph train steps and
 ``predict`` (``gnn/distributed.py``, ``gnn/training.py``,
 ``gnn/models.py``), the ego forward (``gnn/serving.py``) and the LM train
-step (``train/step.py``) are such steps.
+step (``train/step.py``) are such steps, with or without a mesh.
 
 A :class:`Step` holds a function and the static input buffers it reads
 (:func:`static_inputs`).  The caller writes each call's inputs into those
@@ -34,6 +34,13 @@ one trace per signature.  State that a step updates in place (a train
 step's parameters and moments) can be the caller's own tensors rather than
 copies: the step adopts them as its buffers, so while the caller passes
 back what it was given, nothing is copied.
+
+Under a mesh the buffers, the adopted state and the outputs are DTensors.
+A DTensor's signature is its global shape, dtype, mesh and placements; its
+buffer is a DTensor over a zeroed local shard of its local shape, so a
+replay reads the shard it was captured over.  DTensor's dispatch and
+sharding propagation run once, in the capture, and never at a replay:
+nothing the function does may depend on them running again.
 """
 from __future__ import annotations
 
@@ -62,32 +69,90 @@ COUNTERS = (
     (spmm, "launches"), (spmm, "launches_by_dir"))
 
 
+def capture_refusal(device: torch.device, mesh=None) -> Optional[str]:
+    """Why steps on ``device``, or under ``mesh`` (a ``DeviceMesh``), cannot
+    be captured into CUDA graphs; None where they can."""
+    if mesh is not None:
+        if mesh.device_type == "cuda":
+            return None
+        import torch.distributed as tdist
+        return (f"needs a CUDA device; it runs under a mesh on the "
+                f"{mesh.device_type.upper()} "
+                f"({tdist.get_backend(mesh.get_group(0))})")
+    if device.type == "cuda":
+        return None
+    return f"needs a CUDA device; it runs on {device}"
+
+
 def resolve_graphs(graphs: Optional[bool], device: torch.device,
-                   what: str) -> bool:
+                   what: str, mesh=None) -> bool:
     """Whether ``what``'s steps are captured: ``graphs`` None means on a
-    CUDA device; True off one raises."""
+    CUDA device (under ``mesh``, a mesh of CUDA devices); True elsewhere
+    raises (:func:`capture_refusal`)."""
+    why = capture_refusal(device, mesh)
     if graphs is None:
-        return device.type == "cuda"
-    if graphs and device.type != "cuda":
-        raise ValueError(f"{what}(graphs=True) needs a CUDA device; it runs "
-                         f"on {device}")
+        return why is None
+    if graphs and why:
+        raise ValueError(f"{what}(graphs=True) {why}")
     return bool(graphs)
 
 
+def _is_dtensor(x) -> bool:
+    return hasattr(x, "placements")
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its data, not a copy), or ``t``."""
+    if not _is_dtensor(t):
+        return t
+    with torch.no_grad():
+        return t.to_local()
+
+
 def spec(x) -> tuple:
-    """A tensor's or an array's shape and dtype (as a torch dtype)."""
+    """A tensor's or an array's shape and dtype (as a torch dtype); a
+    DTensor's global shape, dtype, mesh and placements."""
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    if _is_dtensor(t):
+        return tuple(t.shape), t.dtype, t.device_mesh, tuple(t.placements)
     return tuple(t.shape), t.dtype
 
 
 def static_inputs(device, **tensors) -> Dict[str, torch.Tensor]:
     """Zeroed buffers of the given tensors' (or arrays') shapes and dtypes
-    on ``device``: a step's static inputs."""
+    on ``device``: a step's static inputs.  A DTensor's buffer is a DTensor
+    laid out as it is, over a zeroed local shard on its shard's device."""
+    from torch.distributed.tensor import DTensor
     out = {}
     for name, x in tensors.items():
-        shape, dtype = spec(x)
-        out[name] = torch.zeros(shape, dtype=dtype, device=device)
+        shape, dtype, *layout = spec(x)
+        if not layout:
+            out[name] = torch.zeros(shape, dtype=dtype, device=device)
+            continue
+        local = _local(x)
+        out[name] = DTensor.from_local(
+            torch.zeros(local.shape, dtype=dtype, device=local.device),
+            *layout, run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
     return out
+
+
+def _copy_into(buf: torch.Tensor, src: torch.Tensor) -> None:
+    """``src`` written into the buffer ``buf``.  Into a DTensor buffer: a
+    DTensor's local shard, redistributed first where its layout differs; a
+    whole tensor (the same on every process), this process's part of it."""
+    if not _is_dtensor(buf):
+        buf.copy_(src)
+        return
+    from torch.distributed.tensor import distribute_tensor
+    mesh, pls = buf.device_mesh, tuple(buf.placements)
+    with torch.no_grad():
+        if not _is_dtensor(src):
+            src = distribute_tensor(src.to(_local(buf).device), mesh, pls,
+                                    src_data_rank=None)
+        elif src.device_mesh != mesh or tuple(src.placements) != pls:
+            src = src.redistribute(mesh, pls)
+        _local(buf).copy_(_local(src))
 
 
 def _read_counts():
@@ -137,7 +202,9 @@ class Step:
     ``torch.cuda.graph_pool_handle()``) turns capture on; ``name`` labels
     a failed capture.  After each call ``out`` holds the call's outputs;
     ``capture_s`` and ``pool_bytes`` the capture's host seconds and the
-    device memory the pool grew by for it."""
+    device memory the pool grew by for it; ``replays`` counts the replays
+    and ``per_replay`` holds what each adds to the launch counters, by
+    counter ("flash_attention.launches_by_path": its dict or int)."""
 
     def __init__(self, name: str, fn: Callable,
                  inputs: Dict[str, torch.Tensor], pool=None):
@@ -146,32 +213,37 @@ class Step:
         self.out = None
         self.capture_s = 0.0
         self.pool_bytes = 0
+        self.replays = 0
+        self.per_replay: Dict[str, object] = {}
         self._static = self._delta = None
         self._written: Dict[str, tuple] = {}
 
     def write(self, name: str, src) -> None:
         """Copy ``src`` (a tensor or an array) into the input buffer
-        ``name``.  No copy is made when ``src`` is the buffer itself, or
-        the tensor last written there and not changed in place since (its
-        version counter has not moved)."""
+        ``name`` (:func:`_copy_into`).  No copy is made when ``src`` is the
+        buffer itself, or the tensor last written there and not changed in
+        place since (its version counter, a DTensor's local shard's, has
+        not moved)."""
         buf = self.inputs[name]
         if src is buf:
             return
         if isinstance(src, torch.Tensor):
             last = self._written.get(name)
+            version = _local(src)._version
             if (last is not None and last[0]() is src
-                    and last[1] == src._version):
+                    and last[1] == version):
                 return
-            buf.copy_(src)
-            self._written[name] = (weakref.ref(src), src._version)
+            _copy_into(buf, src)
+            self._written[name] = (weakref.ref(src), version)
         else:
-            buf.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+            _copy_into(buf, torch.from_numpy(np.ascontiguousarray(src)))
             self._written.pop(name, None)
 
     def __call__(self):
         if self.graph is not None:
             self.graph.replay()
             _add_counts(self._delta, +1)
+            self.replays += 1
             self.out = self._static
             return self.out
         self.out = self.fn(**self.inputs)
@@ -206,3 +278,5 @@ class Step:
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
         self.capture_s = time.perf_counter() - t0
         self.graph, self._static, self._delta = graph, static, delta
+        self.per_replay = {f"{obj.__name__}.{attr}": d
+                           for (obj, attr), d in zip(COUNTERS, delta)}

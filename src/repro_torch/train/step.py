@@ -21,18 +21,23 @@ zoo's under ``dist``, each gradient is laid out as its parameter, the
 microbatch split takes global rows ``i*B/M .. (i+1)*B/M - 1`` (the
 reference's reshape) and re-states the batch placement, and the update
 runs on the local shards (``optim``).  :func:`jit_train_step` is the
-reference's name for the step with every input and output laid out by the
-specs; nothing is compiled.
+reference's ``jax.jit`` of the step with every input and output laid out
+by the specs.
 
-Without a mesh, on the card, the step is the reference's ``jax.jit`` of it
-(``launch/train.py``): one :class:`repro_torch.step.Step` for each input
-signature (the shapes and dtypes of the parameters, moments, step, error
-feedback and batch), run eagerly at its first call, then captured into a
-CUDA graph and replayed.  The step adopts the state tensors of that first
-call as its buffers: it updates them in place and returns them, so the
-next call, given them back, copies nothing but the batch; other state
-tensors (a restored checkpoint's) are copied in once.  ``loss`` and
-``grad_norm`` are the graph's outputs, rewritten by its next replay.
+On the card, with or without a mesh, the step is the reference's
+``jax.jit`` of it (``launch/train.py``, ``jit_train_step``): one
+:class:`repro_torch.step.Step` for each input signature (the shapes and
+dtypes of the parameters, moments, step, error feedback and batch, and
+under a mesh their placements), run eagerly at its first call, then
+captured into a CUDA graph and replayed.  The step adopts the state
+tensors of that first call as its buffers: it updates them in place and
+returns them, so the next call, given them back, copies nothing but the
+batch (the reference's ``donate_argnums``); other state tensors (a
+restored checkpoint's) are copied in once.  ``loss`` and ``grad_norm`` are
+the graph's outputs, rewritten by its next replay.  Under a mesh the
+gradients' redistribution, the microbatch split, ``Dist.wsc``'s hold on
+the gradients and the in-place update on the local shards all run inside
+the capture; DTensor's dispatch runs only there.
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ import torch
 
 from repro_torch import models as zoo
 from repro_torch.models import moe
-from repro_torch.models.common import Dist, LMConfig, placements
+from repro_torch.models.common import (Dist, LMConfig, local_device,
+                                       placements)
 from repro_torch.step import cached_step, resolve_graphs, spec
 from repro_torch.train import optim
 
@@ -108,18 +114,16 @@ def make_train_step(
     eagerly.  ``dist`` (default: no mesh) runs it over DTensors.
 
     ``graphs`` captures the step into CUDA graphs (module docstring).
-    None resolves to True on a CUDA device without a mesh, unless the
-    model's MoE reads the host there (``moe.reads_host``: fp32, the loop
-    route); True raises on the CPU, under a mesh and on such a route.
-    ``graphs`` is resolved for the device of each call's parameters (so
-    True raises at the first call on the CPU); ``step.graphs`` holds the
-    value last resolved (None before the first call), ``step.steps`` the
-    steps built, one for each device and input signature."""
+    None resolves to True on a CUDA device, and under a mesh of CUDA
+    devices, unless the model's MoE reads the host there
+    (``moe.reads_host``: fp32, the loop route); True raises on the CPU, on
+    a mesh of CPU devices and on such a route.  ``graphs`` is resolved for
+    the device of each call's parameters, at the call (so True raises at
+    the first call); ``step.graphs`` holds the value last resolved (None
+    before the first call), ``step.steps`` the steps built, one for each
+    device and input signature."""
     opt_cfg = opt_cfg or optim.for_model(cfg)
     meshed = dist is not None and dist.mesh is not None
-    if meshed and graphs:
-        raise ValueError("make_train_step(graphs=True): the step under a "
-                         "mesh runs eagerly")
     if loss_fn is None and meshed:
         def loss_fn(p, b):
             rows = next(iter(b.values())).shape[0]
@@ -185,9 +189,8 @@ def make_train_step(
         return params, opt_state, ef, metrics
 
     def resolve(dev: torch.device) -> bool:
-        if meshed:
-            return False
-        captured = resolve_graphs(graphs, dev, "make_train_step")
+        captured = resolve_graphs(graphs, dev, "make_train_step",
+                                  dist.mesh if meshed else None)
         if captured and moe.reads_host(cfg, dev):
             if graphs:
                 raise ValueError(f"{cfg.name}: make_train_step(graphs=True)"
@@ -203,7 +206,7 @@ def make_train_step(
 
     def step(params, opt_state, ef, batch):
         """``ef`` is the error-feedback tree when compressing, else None."""
-        dev = optim.leaves(params)[0].device
+        dev = local_device(optim.leaves(params)[0])
         if not graphs_on(dev):
             return eager_step(params, opt_state, ef, batch)
         state = _state_leaves(params, opt_state, ef)
@@ -275,18 +278,22 @@ def _place_tree(tree, specs, dist: Dist):
 def jit_train_step(cfg: LMConfig, dist: Dist, param_spec_tree,
                    opt_cfg: Optional[optim.OptConfig] = None,
                    microbatches: int = 1, compress_grads: bool = False,
-                   batch_specs=None, loss_fn: Optional[Callable] = None):
+                   batch_specs=None, loss_fn: Optional[Callable] = None,
+                   graphs: Optional[bool] = None):
     """The reference's fully specified train step over ``dist.mesh``:
     ``(params, opt_state, ef, batch) -> (params', opt_state', ef',
     metrics)`` with params, the optimizer's moments and the error feedback
     laid out by ``param_spec_tree`` (``optim.opt_state_specs``), the batch
     by ``batch_specs``, and ``loss``, ``grad_norm`` and ``step``
     replicated.  Inputs given whole or laid out otherwise are laid out
-    first.  Nothing is compiled: it is :func:`make_train_step` under
-    ``dist``, eager."""
+    first, eagerly; DTensors already laid out are passed on as they are,
+    so the state a call returns, passed back, is the step's own buffers.
+    It is :func:`make_train_step` under ``dist`` with ``graphs`` (the
+    compiled step on a mesh of CUDA devices); ``run.step`` is that
+    step."""
     opt_cfg = opt_cfg or optim.for_model(cfg)
     step = make_train_step(cfg, opt_cfg, microbatches, compress_grads,
-                           loss_fn=loss_fn, dist=dist)
+                           loss_fn=loss_fn, dist=dist, graphs=graphs)
     o_specs = optim.opt_state_specs(opt_cfg, param_spec_tree)
 
     def run(params, opt_state, ef, batch):
@@ -301,4 +308,5 @@ def jit_train_step(cfg: LMConfig, dist: Dist, param_spec_tree,
                      for k, x in batch.items()}
         return step(params, opt_state, ef, batch)
 
+    run.step = step
     return run

@@ -1555,12 +1555,13 @@ GRAPH_ARCHS = ["llama3.2-1b", "deepseek-moe-16b", "zamba2-1.2b",
                "xlstm-1.3b", "internvl2-2b"]
 
 
-def _graph_serve(cfg, params, dev, graphs):
+def _graph_serve(cfg, params, dev, graphs, **kw):
     """The smoke traffic of the serving tests (5 prompts over 2 slots, a
-    freed slot taken again) through one engine: (engine, tokens, each
-    tick's logits copied, K2 and grouped GEMM launches)."""
+    freed slot taken again) through one engine (``kw``: its other
+    arguments, ``dist``): (engine, tokens, each tick's logits copied, K2
+    and grouped GEMM launches)."""
     eng = ServeEngine(cfg, params, slots=2, max_len=64, device=dev,
-                      graphs=graphs)
+                      graphs=graphs, **kw)
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i, prompt=rng.integers(1, 400, size=n), eos_id=-1,
                     max_new_tokens=6) for i, n in enumerate((20, 17, 30, 25,
@@ -1664,7 +1665,8 @@ def test_failed_capture_raises(dev):
 
 def test_fp32_moe_engine_stays_eager(dev, mesh11):
     """The fp32 MoE's grouped GEMM reads the host: its engine resolves to
-    eager and graphs=True raises; so does graphs=True under a mesh."""
+    eager and graphs=True raises; under the NCCL mesh graphs=True builds
+    graphs (since the meshed steps are captured)."""
     from repro_torch.models.common import Dist
     cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
                               dtype=torch.float32)
@@ -1676,9 +1678,15 @@ def test_fp32_moe_engine_stays_eager(dev, mesh11):
                     graphs=True)
     cfg = get_smoke_config("llama3.2-1b")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
-    with pytest.raises(ValueError, match="under a mesh"):
-        ServeEngine(cfg, params, slots=2, max_len=32, device=dev,
-                    dist=Dist(mesh11, batch_axes=("data",)), graphs=True)
+    eng = ServeEngine(cfg, params, slots=2, max_len=32, device=dev,
+                      dist=Dist(mesh11, batch_axes=("data",)), graphs=True)
+    req = Request(uid=0, prompt=np.arange(1, 8), max_new_tokens=4,
+                  eos_id=-1)
+    eng.submit(req)
+    eng.run()
+    assert eng.graphs is True and len(req.out_tokens) == 4
+    assert eng.trace_counts == {"prefill": 1, "decode": 1}
+    assert all(s.graph is not None for s in eng.steps.values())
 
 
 # ------------------------------------------- the GNN path's compiled steps
@@ -2058,3 +2066,181 @@ def test_gnn_whole_graph_train_graph_equals_eager(dev, model):
              graphs=False)
     train_step.steps.clear()
     predict.steps.clear()
+
+
+# ------------------------------------ the compiled steps under the 1x1 mesh
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_mesh_graph_engine_bit_equal(dev, mesh11, arch):
+    """Each decoder-only family at the smoke width in bf16 behind
+    ``ServeEngine(dist=the 1x1 NCCL mesh)``: the engine resolves to CUDA
+    graphs, and its tokens, every tick's logits, ``trace_counts`` and
+    K2's (and the grouped GEMM's) launches per replay equal the meshed
+    eager engine's; tokens and logits also equal the mesh-free engine's
+    (but for the MoE, whose meshed layer is the capacity one)."""
+    from repro_torch.models.common import Dist
+    cfg = get_smoke_config(arch)
+    if cfg.family != "ssm":
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    dist = Dist(mesh11, batch_axes=("data",))
+    graph = _graph_serve(cfg, params, dev, None, dist=dist)
+    eager = _graph_serve(cfg, params, dev, False, dist=dist)
+    assert graph[0].graphs is True and eager[0].graphs is False
+    runs = [eager]
+    if cfg.family != "moe":
+        runs.append(_graph_serve(cfg, params, dev, False))
+    for other in runs:
+        assert graph[1] == other[1] and len(graph[2]) == len(other[2])
+        assert all(torch.equal(a, b) for a, b in zip(graph[2], other[2]))
+    assert graph[0].trace_counts == eager[0].trace_counts
+    assert graph[3] == eager[3]
+    assert all(s.graph is not None for s in graph[0].steps.values())
+
+
+def _mesh_train_case(dev, mesh, compress, mbs, **kw):
+    """jit_train_step of ``_train_graph_case``'s llama on ``mesh`` and a
+    fresh seeded state laid out on it (copies: a 1x1 mesh's shards are the
+    tensors given)."""
+    from repro_torch.launch.mesh import shard_tree
+    from repro_torch.models.common import Dist, P
+    from repro_torch.train.step import jit_train_step
+    cfg, batch = _train_graph_case(dev, "llama3.2-1b")
+    opt = OptConfig(lr=1e-3)
+    dist = Dist(mesh, batch_axes=("data",))
+    specs = lm.param_specs(cfg, dist)
+    step = jit_train_step(cfg, dist, specs, opt, microbatches=mbs,
+                          compress_grads=compress,
+                          batch_specs={k: P("data", None) for k in batch},
+                          **kw)
+
+    def state():
+        p, o, e = _train_state(cfg, opt, dev, compress)
+        p = shard_tree(p, specs, mesh)
+        e = None if e is None else shard_tree(e, specs, mesh)
+        return p, init_opt_state(opt, p), e
+
+    return cfg, step, state, batch
+
+
+@pytest.mark.parametrize("mbs,compress", [(1, False), (2, False),
+                                          (2, True)])
+def test_mesh_graph_train_step_equals_eager(dev, mesh11, mbs, compress):
+    """Three steps of jit_train_step from a CUDA graph on the 1x1 NCCL mesh
+    bit-equal to three eager meshed ones (``graphs=False``) from the same
+    state: loss, grad norm and every parameter, moment, step and
+    error-feedback leaf; the very DTensors given returned; K2's launches
+    per replay equal the eager step's, both ways; one step built."""
+    runs = {}
+    for graphs in (False, None):
+        _, step, state, batch = _mesh_train_case(dev, mesh11, compress, mbs,
+                                                 graphs=graphs)
+        state = state()
+        ids = [id(t) for t in _state_tensors(*state)]
+        seen = []
+        for _ in range(3):
+            before = _launches()
+            p, o, e, m = step(*state, batch)
+            torch.cuda.synchronize()
+            seen.append((m["loss"].to_local().clone(),
+                         m["grad_norm"].to_local().clone(),
+                         [t.to_local().clone() if hasattr(t, "to_local")
+                          else t.clone() for t in _state_tensors(p, o, e)],
+                         _since(before)))
+            assert [id(t) for t in _state_tensors(p, o, e)] == ids
+            state = (p, o, e)
+        assert step.step.graphs is (graphs is None)
+        runs[graphs] = seen, step
+    (eager, _), (graph, step) = runs[False], runs[None]
+    for (la, ga, ta, ca), (lb, gb, tb, cb) in zip(eager, graph):
+        assert torch.equal(la, lb) and torch.equal(ga, gb)
+        assert all(torch.equal(a, b) for a, b in zip(ta, tb))
+        assert ca == cb and ca[0].get("prefill_tc") and ca[1].get("tc")
+    captured, = step.step.steps.values()
+    assert captured.graph is not None and captured.pool_bytes > 0
+
+
+def test_mesh_graph_train_resume_copies_state_in(dev, mesh11):
+    """A captured meshed step called with other DTensor state (a restored
+    checkpoint's) copies it into its buffers once and returns its own
+    DTensors, updated as the eager meshed step updates the given ones; the
+    same graph replays."""
+    _, step, state, batch = _mesh_train_case(dev, mesh11, False, 1)
+    _, eager, _, _ = _mesh_train_case(dev, mesh11, False, 1, graphs=False)
+    first = state()
+    for _ in range(2):
+        first = step(*first, batch)[:3]
+    captured, = step.step.steps.values()
+    clone = lambda s: (optim.tree_map(torch.clone, s[0]),  # noqa: E731
+                       optim.OptState(s[1].step.clone(),
+                                      optim.tree_map(torch.clone, s[1].m),
+                                      optim.tree_map(torch.clone, s[1].v)),
+                       None)
+    restored = clone(first)
+    want = eager(*clone(restored), batch)
+    got = step(*restored, batch)
+    assert list(step.step.steps.values()) == [captured]
+    assert all(a is b for a, b in zip(_state_tensors(*got[:3]),
+                                       _state_tensors(*first)))
+    assert torch.equal(got[3]["loss"].to_local(), want[3]["loss"].to_local())
+    assert all(torch.equal(a.to_local(), b.to_local())
+               if hasattr(a, "to_local") else torch.equal(a, b)
+               for a, b in zip(_state_tensors(*got[:3]),
+                               _state_tensors(*want[:3])))
+
+
+def test_mesh_graph_failed_capture_raises(dev, mesh11):
+    """Under the mesh a step that reads the card to the host runs once,
+    then its capture raises, and so does the next call: a Step over a
+    DTensor, and jit_train_step whose loss is read back."""
+    from repro_torch.launch.mesh import shard_tree
+    from repro_torch.models.common import Dist, P
+    from repro_torch.serve.step import Step
+    t = shard_tree(torch.ones(4, device=dev), P(None), mesh11)
+    step = Step("reads", lambda t: t * int(t.to_local().sum()), {"t": t},
+                torch.cuda.graph_pool_handle())
+    with pytest.raises(RuntimeError, match="capture failed"):
+        step()
+    assert step.graph is None
+    dist = Dist(mesh11, batch_axes=("data",))
+    cfg, _, state, batch = _mesh_train_case(dev, mesh11, False, 1)
+
+    def loss_fn(p, b):
+        loss = lm.loss_fn(cfg, p, b, dist)
+        return loss * float(loss.to_local() > -1)
+
+    _, step, _, _ = _mesh_train_case(dev, mesh11, False, 1, loss_fn=loss_fn)
+    state = state()
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture failed"):
+            step(*state, batch)
+    captured, = step.step.steps.values()
+    assert captured.graph is None
+
+
+def test_mesh_fp32_moe_resolves_to_eager(dev, mesh11):
+    """The fp32 MoE under the 1x1 NCCL mesh: the engine and jit_train_step
+    resolve to eager (``moe.reads_host``), and graphs=True raises."""
+    from repro_torch.launch.mesh import shard_tree
+    from repro_torch.models.common import Dist, P
+    from repro_torch.train.step import jit_train_step
+    cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
+                              dtype=torch.float32)
+    dist = Dist(mesh11, batch_axes=("data",))
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    assert ServeEngine(cfg, params, slots=2, max_len=32, device=dev,
+                       dist=dist).graphs is False
+    with pytest.raises(ValueError, match="reads the host"):
+        ServeEngine(cfg, params, slots=2, max_len=32, device=dev, dist=dist,
+                    graphs=True)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at_step(
+        cfg, ShapeCfg("t", 32, 2, "train"), 0).items()}
+    specs = lm.param_specs(cfg, dist)
+    bspecs = {k: P("data", None) for k in batch}
+    placed = shard_tree(params, specs, mesh11)
+    step = jit_train_step(cfg, dist, specs, batch_specs=bspecs)
+    step(placed, init_opt_state(optim.for_model(cfg), placed), None, batch)
+    assert step.step.graphs is False and step.step.steps == {}
+    with pytest.raises(ValueError, match="reads the host"):
+        jit_train_step(cfg, dist, specs, batch_specs=bspecs, graphs=True)(
+            placed, init_opt_state(optim.for_model(cfg), placed), None,
+            batch)

@@ -7,8 +7,8 @@ run through their cached steps (static buffers, one step a signature), so
 these tests hold the buffer plumbing against the reference; the captures
 run on the card (``tests/test_torch_cuda.py -k train_graph``).
 
-* ``graphs=True`` raises on the CPU for all three, and under a mesh for
-  the LM step; ``graphs=None`` resolves to eager there.
+* ``graphs=True`` raises on the CPU for all three, and under a gloo mesh
+  for the LM step; ``graphs=None`` resolves to eager there.
 * ``degrees_from_directed`` (an integer ``scatter_add_``, no host read)
   equals the reference's degrees with isolated vertices and ``n`` past the
   largest id.
@@ -19,7 +19,9 @@ run on the card (``tests/test_torch_cuda.py -k train_graph``).
 * The steps run on meta tensors, which raise on any read of a value to
   the host (what a CUDA graph cannot capture).
 """
+import contextlib
 import dataclasses
+import socket
 
 import pytest
 
@@ -61,17 +63,39 @@ def _llama():
     return cfg, params, batch
 
 
+@contextlib.contextmanager
+def _gloo_mesh():
+    """A gloo group of one process and its 1x1 mesh, destroyed after."""
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_debug_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             rank=0, world_size=1)
+    try:
+        yield make_debug_mesh(1, 1, device_type="cpu")
+    finally:
+        tdist.destroy_process_group()
+
+
 def test_graphs_true_raises_on_the_cpu(small_siot):
     """``graphs=True`` raises on the CPU for the LM step (at its first
-    call) and under a mesh (at once), and for the whole-graph GNN
+    call; also under a gloo mesh, at its first call), and for the
+    whole-graph GNN
     ``train_step`` and ``predict``; ``graphs=None`` resolves to eager
     there, the GNN steps built without a graph pool."""
     cfg, params, batch = _llama()
     step = make_train_step(cfg, graphs=True)
     with pytest.raises(ValueError, match="needs a CUDA device"):
         step(params, init_opt_state(OptConfig(), params), None, batch)
-    with pytest.raises(ValueError, match="under a mesh"):
-        make_train_step(cfg, dist=Dist(mesh=object()), graphs=True)
+    with _gloo_mesh() as mesh:
+        from repro_torch.launch.mesh import shard_tree
+        dist = Dist(mesh, batch_axes=("data",))
+        placed = shard_tree(params, tz.param_specs(cfg, dist), mesh)
+        step = make_train_step(cfg, dist=dist, graphs=True)
+        with pytest.raises(ValueError, match="under a mesh"):
+            step(placed, init_opt_state(OptConfig(), placed), None, batch)
     step = make_train_step(cfg)
     assert step.graphs is None
     step(params, init_opt_state(OptConfig(), params), None, batch)
