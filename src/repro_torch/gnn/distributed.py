@@ -58,6 +58,23 @@ the kernel over the transposed operand.  The halo writes have gather-shaped
 backwards; the dump row that takes a round's padded receives is sliced off,
 so its duplicates get no gradient.
 
+Tracing (:mod:`repro_torch.tracing`, off by default).  A layer marks its
+phases on the device: ``exchange`` (the rounds or the allgather, with the
+halo writes), ``aggregate`` (the table build and the neighbour sum; GAT:
+``attention``, the projection, logits, segment max, exponentials and
+denominator, then ``messages``, the weighted gather and sum) and
+``dense`` (normalisation, matmul, activation); a captured step's graph
+lies between its ``step`` and ``exit`` marks (:func:`call_captured`).  A
+forward call is the host span ``bsp.call`` around ``plan.sync``,
+``step.key``, the step's own spans and ``out.clone``, between the
+call-begin and call-end marks.  Whether tracing is on keys the forward's
+steps beside its input signature (``fwd.marked_steps`` beside
+``fwd.steps``): turning it on captures one marked graph beside the
+unmarked one, and neither ``stats['traces']`` nor ``stats['builds']``
+counts it.  The exchange
+counts the rows it moves in ``exchange_counts.rows`` (registered as
+``exchange.rows``), whether tracing is on or not.
+
 One partition.  The same code serves one rank of the per-process forward
 (:mod:`repro_torch.gnn.ranks`): ``_PlanTensors(..., part=q)`` holds
 partition q's rows of every table as P = 1 tensors, and the layer runs
@@ -70,12 +87,14 @@ from __future__ import annotations
 
 import functools
 import weakref
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.gnn.models import (
     GNNConfig, gather_rows, param_leaves, params_from_leaves, segment_max,
@@ -85,9 +104,17 @@ from repro_torch.gnn.plan import (
     scatter_replica_halo)
 from repro_torch.kernels.gnn_aggregate import (
     PackedBSR, pack_bsr, spmm_packed, transpose_packed)
-from repro_torch.step import cached_step, resolve_graphs, spec
+from repro_torch.step import resolve_graphs, spec, step_for
 
 EXCHANGES = ("ppermute", "allgather")
+
+# The halo exchange's rows, counted where it runs: "copied", the rows its
+# tables move (P x each round's width, summed over rounds and layers; the
+# allgather P x halo_cap a layer), and "live", those that land in a halo
+# row below halo_cap (the allgather's: those of real vertices).  A replay
+# adds what its capture counted (repro_torch.step.Step).
+exchange_counts = SimpleNamespace(rows={"copied": 0, "live": 0})
+tracing.register(exchange_counts, "rows", "exchange.rows")
 
 
 def resolve_aggregate(cfg: GNNConfig, aggregate: str,
@@ -170,7 +197,8 @@ class _PlanTensors:
     rows only, as P = 1 tables (one rank's share).  In mode 'segment' they
     also hold the order of the segment sums over the edge table's
     destinations (:func:`segment_order` of the flat ``dst``, in
-    ``segments``), which the plan alone fixes."""
+    ``segments``), which the plan alone fixes.  ``moved`` holds what a
+    layer's exchange counts (:meth:`_moved`)."""
 
     def __init__(self, plan: ShardPlan, mode: str, exchange: str,
                  device: torch.device, part: Optional[int] = None):
@@ -178,6 +206,7 @@ class _PlanTensors:
         self.replicas = _use_replicas(plan, exchange)
         self.num_parts = plan.num_parts if part is None else 1
         self.cap, self.halo_cap = plan.cap, plan.halo_cap
+        self.slots = plan.num_parts * plan.cap     # halo_slot's pad value
         self.shifts = ([r["shift"] for r in plan.rounds]
                        if exchange == "ppermute" else [])
         if mode != "bsr":
@@ -187,6 +216,7 @@ class _PlanTensors:
         else:
             self.table_rows = -(-plan.table_rows // PART_BK) * PART_BK
         arrs = self._host(plan)
+        self.moved = self._moved(arrs)
         self.t = {}
         for name, arr in arrs.items():
             dtype = (torch.float32 if arr.dtype.kind == "f"
@@ -242,8 +272,30 @@ class _PlanTensors:
         for name, arr in arrs.items():
             self.t[name].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
 
+    def _moved(self, arrs: dict) -> dict:
+        """(rows copied, live rows among them) of one layer's exchange, by
+        the tables it runs: ``rounds``, ``rounds0`` (layer 0 over
+        replicas), ``allgather``."""
+        if self.exchange == "allgather":
+            slot = arrs["halo_slot"]
+            return {"allgather": (int(slot.size), int(np.count_nonzero(
+                slot < self.slots)))}
+        out = {}
+        for name, send, recv in (("rounds", "send_flat{}", "recv_pos{}"),
+                                 ("rounds0", "send_flat0_{}",
+                                  "recv_pos0_{}")):
+            ks = [k for k in range(len(self.shifts))
+                  if send.format(k) in arrs]
+            out[name] = (
+                sum(int(arrs[send.format(k)].size) for k in ks),
+                sum(int(np.count_nonzero(arrs[recv.format(k)]
+                                         < self.halo_cap)) for k in ks))
+        return out
+
     def refresh(self, plan: ShardPlan) -> None:
-        self._copy(self._host(plan))
+        arrs = self._host(plan)
+        self._copy(arrs)
+        self.moved = self._moved(arrs)
 
 
 class _OneDevice:
@@ -307,6 +359,8 @@ def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
     segment), or over the plan's BSR retiling of the same table."""
     P, cap, d = h.shape
     halo_cap, rows = ops.halo_cap, ops.table_rows
+    tracing.mark("attention" if cfg.model == "gat" else "aggregate",
+                 h.device)
     table = h.new_zeros((P, rows, d))
     table[:, :cap] = h
     table[:, cap:cap + halo_cap] = halo
@@ -324,6 +378,7 @@ def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
             agg = spmm_packed(ops.packed, table, ops.packed_t)[:, :cap]
         else:
             agg = neighbour_sum(table.reshape(P * rows, d))
+        tracing.mark("dense", h.device)
         deg = ops.t["deg"]
         if cfg.model == "gcn":
             out = ((agg + h) / (deg[..., None] + 1.0)) @ p["w"]
@@ -354,10 +409,12 @@ def _device_layer(cfg: GNNConfig, p, h, halo, ops: _PlanTensors, idx, last):
         ex_self = torch.exp(self_logit - seg_max)
         ex_flat = ex.reshape(-1, 1)
         denom = dst_sum(ex_flat).reshape(P, cap + 1)[:, :cap] + ex_self
+        tracing.mark("messages", h.device)
         wh_flat = wh.reshape(P * rows, -1)
         msgs = ex_flat * gather_rows(wh_flat, idx["src_flat"])
         num = dst_sum(msgs).reshape(P, cap + 1, -1)[:, :cap]
         num = num + ex_self[..., None] * wh[:, :cap]
+        tracing.mark("dense", h.device)
         out = num / torch.clamp(denom, min=1e-16)[..., None]
     else:
         raise ValueError(cfg.model)
@@ -374,11 +431,17 @@ def _bsp_forward(cfg, params, h, ops: _PlanTensors, halo0=None,
     if cfg.model == "gat":         # padded arcs (ed = cap) read local row 0
         idx["dst_mod_flat"] = (ed % cap + part * cap).reshape(-1)
     for k, p in enumerate(params):
+        tracing.mark("exchange", h.device)
         if ops.exchange == "ppermute":
-            halo = _exchange_ppermute(h, ops, halo0 if k == 0 else None,
-                                      wire)
+            init = halo0 if k == 0 else None
+            halo = _exchange_ppermute(h, ops, init, wire)
+            table = "rounds" if init is None else "rounds0"
         else:
             halo = _exchange_allgather(h, ops.t["halo_slot"], wire)
+            table = "allgather"
+        copied, live = ops.moved[table]
+        exchange_counts.rows["copied"] += copied
+        exchange_counts.rows["live"] += live
         h = _device_layer(cfg, p, h, halo, ops, idx, k == len(params) - 1)
     return h
 
@@ -456,18 +519,28 @@ def input_signature(params, blocks, replica0=None) -> tuple:
 def call_captured(steps: dict, key, name: str, fn, pool, device, params,
                   blocks, replica0=None):
     """``fn(params, blocks, replica0)`` through the :class:`Step` of
-    ``key`` in ``steps`` (:func:`repro_torch.step.cached_step`: made at
-    its first use, over static buffers of the parameters, the blocks and
+    ``key`` in ``steps`` (:func:`repro_torch.step.step_for`: made at its
+    first use, over static buffers of the parameters, the blocks and
     ``replica0`` when given; run eagerly and captured the first time,
     replayed after).  Returns the step's outputs, which its next call
-    rewrites."""
+    rewrites.  While tracing is on the body runs between the step's begin
+    and end marks (``step``, ``exit``), captured with it, and the step
+    between the marks ``launch`` (after the input copies) and ``clone``, so
+    the graph's entry and exit lie in phases of their own."""
     extra = {} if replica0 is None else {"replica0": replica0}
 
     def body(blocks, replica0=None, **leaves):
-        return fn(params_from_leaves(params, leaves), blocks, replica0)
+        tracing.mark("step", device)
+        out = fn(params_from_leaves(params, leaves), blocks, replica0)
+        tracing.mark("exit", device)
+        return out
 
-    return cached_step(steps, key, name, body, pool, device,
-                       **param_leaves(params), blocks=blocks, **extra)
+    step = step_for(steps, key, name, body, pool, device,
+                    **param_leaves(params), blocks=blocks, **extra)
+    tracing.mark("launch", device)
+    out = step()
+    tracing.mark("clone", device)
+    return out
 
 
 def make_bsp_forward(
@@ -497,10 +570,12 @@ def make_bsp_forward(
     forward: one CUDA graph for each trace, made at its first call (which
     runs eagerly) and replayed by later calls over the same tensors, so a
     value-only patch replays with no new trace and a rebuild captures
-    anew.  The parameters, ``blocks`` and ``replica0`` are copied into the
-    graph's static input buffers (:meth:`repro_torch.step.Step.write`:
-    not when the caller passes a buffer itself, or the tensor it wrote
-    last, unchanged), and every call returns a new tensor.  A captured
+    anew; while tracing is on, one marked graph a trace beside it
+    (``fwd.marked_steps``; module docstring).  The parameters, ``blocks``
+    and ``replica0`` are copied into the graph's static input buffers
+    (:meth:`repro_torch.step.Step.write`: not when the caller passes a
+    buffer itself, or the tensor it wrote last, unchanged), and every
+    call returns a new tensor.  A captured
     forward is not differentiable: under grad with parameters that require
     it, it raises (the train step differentiates ``fwd.eager``).  A capture
     that fails raises.  ``fwd.steps`` maps each input signature of the
@@ -522,6 +597,7 @@ def make_bsp_forward(
     state = {"sig": None, "version": -1, "ops": None, "builds": 0,
              "traces": 0}
     steps = {}                  # input signature -> Step (or None), a build's
+    marked = {}                 # the same, captured with tracing on
     pool = torch.cuda.graph_pool_handle() if graphs else None
 
     def sync():
@@ -531,6 +607,7 @@ def make_bsp_forward(
         _sync_ops(state, plan, mode, exchange, dev)
         if state["builds"] != builds:
             steps.clear()
+            marked.clear()
 
     def trace(params, blocks, replica0):
         used = _replica0_used(plan, exchange, replica0)
@@ -548,27 +625,39 @@ def make_bsp_forward(
     def eager(params, blocks, replica0=None):
         """The forward run eagerly over the plan tensors: differentiable,
         never captured."""
-        sync()
-        trace(params, blocks, replica0)
+        with tracing.span("plan.sync"):
+            sync()
+        with tracing.span("step.key"):
+            trace(params, blocks, replica0)
         return body(params, blocks, replica0)
 
     def forward(params, blocks, replica0=None):
-        if not graphs:
-            return eager(params, blocks, replica0)
-        if torch.is_grad_enabled() and any(
-                v.requires_grad for p in params for v in p.values()
-                if isinstance(v, torch.Tensor)):
-            raise ValueError("a captured BSP forward is not differentiable: "
-                             "build it with graphs=False, or differentiate "
-                             "fwd.eager")
-        sync()
-        key, used = trace(params, blocks, replica0)
-        return call_captured(steps, key, f"bsp {cfg.model} {exchange} {mode}",
-                             torch.no_grad()(body), pool, dev, params,
-                             blocks, replica0 if used else None).clone()
+        with tracing.call("bsp.call", dev):
+            if not graphs:
+                tracing.mark("step", dev)
+                out = eager(params, blocks, replica0)
+                tracing.mark("clone", dev)
+                return out
+            if torch.is_grad_enabled() and any(
+                    v.requires_grad for p in params for v in p.values()
+                    if isinstance(v, torch.Tensor)):
+                raise ValueError("a captured BSP forward is not "
+                                 "differentiable: build it with "
+                                 "graphs=False, or differentiate fwd.eager")
+            with tracing.span("plan.sync"):
+                sync()
+            with tracing.span("step.key"):
+                key, used = trace(params, blocks, replica0)
+            out = call_captured(
+                marked if tracing.on() else steps, key,
+                f"bsp {cfg.model} {exchange} {mode}", torch.no_grad()(body),
+                pool, dev, params, blocks, replica0 if used else None)
+            with tracing.span("out.clone"):
+                return out.clone()
 
     forward.stats = state
     forward.steps = steps
+    forward.marked_steps = marked
     forward.plan = plan
     forward.mode = mode
     forward.device = dev

@@ -28,6 +28,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.gnn.distributed import call_captured, input_signature
 from repro_torch.gnn.models import (
@@ -185,7 +186,14 @@ def make_distributed_train_step(
     by the next replay, a rebuild captures anew.  True raises on the CPU
     and over ranks, whose gloo collectives are not captured.
     ``step.steps`` maps each input signature of the current build to its
-    Step."""
+    Step.
+
+    While tracing is on (:mod:`repro_torch.tracing`) a call is the host
+    span ``train.call`` between the call-begin and call-end marks, and the
+    step marks the phases ``loss``, ``backward`` (``torch.autograd.grad``:
+    K1's backward, the segment sums', the exchange's adjoint) and ``sgd``
+    after the forward's; the marked graphs are kept apart from the others
+    (``step.marked_steps``), as the forward keeps its own."""
     dev = bsp_forward.device
     comm = getattr(bsp_forward, "comm", None)
     if graphs is None:
@@ -217,10 +225,13 @@ def make_distributed_train_step(
 
     def loss_of(params, blocks, replica0):
         out = run(params, blocks, replica0=replica0)
+        tracing.mark("loss", dev)
         logp = torch.log_softmax(out, dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
         nll = nll * mask
-        return nll.sum() / count
+        loss = nll.sum() / count
+        tracing.mark("backward", dev)
+        return loss
 
     def loss_and_grads(params, blocks, replica0=None):
         loss, grads = _value_and_grad(loss_of, params, blocks, replica0)
@@ -230,31 +241,44 @@ def make_distributed_train_step(
 
     def eager_step(params, blocks, replica0=None):
         loss, grads = loss_and_grads(params, blocks, replica0)
+        tracing.mark("sgd", dev)
         return sgd_step(params, grads, lr), loss
 
     steps = {}                  # input signature -> Step, a build's
+    marked = {}                 # the same, captured with tracing on
     built = [None]
 
     def step(params, blocks, replica0=None):
-        if not graphs:
-            return eager_step(params, blocks, replica0)
-        bsp_forward.sync()
-        if built[0] != bsp_forward.stats["builds"]:
-            steps.clear()
-            built[0] = bsp_forward.stats["builds"]
-        r0 = replica0 if bsp_forward.reads_replica0(replica0) else None
-        new, loss = call_captured(
-            steps, input_signature(params, blocks, r0),
-            f"train {cfg.model} {bsp_forward.mode}", eager_step, pool, dev,
-            params, blocks, r0)
-        return ([{k: v.clone() for k, v in p.items()} for p in new],
-                loss.clone())
+        with tracing.call("train.call", dev):
+            if not graphs:
+                tracing.mark("step", dev)
+                out = eager_step(params, blocks, replica0)
+                tracing.mark("clone", dev)
+                return out
+            with tracing.span("plan.sync"):
+                bsp_forward.sync()
+                if built[0] != bsp_forward.stats["builds"]:
+                    steps.clear()
+                    marked.clear()
+                    built[0] = bsp_forward.stats["builds"]
+            with tracing.span("step.key"):
+                r0 = (replica0 if bsp_forward.reads_replica0(replica0)
+                      else None)
+                key = input_signature(params, blocks, r0)
+            new, loss = call_captured(
+                marked if tracing.on() else steps, key,
+                f"train {cfg.model} {bsp_forward.mode}", eager_step, pool,
+                dev, params, blocks, r0)
+            with tracing.span("out.clone"):
+                return ([{k: v.clone() for k, v in p.items()} for p in new],
+                        loss.clone())
 
     pool = torch.cuda.graph_pool_handle() if graphs else None
     step.loss_and_grads = loss_and_grads
     step.set_targets = set_targets
     step.graphs = graphs
     step.steps = steps
+    step.marked_steps = marked
     return step
 
 

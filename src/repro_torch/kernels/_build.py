@@ -148,6 +148,9 @@ def load_library() -> ctypes.CDLL:
                lib.flash_attention_bwd_dkdv, lib.flash_attention_bwd_tc_dq,
                lib.flash_attention_bwd_tc_dkdv):
         fn.restype = i32
+    # slots, head, capacity, phase, stream (csrc/mark.cu)
+    lib.repro_torch_mark.argtypes = [ptr, ptr, ctypes.c_int64, i32, ptr]
+    lib.repro_torch_mark.restype = i32
     lib.repro_torch_cuda_error_string.argtypes = [i32]
     lib.repro_torch_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -101,6 +101,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -421,6 +422,9 @@ flash_attention.launches_by_path = {"decode": 0, "prefill_tc": 0,
 flash_attention.stats_launches = 0       # decode launches with stats
 flash_attention.backward_launches = {"dq": 0, "dkdv": 0}
 flash_attention.backward_launches_by_path = {"tc": 0, "general": 0}
+for _attr in ("launches", "launches_by_path", "stats_launches",
+              "backward_launches", "backward_launches_by_path"):
+    tracing.register(flash_attention, _attr)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -54,6 +54,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 
 
@@ -108,6 +109,8 @@ def spmm(values, block_cols, feats, bm: int, bk: int):
 
 spmm.launches = 0
 spmm.launches_by_dir = {"fwd": 0, "bwd": 0}
+tracing.register(spmm, "launches")
+tracing.register(spmm, "launches_by_dir")
 
 
 # ------------------------------------------------------------ packed operand

@@ -82,6 +82,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.models.common import Dist, LMConfig
 
 
@@ -171,6 +172,8 @@ def grouped_gemm(x, w, group_sizes):
 
 grouped_gemm.launches_by_route = {"grouped_mm": 0, "loop": 0}
 grouped_gemm.backward_launches_by_route = {"grouped_mm": 0, "loop": 0}
+tracing.register(grouped_gemm, "launches_by_route")
+tracing.register(grouped_gemm, "backward_launches_by_route")
 
 
 def capacity(cfg: LMConfig, tokens: int) -> int:

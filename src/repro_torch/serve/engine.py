@@ -8,14 +8,15 @@ all slots per tick; requests flow through
 
 Per-slot lengths ride in the cache's ``len`` vector.  For the KV-cache
 families (dense, MoE) prompts are padded to power-of-two buckets, as in the
-reference, where that bounded the jitted prefill's traces; the port runs
-eagerly and keeps the buckets so that both compute the same thing (pad
-positions are inert: attention is causal and decode masks KV beyond
-``len``).  The recurrent families (hybrid, xLSTM) would carry a pad token
-through their state, and a VLM prompt's positions are offset by its
-patches, so these prefill at the prompt's exact length, as the reference
-does.  The engine serves a VLM as text only: a ``Request`` carries no
-patches, and the reference's engine passes none.  The enc-dec family is
+reference, where that bounded the jitted prefill's traces; the port keeps
+the buckets, which bound its prefill steps the same way (one a bucket),
+and both compute the same thing (pad positions are inert: attention is
+causal and decode masks KV beyond ``len``).  The recurrent families
+(hybrid, xLSTM) would carry a pad token through their state, and a VLM
+prompt's positions are offset by its patches, so these prefill at the
+prompt's exact length, as the reference does.  The engine serves a VLM
+as text only: a ``Request`` carries no patches, and the reference's
+engine passes none.  The enc-dec family is
 refused at construction: its prefill needs ``batch["frames"]``, which a
 ``Request`` does not carry, so the reference's engine fails on it at the
 first prefill (enc-dec is served through ``models.prefill``/
@@ -24,7 +25,7 @@ first prefill (enc-dec is served through ``models.prefill``/
 
 The compiled steps.  The reference wraps ``decode_step`` and ``prefill`` in
 ``jax.jit``, with or without its ``dist``; the port builds a
-:class:`~repro_torch.serve.step.Step` per key: one decode step per engine,
+:class:`~repro_torch.step.Step` per key: one decode step per engine,
 and one prefill step per bucket for the bucketed families.
 ``trace_counts = {"prefill": n, "decode": m}`` counts the steps built, as
 the reference counts its traces.  The exact-length families (hybrid,
@@ -83,8 +84,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import moe
 from repro_torch.models.common import NO_DIST, Dist, LMConfig, P, ShapeCfg
 from repro_torch.models.transformer import _seq_index, cast_params
-from repro_torch.serve.step import Step
-from repro_torch.step import capture_refusal
+from repro_torch.step import Step, capture_refusal
 
 
 @dataclasses.dataclass

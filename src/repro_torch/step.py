@@ -19,11 +19,18 @@ Capture records kernels and executes none, so a function that updates
 state in place (a decode step's cache) advances it once per call.  A
 capture that fails raises; nothing falls back to eager running.
 
-The port's launch counters are Python integers that the kernels' wrappers
-bump when they launch, which a replay does not run.  The step records each
+The port's counters (:func:`repro_torch.tracing.register`: the kernels'
+launch counters, the exchange's rows) are Python integers that the code
+bumps when it runs, which a replay does not run.  The step records each
 counter's change during the capture, takes the capture's own change back
 out (the capture launched nothing), and adds the change on every replay,
 so the counters count what ran.
+
+While tracing is on (:mod:`repro_torch.tracing`) each replay is the host
+span ``step.replay`` and the input copies of :func:`step_for` the span
+``step.write``.  A step marks nothing on the device itself: the callers
+whose bodies mark their phases key their steps by whether tracing is on
+(:func:`repro_torch.gnn.distributed.call_captured`).
 
 Steps that share a pool may reuse each other's memory: they must not run
 concurrently, and one step's outputs are read before another step of the
@@ -52,21 +59,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.gnn_aggregate import spmm
-from repro_torch.models.moe import grouped_gemm
-
-# The launch counters of the kernels a step runs: (holder, attribute), an
-# int or a dict of ints.  Looked up at each use: callers replace them with
-# fresh objects.
-COUNTERS = (
-    (flash_attention, "launches"), (flash_attention, "launches_by_path"),
-    (flash_attention, "stats_launches"),
-    (flash_attention, "backward_launches"),
-    (flash_attention, "backward_launches_by_path"),
-    (grouped_gemm, "launches_by_route"),
-    (grouped_gemm, "backward_launches_by_route"),
-    (spmm, "launches"), (spmm, "launches_by_dir"))
+from repro_torch import tracing
 
 
 def capture_refusal(device: torch.device, mesh=None) -> Optional[str]:
@@ -155,45 +148,31 @@ def _copy_into(buf: torch.Tensor, src: torch.Tensor) -> None:
         _local(buf).copy_(_local(src))
 
 
-def _read_counts():
-    return [dict(v) if isinstance(v, dict) else v
-            for v in (getattr(obj, attr) for obj, attr in COUNTERS)]
-
-
-def _counts_since(before):
-    return [{k: now[k] - was.get(k, 0) for k in now}
-            if isinstance(now, dict) else now - was
-            for now, was in zip(_read_counts(), before)]
-
-
-def _add_counts(delta, sign: int) -> None:
-    for (obj, attr), d in zip(COUNTERS, delta):
-        if isinstance(d, dict):
-            counts = getattr(obj, attr)
-            for k, n in d.items():
-                counts[k] = counts.get(k, 0) + sign * n
-        else:
-            setattr(obj, attr, getattr(obj, attr) + sign * d)
-
-
-def cached_step(steps: dict, key, name: str, fn: Callable, pool, device,
-                own=(), **inputs):
-    """``fn(**buffers)`` through the :class:`Step` of ``key`` in ``steps``,
-    made at its first use over zeroed buffers of ``inputs`` on ``device``
-    (:func:`static_inputs`), but for the names in ``own``, whose buffers
-    are the tensors given (adopted: the step updates them in place), and
-    over ``pool`` (None: run eagerly).  Each call writes ``inputs`` into
-    the buffers (:meth:`Step.write`) and runs the step; returns its
-    outputs, which its next call rewrites."""
+def step_for(steps: dict, key, name: str, fn: Callable, pool, device,
+             own=(), **inputs) -> "Step":
+    """The :class:`Step` of ``key`` in ``steps`` that runs
+    ``fn(**buffers)``, with ``inputs`` written into its buffers
+    (:meth:`Step.write`).  It is made at its first use over zeroed buffers
+    of ``inputs`` on ``device`` (:func:`static_inputs`), but for the names
+    in ``own``, whose buffers are the tensors given (adopted: the step
+    updates them in place), and over ``pool`` (None: run eagerly)."""
     step = steps.get(key)
     if step is None:
         bufs = static_inputs(device, **{k: v for k, v in inputs.items()
                                         if k not in own})
         bufs.update((k, inputs[k]) for k in own)
         step = steps[key] = Step(name, fn, bufs, pool)
-    for k, v in inputs.items():
-        step.write(k, v)
-    return step()
+    with tracing.span("step.write"):
+        for k, v in inputs.items():
+            step.write(k, v)
+    return step
+
+
+def cached_step(steps: dict, key, name: str, fn: Callable, pool, device,
+                own=(), **inputs):
+    """Runs :func:`step_for`'s step; returns its outputs, which its next
+    call rewrites."""
+    return step_for(steps, key, name, fn, pool, device, own, **inputs)()
 
 
 class Step:
@@ -241,8 +220,9 @@ class Step:
 
     def __call__(self):
         if self.graph is not None:
-            self.graph.replay()
-            _add_counts(self._delta, +1)
+            with tracing.span("step.replay"):
+                self.graph.replay()
+                tracing.add(self._delta)
             self.replays += 1
             self.out = self._static
             return self.out
@@ -252,7 +232,7 @@ class Step:
         return self.out
 
     def _capture(self) -> None:
-        before = _read_counts()
+        before = tracing.counters()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         # Destroying a graph during another's capture invalidates the
@@ -273,10 +253,10 @@ class Step:
         finally:
             if collecting:
                 gc.enable()
-            delta = _counts_since(before)
-            _add_counts(delta, -1)
+            delta = tracing.since(before)
+            tracing.add(delta, -1)
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
         self.capture_s = time.perf_counter() - t0
-        self.graph, self._static, self._delta = graph, static, delta
-        self.per_replay = {f"{obj.__name__}.{attr}": d
-                           for (obj, attr), d in zip(COUNTERS, delta)}
+        self.graph, self._static, self.per_replay = graph, static, delta
+        self._delta = {k: d for k, d in delta.items()
+                       if (any(d.values()) if isinstance(d, dict) else d)}

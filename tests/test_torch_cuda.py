@@ -1617,7 +1617,7 @@ def test_flash_decode_and_grouped_gemm_captured_alone(dev):
     twice with new inputs copied into its buffers: bit-equal to eager
     calls, and each replay adds the launches the capture recorded (the
     capture itself adds none)."""
-    from repro_torch.serve.step import Step
+    from repro_torch.step import Step
     q, k, v = _flash_inputs(dev, 8, 32, 8, 1, 2048, 64, torch.bfloat16)
     kl = torch.tensor([64, 1056, 300, 1, 777, 2048, 129, 500],
                       dtype=torch.int32, device=dev)
@@ -1654,7 +1654,7 @@ def test_flash_decode_and_grouped_gemm_captured_alone(dev):
 def test_failed_capture_raises(dev):
     """A step that reads the card's values to the host cannot be captured:
     its first call runs, then the capture raises; nothing falls back."""
-    from repro_torch.serve.step import Step
+    from repro_torch.step import Step
     step = Step("reads", lambda t: t * int(t.sum()),
                 {"t": torch.ones(4, device=dev)},
                 torch.cuda.graph_pool_handle())
@@ -1890,6 +1890,82 @@ def test_gnn_failed_capture_raises(dev, monkeypatch):
             fwd(params, blocks)
     step, = fwd.steps.values()
     assert step.graph is None
+
+
+# ------------------------------------------ tracing inside the GNN graphs
+GNN_LAYER = {"gcn": ["exchange", "aggregate", "dense"],
+             "gat": ["exchange", "attention", "messages", "dense"]}
+
+
+def _mark_kernels(fn, *args):
+    """How many mark kernels ``fn(*args)`` ran on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    return sum("mark_kernel" in e.name for e in prof.events())
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_gnn_marked_graphs_mark_each_replay_and_keep_the_bits(dev, model):
+    """With tracing on the BSP forward and the train step capture marked
+    graphs beside their unmarked ones: each replay writes one set of
+    marks in the documented order, its outputs equal the unmarked
+    graph's bit for bit, K1's launches a replay and the steps'
+    ``per_replay`` are the same, and the unmarked graphs run no mark
+    kernel."""
+    from repro_torch import tracing
+    g, cfg, params, fwd, step, blocks = _train_case(dev, model, "ppermute")
+    runs = {}
+    try:
+        for on in (False, True):
+            (tracing.enable if on else tracing.disable)()
+            fwd(params, blocks)                 # eager, then captured
+            step(params, blocks)
+            tracing.clear()
+            before = dict(spmm.launches_by_dir)
+            outs = [fwd(params, blocks), step(params, blocks)]
+            outs.append(step(outs[1][0], blocks))
+            torch.cuda.synchronize()
+            launches = {k: spmm.launches_by_dir[k] - before[k]
+                        for k in before}
+            marks = tracing.read()["marks"].get(str(dev), [])
+            steps = (fwd.marked_steps if on else fwd.steps,
+                     step.marked_steps if on else step.steps)
+            per = [s.per_replay for d in steps for s in d.values()]
+            runs[on] = outs, launches, marks, per
+            kernels = (_mark_kernels(fwd, params, blocks),
+                       _mark_kernels(step, params, blocks))
+            if on:
+                marked = kernels
+            else:
+                assert kernels == (0, 0)
+    finally:
+        tracing.disable()
+        tracing.clear()
+    (off, l_off, m_off, p_off), (on, l_on, m_on, p_on) = runs[False], runs[
+        True]
+    assert m_off == []
+    layers = GNN_LAYER[model] * 2
+    fwd_marks = ["write", "launch", "step", *layers, "exit", "clone",
+                 "idle"]
+    train_marks = ["write", "launch", "step", *layers, "loss", "backward",
+                   "sgd", "exit", "clone", "idle"]
+    assert [p for p, _ in m_on] == fwd_marks + train_marks * 2
+    times = [t for _, t in m_on]
+    assert times == sorted(times)
+    assert marked == (len(fwd_marks), len(train_marks))
+    assert torch.equal(off[0], on[0])
+    for (pa, la), (pb, lb) in zip(off[1:], on[1:]):
+        assert torch.equal(la, lb)
+        for a, b in zip(pa, pb):
+            for k in a:
+                assert torch.equal(a[k], b[k]), k
+    assert l_off == l_on == ({"fwd": 6, "bwd": 2} if model == "gcn"
+                             else {"fwd": 0, "bwd": 0})
+    assert p_off == p_on
+    assert fwd.stats["traces"] == fwd.stats["builds"] == 1
 
 
 # --------------------------- the LM train step and the whole-graph GNN steps
@@ -2194,7 +2270,7 @@ def test_mesh_graph_failed_capture_raises(dev, mesh11):
     DTensor, and jit_train_step whose loss is read back."""
     from repro_torch.launch.mesh import shard_tree
     from repro_torch.models.common import Dist, P
-    from repro_torch.serve.step import Step
+    from repro_torch.step import Step
     t = shard_tree(torch.ones(4, device=dev), P(None), mesh11)
     step = Step("reads", lambda t: t * int(t.to_local().sum()), {"t": t},
                 torch.cuda.graph_pool_handle())

@@ -30,7 +30,7 @@ from repro_torch import models as zoo  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
-from repro_torch.serve.step import Step  # noqa: E402
+from repro_torch.step import Step  # noqa: E402
 
 
 def emit(obj) -> None:
