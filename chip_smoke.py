@@ -42,7 +42,10 @@ published widths:
           transposed operand) at the main plans' three shapes, against the
           plain product over that operand and autograd of the plain
           forward, with torch.sparse.mm on the transposed CSR as the
-          library call;
+          library call.  K3 (segment_sum, the sorted segment sum) at the
+          GAT sums' shapes over SIoT's main plan (d = 1, 2, 16, 52):
+          bitwise twice and against its plain mirror, device time beside
+          its byte bound, the plain version and torch.segment_reduce;
   train   the distributed train step over the main plans of SIoT and
           Yelp (GCN, SAGE, GAT x ppermute, allgather; GCN and SAGE on K1
           both ways and also on the segment path): gradients against the
@@ -417,7 +420,7 @@ from repro_torch.gnn import (  # noqa: E402
     patch_plan, plans_equal, recompile_like, replicate_for_stream,
     scatter_features, scatter_ints, scatter_replica_halo, serving_cost,
     set_replication, zipf_requests)
-from repro_torch.gnn.models import predict  # noqa: E402
+from repro_torch.gnn.models import predict, segment_order  # noqa: E402
 from repro_torch.gnn.training import (  # noqa: E402
     train_step as whole_train_step)
 from repro_torch.graphs import (  # noqa: E402
@@ -434,6 +437,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.gnn_aggregate import (  # noqa: E402
     build_bsr, pack_bsr, spmm, spmm_packed, spmm_packed_plain, spmm_plain,
     transpose_packed)
+from repro_torch.kernels.segment_sum import (  # noqa: E402
+    segment_sum as segment_sum_k3, segment_sum_plain, segment_sum_tiles_plain)
 from repro_torch.launch.mesh import (  # noqa: E402
     full_tree, make_debug_mesh, shard_tree)
 from repro_torch.models.common import P, Dist, ShapeCfg  # noqa: E402
@@ -1097,6 +1102,87 @@ def phase_kernels(datasets, dev):
     return results, bwd_rows, worst
 
 
+def _k3_case(plan, d, gen, dev):
+    """The operands of a GAT sum over ``plan``'s edge table, as the plan
+    tensors hold them: (E, d) messages (E,) for d = 1, the flat
+    destinations with each partition's padded arcs in its dummy segment
+    ``cap``, their host-made order, sorted keys and offsets, the segment
+    count."""
+    P, cap = plan.edges_dst.shape[0], plan.cap
+    dst = (plan.edges_dst.astype(np.int64)
+           + np.arange(P)[:, None] * (cap + 1)).reshape(-1)
+    n = P * (cap + 1)
+    seg = tuple(torch.from_numpy(a).to(dev) for a in segment_order(dst, n))
+    shape = (len(dst),) if d == 1 else (len(dst), d)
+    msgs = torch.randn(shape, generator=gen).to(dev)
+    return msgs, torch.from_numpy(dst).to(dev), seg, n
+
+
+def phase_segment_kernel(siot, dev):
+    """K3 (the sorted segment sum) at the GAT sums' shapes over SIoT's
+    main plan (801,088 message slots): d = 1 and 16 (layer 1's
+    denominator and numerator), 2 (layer 2's numerator), 52 (the ego
+    server's first layer).  Bit for bit across two calls and against the
+    plain mirror of its association, within 1e-5 of each segment's sum of
+    magnitudes of the plain version; its device time (both launches)
+    beside the byte bound (what the sum needs: each message row with its
+    order, the offsets, the output, once; the sorted keys, which the
+    kernel reads besides, are left out), the plain version's time and
+    ``torch.segment_reduce``'s over the sorted copy (the library's
+    deterministic sum, which the port no longer calls)."""
+    plan = siot["layouts"]["glad_s_mu2"]["plan"]
+    gen = torch.Generator().manual_seed(SEED)
+    rows = []
+    for d in (1, 2, 16, 52):
+        m, dst, seg, n = _k3_case(plan, d, gen, dev)
+        order, keys, offsets = seg
+        label = f"siot_glad_s_mu2_P{PARTS}_d{d}"
+
+        def run():
+            return segment_sum_k3(m, dst, order, keys, offsets)
+
+        out, again = run(), run()
+        torch.cuda.synchronize()
+        require(torch.equal(out, again), f"segment_sum {label}: not bitwise "
+                "deterministic across two calls")
+        require(torch.equal(out, segment_sum_tiles_plain(m, *seg)),
+                f"segment_sum {label}: not the bits of its plain mirror")
+        plain = segment_sum_plain(m, order, offsets)
+        mag = segment_sum_plain(m.abs(), order, offsets)
+        gap = (out - plain).abs()
+        require(bool((gap <= 1e-5 * mag + 1e-6).all()),
+                f"segment_sum {label}: off the plain version by "
+                f"{float(gap.max())}")
+        sorted_m = m.index_select(0, order)
+
+        def library():
+            return torch.segment_reduce(sorted_m, "sum", offsets=offsets,
+                                        axis=0, unsafe=True)
+
+        E = m.shape[0]
+        nbytes = E * (d * 4 + 8) + (n + 1) * 8 + n * d * 4
+        parts = {}
+        row = {"shape": label, "d": d, "messages": E, "segments": n,
+               "longest_segment": int(torch.diff(offsets).max()),
+               "max_abs_err": float(gap.max()), "bitwise_equal": True,
+               "mirror_bit_equal": True,
+               "ms": time_ms(run),
+               "device_ms": device_ms(run, label=label, parts=parts),
+               "device_ms_by_kernel": parts,
+               "plain_ms": time_ms(
+                   lambda: segment_sum_plain(m, order, offsets)),
+               "library_ms": time_ms(library),
+               "library_device_ms": device_ms(library,
+                                              label=label + " library"),
+               "library_call": "torch.segment_reduce(sorted messages, "
+                               "'sum', offsets=offsets, unsafe=True)",
+               "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        rows.append(row)
+        emit({"phase": "kernels", "kernel": "segment_sum", **row})
+    return rows
+
+
 def phase_bsp(datasets, dev):
     """Main path: the BSP forward at paper width over each plan, both
     exchanges, against the whole-graph forward on the card and the CPU.
@@ -1131,9 +1217,13 @@ def phase_bsp(datasets, dev):
                     base = torch.cuda.memory_allocated()
                     torch.cuda.reset_peak_memory_stats()
                     before = spmm.launches
+                    k3 = dict(segment_sum_k3.launches_by_path)
                     out = fwd(params, blocks)
                     torch.cuda.synchronize()
                     launched = spmm.launches - before
+                    k3_got = _k3_since(k3)
+                    k3_want = _k3_want(cfg, plan, exchange, fwd.mode,
+                                       forwards=1)
                     peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
                     resident = fwd.stats["ops"].t
                     require("bsr_values" not in resident,
@@ -1141,6 +1231,8 @@ def phase_bsp(datasets, dev):
                     want = cfg.num_layers if model in ("gcn", "sage") else 0
                     require(launched == want, f"{label}: {launched} spmm_csr "
                             f"launches, expected {want}")
+                    require(k3_got == k3_want, f"{label}: segment_sum sums "
+                            f"{k3_got}, expected {k3_want}")
                     full = torch.from_numpy(
                         gather_outputs(plan, out.cpu().numpy(), g.n))
                     err = allclose_err(full, ref, FWD_TOL)
@@ -1154,7 +1246,9 @@ def phase_bsp(datasets, dev):
                           "halo_rows": (plan.halo_bytes_ppermute
                                         if exchange == "ppermute"
                                         else plan.halo_rows_allgather),
-                          "spmm_launches": launched, "allclose_excess": err,
+                          "spmm_launches": launched,
+                          "segment_sum_launches": k3_got,
+                          "allclose_excess": err,
                           "max_abs_err": float((full - ref).abs().max()),
                           "card_vs_cpu_excess": cpu_err, "forward_ms": ms,
                           "plan_tensor_mb": sum(
@@ -1172,15 +1266,20 @@ def _bsp_graph(fwd, cfg, plan, params, blocks, out, want, label, key, dev):
     """The captured forward ``fwd`` (already called once: run eagerly,
     then captured) against an eager forward over the same plan: a replay
     and the first call bit-equal to it, one trace and one build, ``want``
-    K1 launches a replay; host ms both ways, device ms, capture seconds
-    and pool MB."""
+    K1 launches and :func:`_k3_want`'s K3 sums a replay (K3's eagerly too);
+    host ms both ways, device ms, capture seconds and pool MB."""
     eager = make_bsp_forward(cfg, plan, exchange=key["exchange"],
                              device=dev, graphs=False)
+    k3 = dict(segment_sum_k3.launches_by_path)
     expect = eager(params, blocks)
+    k3_eager = _k3_since(k3)
     before = spmm.launches
+    k3 = dict(segment_sum_k3.launches_by_path)
     replay = fwd(params, blocks)
     torch.cuda.synchronize()
     per_replay = spmm.launches - before
+    k3_replay = _k3_since(k3)
+    k3_want = _k3_want(cfg, plan, key["exchange"], fwd.mode, forwards=1)
     equal = torch.equal(replay, expect) and torch.equal(out, expect)
     quiet = _no_host_reads(lambda: eager.eager(params, blocks))
     row = {"phase": "bsp_graph", **key, "aggregate": fwd.mode,
@@ -1188,6 +1287,7 @@ def _bsp_graph(fwd, cfg, plan, params, blocks, out, want, label, key, dev):
            "traces": fwd.stats["traces"],
            "builds": fwd.stats["builds"],
            "spmm_launches_per_replay": per_replay,
+           "segment_sum_launches_per_replay": k3_replay,
            "host_ms": {"graph": host_ms(lambda: fwd(params, blocks),
                                         reps=10, warmup=1),
                        "eager": host_ms(lambda: eager(params, blocks),
@@ -1208,6 +1308,8 @@ def _bsp_graph(fwd, cfg, plan, params, blocks, out, want, label, key, dev):
             f"{fwd.stats['builds']} builds")
     require(per_replay == want, f"{label}: {per_replay} spmm_csr launches "
             f"a replay, expected {want}")
+    require(k3_replay == k3_eager == k3_want, f"{label}: segment_sum sums "
+            f"{k3_replay} a replay, {k3_eager} eagerly, expected {k3_want}")
 
 
 def _grad_excess(grads, ref):
@@ -1238,11 +1340,11 @@ def phase_train(datasets, dev):
     2.0) of SIoT and Yelp: GCN, SAGE and GAT under both exchanges with
     aggregate 'auto' (K1 both ways for GCN/SAGE), and GCN/SAGE also on the
     segment path.  Gradients within 2e-4 * max|ref| of the CPU whole-graph
-    loss_fn's (mask: every vertex), bit-equal run to run, K1's launches per
-    step exact, 20 steps lowering the loss, a checkpoint of the trained
-    parameters restored bit for bit; then a value-only patch of a copy of
-    SIoT's main plan (train step bit-equal to a fresh plan's, 0
-    rebuilds)."""
+    loss_fn's (mask: every vertex), bit-equal run to run, K1's launches and
+    K3's sums (:func:`_k3_want`) per step exact, 20 steps lowering the
+    loss, a checkpoint of the trained parameters restored bit for bit; then
+    a value-only patch of a copy of SIoT's main plan (train step bit-equal
+    to a fresh plan's, 0 rebuilds)."""
     rows = {}
     for ds in datasets:
         g = ds["graph"]
@@ -1274,6 +1376,7 @@ def phase_train(datasets, dev):
                             and not eager.graphs, f"{label}: the step on "
                             f"{dev} resolved graphs to {step.graphs}")
                     before = dict(spmm.launches_by_dir)
+                    k3 = dict(segment_sum_k3.launches_by_path)
                     loss, grads = step.loss_and_grads(params, blocks)
                     loss2, grads2 = step.loss_and_grads(params, blocks)
                     new, _ = step(params, blocks)
@@ -1281,6 +1384,9 @@ def phase_train(datasets, dev):
                     torch.cuda.synchronize()
                     got = {k: spmm.launches_by_dir[k] - before[k]
                            for k in before}
+                    k3_got = _k3_since(k3)
+                    k3_want = _k3_want(cfg, plan, exchange, fwd.mode,
+                                       steps=4)
                     L = cfg.num_layers
                     want = ({"fwd": 4 * L, "bwd": 4 * (L - 1)}
                             if fwd.mode == "bsr" else {"fwd": 0, "bwd": 0})
@@ -1289,6 +1395,8 @@ def phase_train(datasets, dev):
                             f"{label}: aggregate resolved to {fwd.mode}")
                     require(got == want, f"{label}: spmm_csr launches "
                             f"{got} over 4 steps, expected {want}")
+                    require(k3_got == k3_want, f"{label}: segment_sum sums "
+                            f"{k3_got} over 4 steps, expected {k3_want}")
                     require(torch.equal(loss, loss2)
                             and _equal_trees(grads, grads2)
                             and _equal_trees(new, new2),
@@ -1306,6 +1414,7 @@ def phase_train(datasets, dev):
                            "loss_err": loss_err, "grad_max_abs_err": err,
                            "grad_excess": excess, "bitwise_equal": True,
                            "spmm_launches_4_steps": got,
+                           "segment_sum_launches_4_steps": k3_got,
                            "eager_step_no_host_reads": _no_host_reads(
                                lambda: eager(params, blocks)),
                            "step_ms": time_ms(lambda: step(params, blocks),
@@ -1680,6 +1789,19 @@ def _serve_pass(engine, targets):
                  "p99_ms": float(np.percentile(arr, 99)) * 1e3}
 
 
+def _serve_counted(engine, targets, path: str, cfg):
+    """:func:`_serve_pass`, holding K3's sums to one a layer and batch
+    served, all on ``path``."""
+    k3, batches = dict(segment_sum_k3.launches_by_path), engine.stats.batches
+    out, row = _serve_pass(engine, targets)
+    want = dict.fromkeys(k3, 0)
+    want[path] = cfg.num_layers * (engine.stats.batches - batches)
+    got = _k3_since(k3)
+    require(got == want, f"serve ({path}): segment_sum sums {got}, "
+            f"expected {want}")
+    return out, {**row, "segment_sum_launches": got}
+
+
 def phase_serve(siot, params_of, dev):
     """256 Zipf requests through the ego-serving engine over each of SIoT's
     plans, against the BSP forward's rows.  The engine captures one CUDA
@@ -1687,7 +1809,9 @@ def phase_serve(siot, params_of, dev):
     bit-equal, the same traces.  Each engine serves the stream twice: the
     first pass captures (or, eager, meets) every bucket, the second
     replays; the ``serve_graph`` line holds req/s and p50/p99 both ways
-    for both passes, the captures and their seconds and pool MB."""
+    for both passes, the captures and their seconds and pool MB.  Each
+    pass makes a K3 sum a layer and batch: over the batch's host-made order
+    in the graph engine, over a device sort in the eager one."""
     g = siot["graph"]
     cfg, params = gnn_paper.SIOT_GCN, params_of[("siot", "gcn")]
     targets = zipf_requests(g.n, 256, s=1.1, seed=SEED)
@@ -1701,7 +1825,7 @@ def phase_serve(siot, params_of, dev):
         on_card = dev.type == "cuda"
         require(engine.fwd.graphs is on_card, f"serve over {layout}: the "
                 f"engine on {dev} resolved graphs to {engine.fwd.graphs}")
-        out, cold = _serve_pass(engine, targets)
+        out, cold = _serve_counted(engine, targets, "plan", cfg)
         err = allclose_err(torch.from_numpy(out),
                            torch.from_numpy(bsp[targets]), FWD_TOL)
         require(out.shape == (256, cfg.layer_dims[-1])
@@ -1724,9 +1848,9 @@ def phase_serve(siot, params_of, dev):
               "cache": engine.cache_stats()})
         eager = GNNServeEngine(cfg, params, g, plan, hops=2, batch=16,
                                device=dev, graphs=False)
-        e_out, e_cold = _serve_pass(eager, targets)
-        again, warm = _serve_pass(engine, targets)
-        e_again, e_warm = _serve_pass(eager, targets)
+        e_out, e_cold = _serve_counted(eager, targets, "device", cfg)
+        again, warm = _serve_counted(engine, targets, "plan", cfg)
+        e_again, e_warm = _serve_counted(eager, targets, "device", cfg)
         equal = (np.array_equal(out, e_out) and np.array_equal(again, out)
                  and np.array_equal(e_again, e_out))
         traces = (engine.fwd.stats["traces"], eager.fwd.stats["traces"])
@@ -6224,6 +6348,33 @@ def _zero_counts() -> None:
         moe.grouped_gemm.launches_by_route, 0)
     moe.grouped_gemm.backward_launches_by_route = dict.fromkeys(
         moe.grouped_gemm.backward_launches_by_route, 0)
+    segment_sum_k3.launches = 0
+    segment_sum_k3.launches_by_path = dict.fromkeys(
+        segment_sum_k3.launches_by_path, 0)
+
+
+def _k3_since(before: dict) -> dict:
+    """K3's sums by path since ``before`` (a copy of its counts)."""
+    return {k: segment_sum_k3.launches_by_path[k] - before[k]
+            for k in before}
+
+
+def _k3_want(cfg, plan, exchange: str, mode: str, forwards: int = 0,
+             steps: int = 0) -> dict:
+    """K3's sums by path over ``forwards`` BSP forwards and ``steps`` train
+    steps over ``plan``: a forward's sums over the plan's order (GAT's
+    denominator and numerator a layer, the segment path's one); a step's
+    too, and the adjoints of the gathers that need a gradient, over a
+    device sort: each exchange after the first layer (a gather a ppermute
+    round, one for the allgather), GAT's four per-arc gathers a layer, the
+    segment path's neighbour gather after the first layer."""
+    L = cfg.num_layers
+    gat = cfg.model == "gat"
+    sums = 2 * L if gat else L if mode == "segment" else 0
+    wire = len(plan.rounds) if exchange == "ppermute" else 1
+    adjoints = wire * (L - 1) + (4 * L if gat else
+                                 L - 1 if mode == "segment" else 0)
+    return {"plan": sums * (forwards + steps), "device": adjoints * steps}
 
 
 def main() -> int:
@@ -6239,6 +6390,7 @@ def main() -> int:
     siot = phase_layout("siot", dev)
     yelp = phase_layout("yelp", dev)
     kernel_rows, bwd_rows, worst = phase_kernels([siot, yelp], dev)
+    k3_rows = phase_segment_kernel(siot, dev)
     _mark("layout_and_kernels")
     flash_rows, flash_worst = phase_flash_kernels(dev)
     stats_rows, stats_worst = phase_flash_stats(dev)
@@ -6256,6 +6408,7 @@ def main() -> int:
     _zero_counts()                            # the train path starts here
     phase_train([siot, yelp], dev)
     _mark("train")
+    k3_train = dict(segment_sum_k3.launches_by_path)
     train_launches = dict(spmm.launches_by_dir)       # ... and ends here
     require(train_launches["bwd"] > 0,
             "the train path never launched spmm_csr's backward")
@@ -6271,8 +6424,10 @@ def main() -> int:
     _zero_counts()                            # the GNN path starts here
     params_of = phase_bsp([siot, yelp], dev)
     _mark("bsp")
+    k3_bsp = dict(segment_sum_k3.launches_by_path)
     phase_serve(siot, params_of, dev)
     _mark("serve")
+    k3_serve = _k3_since(k3_bsp)
     phase_replicate(siot, params_of, dev)
     _mark("replicate")
     phase_patch(siot, params_of, dev)
@@ -6484,7 +6639,18 @@ def main() -> int:
         "bound_by": bwd_head["bound_by"],
         "library_ms": bwd_head["library_ms"],
         "library_device_ms": bwd_head["library_device_ms"],
-        "shape": bwd_head["shape"]}]})
+        "shape": bwd_head["shape"]}, {
+        "name": "segment_sum", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
+        "replaces": None,
+        "launches": sum(sum(c.values()) for c in (k3_train, k3_bsp,
+                                                   k3_serve)),
+        "launches_by_path": {"train": k3_train, "bsp": k3_bsp,
+                             "serve": k3_serve},
+        "shapes": {r["shape"]: {key: r[key] for key in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "library_ms", "library_device_ms", "longest_segment")}
+            for r in k3_rows}}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -102,6 +102,7 @@ from repro_torch.gnn.models import (
 from repro_torch.gnn.plan import (
     ShardPlan, build_plan_bsr, gather_outputs, scatter_features,
     scatter_replica_halo)
+from repro_torch.kernels import segment_sum as k3
 from repro_torch.kernels.gnn_aggregate import (
     PackedBSR, pack_bsr, spmm_packed, transpose_packed)
 from repro_torch.step import resolve_graphs, spec, step_for
@@ -197,7 +198,9 @@ class _PlanTensors:
     rows only, as P = 1 tables (one rank's share).  In mode 'segment' they
     also hold the order of the segment sums over the edge table's
     destinations (:func:`segment_order` of the flat ``dst``, in
-    ``segments``), which the plan alone fixes.  ``moved`` holds what a
+    ``segments``: the order, the sorted ``dst`` and the segments'
+    offsets), which the plan alone fixes, and on a card K3's library is
+    loaded with them.  ``moved`` holds what a
     layer's exchange counts (:meth:`_moved`)."""
 
     def __init__(self, plan: ShardPlan, mode: str, exchange: str,
@@ -232,8 +235,12 @@ class _PlanTensors:
             self.packed_t = PackedBSR(
                 self.t["bsr_t_row_ptr"], self.t["bsr_t_col"],
                 self.t["bsr_t_w"], src_rows=n_rows, n_rows=self.table_rows)
-        self.segments = ((self.t["seg_order"], self.t["seg_lengths"])
-                         if mode == "segment" else None)
+        self.segments = None
+        if mode == "segment":
+            self.segments = tuple(self.t[k] for k in (
+                "seg_order", "seg_keys", "seg_offsets"))
+            if device.type == "cuda":
+                k3.load()          # K3's library, outside any capture
 
     def _host(self, plan: ShardPlan) -> dict:
         q = (slice(None) if self.part is None
@@ -243,8 +250,8 @@ class _PlanTensors:
         if self.mode == "segment":
             ed = arrs["edges_dst"].astype(np.int64)
             dst = ed + np.arange(len(ed))[:, None] * (self.cap + 1)
-            arrs["seg_order"], arrs["seg_lengths"] = segment_order(
-                dst, len(ed) * (self.cap + 1))
+            arrs["seg_order"], arrs["seg_keys"], arrs["seg_offsets"] = (
+                segment_order(dst, len(ed) * (self.cap + 1)))
         if self.mode == "bsr":
             packs = (_plan_pack(plan) if self.part is None
                      else _part_pack(plan, self.part))

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.kernels import segment_sum as k3
 from repro_torch.step import cached_step, resolve_graphs, spec
 
 Aggregate = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
@@ -30,13 +31,17 @@ Aggregate = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 
 def segment_order(dst: np.ndarray, n: int):
     """The order of a segment sum over ``dst`` fixed on the host, for
-    :func:`segment_sum`'s ``segments``: (the stable argsort of ``dst``, the
-    count of each of its ``n`` ids), int64 arrays.  Made wherever ``dst``
-    is known before the call (a plan's edge table, a batch's arcs), so the
-    sum on the card reads nothing back to the host."""
+    :func:`segment_sum`'s ``segments``: (the stable argsort of ``dst``,
+    ``dst`` in that order, the offsets of its ``n`` ids' segments in it:
+    the exclusive prefix of their counts, then the total), int64 arrays.
+    Made wherever ``dst`` is known before the call (a plan's edge table, a
+    batch's arcs), so the sum on the card reads nothing back to the
+    host."""
     dst = np.asarray(dst).astype(np.int64).reshape(-1)
-    return (np.argsort(dst, kind="stable"),
-            np.bincount(dst, minlength=n).astype(np.int64))
+    order = np.argsort(dst, kind="stable")
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n), out=offsets[1:])
+    return order, dst[order], offsets
 
 
 def segment_sum(messages: torch.Tensor, dst: torch.Tensor, n: int,
@@ -56,33 +61,38 @@ def segment_sum(messages: torch.Tensor, dst: torch.Tensor, n: int,
 
 def sorted_segment_sum(messages: torch.Tensor, dst: torch.Tensor, n: int,
                        segments=None) -> torch.Tensor:
-    """Destination-sorted segment sum: the messages in stable ``dst``
-    order, then ``segment_reduce``, which sums each segment in order.  Each
-    destination therefore sums its messages in edge order, as
-    ``index_add_`` does on the CPU, and the result does not depend on
-    scheduling.
+    """Destination-sorted segment sum: K3 on the card, its plain version
+    (the messages in stable ``dst`` order, then ``segment_reduce``)
+    elsewhere; both in :mod:`repro_torch.kernels.segment_sum`.  The plain
+    version sums each destination's messages in edge order, as
+    ``index_add_`` does on the CPU.  K3 does too for a destination whose
+    messages lie in one of its tiles of 256 sorted positions (in its
+    segmented scan's fixed order for 1- and 2-wide messages); a longer
+    segment is summed tile by tile, the tiles' partials then in tile
+    order.  Either way the order is fixed by the shapes alone and the
+    result does not depend on scheduling.  The gradient with respect to
+    ``messages`` is the output's gathered by ``dst``.
 
     Nothing is read back to the host, so the sum can be captured into a
-    CUDA graph: the order and the segment lengths are ``segments`` (made
-    on the host by :func:`segment_order`) or, without them, a stable sort
-    on the device and an integer ``scatter_add_`` (exact in any order);
-    ``segment_reduce`` runs with ``unsafe=True``, which skips the two
-    checks of its lengths that read them to the host (the lengths sum to
-    E by construction)."""
+    CUDA graph: the order, sorted ``dst`` and offsets are ``segments``
+    (made on the host by :func:`segment_order`) or, without them, a stable
+    sort on the device and a ``searchsorted`` of each id's first
+    position."""
     if segments is None:
-        dst = dst.long()
-        order = torch.argsort(dst, stable=True)
-        lengths = torch.zeros(n, dtype=torch.long, device=dst.device)
-        lengths.scatter_add_(0, dst, torch.ones_like(dst))
+        keys, order = torch.sort(dst.long(), stable=True)
+        offsets = torch.searchsorted(
+            keys, torch.arange(n + 1, device=keys.device))
+        path = "device"
     else:
-        order, lengths = segments
-        if order.shape[0] != messages.shape[0] or lengths.shape[0] != n:
+        order, keys, offsets = segments
+        if order.shape[0] != messages.shape[0] or offsets.shape[0] != n + 1:
             raise ValueError(
                 f"segment order of {order.shape[0]} messages into "
-                f"{lengths.shape[0]} segments, given {messages.shape[0]} "
-                f"into {n}")
-    return torch.segment_reduce(messages.index_select(0, order), "sum",
-                                lengths=lengths, axis=0, unsafe=True)
+                f"{offsets.shape[0] - 1} segments, given "
+                f"{messages.shape[0]} into {n}")
+        path = "plan"
+    return k3.segment_sum(messages.contiguous(), dst, order, keys, offsets,
+                          path)
 
 
 def segment_max(values: torch.Tensor, dst: torch.Tensor,
@@ -104,8 +114,8 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     card uses float atomics wherever an index repeats.  This one sums each
     row's gradient with :func:`segment_sum`: ``index_add_`` on the CPU,
     :func:`sorted_segment_sum` on the card (its order found on the device,
-    so the backward can be captured).  Both add a row's
-    contributions in index order, so card gradients are bit-equal run to
+    so the backward can be captured).  Both add a row's contributions in
+    an order fixed by the shapes, so card gradients are bit-equal run to
     run and differ from the CPU's only in rounding."""
     return _GatherRows.apply(x, idx)
 

@@ -302,11 +302,11 @@ def make_ego_forward(cfg: GNNConfig, params, device: DeviceLike = "cuda",
     steps = {}
     pool = torch.cuda.graph_pool_handle() if graphs else None
 
-    def run(feats, arcs, deg, tgt_rows, order=None, lengths=None):
+    def run(feats, arcs, deg, tgt_rows, order=None, keys=None, offsets=None):
         arcs, tgt_rows = arcs.long(), tgt_rows.long()
         n = feats.shape[0]
-        agg = (segment_sum if order is None else
-               functools.partial(segment_sum, segments=(order, lengths)))
+        agg = (segment_sum if order is None else functools.partial(
+            segment_sum, segments=(order, keys, offsets)))
         h = feats.to(cfg.dtype)
         for k, p in enumerate(params):
             h = layer_fn(p, h, arcs, deg, n, k == K - 1, agg)
@@ -324,14 +324,14 @@ def make_ego_forward(cfg: GNNConfig, params, device: DeviceLike = "cuda",
             args = {k: torch.as_tensor(a, device=dev)
                     for k, a in tables.items()}
             if segments is not None and dev.type != "cpu":
-                args["order"], args["lengths"] = (
+                args["order"], args["keys"], args["offsets"] = (
                     torch.as_tensor(a, device=dev) for a in segments)
             return run(**args)
         if segments is None:
             host = (arcs.cpu().numpy() if isinstance(arcs, torch.Tensor)
                     else arcs)
             segments = _ego_order(host, rows, cfg.model)
-        tables["order"], tables["lengths"] = segments
+        tables["order"], tables["keys"], tables["offsets"] = segments
         step = steps[sig]
         if step is None:
             step = steps[sig] = Step(f"ego {cfg.model} {rows}",

@@ -148,6 +148,13 @@ def load_library() -> ctypes.CDLL:
                lib.flash_attention_bwd_dkdv, lib.flash_attention_bwd_tc_dq,
                lib.flash_attention_bwd_tc_dkdv):
         fn.restype = i32
+    # msg, order, keys, offsets, out, part, E, n, d, stream
+    # (csrc/segment_sum.cu)
+    lib.segment_sum_f32.argtypes = ([ptr] * 6 + [ctypes.c_int64] * 2
+                                    + [i32, ptr])
+    lib.segment_sum_f32.restype = i32
+    lib.segment_sum_tile.argtypes = []
+    lib.segment_sum_tile.restype = i32
     # slots, head, capacity, phase, stream (csrc/mark.cu)
     lib.repro_torch_mark.argtypes = [ptr, ptr, ctypes.c_int64, i32, ptr]
     lib.repro_torch_mark.restype = i32

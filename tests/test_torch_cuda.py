@@ -28,7 +28,12 @@ from repro_torch.gnn import (  # noqa: E402
     init_params, make_rank_bsp_forward, simulate_bsp_forward)
 from repro_torch.gnn import plan as TP  # noqa: E402
 from repro_torch.gnn.distributed import make_bsp_forward  # noqa: E402
-from repro_torch.gnn.models import segment_sum  # noqa: E402
+from repro_torch.gnn.models import (  # noqa: E402
+    segment_order, segment_sum, sorted_segment_sum)
+from repro_torch.kernels.segment_sum import (  # noqa: E402
+    segment_sum as segment_sum_k3, segment_sum_plain,
+    segment_sum_tiles_plain)
+from repro_torch.step import Step, static_inputs  # noqa: E402
 from repro_torch.gnn.training import (  # noqa: E402
     loss_and_grads, make_distributed_train_step)
 from repro_torch.graphs import (  # noqa: E402
@@ -195,6 +200,142 @@ def test_segment_sum_on_card_is_deterministic(dev):
     cpu = segment_sum(msgs, dst, 3001)
     np.testing.assert_allclose(a.cpu().numpy(), cpu.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+# The siot-gat plan's edge tables: P partitions of e_cap arcs, each
+# partition's live arcs first, its padded arcs into its dummy segment cap.
+GAT_PLAN = {"P": 8, "cap": 11_912, "e_cap": 100_136,
+            "live": (12, 3, 15, 66_753, 90, 77, 16, 52)}
+
+
+def _gat_plan_case(d, seed=0):
+    """Messages and the host-made order of a sum over the siot-gat plan's
+    801,088 message slots (8 dummy segments of 33,383 to 100,133 messages,
+    live segments up to 277), as (messages, dst, segments, n) on the CPU."""
+    rng = np.random.default_rng(seed)
+    P, cap, e_cap = GAT_PLAN["P"], GAT_PLAN["cap"], GAT_PLAN["e_cap"]
+    ed = np.full((P, e_cap), cap, np.int64)
+    for p, live in enumerate(GAT_PLAN["live"]):
+        dst = rng.integers(1, max(2, live // 8), size=live)
+        dst[:min(277, live)] = 0                        # a hub of 277
+        ed[p, :live] = rng.permutation(dst)
+    dst = (ed + np.arange(P)[:, None] * (cap + 1)).reshape(-1)
+    n = P * (cap + 1)
+    shape = (P * e_cap,) if d == 1 else (P * e_cap, d)
+    msgs = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    segments = tuple(torch.from_numpy(a) for a in segment_order(dst, n))
+    assert int(torch.diff(segments[2]).max()) == e_cap - 3
+    return msgs, torch.from_numpy(dst), segments, n
+
+
+@pytest.mark.parametrize("d", [1, 2, 16, 52])
+def test_k3_at_the_gat_plan_shapes(dev, d):
+    """K3 over the siot-gat plan's shapes: bit-equal twice and to the plain
+    mirror of its association, within 1e-5 of the segment's magnitudes of
+    the plain version (``segment_reduce``), counted once a sum on the
+    plan's path; the order sorted on the card gives the same bits."""
+    msgs, dst, segments, n = _gat_plan_case(d)
+    m, dt = msgs.to(dev), dst.to(dev)
+    seg = tuple(t.to(dev) for t in segments)
+    before = dict(segment_sum_k3.launches_by_path)
+    a = sorted_segment_sum(m, dt, n, seg)
+    b = sorted_segment_sum(m, dt, n, seg)
+    torch.cuda.synchronize()
+    assert segment_sum_k3.launches_by_path["plan"] == before["plan"] + 2
+    assert torch.equal(a, b)
+    assert torch.equal(a, segment_sum_tiles_plain(m, *seg))
+    plain = segment_sum_plain(m, seg[0], seg[2])
+    mag = segment_sum_plain(m.abs(), seg[0], seg[2])
+    assert bool(((a - plain).abs() <= 1e-5 * mag + 1e-6).all())
+    c = sorted_segment_sum(m, dt, n)
+    assert segment_sum_k3.launches_by_path["device"] == before["device"] + 1
+    assert torch.equal(a, c)
+    cpu = sorted_segment_sum(msgs, dst, n, segments)
+    assert torch.equal(a.cpu(), segment_sum_tiles_plain(msgs, *segments))
+    assert bool(((a.cpu() - cpu).abs() <= 1e-5 * mag.cpu() + 1e-6).all())
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 16, 17, 33, 52, 100, 300])
+def test_k3_equals_its_mirror_over_ragged_cases(dev, d):
+    """Every width's branch (grid y past 256 columns) over segments that
+    cross tiles, lie inside one, are empty or trail empty, and over no
+    messages at all: bit-equal to the mirror, the empties exactly 0."""
+    rng = np.random.default_rng(d)
+    n = 90
+    dst = rng.integers(0, 60, size=3_000)
+    dst[rng.random(3_000) < 0.3] = 70
+    dst[dst == 30] = 31
+    seg = tuple(torch.from_numpy(a).to(dev) for a in segment_order(dst, n))
+    m = torch.from_numpy(rng.standard_normal((3_000, d)).astype(
+        np.float32)).to(dev)
+    out = segment_sum_k3(m, torch.from_numpy(dst).to(dev), *seg)
+    assert torch.equal(out, segment_sum_tiles_plain(m, *seg))
+    assert not out[30].any() and not out[71:].any()
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    none = segment_sum_k3(m[:0], empty, empty, empty,
+                          torch.zeros(6, dtype=torch.int64, device=dev))
+    assert none.shape == (5, d) and not none.any()
+
+
+@pytest.mark.parametrize("d", [1, 2, 16, 52])
+def test_k3_over_runs_of_empty_segments(dev, d):
+    """Empty segments first, runs of thousands of empty segments between
+    full ones (a tile and a tile boundary inside them), single-message
+    segments and empty ones last: bit-equal to the mirror and every empty
+    segment exactly 0."""
+    rng = np.random.default_rng(100 + d)
+    n = 12_000
+    ids = np.array([3, 4, 700, 5_000, 5_001, 9_000, 11_000])
+    dst = rng.choice(ids, size=4_000, p=[.1, .1, .002, .3, .297, .1, .101])
+    dst = np.concatenate([dst, np.arange(6_000, 6_010)])
+    seg = tuple(torch.from_numpy(a).to(dev) for a in segment_order(dst, n))
+    m = torch.from_numpy(rng.standard_normal((len(dst), d)).astype(
+        np.float32)).to(dev)
+    out = segment_sum_k3(m, torch.from_numpy(dst).to(dev), *seg)
+    assert torch.equal(out, segment_sum_tiles_plain(m, *seg))
+    empty = torch.ones(n, dtype=torch.bool)
+    empty[np.unique(dst)] = False
+    assert not out[empty.to(dev)].any()
+
+
+def test_k3_captured_equals_eager_and_counts_each_replay(dev):
+    """One sum on each path captured into a CUDA graph: replays over new
+    messages bit-equal to eager calls, each replay counted once a sum."""
+    msgs, dst, segments, n = _gat_plan_case(16, seed=1)
+    dt = dst.to(dev)
+    seg = tuple(t.to(dev) for t in segments)
+
+    def body(m):
+        return (sorted_segment_sum(m, dt, n, seg),
+                sorted_segment_sum(m[:, :1].contiguous(), dt, n))
+
+    step = Step("k3", body, static_inputs(dev, m=msgs),
+                torch.cuda.graph_pool_handle())
+    for k in range(3):
+        m = (msgs * (k + 1) - k).to(dev)
+        step.write("m", m)
+        before = dict(segment_sum_k3.launches_by_path)
+        got = [t.clone() for t in step()]
+        torch.cuda.synchronize()
+        assert segment_sum_k3.launches_by_path == {
+            "plan": before["plan"] + 1, "device": before["device"] + 1}
+        want = body(m)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert step.graph is not None and step.replays == 2
+
+
+def test_k3_wrapper_rejects_what_it_does_not_take(dev):
+    msgs, dst, segments, n = _gat_plan_case(2)
+    m, dt = msgs.to(dev), dst.to(dev)
+    seg = tuple(t.to(dev) for t in segments)
+    with pytest.raises(TypeError, match="segment_sum"):
+        sorted_segment_sum(m.double(), dt, n, seg)
+    with pytest.raises(ValueError, match="segment_sum"):
+        segment_sum_k3(m, dt, seg[0].cpu(), seg[1], seg[2])
+    with pytest.raises(ValueError, match="segment_sum"):
+        segment_sum_k3(m.t(), dt, *seg)
+    with pytest.raises(ValueError, match="segment order"):
+        sorted_segment_sum(m[1:], dt[1:], n, seg)
 
 
 def test_bsr_aggregate_kernel_matches_plain(dev):
@@ -1734,12 +1875,15 @@ def test_gnn_bsp_forward_graph_equals_eager(dev, model, exchange, replicas):
     want = [eager(params, b, replica0=r) for b, r in zip(blocks, r0)]
     first = graph(params, blocks[0], replica0=r0[0])     # eager, captured
     per = cfg.num_layers if model != "gat" else 0
+    sums = 2 * cfg.num_layers if model == "gat" else 0   # K3: denom, num
     outs = []
     for b, r in zip(blocks, r0):
-        n = spmm.launches
+        n, k3 = spmm.launches, dict(segment_sum_k3.launches_by_path)
         outs.append(graph(params, b, replica0=r))
         torch.cuda.synchronize()
         assert spmm.launches - n == per
+        assert segment_sum_k3.launches_by_path == {
+            "plan": k3["plan"] + sums, "device": k3["device"]}
     assert torch.equal(first, want[0])
     assert torch.equal(outs[0], want[0]) and torch.equal(outs[1], want[1])
     assert not torch.equal(outs[0], outs[1])
@@ -1792,10 +1936,10 @@ def test_gnn_bsp_graph_over_patches(dev):
 @pytest.mark.parametrize("model", ["gcn", "sage", "gat"])
 def test_gnn_train_step_graph_equals_eager(dev, model):
     """Five captured train steps bit-equal to five eager ones, K1's
-    launches a replay exact both ways, the eager step free of host reads,
-    and after a value-only patch (the targets moved by ``set_targets``)
-    the same graph's replay reads the new plan: bit-equal to a fresh
-    plan's eager step."""
+    launches and K3's sums a replay exact both ways, the eager step free
+    of host reads, and after a value-only patch (the targets moved by
+    ``set_targets``) the same graph's replay reads the new plan: bit-equal
+    to a fresh plan's eager step."""
     g, cfg, params, fwd, step, blocks = _train_case(dev, model, "ppermute")
     eager_fwd = make_bsp_forward(cfg, fwd.plan, device=dev, graphs=False)
     labels = TP.scatter_ints(fwd.plan, g.labels)
@@ -1805,13 +1949,27 @@ def test_gnn_train_step_graph_equals_eager(dev, model):
     p, q = params, params
     for _ in range(5):
         before = dict(spmm.launches_by_dir)
+        k3 = dict(segment_sum_k3.launches_by_path)
         p, loss = step(p, blocks)
         torch.cuda.synchronize()
         got = {k: spmm.launches_by_dir[k] - before[k] for k in before}
+        k3_replay = {k: segment_sum_k3.launches_by_path[k] - k3[k]
+                     for k in k3}
+        k3 = dict(segment_sum_k3.launches_by_path)
         q, want = eager(q, blocks)
+        k3_eager = {k: segment_sum_k3.launches_by_path[k] - k3[k]
+                    for k in k3}
         assert torch.equal(loss, want)
         assert got == ({"fwd": 2, "bwd": 1} if model != "gat"
                        else {"fwd": 0, "bwd": 0})
+        assert k3_replay == k3_eager        # K3 counted per replay
+        # GAT's forward sums over the plan's order; over a device sort the
+        # layer-2 exchange's adjoint (a sum a round) and GAT's four per-arc
+        # gathers' a layer
+        rounds = len(fwd.plan.rounds)
+        assert k3_replay == ({"plan": 4, "device": rounds + 8}
+                             if model == "gat"
+                             else {"plan": 0, "device": rounds})
     for a, b in zip(p, q):
         for k in a:
             assert torch.equal(a[k], b[k]), k

@@ -66,9 +66,10 @@ def test_segment_sum_bit_equal_with_empty_segments_and_padding(d):
     msgs = torch.from_numpy(rng.standard_normal((E, d)).astype(np.float32))
     dt = torch.from_numpy(dst)
     want = _bincount_segment_sum(msgs, dt, n)
-    order, lengths = TM.segment_order(dst, n)
+    order, keys, offsets = TM.segment_order(dst, n)
     assert np.array_equal(order, np.argsort(dst, kind="stable"))
-    host = (torch.from_numpy(order), torch.from_numpy(lengths))
+    assert np.array_equal(keys, dst[order])
+    host = tuple(torch.from_numpy(a) for a in (order, keys, offsets))
     for got in (TM.sorted_segment_sum(msgs, dt, n),
                 TM.sorted_segment_sum(msgs, dt, n, host),
                 TM.segment_sum(msgs, dt, n)):
@@ -95,24 +96,28 @@ def test_plan_segments_follow_the_edge_table_through_patches():
     rewrites them in place to a fresh plan's."""
     g, plan = _plan()
     ops = TD._PlanTensors(plan, "segment", "ppermute", torch.device("cpu"))
-    order, lengths = ops.segments
+    order, keys, offsets = ops.segments
 
     def expect(p):
         P, cap = p.num_parts, p.cap
         dst = (torch.from_numpy(p.edges_dst).long()
                + torch.arange(P)[:, None] * (cap + 1)).reshape(-1)
-        return (torch.argsort(dst, stable=True),
-                torch.bincount(dst, minlength=P * (cap + 1)))
+        order = torch.argsort(dst, stable=True)
+        lengths = torch.bincount(dst, minlength=P * (cap + 1))
+        return order, dst[order], torch.cat([lengths.new_zeros(1),
+                                             lengths.cumsum(0)])
 
+    assert len(ops.segments) == 3
     for want, got in zip(expect(plan), ops.segments):
         assert torch.equal(want, got)
+    lengths = torch.diff(offsets)
     assert int(lengths.reshape(plan.num_parts, -1)[:, plan.cap].sum()) == int(
         (plan.edges_dst == plan.cap).sum())
     new = plan.assign.copy()
     new[[3, 17, 40]] = (new[[3, 17, 40]] + 1) % plan.num_parts
     assert not TP.patch_plan(plan, g, new).retrace_expected
     ops.refresh(plan)
-    assert ops.segments[0] is order and ops.segments[1] is lengths
+    assert all(a is b for a, b in zip(ops.segments, (order, keys, offsets)))
     fresh = TP.recompile_like(plan, g, new)
     for want, got in zip(expect(fresh), ops.segments):
         assert torch.equal(want, got)
@@ -296,12 +301,14 @@ def test_ego_segments_order_the_layer_sums():
     ego = TS.extract_ego_batch(g, np.array([2, 7, 7, 30]), 2, batch=4)
     n = ego.dummy + 1
     for model in ("gcn", "gat"):
-        order, lengths = TS.ego_segments(ego, model)
+        order, keys, offsets = TS.ego_segments(ego, model)
         dst = ego.arcs[:, 1].astype(np.int64)
         if model == "gat":
             dst = np.concatenate([dst, np.arange(n)])
         assert np.array_equal(order, np.argsort(dst, kind="stable"))
-        assert np.array_equal(lengths, np.bincount(dst, minlength=n))
+        assert np.array_equal(keys, dst[order])
+        assert np.array_equal(np.diff(offsets), np.bincount(dst, minlength=n))
+        assert offsets[0] == 0 and offsets[-1] == len(dst)
     cfg = TM.GNNConfig("gat", (52, 16, 2))
     params = TM.init_params(cfg, device="cpu")
     feats, deg, rows = TS.ego_tables(ego, g.features,
