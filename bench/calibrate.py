@@ -34,13 +34,13 @@ def main(argv, device: str = "cuda") -> dict:
 
     import torch
     from bench import faults, harness, loop
-    from bench.system import System
     wl = harness.cell(harness.spec(), args.workload)
     dev = torch.device(device)
     graphs = None if dev.type == "cuda" else False
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("calibrate: no CUDA device")
-    system = System(harness.config(wl["config"]), dev, graphs)
+    conf = harness.config(wl["config"])
+    system = harness.system_module(conf).System(conf, dev, graphs)
     kind = harness.generator(wl["generator"])
     limits = wl["limits"]
     ring = wl["params"].get("ring", 1)
@@ -82,9 +82,8 @@ def main(argv, device: str = "cuda") -> dict:
             one(seed, "fault", fault)
 
     summary = {"workload": args.workload, "what": "summary",
-               "layout_cost": system.layout_cost,
-               "cost_gap": abs(system.reported_cost - system.layout_cost)
-               / system.layout_cost}
+               **system.values(),
+               **{k: v for k, (v, _) in system.checks(limits).items()}}
     names = rows[0]["numbers"].keys()
     for k in names:
         prog = [r["numbers"][k] for r in rows if r["what"] == "program"]

@@ -2,22 +2,41 @@
 
 The cell (``BENCHMARK.json``'s ``workloads`` entry and its file of
 limits, ``bench/workloads/<name>.json``), its configuration
-(``bench/configs/<config>.json``), its traffic mix
-(``bench/traffic/<traffic>.json``: the generator that reads it,
-``bench/traffic/<generator>.py``, and its parameters) and the reader of
-each per-layer metric (``bench/metrics/<name>.py``, or ``<name up to its
-last dot>.py``, which serves every suffix) are found by name: adding a
-cell, a configuration, a mix, a generator or a metric adds files and
-entries and edits none; a mix that an existing generator reads adds
-data alone.
+(``bench/configs/<config>.json``), the system under test that the
+configuration names (``bench/systems/<system>.py``, ``layout`` where it
+names none), its traffic mix (``bench/traffic/<traffic>.json``: the
+generator that reads it, ``bench/traffic/<generator>.py``, and its
+parameters) and the reader of each per-layer metric
+(``bench/metrics/<name>.py``, or ``<name up to its last dot>.py``, which
+serves every suffix) are found by name: adding a cell, a configuration, a
+system, a mix, a generator or a metric adds files and entries and edits
+none; a mix that an existing generator reads adds data alone.
 
-A run: set-up (the program imported, its kernel library loaded where the
-cell's forward uses it, the configuration built, the cell's inputs drawn
-from the seed, the program's entry made and warmed up) up to
-``setup_s``; the measured window; with ``--trace 1`` traced windows after
-it; the card's peak memory; then, with the program released, the
-comparison with the plain reference; last, the look for modules of the
-JAX stack.  The last line of standard output is the result."""
+A system module imports the program it drives and gives:
+
+* ``load_kernels(config, device) -> bool``: loads the program's kernel
+  library where the configuration's path uses it (on a checkout's first
+  run it builds it); whether it did;
+* ``System(config, device, graphs)``: the configuration built (``graphs``
+  None lets the program capture CUDA graphs, False keeps it eager), with
+  ``timings`` (seconds of its set-up's parts, by name);
+  ``checks(limits) -> {name: (value, limit)}``, its own comparisons;
+  ``values() -> {name: value}``, the end-to-end metrics it gives beside
+  the traffic's; ``flops(train) -> float``, the floating-point operations
+  of a step (with ``train`` a training step), and ``peak_ops_per_s``, the
+  card's peak in the precision it computes in, for the whole step's
+  share; ``release()``, which drops the program's entry and its device
+  state; and ``model`` and ``dims``, where it has them, for the readers
+  of the GNN layers.
+
+A run: set-up (the system's module and with it the program imported, its
+kernel library loaded where the cell's path uses it, the configuration
+built, the cell's inputs drawn from the seed, the program's entry made
+and warmed up) up to ``setup_s``; the measured window; with ``--trace 1``
+traced windows after it; the card's peak memory; then, with the program
+released, the system's checks and the traffic's comparison with the
+plain reference; last, the look for modules of the JAX stack.  The last
+line of standard output is the result."""
 from __future__ import annotations
 
 import argparse
@@ -66,6 +85,12 @@ def cell(spec_: dict, name: str) -> dict:
 
 def config(name: str) -> dict:
     return load_json(HERE / "configs" / f"{name}.json")
+
+
+def system_module(conf: dict):
+    """The system under test that a configuration names."""
+    return importlib.import_module(
+        f"bench.systems.{conf.get('system', 'layout')}")
 
 
 def generator(name: str):
@@ -144,19 +169,18 @@ def set_up(wl: dict, seed: int, dev, graphs, started: float):
     traffic, setup_s, the set-up's parts in seconds).  ``build_s`` is the
     kernel library's load, which on a checkout's first run builds it."""
     import torch
-    import repro_torch.gnn  # noqa: F401  (the program, timed as an import)
-    from bench.system import System, load_kernels
     conf = config(wl["config"])
+    systems = system_module(conf)     # imports the program
     parts = {"imports": time.perf_counter() - started}
     if dev.type == "cuda":
         mark = time.perf_counter()
         torch.zeros(1, device=dev)
         parts["cuda_init"] = time.perf_counter() - mark
         mark = time.perf_counter()
-        if load_kernels(conf, dev):
+        if systems.load_kernels(conf, dev):
             parts["build_s"] = time.perf_counter() - mark
     mark = time.perf_counter()
-    system = System(conf, dev, graphs)
+    system = systems.System(conf, dev, graphs)
     parts["system"] = time.perf_counter() - mark
     mark = time.perf_counter()
     traffic = generator(wl["generator"]).Traffic(system, seed,
@@ -170,15 +194,9 @@ def set_up(wl: dict, seed: int, dev, graphs, started: float):
 
 
 def judge(system, traffic, limits: dict) -> tuple:
-    """Every number compared, with its limit: the layout's own checks,
+    """Every number compared, with its limit: the system's own checks,
     then the traffic's comparison with the plain reference."""
-    lay = system.layout
-    compared = {
-        "assign_bad": (lay.assign_bad, 0),
-        "row_map_bad": (lay.row_map_bad, 0),
-        "cost_gap": (abs(system.reported_cost - system.layout_cost)
-                     / system.layout_cost, limits["cost_gap"]),
-    }
+    compared = system.checks(limits)
     numbers, answers, failed = traffic.check(limits)
     compared.update(numbers)
     return compared, answers, failed
@@ -209,9 +227,11 @@ def main(argv, started: float, device: str = None) -> int:
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
     ctx = SimpleNamespace(
-        system=system, kind=wl["generator"], mode=traffic.mode, window=res,
-        summary=summary, timings=system.timings, device=dev,
-        model=system.model, dims=system.dims)
+        system=system, train=traffic.train,
+        mode=getattr(traffic, "mode", None), window=res, summary=summary,
+        timings=system.timings, device=dev,
+        model=getattr(system, "model", None),
+        dims=getattr(system, "dims", None))
     traffic.release()
     system.release()
     gc.collect()
@@ -228,7 +248,7 @@ def main(argv, started: float, device: str = None) -> int:
                 if v is not None:
                     metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     else:
-        values = {"setup_s": setup_s, "layout_cost": system.layout_cost,
+        values = {"setup_s": setup_s, **system.values(),
                   **traffic.window(res)}
         missing = [m["name"] for m in e2e if m["name"] not in values]
         if missing:

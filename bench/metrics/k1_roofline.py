@@ -13,7 +13,7 @@ def read(ctx, name):
     if not s:
         return None
     sec = sum(t for k, (_, t) in s["ops"].items() if KERNEL in k)
-    sums = ctx.model.aggregations(ctx.dims, ctx.kind == "train")
+    sums = ctx.model.aggregations(ctx.dims, ctx.train)
     if sec <= 0 or not sums:
         return None
     c = ctx.system.counts

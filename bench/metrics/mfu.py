@@ -1,7 +1,8 @@
-"""Whole step: the model's floating-point operations a step on the real
-graph (the reference module's ``flops``) over the window's time a step
-and the card's float32 peak, in % (host clock).  Only on the card."""
-from bench.yardstick import peaks
+"""Whole step: the system's floating-point operations a step
+(``System.flops``: for the GNN layout the reference module's ``flops`` on
+the real graph) over the window's time a step and the card's peak in the
+precision the system computes in (``System.peak_ops_per_s``), in % (host
+clock).  Only on the card."""
 
 
 def read(ctx, name):
@@ -9,5 +10,5 @@ def read(ctx, name):
     if ctx.device.type != "cuda" or not w["steps"]:
         return None
     step_s = w["seconds"] / w["steps"]
-    flops = ctx.model.flops(ctx.system.counts, ctx.dims, ctx.kind == "train")
-    return 100.0 * flops / step_s / peaks.FP32_OPS_PER_S
+    flops = ctx.system.flops(ctx.train)
+    return 100.0 * flops / step_s / ctx.system.peak_ops_per_s

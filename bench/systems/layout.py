@@ -1,6 +1,6 @@
-"""The system under test, built from a configuration file: the data graph
+"""The GNN layout system, built from a configuration file: the data graph
 and the fleet from the frozen generators, then the program's own GLAD-S
-layout, its plan and its BSP forward (``repro_torch``).
+layout, its plan and its BSP forward (``repro_torch.gnn``).
 
 The benchmark hands the program the graph and the fleet it made, feeds it
 blocks scattered by the program's vertex-to-row map once that map has
@@ -16,7 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bench.yardstick import cost, fleet
+import repro_torch.gnn  # noqa: F401  (the program, timed as an import)
+from bench.yardstick import cost, fleet, peaks
 
 
 def model_module(name: str):
@@ -94,7 +95,11 @@ class System:
     """A configuration, built: ``graph`` and ``fleet`` (the frozen
     generators' arrays), the program's layout (``assign``, its reported
     ``reported_cost``) and ``plan``; ``layout_cost`` by the frozen Eq. 9;
-    ``timings`` of GLAD-S and of the plan."""
+    ``timings`` of GLAD-S and of the plan.  ``model`` is the reference
+    module (``bench/ref/<model>.py``), ``dims`` its layer widths; the
+    port's GNN path computes in float32 with TF32 off."""
+
+    peak_ops_per_s = peaks.FP32_OPS_PER_S
 
     def __init__(self, config: dict, device: torch.device,
                  graphs: Optional[bool] = None):
@@ -146,6 +151,26 @@ class System:
                        "rows": int(self.plan.local.size),
                        "messages": int(self.plan.edges_dst.size)}
         self._forward = None
+
+    # ------------------------------------------- what the harness reads
+    def checks(self, limits: dict) -> dict:
+        """The layout's own comparisons, each with its limit: vertices off
+        the fleet, faults of the vertex-to-row map, and the gap between
+        the program's reported cost and the frozen Eq. 9."""
+        lay = self.layout
+        return {"assign_bad": (lay.assign_bad, 0),
+                "row_map_bad": (lay.row_map_bad, 0),
+                "cost_gap": (abs(self.reported_cost - self.layout_cost)
+                             / self.layout_cost, limits["cost_gap"])}
+
+    def values(self) -> dict:
+        """The end-to-end metrics the system gives: the layout's cost."""
+        return {"layout_cost": self.layout_cost}
+
+    def flops(self, train: bool) -> float:
+        """The model's floating-point operations a step on the real graph
+        (a forward, or with ``train`` a whole SGD step)."""
+        return self.model.flops(self.counts, self.dims, train)
 
     # -------------------------------------------------- the program's entry
     def forward(self):

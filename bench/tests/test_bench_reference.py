@@ -1,13 +1,16 @@
 """The plain reference against the program's eager CPU path
 (``graphs=False``) on a small SIoT graph over 8 servers: the BSP forward
-and one distributed train step, for both models."""
+and one distributed train step, for both models; and the layout system's
+interface to the harness."""
 import json
 
 import pytest
 import torch
 
+from bench import harness
 from bench.ref.common import Precision, graph_tensors, sgd
-from bench.system import System, model_module
+from bench.systems import layout
+from bench.systems.layout import System, model_module
 
 from bench.tests.copies import REPO, TINY_GRAPH
 
@@ -79,3 +82,25 @@ def test_reference_matches_the_programs_whole_graph_model(model):
     got = model_module(model).forward(params, x, graph_tensors(
         system.graph["n"], edges, "cpu"), F64)
     assert torch.allclose(got, want.double(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("config", ["siot-gcn", "siot-gat"])
+def test_configuration_resolves_to_layout(config):
+    assert "system" not in harness.config(config)
+    assert harness.system_module(harness.config(config)) is layout
+
+
+def test_layout_checks_and_values(system):
+    got = system.checks({"cost_gap": 1e-9})
+    assert list(got) == ["assign_bad", "row_map_bad", "cost_gap"]
+    assert got["assign_bad"] == (0, 0) and got["row_map_bad"] == (0, 0)
+    assert got["cost_gap"][1] == 1e-9 and got["cost_gap"][0] < 1e-9
+    assert system.values() == {"layout_cost": system.layout_cost}
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_layout_flops_are_the_references(system, train):
+    ref = model_module(system.config["model"])
+    assert system.flops(train) == ref.flops(system.counts, system.dims,
+                                            train)
+    assert system.peak_ops_per_s == 67e12

@@ -22,6 +22,8 @@ METRIC = "infer_ms"
 
 
 class Traffic:
+    train = False
+
     def __init__(self, system, seed: int, params: dict):
         dev = system.device
         self.system, self.ring = system, int(params["ring"])

@@ -28,6 +28,8 @@ STILL = 1e-3
 
 
 class Traffic:
+    train = True
+
     def __init__(self, system, seed: int, params: dict):
         dev = system.device
         self.system, self.lr = system, float(params["lr"])
